@@ -1,0 +1,333 @@
+"""F2Store: the tiered key-value store (paper S4-S7) on PyTorch tensors.
+
+All operations are *batched*: a call takes B lanes of (op, key, value) and
+returns (new_state, statuses, values).  Linearization of an `apply` batch:
+all Reads observe the pre-batch snapshot, then writes apply in
+batch-position order; per-key write order is resolved by the write engine —
+the deterministic replacement for CAS winner order.
+
+State is a NamedTuple of tensors whose leaves mirror the JAX package's
+`F2State` one to one.  **Updates are in place**: the functions here scatter
+into the log, read-cache, index and chunk tensors of the state they are
+given (the counterpart of the reference's `donate_argnums`) and return a
+state whose scalar leaves are new tensors.  A caller that needs the old
+state afterwards clones it first.  Every scatter reads what it needs from
+the pre-update tensors before its first write, in the reference's order.
+
+The host tier is not ported: `F2State.host` is the inert 1 x 1 chunk-cache
+leaf that the reference builds when the tier is off, so that the leaves
+still zip one to one.
+"""
+from __future__ import annotations
+
+from typing import NamedTuple, Tuple
+
+import torch
+
+from . import cold_index, hybrid_log, probe_engine, read_cache, write_engine
+from .types import (META_TOMBSTONE, NULL_ADDR, OP_DELETE, OP_READ, OP_RMW,
+                    OP_UPSERT, ST_CREATED, ST_NONE, ST_NOT_FOUND, ST_OK,
+                    F2Config, IoStats, i32, is_rc, rc_untag, slot_of_keys)
+
+
+class HostCacheState(NamedTuple):
+    """The host tier's device chunk cache, inert (1 row of 1 record) while
+    the tier is off; mirrors the reference's leaves."""
+    chunk: torch.Tensor           # int32 [1]
+    key: torch.Tensor             # int32 [1]
+    val: torch.Tensor             # int32 [1, V]
+    prev: torch.Tensor            # int32 [1]
+    meta: torch.Tensor            # int32 [1]
+    tick: torch.Tensor            # int32 [1]
+    hits: torch.Tensor            # int32 [1]
+    clock: torch.Tensor           # int32 scalar
+    missed_in_step: torch.Tensor  # bool scalar
+
+
+def _inert_host(cfg: F2Config, device) -> HostCacheState:
+    def full(shape, v):
+        return torch.full(shape, v, dtype=torch.int32, device=device)
+    return HostCacheState(chunk=full((1,), -1), key=full((1,), -1),
+                          val=full((1, cfg.value_width), 0),
+                          prev=full((1,), NULL_ADDR), meta=full((1,), 0),
+                          tick=full((1,), 0), hits=full((1,), 0),
+                          clock=i32(0, device),
+                          missed_in_step=torch.tensor(False, device=device))
+
+
+class F2State(NamedTuple):
+    hot: hybrid_log.LogState
+    hot_index: torch.Tensor        # int32 [E] chain heads (maybe RC-tagged)
+    rc: read_cache.RCState
+    cold: hybrid_log.LogState
+    cold_idx: cold_index.ColdIndexState
+    stats: IoStats
+    hot_truncs: torch.Tensor       # int32: hot-log truncation counter
+    cold_truncs: torch.Tensor      # int32: num_truncs of paper S5.4
+    walk_exhausted: torch.Tensor   # bool: some chain walk hit chain_max (guard)
+    host: HostCacheState           # inert while the host tier is off
+
+
+def create(cfg: F2Config, device) -> F2State:
+    device = torch.device(device)
+    return F2State(
+        hot=hybrid_log.create(cfg.hot_capacity, cfg.value_width, device),
+        hot_index=torch.full((cfg.hot_index_size,), NULL_ADDR,
+                             dtype=torch.int32, device=device),
+        rc=read_cache.create(cfg.rc_capacity, cfg.value_width, device),
+        cold=hybrid_log.create(cfg.cold_capacity, cfg.value_width, device),
+        cold_idx=cold_index.create(cfg, device),
+        stats=IoStats.zeros(device),
+        hot_truncs=i32(0, device),
+        cold_truncs=i32(0, device),
+        walk_exhausted=torch.tensor(False, device=device),
+        host=_inert_host(cfg, device),
+    )
+
+
+def hot_slots(cfg: F2Config, keys: torch.Tensor) -> torch.Tensor:
+    return slot_of_keys(keys, cfg.hot_index_size)
+
+
+def merge_walk_io(stats: IoStats, res) -> IoStats:
+    """res: a ProbeResult or WritePlan (same I/O fields)."""
+    return stats.add_reads(res.io_blocks, res.io_ops).add_mem_hits(res.mem_hits)
+
+
+def cold_probe(cfg: F2Config, state: F2State, keys, lower_c, cold_head,
+               active, entries, target=None) -> probe_engine.ProbeResult:
+    """Cold-chain probe from cold-index entries (no read cache)."""
+    return probe_engine.probe(cfg, keys, state.cold, lower_c, cold_head,
+                              active, heads=entries, rc=None, target=target)
+
+
+def _exhausted(state: F2State, *results) -> torch.Tensor:
+    out = state.walk_exhausted
+    for r in results:
+        out = out | torch.any(r.exhausted)
+    return out
+
+
+# ---------------------------------------------------------------------------
+# Read path (paper S5.3 Read + S7.2 with read cache)
+# ---------------------------------------------------------------------------
+
+def read_batch(cfg: F2Config, state: F2State, keys: torch.Tensor,
+               active: torch.Tensor, admit_rc: bool = True
+               ) -> Tuple[F2State, torch.Tensor, torch.Tensor]:
+    """Returns (state, status[B], values[B, V])."""
+    B = keys.shape[0]
+    hot_head = hybrid_log.head_addr(state.hot, cfg.hot_mem)
+    lower = state.hot.begin.expand(B)
+    res_h = probe_engine.probe(cfg, keys, state.hot, lower, hot_head, active,
+                               index=state.hot_index, rc=state.rc,
+                               rc_match=True)
+    heads = res_h.heads
+    stats = merge_walk_io(state.stats, res_h)
+
+    hit_rc = res_h.found & is_rc(res_h.addr)
+    hit_log = res_h.found & ~hit_rc
+    tomb_hot = hit_log & ((res_h.meta & META_TOMBSTONE) != 0)
+    ok_hot = hit_rc | (hit_log & ~tomb_hot)
+
+    # --- cold phase for hot misses (tombstones terminate the search) --------
+    cold_active = active & ~res_h.found
+    entries, stats = cold_index.find_entries(state.cold_idx, cfg, keys,
+                                             cold_active, stats)
+    cold_head = hybrid_log.head_addr(state.cold, cfg.cold_mem)
+    lower_c = state.cold.begin.expand(B)
+    res_c = cold_probe(cfg, state, keys, lower_c, cold_head, cold_active,
+                       entries)
+    stats = merge_walk_io(stats, res_c)
+    tomb_cold = res_c.found & ((res_c.meta & META_TOMBSTONE) != 0)
+    ok_cold = res_c.found & ~tomb_cold
+
+    vals = torch.where(ok_hot[:, None], res_h.value,
+                       torch.where(ok_cold[:, None], res_c.value, 0))
+    found = ok_hot | ok_cold
+    status = torch.where(found, ST_OK,
+                         torch.where(active, ST_NOT_FOUND, ST_NONE)
+                         ).to(torch.int32)
+
+    rc, hot_index = state.rc, state.hot_index
+    if cfg.rc_capacity and admit_rc:
+        # --- read-cache admission: stable-tier hits get replicated ----------
+        admit = ((hit_log & ~tomb_hot & (res_h.addr < hot_head))
+                 | (ok_cold & (res_c.addr < cold_head)))
+        admit = admit & ~is_rc(heads)            # one RC record per chain
+        # --- second chance: RC hits in the read-only region re-insert -------
+        _, _, p_rc, _ = read_cache.gather(rc, rc_untag(res_h.addr))
+        rc_ro = read_cache.read_only_addr(rc, cfg.rc_mutable_frac)
+        sc = hit_rc & (rc_untag(res_h.addr) < rc_ro)
+        rc = read_cache.invalidate(rc, sc, rc_untag(res_h.addr))
+        ins = admit | sc
+        ins_prev = torch.where(sc, p_rc, heads)   # continuation into hot log
+        rc, hot_index, _ = read_cache.insert(rc, hot_index, ins, keys, vals,
+                                             ins_prev)
+
+    state = state._replace(rc=rc, hot_index=hot_index, stats=stats,
+                           walk_exhausted=_exhausted(state, res_h, res_c))
+    return state, status, vals
+
+
+def probe_hops(cfg: F2Config, state: F2State, keys: torch.Tensor) -> torch.Tensor:
+    """Per-lane chain-walk record touches for a read probe of `keys` (hot
+    walk plus the cold continuation for hot misses).  Pure telemetry: no
+    state change, no admission, no modeled I/O charged."""
+    B = keys.shape[0]
+    active = torch.ones((B,), dtype=torch.bool, device=keys.device)
+    hot_head = hybrid_log.head_addr(state.hot, cfg.hot_mem)
+    res_h = probe_engine.probe(cfg, keys, state.hot, state.hot.begin.expand(B),
+                               hot_head, active, index=state.hot_index,
+                               rc=state.rc, rc_match=True)
+    cold_active = active & ~res_h.found
+    entries, _ = cold_index.find_entries(state.cold_idx, cfg, keys,
+                                         cold_active, state.stats)
+    cold_head = hybrid_log.head_addr(state.cold, cfg.cold_mem)
+    res_c = cold_probe(cfg, state, keys, state.cold.begin.expand(B),
+                       cold_head, cold_active, entries)
+    return res_h.hops + res_c.hops
+
+
+# ---------------------------------------------------------------------------
+# Write path: Upsert / RMW / Delete (paper S5.3, Algorithm 1)
+# ---------------------------------------------------------------------------
+
+def write_batch(cfg: F2Config, state: F2State, keys: torch.Tensor,
+                ops: torch.Tensor, vals: torch.Tensor
+                ) -> Tuple[F2State, torch.Tensor]:
+    """Returns (state, status[B]).  RMW semantics: integer vector add with
+    initial value 0 (YCSB-F counter update); intra-batch RMWs to one key
+    accumulate after the last Upsert/Delete.
+
+    The mutate pipeline runs as one write-engine pass; this function
+    resolves cold base values for pure-RMW misses and applies the plan."""
+    B = keys.shape[0]
+    wmask = (ops == OP_UPSERT) | (ops == OP_RMW) | (ops == OP_DELETE)
+    plan = write_engine.plan(cfg, keys, ops, vals, state.hot,
+                             state.hot_index, state.rc)
+    stats = merge_walk_io(state.stats, plan)
+
+    # --- cold base values for pure-RMW groups that missed the hot log -------
+    entries, stats = cold_index.find_entries(state.cold_idx, cfg, keys,
+                                             plan.need_cold, stats)
+    cold_head = hybrid_log.head_addr(state.cold, cfg.cold_mem)
+    res_c = cold_probe(cfg, state, keys, state.cold.begin.expand(B),
+                       cold_head, plan.need_cold, entries)
+    stats = merge_walk_io(stats, res_c)
+    cold_ok = res_c.found & ((res_c.meta & META_TOMBSTONE) == 0)
+    use_cold = plan.need_cold & cold_ok
+    final_val = plan.val_nocold + torch.where(use_cold[:, None], res_c.value, 0)
+    created = plan.created_nocold & ~use_cold
+
+    # --- apply the plan: in-place scatter, RC detach, append, publish -------
+    new_meta = torch.where(plan.final_tomb, META_TOMBSTONE, 0).to(torch.int32)
+    hot = hybrid_log.update_in_place(state.hot, plan.in_place, plan.addr,
+                                     final_val, new_meta)
+    # appends detach the RC head; in-place updates only invalidate a
+    # matching-key replica (it just went stale)
+    rc = read_cache.invalidate(state.rc, plan.rc_inval, rc_untag(plan.heads))
+    hot, _ = hybrid_log.append(hot, plan.append, keys, final_val, plan.prevs,
+                               new_meta)
+    # publish: the last lane of each slot run swings the index entry
+    psel = plan.publish.nonzero().squeeze(1)
+    state.hot_index[plan.slots[psel]] = plan.new_addrs[psel]
+    hot, stats = hybrid_log.charge_flush(hot, stats, cfg.hot_mem,
+                                         cfg.record_bytes)
+
+    # --- statuses broadcast back to every lane of the group -----------------
+    grp_created = (plan.rep_pos >= 0) & created[plan.rep_pos.clamp_min(0)]
+    status = torch.where(wmask, torch.where((ops == OP_RMW) & grp_created,
+                                            ST_CREATED, ST_OK),
+                         ST_NONE).to(torch.int32)
+    state = state._replace(hot=hot, rc=rc, stats=stats,
+                           walk_exhausted=_exhausted(state, plan, res_c))
+    return state, status
+
+
+# ---------------------------------------------------------------------------
+# Mixed batches
+# ---------------------------------------------------------------------------
+
+def apply(cfg: F2Config, state: F2State, keys: torch.Tensor,
+          ops: torch.Tensor, vals: torch.Tensor, admit_rc: bool = True
+          ) -> Tuple[F2State, torch.Tensor, torch.Tensor]:
+    """Mixed op batch: Reads observe the pre-batch snapshot, then writes
+    apply in batch order.  Returns (state, status[B], read_vals[B, V])."""
+    state, rstatus, rvals = read_batch(cfg, state, keys, active=(ops == OP_READ),
+                                       admit_rc=admit_rc)
+    state, wstatus = write_batch(cfg, state, keys, ops, vals)
+    return state, torch.where(ops == OP_READ, rstatus, wstatus), rvals
+
+
+# ---------------------------------------------------------------------------
+# Two-phase reads (false-absence anomaly, paper S5.4)
+# ---------------------------------------------------------------------------
+
+class ReadSnapshot(NamedTuple):
+    keys: torch.Tensor
+    active: torch.Tensor
+    hot_heads: torch.Tensor
+    cold_entries: torch.Tensor
+    cold_tail: torch.Tensor
+    num_truncs: torch.Tensor
+
+
+def read_begin(cfg: F2Config, state: F2State, keys: torch.Tensor,
+               active: torch.Tensor) -> Tuple[F2State, ReadSnapshot]:
+    """Phase 1: snapshot chain heads + (TAIL, num_truncs) per paper S5.4."""
+    entries, stats = cold_index.find_entries(state.cold_idx, cfg, keys,
+                                             active, state.stats)
+    snap = ReadSnapshot(keys=keys, active=active,
+                        hot_heads=state.hot_index[hot_slots(cfg, keys)],
+                        cold_entries=entries,
+                        cold_tail=state.cold.tail.clone(),
+                        num_truncs=state.cold_truncs.clone())
+    return state._replace(stats=stats), snap
+
+
+def read_finish(cfg: F2Config, state: F2State, snap: ReadSnapshot
+                ) -> Tuple[F2State, torch.Tensor, torch.Tensor]:
+    """Phase 2: walk from the snapshot.  If a lane misses and truncation(s)
+    occurred since phase 1, re-traverse only the newly-compacted tail
+    segment (snap.cold_tail, TAIL] from the *current* index — the paper's
+    num_truncs fix for the false-absence anomaly.  All three walks run on
+    the probe engine in heads mode."""
+    B = snap.keys.shape[0]
+    keys, active = snap.keys, snap.active
+    hot_head = hybrid_log.head_addr(state.hot, cfg.hot_mem)
+    res_h = probe_engine.probe(cfg, keys, state.hot, state.hot.begin.expand(B),
+                               hot_head, active, heads=snap.hot_heads,
+                               rc=state.rc, rc_match=True)
+    stats = merge_walk_io(state.stats, res_h)
+    hit_rc = res_h.found & is_rc(res_h.addr)
+    hit_log = res_h.found & ~hit_rc
+    tomb_hot = hit_log & ((res_h.meta & META_TOMBSTONE) != 0)
+    ok_hot = hit_rc | (hit_log & ~tomb_hot)
+
+    cold_active = active & ~res_h.found
+    cold_head = hybrid_log.head_addr(state.cold, cfg.cold_mem)
+    res_c = cold_probe(cfg, state, keys, state.cold.begin.expand(B),
+                       cold_head, cold_active, snap.cold_entries)
+    stats = merge_walk_io(stats, res_c)
+
+    # --- the anomaly fix: recheck the new tail segment on miss ---------------
+    truncated_since = state.cold_truncs != snap.num_truncs
+    retry = cold_active & ~res_c.found & truncated_since
+    entries2, stats = cold_index.find_entries(state.cold_idx, cfg, keys,
+                                              retry, stats)
+    res_r = cold_probe(cfg, state, keys, snap.cold_tail.expand(B), cold_head,
+                       retry, entries2)
+    stats = merge_walk_io(stats, res_r)
+
+    cold_found = res_c.found | res_r.found
+    v_cold = torch.where(res_c.found[:, None], res_c.value, res_r.value)
+    m_cold = torch.where(res_c.found, res_c.meta, res_r.meta)
+    ok_cold = cold_found & ((m_cold & META_TOMBSTONE) == 0)
+    vals = torch.where(ok_hot[:, None], res_h.value,
+                       torch.where(ok_cold[:, None], v_cold, 0))
+    found = ok_hot | ok_cold
+    status = torch.where(found, ST_OK,
+                         torch.where(active, ST_NOT_FOUND, ST_NONE)
+                         ).to(torch.int32)
+    return state._replace(stats=stats), status, vals

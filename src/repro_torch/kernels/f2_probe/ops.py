@@ -1,0 +1,185 @@
+"""Wrappers of the F2 probe/write CUDA kernels.
+
+Each wrapper checks device, dtype, shape and contiguity, allocates its
+outputs with `torch.empty`, launches on the current CUDA stream and raises
+if the C entry point reports a CUDA error.  For tensors on the CPU (the
+tests) it runs the plain version in `ref.py`; for any other device it
+raises.  `launches[name]` counts the CUDA kernel launches of each wrapper:
+one per `fused_probe` call, three per `fused_write` call (its per-lane
+pass, the scan of the append flags and the slot-chaining pass).
+"""
+from __future__ import annotations
+
+import ctypes
+from typing import Dict
+
+import torch
+
+from .. import build
+from . import ref
+
+launches: Dict[str, int] = {"fused_probe": 0, "fused_write": 0}
+WRITE_KERNELS_PER_CALL = 3   # f2_fused_write launches three kernels
+
+_P = ctypes.c_void_p
+_I = ctypes.c_int
+
+
+def reset_launches() -> None:
+    for k in launches:
+        launches[k] = 0
+
+
+def _bind(name: str, fn: str, n_ptr_in: int, n_int: int, n_ptr_out: int):
+    lib = build.load(name)
+    f = getattr(lib, fn)
+    if f.argtypes is None:
+        f.argtypes = [_P] * n_ptr_in + [_I] * n_int + [_P] * n_ptr_out + [_P]
+        f.restype = _I
+    return f
+
+
+def _check(name: str, t: torch.Tensor, dtype, shape, device) -> None:
+    if t.dtype != dtype:
+        raise TypeError(f"{name}: dtype {t.dtype}, expected {dtype}")
+    if tuple(t.shape) != tuple(shape):
+        raise ValueError(f"{name}: shape {tuple(t.shape)}, expected {tuple(shape)}")
+    if t.device != device:
+        raise ValueError(f"{name}: on {t.device}, expected {device}")
+    if not t.is_contiguous():
+        raise ValueError(f"{name}: not contiguous")
+
+
+def _pow2(n: int, what: str) -> None:
+    if n <= 0 or n & (n - 1):
+        raise ValueError(f"{what}={n} must be a power of two")
+
+
+def _raise_on(err: int, what: str) -> None:
+    if err != 0:
+        raise RuntimeError(f"{what}: CUDA error {err} at launch")
+
+
+def _ptr(t):
+    return None if t is None else t.data_ptr()
+
+
+def fused_probe(keys, heads_src, lower, active, head_boundary,
+                log_key, log_val, log_prev, log_meta,
+                rc_key, rc_val, rc_prev, rc_meta, *,
+                chain_max: int, rc_match: bool = True, has_rc: bool = True,
+                probe_index: bool = True, target=None):
+    """The fused probe over a key batch; arguments and results as in
+    `ref.fused_probe_body` (head_boundary a 0-d int32 tensor)."""
+    args = (keys, heads_src, lower, active, head_boundary,
+            log_key, log_val, log_prev, log_meta,
+            rc_key, rc_val, rc_prev, rc_meta)
+    kw = dict(chain_max=chain_max, rc_match=rc_match, has_rc=has_rc,
+              probe_index=probe_index, target=target)
+    dev = keys.device
+    if dev.type == "cpu":
+        return ref.fused_probe_body(*args, early_exit=True, **kw)
+    if dev.type != "cuda":
+        raise ValueError(f"fused_probe: no kernel for device {dev}")
+    B = keys.shape[0]
+    C, R = log_key.shape[0], rc_key.shape[0]
+    V = log_val.shape[1]
+    _pow2(C, "log capacity")
+    _pow2(R, "read-cache capacity")
+    i32 = torch.int32
+    _check("keys", keys, i32, (B,), dev)
+    E = heads_src.shape[0]
+    if probe_index:
+        _pow2(E, "index size")
+        _check("index", heads_src, i32, (E,), dev)
+    else:
+        _check("heads", heads_src, i32, (B,), dev)
+    _check("lower", lower, i32, (B,), dev)
+    _check("active", active, torch.bool, (B,), dev)
+    _check("head_boundary", head_boundary.reshape(1), i32, (1,), dev)
+    if target is not None:
+        _check("target", target, i32, (B,), dev)
+    for n, t, shp in (("log_key", log_key, (C,)), ("log_val", log_val, (C, V)),
+                      ("log_prev", log_prev, (C,)), ("log_meta", log_meta, (C,)),
+                      ("rc_key", rc_key, (R,)), ("rc_val", rc_val, (R, V)),
+                      ("rc_prev", rc_prev, (R,)), ("rc_meta", rc_meta, (R,))):
+        _check(n, t, i32, shp, dev)
+
+    found = torch.empty((B,), dtype=torch.bool, device=dev)
+    addr = torch.empty((B,), dtype=i32, device=dev)
+    heads = torch.empty((B,), dtype=i32, device=dev)
+    value = torch.empty((B, V), dtype=i32, device=dev)
+    meta = torch.empty((B,), dtype=i32, device=dev)
+    hops = torch.empty((B,), dtype=i32, device=dev)
+    ios = torch.empty((B,), dtype=i32, device=dev)
+    exhausted = torch.empty((B,), dtype=torch.bool, device=dev)
+    if B == 0:
+        return found, addr, heads, value, meta, hops, ios, exhausted
+    hb = head_boundary.reshape(1).contiguous()
+    fn = _bind("fused_probe", "f2_fused_probe", 14, 10, 8)
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    err = fn(_ptr(keys), _ptr(heads_src), _ptr(lower), _ptr(active),
+             _ptr(target), _ptr(hb),
+             _ptr(log_key), _ptr(log_val), _ptr(log_prev), _ptr(log_meta),
+             _ptr(rc_key), _ptr(rc_val), _ptr(rc_prev), _ptr(rc_meta),
+             B, E, C, R, V, chain_max, int(rc_match), int(has_rc),
+             int(probe_index), int(target is not None),
+             _ptr(found), _ptr(addr), _ptr(heads), _ptr(value), _ptr(meta),
+             _ptr(hops), _ptr(ios), _ptr(exhausted), stream)
+    _raise_on(err, "fused_probe")
+    launches["fused_probe"] += 1
+    return found, addr, heads, value, meta, hops, ios, exhausted
+
+
+def fused_write(keys, ops, vals, index, begin, head_boundary, ro_addr, tail,
+                log_key, log_val, log_prev, log_meta,
+                rc_key, rc_val, rc_prev, rc_meta, *, chain_max: int):
+    """The fused write-plan pass; arguments and the 19-tuple result as in
+    `ref.fused_write_body` (begin/head_boundary/ro_addr/tail 0-d int32)."""
+    cols = (log_key, log_val, log_prev, log_meta, rc_key, rc_val, rc_prev,
+            rc_meta)
+    dev = keys.device
+    if dev.type == "cpu":
+        return ref.fused_write_body(keys, ops, vals, index, begin,
+                                    head_boundary, ro_addr, tail, *cols,
+                                    chain_max=chain_max, early_exit=True)
+    if dev.type != "cuda":
+        raise ValueError(f"fused_write: no kernel for device {dev}")
+    B, V = vals.shape
+    E = index.shape[0]
+    C, R = log_key.shape[0], rc_key.shape[0]
+    _pow2(C, "log capacity")
+    _pow2(R, "read-cache capacity")
+    _pow2(E, "index size")
+    i32 = torch.int32
+    _check("keys", keys, i32, (B,), dev)
+    _check("ops", ops, i32, (B,), dev)
+    _check("vals", vals, i32, (B, V), dev)
+    _check("index", index, i32, (E,), dev)
+    for n, t, shp in (("log_key", log_key, (C,)), ("log_val", log_val, (C, V)),
+                      ("log_prev", log_prev, (C,)), ("log_meta", log_meta, (C,)),
+                      ("rc_key", rc_key, (R,)), ("rc_val", rc_val, (R, V)),
+                      ("rc_prev", rc_prev, (R,)), ("rc_meta", rc_meta, (R,))):
+        _check(n, t, i32, shp, dev)
+    bounds = torch.stack([begin, head_boundary, ro_addr, tail]).to(i32)
+    _check("bounds", bounds, i32, (4,), dev)
+
+    def lanes(dtype):
+        return torch.empty((B,), dtype=dtype, device=dev)
+
+    b, n = torch.bool, i32
+    out = (lanes(b), lanes(n), torch.empty((B, V), dtype=n, device=dev),
+           lanes(b), lanes(b), lanes(b), lanes(b), lanes(n), lanes(b),
+           lanes(b), lanes(n), lanes(n), lanes(n), lanes(b), lanes(n),
+           lanes(b), lanes(n), lanes(n), lanes(b))
+    if B == 0:
+        return out
+    scratch = torch.empty((2 * B,), dtype=n, device=dev)
+    fn = _bind("fused_write", "f2_fused_write", 13, 6, 20)
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    err = fn(_ptr(keys), _ptr(ops), _ptr(vals), _ptr(index), _ptr(bounds),
+             *(_ptr(t) for t in cols), B, E, C, R, V, chain_max,
+             *(_ptr(t) for t in out), _ptr(scratch), stream)
+    _raise_on(err, "fused_write")
+    launches["fused_write"] += WRITE_KERNELS_PER_CALL
+    return out

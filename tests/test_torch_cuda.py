@@ -1,0 +1,104 @@
+"""The CUDA kernels on the card: each held bit for bit against its plain
+PyTorch version, and the kernel-backed store held leaf for leaf against the
+plain-engine store on the same op stream.
+
+These tests need a CUDA device and nvcc and skip without them.  They import
+neither JAX nor the JAX package, so they also run where only PyTorch is
+installed:
+
+    PYTHONPATH=src python -m pytest -q --noconftest tests/test_torch_cuda.py
+"""
+import dataclasses
+
+import numpy as np
+import pytest
+
+torch = pytest.importorskip("torch")
+
+import repro_torch as T  # noqa: E402
+from repro_torch import interop  # noqa: E402
+from repro_torch.core import hybrid_log  # noqa: E402
+from repro_torch.kernels.f2_probe import ops, ref  # noqa: E402
+
+pytestmark = pytest.mark.cuda
+
+# tests/conftest.py::small_cfg sizes with the paper's 100-byte values
+CFG = T.F2Config(hot_index_size=1 << 9, hot_capacity=1 << 11, hot_mem=1 << 8,
+                 cold_capacity=1 << 13, cold_mem=1 << 7, n_chunks=1 << 7,
+                 chunklog_capacity=1 << 11, chunklog_mem=1 << 6,
+                 rc_capacity=1 << 7, value_width=25, chain_max=48)
+B = 96
+
+
+@pytest.fixture(scope="module")
+def cuda():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (the kernels have no CPU mode)")
+    return torch.device("cuda")
+
+
+def _stream(seed, n_steps, n_keys=3000):
+    rng = np.random.default_rng(seed)
+    for _ in range(n_steps):
+        keys = rng.integers(0, n_keys, B).astype(np.int32)
+        ops_ = rng.choice([T.OP_READ, T.OP_UPSERT, T.OP_RMW, T.OP_DELETE], B,
+                          p=[.3, .4, .2, .1]).astype(np.int32)
+        vals = rng.integers(-2**31, 2**31, (B, CFG.value_width),
+                            dtype=np.int64).astype(np.int32)
+        yield keys, ops_, vals
+
+
+def test_kernel_store_matches_plain_store(cuda):
+    twins = {e: T.KV(dataclasses.replace(CFG, engine=e), device=cuda,
+                     compact_batch=128) for e in ("fused", "fused_ref")}
+    ops.reset_launches()
+    for i, (k, o, v) in enumerate(_stream(0, 120)):
+        out = {e: kv.apply(k, o, v) for e, kv in twins.items()}
+        for a, b in zip(out["fused"], out["fused_ref"]):
+            assert torch.equal(a, b), i
+        la = interop.state_leaves(twins["fused"].state)
+        lb = interop.state_leaves(twins["fused_ref"].state)
+        assert all(torch.equal(x, y) for x, y in zip(la, lb)), i
+    assert ops.launches["fused_probe"] > 0 and ops.launches["fused_write"] > 0
+    assert twins["fused"].compactions > 0
+    for kv in twins.values():
+        kv.check_invariants()
+
+
+@pytest.mark.parametrize("b", [1, 77, 96, 1000])
+def test_kernels_match_plain_versions(cuda, b):
+    kv = T.KV(CFG, device=cuda, compact_batch=128)
+    for k, o, v in _stream(1, 40):
+        kv.apply(k, o, v)
+    st = kv.state
+    hot, rc = st.hot, st.rc
+    cols = (hot.key, hot.val, hot.prev, hot.meta, rc.key, rc.val, rc.prev, rc.meta)
+    rng = np.random.default_rng(b)
+    keys = torch.as_tensor(rng.integers(0, 3500, b).astype(np.int32), device=cuda)
+    hb = hybrid_log.head_addr(hot, CFG.hot_mem)
+    lower = hot.begin.repeat(b)
+    act = torch.as_tensor(rng.random(b) < 0.9, device=cuda)
+    for rc_match in (True, False):
+        args = (keys, st.hot_index, lower, act, hb, *cols)
+        kw = dict(chain_max=CFG.chain_max, rc_match=rc_match)
+        for x, y in zip(ref.fused_probe_body(*args, **kw), ops.fused_probe(*args, **kw)):
+            assert torch.equal(x, y)
+    addrs = hot.begin + torch.arange(b, dtype=torch.int32, device=cuda)
+    k, _, _, _ = hybrid_log.gather(hot, addrs)
+    args = (k, st.hot_index, addrs, addrs < hot.tail, hb, *cols)
+    kw = dict(chain_max=CFG.chain_max, rc_match=False, target=addrs)
+    for x, y in zip(ref.fused_probe_body(*args, **kw), ops.fused_probe(*args, **kw)):
+        assert torch.equal(x, y)
+    opsv = torch.as_tensor(rng.choice([0, 1, 2, 3, 4], b).astype(np.int32), device=cuda)
+    vals = torch.as_tensor(rng.integers(-2**31, 2**31, (b, CFG.value_width),
+                                        dtype=np.int64).astype(np.int32), device=cuda)
+    dup = keys.clone()
+    dup[1::2] = dup[0]                         # one key many times
+    ro = hybrid_log.read_only_addr(hot, CFG.hot_mem, CFG.hot_mutable_frac)
+    ops.reset_launches()
+    for kk in (keys, dup):
+        args = (kk, opsv, vals, st.hot_index, hot.begin, hb, ro, hot.tail, *cols)
+        for x, y in zip(ref.fused_write_body(*args, chain_max=CFG.chain_max),
+                        ops.fused_write(*args, chain_max=CFG.chain_max)):
+            assert torch.equal(x, y)
+    assert ops.launches["fused_write"] == 2 * ops.WRITE_KERNELS_PER_CALL

@@ -1,0 +1,118 @@
+"""The port stands alone: it imports and runs with the JAX package, JAX and
+the benchmarks blocked; its entry points default to the CUDA device and
+refuse to quietly run without it; the forced-kernel engine refuses CPU
+tensors."""
+import ast
+import os
+import subprocess
+import sys
+import textwrap
+from pathlib import Path
+
+import numpy as np
+import pytest
+
+torch = pytest.importorskip("torch")
+
+import repro_torch as T  # noqa: E402
+from repro_torch.core import probe_engine  # noqa: E402
+from repro_torch.kernels.f2_probe import ops  # noqa: E402
+from torch_parity import small_dict  # noqa: E402
+
+ROOT = Path(__file__).resolve().parents[1]
+FORBIDDEN = ("jax", "jaxlib", "repro", "benchmarks")
+
+
+def _port_sources():
+    return sorted((ROOT / "src" / "repro_torch").rglob("*.py")) + [ROOT / "chip_smoke.py"]
+
+
+def test_port_sources_import_nothing_of_the_reference():
+    for path in _port_sources():
+        for node in ast.walk(ast.parse(path.read_text(), str(path))):
+            if isinstance(node, ast.Import):
+                names = [a.name for a in node.names]
+            elif isinstance(node, ast.ImportFrom) and node.level == 0:
+                names = [node.module]
+            else:
+                continue
+            for n in names:
+                assert n.split(".")[0] not in FORBIDDEN, (path, n)
+
+
+def test_port_runs_with_the_reference_blocked():
+    """A subprocess that cannot import jax, repro or benchmarks imports the
+    port and runs a CPU KV through writes, reads and compactions."""
+    code = textwrap.dedent(f"""
+        import sys
+        class Block:
+            def find_spec(self, name, path=None, target=None):
+                if name.split(".")[0] in {FORBIDDEN!r}:
+                    raise ImportError("blocked: " + name)
+        sys.meta_path.insert(0, Block())
+        import numpy as np
+        import repro_torch as T
+        cfg = T.F2Config(**{small_dict()!r})
+        kv = T.KV(cfg, device="cpu", compact_batch=128)
+        keys = np.arange(3000, dtype=np.int32)
+        for i in range(0, 3000, 100):
+            kv.upsert(keys[i:i + 100], np.stack([keys[i:i + 100]] * 2, 1))
+        st, v = kv.read(keys)
+        assert (st.numpy() == T.ST_OK).all()
+        assert (v.numpy() == np.stack([keys] * 2, 1)).all()
+        assert kv.compactions > 0
+        kv.check_invariants()
+        bad = [m for m in sys.modules if m.split(".")[0] in {FORBIDDEN!r}]
+        assert not bad, bad
+        print("isolated-ok")
+    """)
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    out = subprocess.run([sys.executable, "-c", code], capture_output=True,
+                         text=True, env=env, timeout=240, cwd=str(ROOT))
+    assert out.returncode == 0, out.stderr[-3000:]
+    assert "isolated-ok" in out.stdout
+
+
+def test_kv_defaults_to_the_cuda_device():
+    cfg = T.F2Config(**small_dict())
+    if torch.cuda.is_available():
+        assert T.KV(cfg).device.type == "cuda"
+    else:
+        with pytest.raises(RuntimeError, match="CUDA is not available"):
+            T.KV(cfg)
+
+
+def test_forced_kernel_engine_refuses_cpu_tensors():
+    kv = T.KV(T.F2Config(**small_dict(engine="fused_cuda")), device="cpu")
+    keys = np.arange(8, dtype=np.int32)
+    with pytest.raises(ValueError, match="fused_cuda"):
+        kv.upsert(keys, np.zeros((8, 2), np.int32))
+    with pytest.raises(ValueError, match="fused_cuda"):
+        probe_engine.resolve("fused_cuda", torch.device("cpu"))
+    assert probe_engine.resolve("fused", torch.device("cpu")) == "fused_ref"
+    assert probe_engine.resolve("fused", torch.device("cuda")) == "fused_cuda"
+
+
+def test_kernel_wrappers_count_only_launches():
+    """On CPU tensors the wrappers run the plain versions and count no
+    launch; tensors on other devices are refused."""
+    ops.reset_launches()
+    kv = T.KV(T.F2Config(**small_dict()), device="cpu")
+    kv.upsert(np.arange(64, dtype=np.int32), np.ones((64, 2), np.int32))
+    st = kv.state
+    cols = (st.hot.key, st.hot.val, st.hot.prev, st.hot.meta,
+            st.rc.key, st.rc.val, st.rc.prev, st.rc.meta)
+    keys = torch.arange(16, dtype=torch.int32)
+    found = ops.fused_probe(keys, st.hot_index, st.hot.begin.repeat(16),
+                            torch.ones(16, dtype=torch.bool), st.hot.tail,
+                            *cols, chain_max=8)[0]
+    assert bool(found.all())
+    ops.fused_write(keys, torch.full((16,), T.OP_RMW, dtype=torch.int32),
+                    torch.ones((16, 2), dtype=torch.int32), st.hot_index,
+                    st.hot.begin, st.hot.begin, st.hot.begin, st.hot.tail,
+                    *cols, chain_max=8)
+    assert ops.launches == {"fused_probe": 0, "fused_write": 0}
+    meta = torch.arange(4, dtype=torch.int32, device="meta")
+    with pytest.raises(ValueError, match="no kernel for device"):
+        ops.fused_probe(meta, st.hot_index, meta, meta.bool(), st.hot.tail,
+                        *cols, chain_max=4)
