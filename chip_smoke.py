@@ -1,12 +1,14 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch port of the F2 store on one CUDA GPU.
+"""Drive the PyTorch port on one CUDA GPU: the F2 store, then the
+F2-paged serving engine with Granite-3-8B at full width.
 
-    python3 chip_smoke.py            # the full run: 2**24 keys
+    python3 chip_smoke.py            # the full run: 2**24 keys, 40 layers
 
 Phases, each printing one JSON line:
 
   1. device   — the card's name and power limit (and nvidia-smi's raw line);
-  2. build    — both CUDA kernels compiled with nvcc for sm_90a;
+  2. build    — the three CUDA kernels compiled with nvcc for sm_90a, in
+                parallel;
   3. main     — `KV(cfg, device="cuda")` at the paper's YCSB shape (8-byte
                 keys, 100-byte values, Zipf 0.99, 10% memory budget): load
                 2**24 unique keys in upsert batches of 8192 with hot->cold
@@ -22,7 +24,25 @@ Phases, each printing one JSON line:
   5. twins    — the same op stream at 2**20 keys through engine="fused" and
                 engine="fused_ref" on the card, every F2State leaf equal
                 after each phase;
-  6. the kernels line, the nvidia-smi line, and the final ok line.
+  6. serve    — Granite-3-8B (40 layers, d_model 4096, bf16 weights from
+                `init_params` with SEED) through Engine(backend="paged"):
+                16 requests, prompts of 16-256 tokens, 32 new tokens each,
+                8 lanes, max_len 512, pages of 16 (16 hot, 272 cold);
+                the paged-attention counter is zeroed before and read after
+                and must be 40 x decode steps; demotions and cold reads
+                must be > 0, every logit finite, every token < vocab;
+  7. serve_profile — a profiler window over 8 full decodes of the loaded
+                engine (8 new 16-token prompts): device busy/idle share,
+                top kernels and host ops, host syncs per step;
+  8. kernels  — paged_attention against its plain version on the serve
+                run's live pools and table (its last state with all 8
+                lanes active) and on edge cases (2e-5 float32,
+                2e-2 bfloat16), timed beside its bound and
+                scaled_dot_product_attention;
+  9. serve_twins — the same requests through two float32 engines, 4 layers
+                at full width, kernel against plain version: every decode's
+                logits within TWIN_LOGITS_TOL, every token equal;
+ 10. the kernels line, the nvidia-smi line, and the final ok line.
 
 Any mismatch, failed build or failed launch raises, and the script exits
 non-zero.  It needs a CUDA device and the repository's `src/` next to it.
@@ -44,10 +64,22 @@ ROOT = os.path.dirname(os.path.abspath(__file__))
 BATCH = 8192
 SEED = 0
 TWIN_LOG2_KEYS = 20
+# serving: Granite-3-8B at full width, random weights from SEED
+SERVE_ARCH = "granite-3-8b"
+SERVE_ENGINE = dict(max_batch=8, max_len=512, page_size=16)
+SERVE_REQUESTS = 16
+SERVE_NEW_TOKENS = 32
+SERVE_PROMPT_MIN, SERVE_PROMPT_MAX = 16, 256
+TWIN_LAYERS = 4
+# float32 twins differ only in the attention's summation order (about one
+# ulp per output); four layers and the tied 4096-wide logits projection
+# keep that far below 1e-3 of a logit
+TWIN_LOGITS_TOL = 1e-3
 # H100 SXM data-sheet peaks (dense): HBM bytes/s and non-tensor 32-bit ops/s
 PEAK_BYTES_PER_S = 3.35e12
 PEAK_OPS_PER_S = 67e12
 SECTOR = 32
+L2_FLUSH_BYTES = 128 << 20          # > the H100's 50 MB L2
 
 
 def emit(records, rec):
@@ -214,7 +246,8 @@ def _time_ms(fn, reps):
 
 KERNEL_FUNCTIONS = {"fused_probe": ("fused_probe_kernel",),
                     "fused_write": ("write_lanes_kernel", "append_offsets_kernel",
-                                    "chain_slots_kernel")}
+                                    "chain_slots_kernel"),
+                    "paged_attention": ("paged_attention_kernel",)}
 
 
 def _device_ms(fn, reps, names):
@@ -510,6 +543,344 @@ def twin_parity(cfg, device, n_keys, n_ops, seed, records):
 
 
 # ---------------------------------------------------------------------------
+# serving: Granite-3-8B through the F2-paged engine
+# ---------------------------------------------------------------------------
+
+def serve_prompts(vocab_size, seed, n):
+    """n prompts, lengths drawn from [SERVE_PROMPT_MIN, SERVE_PROMPT_MAX]."""
+    rng = np.random.default_rng(seed)
+    return [rng.integers(1, vocab_size, int(rng.integers(
+        SERVE_PROMPT_MIN, SERVE_PROMPT_MAX + 1))).astype(np.int32)
+        for _ in range(n)]
+
+
+def make_engine(cfg, model, device, interpret=False, keep_logits=False):
+    """A paged `Engine` that also folds every decode's logits into a
+    device-side finiteness flag and, with keep_logits, keeps them."""
+    from repro_torch.serve.engine import Engine
+
+    class CheckedEngine(Engine):
+        def _paged_logits(self, toks, active):
+            lg = super()._paged_logits(toks, active)
+            f = lg.isfinite().all()
+            self.finite = f if self.finite is None else self.finite & f
+            if self.kept is not None:
+                self.kept.append(lg)
+            return lg
+
+    eng = CheckedEngine(cfg, model, backend="paged", device=device,
+                        interpret=interpret, **SERVE_ENGINE)
+    eng.finite, eng.kept = None, ([] if keep_logits else None)
+    return eng
+
+
+def _submit(eng, prompts, new_tokens):
+    from repro_torch.serve.engine import Request
+    for i, p in enumerate(prompts):
+        eng.submit(Request(rid=i, prompt=p, max_new_tokens=new_tokens))
+
+
+def _sync(device):
+    import torch
+    if torch.device(device).type == "cuda":
+        torch.cuda.synchronize()
+
+
+def serve_main(cfg, device, seed, records):
+    """The serving main path: SERVE_REQUESTS requests through
+    Engine(backend="paged") at the config's full width; the paged-attention
+    launch counter is zeroed just before the run and read just after."""
+    import torch
+    from repro_torch.kernels.paged_attention import ops as pa_ops
+    from repro_torch.models import transformer
+    on_card = torch.device(device).type == "cuda"
+    if on_card:
+        torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    model = transformer.init_params(
+        cfg, torch.Generator(device=device).manual_seed(seed), device)
+    eng = make_engine(cfg, model, device)
+    _sync(device)
+    t_init = time.perf_counter() - t0
+    prompts = serve_prompts(cfg.vocab_size, seed, SERVE_REQUESTS)
+    _submit(eng, prompts, SERVE_NEW_TOKENS)
+    st = eng.pkv.state
+    pa_ops.reset_launches()
+    t0 = time.perf_counter()
+    live = None
+    while eng.queue or eng.active:         # Engine.run, keeping the last
+        eng.step()                         # state with every lane active
+        if len(eng.active) == eng.max_batch:
+            live = tuple(t.clone() for t in (st.k_pool[0], st.v_pool[0],
+                                             st.page_table, st.seq_lens))
+    fin = eng.finished
+    _sync(device)
+    wall = time.perf_counter() - t0
+    launches = pa_ops.launches["paged_attention"]
+    rec = dict(
+        phase="serve", arch=cfg.name, n_layers=cfg.n_layers, d_model=cfg.d_model,
+        dtype=cfg.dtype, engine=SERVE_ENGINE, requests=SERVE_REQUESTS,
+        prompt_tokens=int(sum(len(p) for p in prompts)),
+        new_tokens_per_request=SERVE_NEW_TOKENS,
+        weights_bytes=sum(p.numel() * p.element_size() for p in model.parameters()),
+        pool_bytes=st.k_pool.numel() * st.k_pool.element_size() * 2,
+        pool_dtype=str(st.k_pool.dtype),
+        peak_mem_bytes=torch.cuda.max_memory_allocated() if on_card else "not measured",
+        init_s=t_init, steps=eng.decode_steps, wall_s=wall,
+        ms_per_step=wall / eng.decode_steps * 1e3,
+        generated_tokens_per_s=SERVE_REQUESTS * SERVE_NEW_TOKENS / wall,
+        demotions=eng.pkv.demotions, promotions=eng.pkv.promotions,
+        cold_reads=int(st.cold_reads), launches=launches,
+        live_lens=None if live is None else live[3].tolist())
+    emit(records, rec)
+    if on_card and launches != cfg.n_layers * eng.decode_steps:
+        raise AssertionError(f"paged_attention launched {launches} times, "
+                             f"expected {cfg.n_layers} x {eng.decode_steps}")
+    if not (eng.pkv.demotions > 0 and int(st.cold_reads) > 0):
+        raise AssertionError("no demotion or no cold read: the tiering never ran")
+    if len(fin) != SERVE_REQUESTS or not all(
+            len(r.out_tokens) == SERVE_NEW_TOKENS
+            and all(0 <= t < cfg.vocab_size for t in r.out_tokens) for r in fin):
+        raise AssertionError("a request did not return its tokens below vocab_size")
+    if not bool(eng.finite):
+        raise AssertionError("non-finite logits")
+    if live is None:
+        raise AssertionError("no engine step had every lane active")
+    return eng, rec, live
+
+
+def serve_profile(eng, seed, records, n_steps=8):
+    """A profiler window over n_steps decodes of the loaded engine, all
+    max_batch lanes active (short prompts, to keep their prefill short):
+    device busy and idle share, top device kernels, top host ops, and host
+    syncs per step."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    rng = np.random.default_rng(seed + 1)
+    prompts = [rng.integers(1, eng.cfg.vocab_size, SERVE_PROMPT_MIN).astype(np.int32)
+               for _ in range(eng.max_batch)]
+    _submit(eng, prompts, n_steps + 4)
+    eng.step()                  # admit and prefill every lane
+    torch.cuda.synchronize()
+    d0 = eng.decode_steps
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for _ in range(n_steps):
+            eng.step()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    if eng.decode_steps - d0 != n_steps or len(eng.active) != eng.max_batch:
+        raise AssertionError("the profile window was not n_steps full decodes")
+    dev, host = [], []
+    for e in prof.key_averages():
+        if str(getattr(e, "device_type", "")).endswith("CUDA"):
+            d = getattr(e, "self_device_time_total", None)
+            if d is None:
+                d = getattr(e, "self_cuda_time_total", 0)
+            dev.append((e.key, d / 1e6, e.count))
+        else:
+            host.append((e.key, e.self_cpu_time_total / 1e6, e.count))
+    busy = sum(d for _, d, _ in dev)
+    dev.sort(key=lambda x: -x[1])
+    host.sort(key=lambda x: -x[1])
+    counts = {k: c for k, _, c in host}
+    syncs = {k: counts.get(k, 0) / n_steps for k in (
+        "cudaStreamSynchronize", "cudaDeviceSynchronize", "cudaEventSynchronize",
+        "aten::nonzero", "aten::_local_scalar_dense", "aten::item")}
+    rec = dict(
+        phase="serve_profile", steps=n_steps, lanes=eng.max_batch, wall_s=wall,
+        ms_per_step=wall / n_steps * 1e3,
+        device_busy_s=busy if dev else "not measured",
+        device_idle_share=(1 - busy / wall) if dev else "not measured",
+        launches_per_step=counts.get("cudaLaunchKernel", 0) / n_steps,
+        syncs_per_step=syncs,
+        paged_attention=[dict(name=k[:80], s=d, calls=c) for k, d, c in dev
+                         if "paged_attention_kernel" in k],
+        top_device=[dict(name=k[:80], s=d, calls=c) for k, d, c in dev[:12]],
+        top_host=[dict(name=k[:80], self_s=d, calls=c) for k, d, c in host[:12]])
+    emit(records, rec)
+    return rec
+
+
+def paged_cases(cfg, live, seed):
+    """(name, (q, k_pool, v_pool, table, lengths)) of paged_attention: the
+    main path's call on its live layer-0 pools, page table and lengths
+    (`live`, kept by serve_main with every lane active) first, then the
+    edge cases."""
+    import torch
+    kp, vp, page_table, seq_lens = live
+    dev = kp.device
+    g = torch.Generator(device=dev).manual_seed(seed)
+    B, Hkv, Dh = page_table.shape[0], cfg.n_kv_heads, cfg.resolved_head_dim
+    G = cfg.n_heads // Hkv
+    ps, mp = kp.shape[2], page_table.shape[1]
+    table = page_table.clamp(min=0)
+    lens = seq_lens + 1
+
+    def rnd(*shape, dtype=torch.float32):
+        return torch.randn(shape, generator=g, device=dev).to(dtype)
+
+    def full_table(b, n_pool, pages):
+        return torch.randint(0, n_pool, (b, pages), generator=g, device=dev,
+                             dtype=torch.int32)
+
+    def i32(v):
+        return torch.as_tensor(v, dtype=torch.int32, device=dev)
+
+    q = rnd(B, Hkv, G, Dh, dtype=torch.bfloat16)
+    n_pool = kp.shape[1]
+    ft = full_table(B, n_pool, mp)
+    small = dict(B=3, Hkv=2, G=4, Dh=64, ps=64, n_pool=16, mp=4)
+    k3, v3 = rnd(2, 16, 64, 64), rnd(2, 16, 64, 64)
+    k256, v256 = rnd(2, 12, 16, 256), rnd(2, 12, 16, 256)
+    return [
+        ("live", (q, kp, vp, table, lens)),
+        ("live_bf16_pools", (q, kp.to(torch.bfloat16), vp.to(torch.bfloat16),
+                             table, lens)),
+        ("f32_kernels_shape", (rnd(3, 2, 4, 64), k3, v3,
+                               full_table(3, small["n_pool"], small["mp"]),
+                               i32([5, 130, 255]))),
+        ("len_1", (q, kp, vp, ft, i32([1] * B))),
+        ("page_boundary", (q, kp, vp, ft, i32([ps * (i + 1) for i in range(B)]))),
+        ("full_table", (q, kp, vp, ft, i32([ps * mp] * B))),
+        ("g1", (rnd(B, Hkv, 1, Dh, dtype=torch.bfloat16), kp, vp, table, lens)),
+        ("dh256", (rnd(5, 2, 2, 256, dtype=torch.bfloat16), k256, v256,
+                   full_table(5, 12, 5), i32([1, 16, 33, 64, 80]))),
+        ("b_odd", (q[:5].contiguous(), kp, vp, table[:5].contiguous(),
+                   lens[:5].contiguous())),
+    ]
+
+
+def paged_bound(q, k_pool, table, lens):
+    """Least HBM bytes of one call on these inputs: the K and V rows of
+    each sequence's valid pages (all max_pages pages where the length is
+    <= 0), q, the table, the lengths and the output, each once."""
+    B, Hkv, G, Dh = q.shape
+    ps, mp = k_pool.shape[2], table.shape[1]
+    ln = lens.cpu().numpy().astype(np.int64)
+    pages = np.where(ln > 0, np.minimum(-(-ln // ps), mp), mp)
+    kv = int(pages.sum()) * Hkv * ps * Dh * k_pool.element_size() * 2
+    nbytes = kv + 2 * q.numel() * q.element_size() + table.numel() * 4 + B * 4
+    return nbytes / PEAK_BYTES_PER_S * 1e3, "bytes", nbytes
+
+
+def _library_call(q, k_pool, v_pool, table, lens):
+    """scaled_dot_product_attention over K/V gathered dense beforehand (the
+    gather, the mask and q's cast to the pools' dtype are not timed): one
+    PyTorch call computing the same function, as a yardstick only."""
+    import torch
+    import torch.nn.functional as F
+    B, Hkv, G, Dh = q.shape
+    ps, mp = k_pool.shape[2], table.shape[1]
+    S = ps * mp
+    idx = table.long()
+    k = k_pool[:, idx].transpose(0, 1).reshape(B, Hkv, S, Dh)
+    v = v_pool[:, idx].transpose(0, 1).reshape(B, Hkv, S, Dh)
+    mask = (torch.arange(S, device=q.device)[None] < lens[:, None])[:, None, None]
+    qq = q.to(k_pool.dtype)
+    return lambda: F.scaled_dot_product_attention(qq, k, v, attn_mask=mask)
+
+
+def check_paged_kernel(cfg, live, seed, records):
+    """paged_attention against its plain version on the card in every case
+    (2e-5 where the output is float32, 2e-2 where it is bfloat16), each
+    timed beside its bound and the library call; returns the live case."""
+    import torch
+    from repro_torch.kernels.paged_attention import ops as pa_ops, ref as pa_ref
+    dev = live[0].device
+    on_card = dev.type == "cuda"
+    l2_flush = (torch.empty(L2_FLUSH_BYTES, dtype=torch.uint8, device=dev)
+                if on_card else None)
+    per_case = []
+    for name, args in paged_cases(cfg, live, seed + 3):
+        got = pa_ops.paged_attention(*args)
+        want = pa_ref.paged_attention_reference(*args)
+        _sync(dev)
+        if got.dtype != want.dtype or got.shape != want.shape:
+            raise AssertionError(f"paged_attention/{name}: {got.dtype} {got.shape} "
+                                 f"vs {want.dtype} {want.shape}")
+        tol = 2e-5 if got.dtype == torch.float32 else 2e-2
+        err = float((got.float() - want.float()).abs().max())
+        if not torch.allclose(got.float(), want.float(), atol=tol, rtol=tol):
+            raise AssertionError(f"paged_attention/{name}: max |kernel - plain| = "
+                                 f"{err} beyond atol = rtol = {tol}")
+        q, kp, vp, table, lens = args
+        rec = dict(case=name, B=q.shape[0], Hkv=q.shape[1], G=q.shape[2],
+                   Dh=q.shape[3], page=kp.shape[2], max_pages=table.shape[1],
+                   q_dtype=str(q.dtype), pool_dtype=str(kp.dtype),
+                   max_abs_err=err, tol=tol)
+        if on_card:
+            lib = _library_call(*args)
+            rec["ms"] = _time_ms(lambda: pa_ops.paged_attention(*args), 50)
+            # device time with the L2 cache flushed before each call: on the
+            # main path the other 39 layers' weights and pools pass through
+            # L2 between two calls on one layer's pools
+            rec["device_ms"] = _device_ms(
+                lambda: (l2_flush.zero_(), pa_ops.paged_attention(*args)), 50,
+                KERNEL_FUNCTIONS["paged_attention"])
+            rec["plain_ms"] = _time_ms(
+                lambda: pa_ref.paged_attention_reference(*args), 10)
+            rec["library_ms"] = _time_ms(lib, 50)
+            b = paged_bound(q, kp, table, lens)
+            rec.update(bound_ms=b[0], bound_by=b[1], bound_bytes=b[2])
+        per_case.append(rec)
+    emit(records, dict(phase="kernels", kernel="paged_attention", cases=per_case))
+    return per_case[0]
+
+
+def serve_twins(cfg, device, seed, records):
+    """The same requests through two engines at full width, TWIN_LAYERS
+    deep, in float32, sharing weights: one runs the kernel, the other the
+    plain version (`interpret=True`).  Every decode's logits must agree
+    within TWIN_LOGITS_TOL and every token must be equal."""
+    import torch
+    from repro_torch.models import transformer
+    cfg = dataclasses.replace(cfg, n_layers=TWIN_LAYERS, dtype="float32")
+    model = transformer.init_params(
+        cfg, torch.Generator(device=device).manual_seed(seed + 4), device)
+    twins = [make_engine(cfg, model, device, interpret=i, keep_logits=True)
+             for i in (False, True)]
+    prompts = serve_prompts(cfg.vocab_size, seed, SERVE_REQUESTS)
+    for e in twins:
+        _submit(e, prompts, SERVE_NEW_TOKENS)
+    worst = torch.zeros((), device=device)     # max of |a-b| - (atol + rtol|b|)
+    err = torch.zeros((), device=device)
+    n_logits = 0
+    t0 = time.perf_counter()
+    while any(e.queue or e.active for e in twins):
+        for e in twins:
+            e.step()
+        a, b = (e.kept for e in twins)
+        if len(a) != len(b):
+            raise AssertionError("the twins decoded different numbers of steps")
+        for x, y in zip(a, b):
+            d = (x - y).abs()
+            err = torch.maximum(err, d.max())
+            worst = torch.maximum(worst, (d - TWIN_LOGITS_TOL * (1 + y.abs())).max())
+        n_logits += len(a)
+        a.clear()
+        b.clear()
+    _sync(device)
+    wall = time.perf_counter() - t0
+    toks = [{r.rid: r.out_tokens for r in e.finished} for e in twins]
+    counters = [(e.pkv.demotions, e.pkv.promotions, int(e.pkv.state.cold_reads))
+                for e in twins]
+    rec = dict(phase="serve_twins", arch=cfg.name, n_layers=cfg.n_layers,
+               d_model=cfg.d_model, dtype=cfg.dtype, steps=n_logits,
+               max_abs_logit_err=float(err), tol=TWIN_LOGITS_TOL,
+               tokens_equal=toks[0] == toks[1], counters=counters[0], wall_s=wall)
+    emit(records, rec)
+    if float(worst) > 0:
+        raise AssertionError(f"twin logits differ by {float(err)} beyond "
+                             f"atol = rtol = {TWIN_LOGITS_TOL}")
+    if toks[0] != toks[1] or len(toks[0]) != SERVE_REQUESTS:
+        raise AssertionError("twin tokens differ")
+    if counters[0] != counters[1]:
+        raise AssertionError(f"twin tiering counters differ: {counters}")
+    return rec
+
+
+# ---------------------------------------------------------------------------
 
 def nvidia_smi_line():
     out = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
@@ -533,6 +904,7 @@ def main(argv=None):
     sys.path.insert(0, os.path.join(ROOT, "src"))
     from repro_torch.kernels import build
     from repro_torch.kernels.f2_probe import ops
+    from repro_torch.models.registry import get_config
     from repro_torch.workload import make_f2_config
 
     records = []
@@ -570,15 +942,28 @@ def main(argv=None):
     twin_parity(make_f2_config(1 << TWIN_LOG2_KEYS), "cuda",
                 1 << TWIN_LOG2_KEYS, 1 << (a.log2_ops - 4), SEED, records)
 
-    src = {"fused_probe": "src/repro_torch/kernels/f2_probe/csrc/fused_probe.cu",
-           "fused_write": "src/repro_torch/kernels/f2_probe/csrc/fused_write.cu"}
+    scfg = get_config(SERVE_ARCH)
+    eng, serve_rec, live = serve_main(scfg, "cuda", SEED, records)
+    launches["paged_attention"] = serve_rec["launches"]
+    serve_profile(eng, SEED, records)
+    summary["paged_attention"] = check_paged_kernel(scfg, live, SEED, records)
+    del eng, live
+    torch.cuda.empty_cache()
+    serve_twins(scfg, "cuda", SEED, records)
+
+    csrc = "src/repro_torch/kernels/{}/csrc/{}.cu"
+    src = {"fused_probe": csrc.format("f2_probe", "fused_probe"),
+           "fused_write": csrc.format("f2_probe", "fused_write"),
+           "paged_attention": csrc.format("paged_attention", "paged_attention")}
     replaces = {"fused_probe": "src/repro/kernels/f2_probe/f2_probe.py:160",
-                "fused_write": "src/repro/kernels/f2_probe/f2_probe.py:247"}
+                "fused_write": "src/repro/kernels/f2_probe/f2_probe.py:247",
+                "paged_attention":
+                    "src/repro/kernels/paged_attention/paged_attention.py:97"}
     kernels = [dict(name=k, route="cuda", source=src[k], replaces=replaces[k],
                     launches=launches[k], max_abs_err=s["max_abs_err"],
                     ms=s["ms"], device_ms=s["device_ms"],
                     plain_ms=s["plain_ms"], bound_ms=s["bound_ms"],
-                    bound_by=s["bound_by"], library_ms=None)
+                    bound_by=s["bound_by"], library_ms=s.get("library_ms"))
                for k, s in summary.items()]
     kline = dict(kernels=kernels)
     records.append(kline)

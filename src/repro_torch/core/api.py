@@ -27,12 +27,12 @@ from .types import BLOCK_BYTES, OP_DELETE, OP_RMW, OP_UPSERT, F2Config
 COMPACTION_KINDS = ("hot_cold", "cold_cold", "single_log", "chunk_gc")
 
 
-def resolve_device(device=None) -> torch.device:
+def resolve_device(device=None, owner: str = "repro_torch.KV") -> torch.device:
     """None means "cuda"; a CUDA device must exist."""
     dev = torch.device("cuda" if device is None else device)
     if dev.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError(
-            "repro_torch.KV runs on a CUDA device by default and CUDA is not "
+            f"{owner} runs on a CUDA device by default and CUDA is not "
             "available here; pass device='cpu' to run on the CPU")
     return dev
 

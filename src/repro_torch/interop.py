@@ -1,14 +1,20 @@
-"""Carry configurations and store states between this port and the JAX
-reference package, through plain dicts and numpy arrays.
+"""Carry configurations, store states and model weights between this port
+and the JAX reference package, through plain dicts and numpy arrays.
 
   * `config_to_dict(cfg)` / `config_from_dict(d)` map `F2Config` fields one
     to one; engine names are translated (`ENGINE_TO_REFERENCE`).
   * `state_to_numpy(state)` / `state_from_numpy(leaves, device)` map an
     `F2State` to and from its flat list of leaves, in the order the JAX
     package's pytree flattening gives them (`leaf_names()` names each one).
+  * `model_config_to_dict(cfg)` / `model_config_from_dict(d)` map
+    `ModelConfig` fields one to one.
+  * `params_from_numpy(tree, cfg, device)` / `params_to_numpy(model)` map
+    the reference's parameter tree (`jax.tree.map(np.asarray, params)`:
+    nested dicts, blocks stacked on a leading layer axis) to and from the
+    port's `transformer.Transformer`.
 
-This is the store's counterpart of carrying weights across: every parity
-test loads one state into both packages this way.
+Every parity test loads one state, or one set of weights, into both
+packages this way.
 """
 from __future__ import annotations
 
@@ -18,8 +24,10 @@ from typing import Dict, List, Sequence
 import numpy as np
 import torch
 
+from .configs.base import ModelConfig
 from .core import cold_index, hybrid_log, read_cache, store
 from .core.types import IoStats, F2Config
+from .models import layers, transformer
 
 # port engine name -> the reference's name for the same backend
 ENGINE_TO_REFERENCE = {"unfused": "jnp", "fused_ref": "fused_ref",
@@ -90,3 +98,73 @@ def state_from_numpy(leaves: Sequence, device) -> store.F2State:
         sub = _SUBTREES.get(f)
         fields[f] = sub(*(take() for _ in sub._fields)) if sub else take()
     return store.F2State(**fields)
+
+
+# ---------------------------------------------------------------------------
+# model configurations and weights
+# ---------------------------------------------------------------------------
+
+def model_config_to_dict(cfg: ModelConfig) -> Dict:
+    """ModelConfig fields as a dict the reference's ModelConfig accepts."""
+    return dataclasses.asdict(cfg)
+
+
+def model_config_from_dict(d: Dict) -> ModelConfig:
+    return ModelConfig(**d)
+
+
+def params_from_numpy(tree, cfg: ModelConfig, device="cpu") -> transformer.Transformer:
+    """The port's model from the reference's parameter tree of numpy arrays
+    (float32 masters).  Matmul weights and the embedding are cast to
+    `cfg.dtype` (round to nearest even, as the reference's `.astype` at
+    use), norm scales stay float32."""
+    transformer.check_family(cfg)
+    dt = layers.weight_dtype(cfg)
+
+    def w(a):
+        return torch.from_numpy(np.array(a, np.float32)).to(device=device, dtype=dt)
+
+    def f32(a):
+        return torch.from_numpy(np.array(a, np.float32)).to(device)
+
+    def norm(t, l=None):
+        pick = (lambda a: a) if l is None else (lambda a: a[l])
+        return layers.Norm(f32(pick(t["scale"])),
+                           f32(pick(t["bias"])) if "bias" in t else None)
+
+    B = tree["blocks"]
+    blocks = []
+    for l in range(cfg.n_layers):
+        a = B["attn"]
+        qk = (f32(a["q_norm"][l]), f32(a["k_norm"][l])) if "q_norm" in a else ()
+        attn = layers.Attention(w(a["wq"][l]), w(a["wk"][l]), w(a["wv"][l]),
+                                w(a["wo"][l]), *qk)
+        mlp = layers.MLP(w(B["mlp"]["wi"][l]), w(B["mlp"]["wo"][l]))
+        blocks.append(transformer.Block(norm(B["norm1"], l), norm(B["norm2"], l),
+                                        attn, mlp))
+    return transformer.Transformer(cfg, layers.Embed(w(tree["embed"]["table"])),
+                                   blocks, norm(tree["final_norm"]))
+
+
+def params_to_numpy(model: transformer.Transformer) -> Dict:
+    """The reference's parameter tree (float32 numpy, blocks stacked on a
+    leading layer axis) of the port's model."""
+    tree: Dict = {}
+    stacked: Dict = {}
+
+    def put(path, a):
+        node = tree
+        for k in path[:-1]:
+            node = node.setdefault(k, {})
+        node[path[-1]] = a
+
+    for name, p in model.named_parameters():
+        a = p.detach().to("cpu", torch.float32).numpy()
+        parts = name.split(".")
+        if parts[0] == "blocks":      # blocks.<l>.<path>, layers in order
+            stacked.setdefault(tuple(parts[2:]), []).append(a)
+        else:
+            put(parts, a)
+    for path, arrs in stacked.items():
+        put(("blocks",) + path, np.stack(arrs))
+    return tree

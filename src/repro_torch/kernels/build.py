@@ -29,6 +29,7 @@ BUILD_DIR = REPO_ROOT / "build" / "repro_torch_kernels"
 SOURCES = {
     "fused_probe": KERNELS_DIR / "f2_probe" / "csrc" / "fused_probe.cu",
     "fused_write": KERNELS_DIR / "f2_probe" / "csrc" / "fused_write.cu",
+    "paged_attention": KERNELS_DIR / "paged_attention" / "csrc" / "paged_attention.cu",
 }
 
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",

@@ -1,0 +1,99 @@
+"""Wrapper of the paged-attention CUDA kernel.
+
+`paged_attention` checks device, dtype, shape and contiguity, allocates the
+output with `torch.empty`, launches on the current CUDA stream and raises
+if the C entry point reports a CUDA error.  For tensors on the CPU it runs
+the plain version in `ref.py`; for CUDA tensors it launches the kernel or
+raises; any other device raises.  `launches["paged_attention"]` counts the
+kernel's launches, one per call.
+"""
+from __future__ import annotations
+
+import ctypes
+from typing import Dict
+
+import torch
+
+from .. import build
+from .ref import paged_attention_reference
+
+launches: Dict[str, int] = {"paged_attention": 0}
+MAX_GROUP = 16        # query heads per KV head the kernel holds
+MAX_HEAD_DIM = 256
+_DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
+
+
+def reset_launches() -> None:
+    for k in launches:
+        launches[k] = 0
+
+
+def _entry():
+    f = build.load("paged_attention").pa_paged_attention
+    if f.argtypes is None:
+        P, I = ctypes.c_void_p, ctypes.c_int
+        f.argtypes = [P] * 6 + [I] * 9 + [ctypes.c_float, P]
+        f.restype = I
+    return f
+
+
+def _check(name, t, dtype, shape, device):
+    if t.dtype != dtype:
+        raise TypeError(f"{name}: dtype {t.dtype}, expected {dtype}")
+    if tuple(t.shape) != tuple(shape):
+        raise ValueError(f"{name}: shape {tuple(t.shape)}, expected {tuple(shape)}")
+    if t.device != device:
+        raise ValueError(f"{name}: on {t.device}, expected {device}")
+    if not t.is_contiguous():
+        raise ValueError(f"{name}: not contiguous")
+
+
+def paged_attention(q, k_pool, v_pool, page_table, lengths):
+    """q: [B, Hkv, G, Dh]; k/v_pool: [Hkv, n_pool_pages, page_size, Dh];
+    page_table: [B, max_pages] int32 (entries in [0, n_pool_pages));
+    lengths: [B] int32.  Returns [B, Hkv, G, Dh] in q's dtype (see
+    `ref.paged_attention_reference`)."""
+    dev = q.device
+    if dev.type == "cpu":
+        return paged_attention_reference(q, k_pool, v_pool, page_table, lengths)
+    if dev.type != "cuda":
+        raise ValueError(f"paged_attention: no kernel for device {dev}")
+    return paged_attention_cuda(q, k_pool, v_pool, page_table, lengths)
+
+
+def paged_attention_cuda(q, k_pool, v_pool, page_table, lengths):
+    """The CUDA kernel, forced: raises for tensors that are not on a CUDA
+    device."""
+    dev = q.device
+    if dev.type != "cuda":
+        raise ValueError(f"paged_attention_cuda: q is on {dev}; the kernel "
+                         "needs CUDA tensors")
+    if q.dtype not in _DTYPE_CODE or k_pool.dtype not in _DTYPE_CODE:
+        raise TypeError(f"paged_attention: q {q.dtype}, pools {k_pool.dtype}; "
+                        "the kernel takes float32 or bfloat16")
+    B, Hkv, G, Dh = q.shape
+    _, n_pool, page, _ = k_pool.shape
+    max_pages = page_table.shape[1] if page_table.dim() == 2 else -1
+    if not 1 <= G <= MAX_GROUP or not 1 <= Dh <= MAX_HEAD_DIM:
+        raise ValueError(f"paged_attention: G={G} (max {MAX_GROUP}), "
+                         f"Dh={Dh} (max {MAX_HEAD_DIM})")
+    if n_pool < 1 or page < 1 or max_pages < 1:
+        raise ValueError(f"paged_attention: pool {tuple(k_pool.shape)}, "
+                         f"table {tuple(page_table.shape)}")
+    _check("q", q, q.dtype, (B, Hkv, G, Dh), dev)
+    _check("k_pool", k_pool, k_pool.dtype, (Hkv, n_pool, page, Dh), dev)
+    _check("v_pool", v_pool, k_pool.dtype, (Hkv, n_pool, page, Dh), dev)
+    _check("page_table", page_table, torch.int32, (B, max_pages), dev)
+    _check("lengths", lengths, torch.int32, (B,), dev)
+    out = torch.empty_like(q)
+    if B * Hkv == 0:
+        return out
+    err = _entry()(q.data_ptr(), k_pool.data_ptr(), v_pool.data_ptr(),
+                   page_table.data_ptr(), lengths.data_ptr(), out.data_ptr(),
+                   B, Hkv, G, Dh, n_pool, page, max_pages,
+                   _DTYPE_CODE[q.dtype], _DTYPE_CODE[k_pool.dtype], Dh ** -0.5,
+                   torch.cuda.current_stream(dev).cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"paged_attention: CUDA error {err} at launch")
+    launches["paged_attention"] += 1
+    return out

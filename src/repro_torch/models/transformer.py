@@ -1,0 +1,144 @@
+"""The decoder of the dense family as `nn.Module`s, and its decode path.
+
+The module tree keeps the JAX reference's parameter names:
+`embed.table`, `blocks[l].{norm1,norm2,attn.{wq,wk,wv,wo},mlp.{wi,wo}}` and
+`final_norm` (`attn.q_norm`/`attn.k_norm` with qk-norm).  The layer stack is
+an `nn.ModuleList` walked by a Python loop where the reference scans over
+stacked blocks.
+
+Exposes `layer_flags`, `init_params`, `init_cache` and `decode_step` (the
+contiguous-cache backend of the serving engine).  The other families (moe,
+ssm, hybrid, audio, vlm) and the full-sequence `forward` are not ported
+yet (ROADMAP queue 1, item 14): asking for them raises
+`NotImplementedError`.
+"""
+from __future__ import annotations
+
+from typing import Any, Dict, List, Tuple
+
+import torch
+from torch import nn
+
+from ..configs.base import ModelConfig
+from . import layers
+
+
+def check_family(cfg: ModelConfig) -> None:
+    if cfg.family != "dense":
+        raise NotImplementedError(
+            f"{cfg.name}: the {cfg.family!r} family is not ported to PyTorch "
+            f"yet (ROADMAP queue 1, item 14); only 'dense' runs")
+
+
+# ---------------------------------------------------------------------------
+# Per-layer static pattern (local/global etc.)
+# ---------------------------------------------------------------------------
+
+def layer_flags(cfg: ModelConfig) -> Dict[str, torch.Tensor]:
+    """{"window": int32 [L]}: each layer's sliding window (0 = full)."""
+    L = cfg.n_layers
+    if cfg.local_global_ratio:
+        r = cfg.local_global_ratio
+        is_local = (torch.arange(L) % (r + 1)) != r       # r local, then 1 global
+    elif cfg.sliding_window and cfg.family == "hybrid":
+        # hymba: a few full-attention layers (first/mid/last), rest windowed
+        g = {0, L // 2, L - 1} if cfg.n_global_attn_layers else set()
+        is_local = torch.tensor([i not in g for i in range(L)])
+    elif cfg.sliding_window:
+        is_local = torch.ones((L,), dtype=torch.bool)
+    else:
+        is_local = torch.zeros((L,), dtype=torch.bool)
+    w = torch.full((L,), cfg.sliding_window or 0, dtype=torch.int32)
+    return {"window": torch.where(is_local, w, torch.zeros_like(w))}
+
+
+# ---------------------------------------------------------------------------
+# Modules and parameter init
+# ---------------------------------------------------------------------------
+
+class Block(nn.Module):
+    def __init__(self, norm1: layers.Norm, norm2: layers.Norm,
+                 attn: layers.Attention, mlp: layers.MLP):
+        super().__init__()
+        self.norm1, self.norm2, self.attn, self.mlp = norm1, norm2, attn, mlp
+
+
+class Transformer(nn.Module):
+    def __init__(self, cfg: ModelConfig, embed: layers.Embed,
+                 blocks: List[Block], final_norm: layers.Norm):
+        super().__init__()
+        self.cfg = cfg
+        self.embed = embed
+        self.blocks = nn.ModuleList(blocks)
+        self.final_norm = final_norm
+
+
+def init_params(cfg: ModelConfig, generator: torch.Generator,
+                device=None) -> Transformer:
+    """Random weights from the reference's distributions, drawn with
+    `generator` (which must live on `device`)."""
+    check_family(cfg)
+    d = cfg.d_model
+    embed = layers.embed_params(cfg, generator, device)
+    blocks = [Block(layers.norm_params(cfg, d, device),
+                    layers.norm_params(cfg, d, device),
+                    layers.attn_params(cfg, generator, d, device),
+                    layers.mlp_params(cfg, generator, d, cfg.d_ff, device))
+              for _ in range(cfg.n_layers)]
+    return Transformer(cfg, embed, blocks,
+                       layers.norm_params(cfg, d, device))
+
+
+# ---------------------------------------------------------------------------
+# Decode path (single new token against a cache)
+# ---------------------------------------------------------------------------
+
+def init_cache(cfg: ModelConfig, batch: int, max_len: int, dtype=None,
+               device=None) -> Dict[str, Any]:
+    check_family(cfg)
+    dt = getattr(torch, dtype or cfg.dtype)
+    L, Hkv, Dh = cfg.n_layers, cfg.n_kv_heads, cfg.resolved_head_dim
+    return {"len": torch.zeros((batch,), dtype=torch.int32, device=device),
+            "k": torch.zeros((L, batch, Hkv, max_len, Dh), dtype=dt, device=device),
+            "v": torch.zeros((L, batch, Hkv, max_len, Dh), dtype=dt, device=device)}
+
+
+def _decode_attn(cfg, p: layers.Attention, x, cache_k, cache_v, cache_len,
+                 window, tables):
+    """x: [B,1,D]; writes the new K/V row into cache_k/v [B,Hkv,S,Dh] (in
+    place) and returns the attention output [B,1,D]."""
+    dt = x.dtype
+    pos = cache_len[:, None]                                # [B,1]
+    q, k, v = layers.project_qkv(cfg, p, x, pos,
+                                 use_rope=(cfg.norm != "layernorm"),
+                                 tables=tables)
+    # the new row goes to position cache_len[0] (the same for all lanes),
+    # clamped into the cache as dynamic_update_slice clamps its start
+    at = cache_len[:1].clamp(max=cache_k.shape[2] - 1).long()
+    cache_k.index_copy_(2, at, k.to(cache_k.dtype))
+    cache_v.index_copy_(2, at, v.to(cache_v.dtype))
+    att = layers.decode_attention(q[:, :, 0, :], cache_k, cache_v,
+                                  cache_len + 1, window=window)
+    return layers.attn_out_token(p, att.to(dt))[:, None, :]
+
+
+def decode_step(cfg: ModelConfig, model: Transformer, cache: Dict[str, Any],
+                tokens: torch.Tensor) -> Tuple[torch.Tensor, Dict[str, Any]]:
+    """tokens: [B] int32 (the last generated token).  Returns
+    (logits [B, Vpad], cache).  Uses cache["len"] as the position.  The
+    cache's K/V tensors are updated in place; "len" is replaced by len+1."""
+    check_family(cfg)
+    x = layers.embed(cfg, model.embed, tokens[:, None])
+    cache_len = cache["len"]
+    windows = layer_flags(cfg)["window"].tolist()
+    tables = layers.rope_tables(cache_len[:, None, None], cfg.resolved_head_dim,
+                                cfg.rope_theta, cfg.rope_fraction)
+    for l, blk in enumerate(model.blocks):
+        h = layers.norm(cfg, x, blk.norm1)
+        x = x + _decode_attn(cfg, blk.attn, h, cache["k"][l], cache["v"][l],
+                             cache_len, windows[l], tables)
+        h2 = layers.norm(cfg, x, blk.norm2)
+        x = x + layers.mlp(cfg, blk.mlp, h2)
+    cache = dict(cache, len=cache_len + 1)
+    x = layers.norm(cfg, x, model.final_norm)
+    return layers.logits(cfg, model.embed, x)[:, 0], cache

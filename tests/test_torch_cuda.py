@@ -1,6 +1,8 @@
-"""The CUDA kernels on the card: each held bit for bit against its plain
-PyTorch version, and the kernel-backed store held leaf for leaf against the
-plain-engine store on the same op stream.
+"""The CUDA kernels on the card: the F2 kernels held bit for bit against
+their plain PyTorch versions, the kernel-backed store held leaf for leaf
+against the plain-engine store on the same op stream, and the
+paged-attention kernel held against its plain version within
+tests/test_kernels.py's tolerances (2e-5 in float32, 2e-2 in bfloat16).
 
 These tests need a CUDA device and nvcc and skip without them.  They import
 neither JAX nor the JAX package, so they also run where only PyTorch is
@@ -19,6 +21,8 @@ import repro_torch as T  # noqa: E402
 from repro_torch import interop  # noqa: E402
 from repro_torch.core import hybrid_log  # noqa: E402
 from repro_torch.kernels.f2_probe import ops, ref  # noqa: E402
+from repro_torch.kernels.paged_attention import ops as pa_ops  # noqa: E402
+from repro_torch.kernels.paged_attention import ref as pa_ref  # noqa: E402
 
 pytestmark = pytest.mark.cuda
 
@@ -102,3 +106,49 @@ def test_kernels_match_plain_versions(cuda, b):
                         ops.fused_write(*args, chain_max=CFG.chain_max)):
             assert torch.equal(x, y)
     assert ops.launches["fused_write"] == 2 * ops.WRITE_KERNELS_PER_CALL
+
+
+# (B, Hkv, G, Dh, page, n_pool, max_pages, q dtype, pool dtype): the serving
+# path's shape (Granite-3-8B, pools float32, q bfloat16), tests/
+# test_kernels.py's first shape, and head_dim 256 with bf16 pools and odd B
+PA_SHAPES = [(8, 8, 4, 128, 16, 288, 33, torch.bfloat16, torch.float32),
+             (3, 2, 4, 64, 64, 16, 4, torch.float32, torch.float32),
+             (5, 2, 1, 256, 16, 12, 5, torch.bfloat16, torch.bfloat16)]
+
+
+def _pa_inputs(shape, dev, seed=0):
+    B, Hkv, G, Dh, ps, npool, mp, qdt, pdt = shape
+    g = torch.Generator(device="cpu").manual_seed(seed)
+    q = torch.randn((B, Hkv, G, Dh), generator=g).to(dev, qdt)
+    kp = torch.randn((Hkv, npool, ps, Dh), generator=g).to(dev, pdt)
+    vp = torch.randn((Hkv, npool, ps, Dh), generator=g).to(dev, pdt)
+    pt = torch.randint(0, npool, (B, mp), generator=g, dtype=torch.int32).to(dev)
+    ln = torch.randint(1, ps * mp + 1, (B,), generator=g, dtype=torch.int32)
+    ln[0] = 1
+    ln[-1] = ps * mp
+    return q, kp, vp, pt, ln.to(dev)
+
+
+@pytest.mark.parametrize("shape", PA_SHAPES, ids=["serve", "kernels_a", "dh256"])
+def test_paged_attention_matches_plain_version(cuda, shape):
+    args = _pa_inputs(shape, cuda)
+    pa_ops.reset_launches()
+    got = pa_ops.paged_attention(*args)
+    want = pa_ref.paged_attention_reference(*args)
+    torch.cuda.synchronize()
+    assert pa_ops.launches["paged_attention"] == 1
+    assert got.dtype == want.dtype == args[0].dtype
+    tol = 2e-5 if got.dtype == torch.float32 else 2e-2
+    torch.testing.assert_close(got.float(), want.float(), atol=tol, rtol=tol)
+
+
+def test_paged_attention_wrapper_refuses(cuda):
+    args = _pa_inputs(PA_SHAPES[1], cuda)
+    pa_ops.reset_launches()
+    with pytest.raises(ValueError, match="needs CUDA tensors"):
+        pa_ops.paged_attention_cuda(*(a.cpu() for a in args))
+    with pytest.raises(TypeError, match="float32 or bfloat16"):
+        pa_ops.paged_attention(args[0].half(), *args[1:])
+    with pytest.raises(TypeError, match="int32"):
+        pa_ops.paged_attention(*args[:3], args[3].long(), args[4])
+    assert pa_ops.launches["paged_attention"] == 0

@@ -1,7 +1,7 @@
-"""The port stands alone: it imports and runs with the JAX package, JAX and
-the benchmarks blocked; its entry points default to the CUDA device and
-refuse to quietly run without it; the forced-kernel engine refuses CPU
-tensors."""
+"""The port stands alone: it imports and runs (the store, and a reduced
+serving engine) with the JAX package, JAX and the benchmarks blocked; its
+entry points default to the CUDA device and refuse to quietly run without
+it; the forced-kernel engine refuses CPU tensors."""
 import ast
 import os
 import subprocess
@@ -62,6 +62,19 @@ def test_port_runs_with_the_reference_blocked():
         assert (v.numpy() == np.stack([keys] * 2, 1)).all()
         assert kv.compactions > 0
         kv.check_invariants()
+        import torch
+        from repro_torch.models import transformer
+        from repro_torch.models.registry import get_config
+        from repro_torch.serve.engine import Engine, Request
+        mcfg = get_config("granite-3-8b").reduced()
+        model = transformer.init_params(mcfg, torch.Generator().manual_seed(0), "cpu")
+        eng = Engine(mcfg, model, max_batch=2, max_len=32, backend="paged",
+                     page_size=4, device="cpu")
+        for i in range(3):
+            eng.submit(Request(rid=i, prompt=np.arange(1, 4 + i, dtype=np.int32),
+                               max_new_tokens=3))
+        fin = eng.run()
+        assert sorted(len(r.out_tokens) for r in fin) == [3, 3, 3]
         bad = [m for m in sys.modules if m.split(".")[0] in {FORBIDDEN!r}]
         assert not bad, bad
         print("isolated-ok")
@@ -80,6 +93,36 @@ def test_kv_defaults_to_the_cuda_device():
     else:
         with pytest.raises(RuntimeError, match="CUDA is not available"):
             T.KV(cfg)
+
+
+def test_serving_entry_points_default_to_the_cuda_device():
+    from repro_torch.launch import serve
+    from repro_torch.models import transformer
+    from repro_torch.models.registry import get_config
+    from repro_torch.serve.engine import Engine
+    cfg = get_config("granite-3-8b").reduced()
+    model = transformer.init_params(cfg, torch.Generator().manual_seed(0), "cpu")
+    if torch.cuda.is_available():
+        assert Engine(cfg, model.cuda(), backend="paged").device.type == "cuda"
+        return
+    for make in (lambda: Engine(cfg, model, backend="paged"),
+                 lambda: Engine(cfg, model, backend="contiguous"),
+                 lambda: serve.main(["--reduced", "--requests", "1"])):
+        with pytest.raises(RuntimeError, match="CUDA is not available"):
+            make()
+
+
+def test_port_sources_include_the_serving_slice():
+    """The AST scan above walks every module of the serving slice."""
+    names = {p.relative_to(ROOT / "src" / "repro_torch").as_posix()
+             for p in _port_sources() if "repro_torch" in p.parts}
+    for mod in ("configs/base.py", "configs/granite_3_8b.py",
+                "models/registry.py", "models/layers.py",
+                "models/transformer.py", "kvcache/paged.py",
+                "kernels/paged_attention/ops.py",
+                "kernels/paged_attention/ref.py", "serve/engine.py",
+                "launch/serve.py", "interop.py"):
+        assert mod in names, mod
 
 
 def test_forced_kernel_engine_refuses_cpu_tensors():
