@@ -1,15 +1,22 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch port on one CUDA GPU: the F2 store, then the
-F2-paged serving engine with Granite-3-8B at full width.
+"""Drive the PyTorch port on one CUDA GPU: the F2 store, the F2-paged
+serving engine with Granite-3-8B at full width, then Granite-3-8B's
+training at full width.
 
     python3 chip_smoke.py            # the full run: 2**24 keys, 40 layers
 
 Phases, each printing one JSON line:
 
   1. device   — the card's name and power limit (and nvidia-smi's raw line);
-  2. build    — the three CUDA kernels compiled with nvcc for sm_90a, in
+  2. build    — the four CUDA sources compiled with nvcc for sm_90a, in
                 parallel;
-  3. main     — `KV(cfg, device="cuda")` at the paper's YCSB shape (8-byte
+  3. kernels  — the flash-attention forward and gradient against autograd
+                through their plain version at the train phase's shape and
+                edge cases (forward 2e-5 f32 / 2e-2 bf16; gradients 1e-4
+                f32, 2e-2 of the largest reference gradient in bf16), timed
+                beside their bounds and scaled_dot_product_attention (first,
+                while the profiler is fresh and the card's memory free);
+  4. main     — `KV(cfg, device="cuda")` at the paper's YCSB shape (8-byte
                 keys, 100-byte values, Zipf 0.99, 10% memory budget): load
                 2**24 unique keys in upsert batches of 8192 with hot->cold
                 compaction and chunk-log GC firing, one cold->cold pass,
@@ -17,32 +24,50 @@ Phases, each printing one JSON line:
                 YCSB-A, -B and -F (~2**21 ops each) with every read checked;
                 the kernels' launch counters are zeroed before and read
                 after, and both must be > 0;
-  4. kernels  — each kernel against its plain PyTorch version on the card,
-                bit for bit, on the loaded store at the main path's shapes
-                (B = 8192 batches, B = compact_batch compaction probes) in
-                every mode the store uses, timed with CUDA events;
-  5. twins    — the same op stream at 2**20 keys through engine="fused" and
+  5. kernels  — each store kernel against its plain PyTorch version on the
+                card, bit for bit, on the loaded store at the main path's
+                shapes (B = 8192 batches, B = compact_batch compaction
+                probes) in every mode the store uses, timed with CUDA events;
+  6. profile  — a profiler window over 8 YCSB-A batches;
+  7. twins    — the same op stream at 2**20 keys through engine="fused" and
                 engine="fused_ref" on the card, every F2State leaf equal
                 after each phase;
-  6. serve    — Granite-3-8B (40 layers, d_model 4096, bf16 weights from
+  8. serve    — Granite-3-8B (40 layers, d_model 4096, bf16 weights from
                 `init_params` with SEED) through Engine(backend="paged"):
                 16 requests, prompts of 16-256 tokens, 32 new tokens each,
                 8 lanes, max_len 512, pages of 16 (16 hot, 272 cold);
                 the paged-attention counter is zeroed before and read after
                 and must be 40 x decode steps; demotions and cold reads
                 must be > 0, every logit finite, every token < vocab;
-  7. serve_profile — a profiler window over 8 full decodes of the loaded
+  9. serve_profile — a profiler window over 8 full decodes of the loaded
                 engine (8 new 16-token prompts): device busy/idle share,
                 top kernels and host ops, host syncs per step;
-  8. kernels  — paged_attention against its plain version on the serve
+ 10. kernels  — paged_attention against its plain version on the serve
                 run's live pools and table (its last state with all 8
                 lanes active) and on edge cases (2e-5 float32,
                 2e-2 bfloat16), timed beside its bound and
                 scaled_dot_product_attention;
-  9. serve_twins — the same requests through two float32 engines, 4 layers
+ 11. serve_twins — the same requests through two float32 engines, 4 layers
                 at full width, kernel against plain version: every decode's
                 logits within TWIN_LOGITS_TOL, every token equal;
- 10. the kernels line, the nvidia-smi line, and the final ok line.
+ 12. train    — Granite-3-8B at full width, 8 of its 40 layers (bf16
+                weights, f32 AdamW moments, from `init_or_restore(SEED)`):
+                `Trainer.run()` for 6 steps of 2 x 4096 tokens, ending in
+                the trainer's blocking save of the whole state to a
+                temporary directory; the flash-attention counters are zeroed
+                before and read after and must be forward 2 x 8 x steps
+                (remat) and gradient 8 x steps; every loss finite;
+ 13. train_profile — a profiler window over 2 more steps: device busy/idle
+                share, launches and host syncs per step, the flash kernels'
+                share of device time beside the cuBLAS GEMMs';
+ 14. train_twins — loss_fn and its gradients, f32, 2 layers at full width,
+                B 1 x T 1024, on the card and on the CPU: loss within 1e-4
+                relative, each gradient leaf within 1e-3 of its largest
+                magnitude;
+ 15. train_restart — tests/test_trainer.py's restart scenario on the card
+                at reduced widths: every parameter bit-equal to a straight
+                run;
+ 16. the kernels line, the nvidia-smi line, and the final ok line.
 
 Any mismatch, failed build or failed launch raises, and the script exits
 non-zero.  It needs a CUDA device and the repository's `src/` next to it.
@@ -75,9 +100,19 @@ TWIN_LAYERS = 4
 # ulp per output); four layers and the tied 4096-wide logits projection
 # keep that far below 1e-3 of a logit
 TWIN_LOGITS_TOL = 1e-3
-# H100 SXM data-sheet peaks (dense): HBM bytes/s and non-tensor 32-bit ops/s
+# training: Granite-3-8B at full width, TRAIN_LAYERS of its 40 layers
+TRAIN_ARCH = "granite-3-8b"
+TRAIN_FULL_LAYERS = 40
+TRAIN_LAYERS = 8
+TRAIN_BATCH, TRAIN_SEQ = 2, 4096
+TRAIN_STEPS = 6
+TWIN_TRAIN_LAYERS = 2
+TWIN_TRAIN_SEQ = 1024
+# H100 SXM data-sheet peaks (dense): HBM bytes/s, non-tensor 32-bit ops/s,
+# bf16 tensor-core FLOP/s
 PEAK_BYTES_PER_S = 3.35e12
 PEAK_OPS_PER_S = 67e12
+PEAK_BF16_FLOPS = 989e12
 SECTOR = 32
 L2_FLUSH_BYTES = 128 << 20          # > the H100's 50 MB L2
 
@@ -247,13 +282,20 @@ def _time_ms(fn, reps):
 KERNEL_FUNCTIONS = {"fused_probe": ("fused_probe_kernel",),
                     "fused_write": ("write_lanes_kernel", "append_offsets_kernel",
                                     "chain_slots_kernel"),
-                    "paged_attention": ("paged_attention_kernel",)}
+                    "paged_attention": ("paged_attention_kernel",),
+                    "flash_attention_fwd": ("fa_forward_kernel",),
+                    "flash_attention_bwd": ("fa_rowdot_kernel", "fa_dkdv_kernel",
+                                            "fa_dq_kernel")}
 
 
 def _device_ms(fn, reps, names):
     """Device time per call of the named CUDA functions, from the profiler
     (CUDA events around a short kernel also time the wrapper's host side,
-    which can be longer than the kernel)."""
+    which can be longer than the kernel): each function's mean over the
+    records the profiler kept, summed over the functions.  Late in a long
+    process, after large profiler windows, the profiler can drop kernel
+    records, so a total over `reps` would undercount; "not measured" where a
+    function kept no record."""
     import torch
     from torch.profiler import ProfilerActivity, profile
     fn()
@@ -262,10 +304,16 @@ def _device_ms(fn, reps, names):
         for _ in range(reps):
             fn()
         torch.cuda.synchronize()
-    us = sum(e.self_device_time_total for e in prof.key_averages()
-             if str(getattr(e, "device_type", "")).endswith("CUDA")
-             and any(n in e.key for n in names))
-    return us / 1e3 / reps if us else "not measured"
+    per_name = {n: [0.0, 0] for n in names}
+    for e in prof.key_averages():
+        if str(getattr(e, "device_type", "")).endswith("CUDA"):
+            for n in names:
+                if n in e.key:
+                    per_name[n][0] += e.self_device_time_total
+                    per_name[n][1] += e.count
+    if any(c == 0 for _, c in per_name.values()):
+        return "not measured"
+    return sum(us / c for us, c in per_name.values()) / 1e3
 
 
 def probe_cases(kv, rng, n_keys):
@@ -451,6 +499,24 @@ def check_kernels(kv, n_keys, seed, records):
 # where the time goes: a profiler window over YCSB-A batches
 # ---------------------------------------------------------------------------
 
+def _device_rows(prof):
+    """(device rows, host rows) of a profile as (name, seconds, calls),
+    largest first.  Device rows are kernels, copies and memsets only:
+    CPU-op rows repeat the device time of the kernels they launch."""
+    dev, host = [], []
+    for e in prof.key_averages():
+        if str(getattr(e, "device_type", "")).endswith("CUDA"):
+            d = getattr(e, "self_device_time_total", None)
+            if d is None:
+                d = getattr(e, "self_cuda_time_total", 0)
+            dev.append((e.key, d / 1e6, e.count))
+        else:
+            host.append((e.key, e.self_cpu_time_total / 1e6, e.count))
+    dev.sort(key=lambda x: -x[1])
+    host.sort(key=lambda x: -x[1])
+    return dev, host
+
+
 def profile_window(kv, n_keys, seed, records, n_batches=8):
     """Device busy time, by kernel, over a few YCSB-A batches of the loaded
     store, against the host wall time of the same window (which includes
@@ -471,21 +537,8 @@ def profile_window(kv, n_keys, seed, records, n_batches=8):
             st.cpu(), rv.cpu()
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
-    dev = []
-    host = []
-    for e in prof.key_averages():
-        if str(getattr(e, "device_type", "")).endswith("CUDA"):
-            # device-side rows only (kernels, copies, memsets): CPU-op rows
-            # repeat the device time of the kernels they launch
-            d = getattr(e, "self_device_time_total", None)
-            if d is None:
-                d = getattr(e, "self_cuda_time_total", 0)
-            dev.append((e.key, d / 1e6, e.count))
-        else:
-            host.append((e.key, e.self_cpu_time_total / 1e6, e.count))
+    dev, host = _device_rows(prof)
     busy = sum(d for _, d, _ in dev)
-    dev.sort(key=lambda x: -x[1])
-    host.sort(key=lambda x: -x[1])
     emit(records, dict(
         phase="profile", workload="A", batches=n_batches, batch=BATCH,
         wall_s=wall, device_busy_s=busy if dev else "not measured",
@@ -671,18 +724,8 @@ def serve_profile(eng, seed, records, n_steps=8):
         wall = time.perf_counter() - t0
     if eng.decode_steps - d0 != n_steps or len(eng.active) != eng.max_batch:
         raise AssertionError("the profile window was not n_steps full decodes")
-    dev, host = [], []
-    for e in prof.key_averages():
-        if str(getattr(e, "device_type", "")).endswith("CUDA"):
-            d = getattr(e, "self_device_time_total", None)
-            if d is None:
-                d = getattr(e, "self_cuda_time_total", 0)
-            dev.append((e.key, d / 1e6, e.count))
-        else:
-            host.append((e.key, e.self_cpu_time_total / 1e6, e.count))
+    dev, host = _device_rows(prof)
     busy = sum(d for _, d, _ in dev)
-    dev.sort(key=lambda x: -x[1])
-    host.sort(key=lambda x: -x[1])
     counts = {k: c for k, _, c in host}
     syncs = {k: counts.get(k, 0) / n_steps for k in (
         "cudaStreamSynchronize", "cudaDeviceSynchronize", "cudaEventSynchronize",
@@ -881,6 +924,419 @@ def serve_twins(cfg, device, seed, records):
 
 
 # ---------------------------------------------------------------------------
+# training: Granite-3-8B at full width through the Trainer
+# ---------------------------------------------------------------------------
+
+def train_config():
+    """Granite-3-8B at full width, TRAIN_LAYERS deep."""
+    from repro_torch.models.registry import get_config
+    return dataclasses.replace(get_config(TRAIN_ARCH), n_layers=TRAIN_LAYERS)
+
+
+def train_main(cfg, device, seed, records):
+    """The training main path: `Trainer.run()` for TRAIN_STEPS steps of
+    TRAIN_BATCH x TRAIN_SEQ tokens, ending in the trainer's blocking save of
+    the whole state to a temporary directory (removed after).  The
+    flash-attention counters are zeroed just before the run and read just
+    after: forward 2 x layers x steps (each block is recomputed in the
+    backward pass), gradient layers x steps.  Returns (trainer, state,
+    record)."""
+    import shutil
+    import tempfile
+    import torch
+    from repro_torch.data.pipeline import TokenPipeline
+    from repro_torch.kernels.flash_attention import ops as fa_ops
+    from repro_torch.optim.adamw import AdamWConfig
+    from repro_torch.train.trainer import Trainer, TrainerConfig
+    on_card = torch.device(device).type == "cuda"
+    ckpt_dir = tempfile.mkdtemp(prefix="chip_smoke_ckpt_")
+    try:
+        tcfg = TrainerConfig(total_steps=TRAIN_STEPS, ckpt_every=TRAIN_STEPS + 1,
+                             ckpt_dir=ckpt_dir, log_every=1)
+        pipe = TokenPipeline(cfg.vocab_size, batch=TRAIN_BATCH, seq_len=TRAIN_SEQ,
+                             seed=seed)
+        tr = Trainer(cfg, AdamWConfig(total_steps=TRAIN_STEPS), tcfg, pipe,
+                     device=device)
+        if on_card:
+            torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        state = tr.init_or_restore(seed)
+        _sync(device)
+        t_init = time.perf_counter() - t0
+        if int(state.step) != 0:
+            raise AssertionError("the trainer restored a checkpoint it never wrote")
+        save_s = []
+        save = tr.ckpt.save
+
+        def timed_save(*a, **kw):
+            t = time.perf_counter()
+            save(*a, **kw)
+            save_s.append(time.perf_counter() - t)
+
+        tr.ckpt.save = timed_save
+        fa_ops.reset_launches()
+        t0 = time.perf_counter()
+        state = tr.run(state)
+        wall = time.perf_counter() - t0
+        launches = dict(fa_ops.launches)
+        log = tr.metrics_log
+        ckpt_bytes = sum(os.path.getsize(os.path.join(r, f))
+                         for r, _, fs in os.walk(ckpt_dir) for f in fs)
+        committed = tr.ckpt.latest_step()
+    finally:
+        shutil.rmtree(ckpt_dir, ignore_errors=True)
+    dts = [r["dt_s"] for r in log]
+    steady = sorted(dts[1:]) or dts
+    ms = steady[len(steady) // 2] * 1e3
+    n_params = sum(p.numel() for p in state.params.parameters())
+    state_bytes = sum(t.numel() * t.element_size() for t in
+                      [*state.params.parameters(), *state.opt.mu.values(),
+                       *state.opt.nu.values()])
+    rec = dict(
+        phase="train", arch=cfg.name, n_layers=cfg.n_layers, d_model=cfg.d_model,
+        n_heads=cfg.n_heads, n_kv_heads=cfg.n_kv_heads, d_ff=cfg.d_ff,
+        padded_vocab=cfg.padded_vocab, dtype=cfg.dtype,
+        reduced=f"n_layers {TRAIN_FULL_LAYERS} -> {cfg.n_layers}",
+        batch=TRAIN_BATCH, seq=TRAIN_SEQ, steps=TRAIN_STEPS, params=n_params,
+        state_bytes=state_bytes, init_s=t_init, wall_s=wall,
+        ms_per_step_median=ms, step_ms=[d * 1e3 for d in dts],
+        tokens_per_s=TRAIN_BATCH * TRAIN_SEQ / (ms / 1e3),
+        losses=[r["loss"] for r in log], grad_norms=[r["grad_norm"] for r in log],
+        peak_mem_bytes=torch.cuda.max_memory_allocated() if on_card else "not measured",
+        save_s=save_s, checkpoint_bytes=ckpt_bytes, checkpoint_step=committed,
+        launches=launches)
+    emit(records, rec)
+    L = cfg.n_layers
+    if on_card and launches != {"flash_attention_fwd": 2 * L * TRAIN_STEPS,
+                                "flash_attention_bwd": L * TRAIN_STEPS}:
+        raise AssertionError(f"flash-attention launches {launches}, expected "
+                             f"forward 2 x {L} x {TRAIN_STEPS}, gradient {L} x {TRAIN_STEPS}")
+    if len(log) != TRAIN_STEPS or not np.isfinite(rec["losses"] + rec["grad_norms"]).all():
+        raise AssertionError(f"losses {rec['losses']}, grad norms {rec['grad_norms']}")
+    if committed != TRAIN_STEPS or not save_s:
+        raise AssertionError(f"the final checkpoint was not committed ({committed})")
+    return tr, state, rec
+
+
+GEMM_NAMES = ("gemm", "nvjet", "xmma", "cutlass")
+
+
+def train_profile(tr, state, records, n_steps=2):
+    """A profiler window over n_steps train steps of the loaded trainer (the
+    pipeline's next batches): device busy and idle share, kernel launches
+    and host syncs per step, the top device kernels, and the flash kernels'
+    share of device time beside the cuBLAS GEMMs'."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.kernels.flash_attention import ops as fa_ops
+    step = int(state.step)
+    batches = [{k: torch.as_tensor(v, device=tr.device)
+                for k, v in tr.pipeline.batch_at(step + i).items()}
+               for i in range(n_steps)]
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for b in batches:
+            state, m = tr._step(state, b)
+            float(m["loss"])
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    dev, host = _device_rows(prof)
+    busy = sum(d for _, d, _ in dev)
+    counts = {k: c for k, _, c in host}
+    flash_names = (KERNEL_FUNCTIONS["flash_attention_fwd"]
+                   + KERNEL_FUNCTIONS["flash_attention_bwd"])
+    flash = sum(d for k, d, _ in dev if any(n in k for n in flash_names))
+    gemm = sum(d for k, d, _ in dev if any(n in k.lower() for n in GEMM_NAMES))
+    rec = dict(
+        phase="train_profile", steps=n_steps, wall_s=wall,
+        ms_per_step=wall / n_steps * 1e3,
+        device_busy_s=busy if dev else "not measured",
+        device_idle_share=(1 - busy / wall) if dev else "not measured",
+        launches_per_step=counts.get("cudaLaunchKernel", 0) / n_steps,
+        stream_syncs_per_step=counts.get("cudaStreamSynchronize", 0) / n_steps,
+        flash_device_s=flash, flash_share=flash / busy if busy else "not measured",
+        gemm_device_s=gemm, gemm_share=gemm / busy if busy else "not measured",
+        flash_kernels=[dict(name=k[:80], s=d, calls=c) for k, d, c in dev
+                       if any(n in k for n in flash_names)],
+        top_device=[dict(name=k[:80], s=d, calls=c) for k, d, c in dev[:12]],
+        top_host=[dict(name=k[:80], self_s=d, calls=c) for k, d, c in host[:12]],
+        launch_counters=dict(fa_ops.launches))
+    emit(records, rec)
+    return state, rec
+
+
+def flash_cases():
+    """(name, BH, G, T, Dh, dtype, causal, window, B) of the flash kernels:
+    the train phase's call first, then the edge cases."""
+    import torch
+    bf, f32 = torch.bfloat16, torch.float32
+    Hkv = 8
+    cases = [("train", TRAIN_BATCH * Hkv, 4, TRAIN_SEQ, 128, bf, True, 0, TRAIN_BATCH),
+             ("train_f32_b1", Hkv, 4, TRAIN_SEQ, 128, f32, True, 0, 1)]
+    # tests/test_kernels.py's shapes (B, Hq, Hkv, T, Dh, causal, window)
+    for i, (B, Hq, hk, T, Dh, causal, window) in enumerate((
+            (2, 4, 2, 256, 64, True, 0), (1, 2, 1, 128, 128, True, 64),
+            (2, 2, 2, 256, 64, False, 0), (1, 8, 1, 512, 64, True, 0))):
+        for dt in (f32, bf):
+            cases.append((f"kernels_{i}_{str(dt)[6:]}", B * hk, Hq // hk, T, Dh, dt,
+                          causal, window, B))
+    cases += [("dh256", 2 * 2, 2, 512, 256, f32, True, 0, 2),
+              ("ragged_t1000", 1 * 8, 4, 1000, 128, bf, True, 0, 1),
+              ("window_edge_in_block", 1 * 8, 4, 1024, 128, f32, True, 100, 1)]
+    return cases
+
+
+def _valid_pairs(T, causal, window):
+    """(query, key) pairs the mask keeps."""
+    i = np.arange(T)[:, None]
+    j = np.arange(T)[None, :]
+    m = np.ones((T, T), bool)
+    if causal:
+        m &= i >= j
+    if window > 0:
+        m &= (i - j) < window
+    return int(m.sum())
+
+
+def flash_bound(BH, G, T, Dh, dtype, causal, window, backward):
+    """Least time of one call on these inputs: the multiply-adds of the
+    pairs the mask keeps (forward: q.k and p.v; gradient: the recomputed
+    q.k, dO.v, p^T dO, dS k and dS^T q, five products) at the dtype's peak,
+    against each input read and each output written once at HBM's rate."""
+    import torch
+    esz = 2 if dtype == torch.bfloat16 else 4
+    pairs = _valid_pairs(T, causal, window) * BH * G
+    flops = (10 if backward else 4) * pairs * Dh
+    q_bytes = BH * G * T * Dh * esz
+    kv_bytes = 2 * BH * T * Dh * esz
+    lse = BH * G * T * 4
+    if backward:    # q, k, v, o, dO, lse in; dq, dk, dv out
+        nbytes = 3 * q_bytes + kv_bytes + lse + q_bytes + kv_bytes
+    else:           # q, k, v in; o, lse out
+        nbytes = q_bytes + kv_bytes + q_bytes + lse
+    peak = PEAK_BF16_FLOPS if dtype == torch.bfloat16 else PEAK_OPS_PER_S
+    t_ops, t_bytes = flops / peak * 1e3, nbytes / PEAK_BYTES_PER_S * 1e3
+    return (max(t_ops, t_bytes), "operations" if t_ops >= t_bytes else "bytes",
+            nbytes, flops)
+
+
+def check_flash_kernels(device, seed, records):
+    """The flash kernels against autograd through their plain version, on
+    the card, in every case: forward within 2e-5 (float32) / 2e-2
+    (bfloat16) of the plain version on the same inputs; gradients within
+    1e-4 (float32, abs and rel) or 2e-2 of the largest reference gradient
+    (bfloat16, the reference run in float32 on the same bfloat16 inputs).
+    Each case is timed beside its bound and scaled_dot_product_attention.
+    Returns the train case's (forward, gradient) summaries."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.kernels.flash_attention import ops as fa_ops, ref as fa_ref
+    dev = torch.device(device)
+    on_card = dev.type == "cuda"
+    g = torch.Generator(device=dev).manual_seed(seed)
+    l2_flush = (torch.empty(L2_FLUSH_BYTES, dtype=torch.uint8, device=dev)
+                if on_card else None)
+    per_case = []
+    for name, BH, G, T, Dh, dt, causal, window, B in flash_cases():
+        q, k, v, do = (torch.randn(s, generator=g, device=dev).to(dt) for s in
+                       ((BH, G, T, Dh), (BH, 1, T, Dh), (BH, 1, T, Dh), (BH, G, T, Dh)))
+        if on_card:
+            o, lse = fa_ops.forward_cuda(q, k, v, causal, window)
+            dq, dk, dv = fa_ops.backward_cuda(q, k, v, o, lse, do, causal, window)
+        else:
+            qkv = [t.clone().requires_grad_(True) for t in (q, k, v)]
+            o = fa_ref.mha_reference(*qkv, causal=causal, window=window)
+            dq, dk, dv = torch.autograd.grad(o, qkv, do)
+            o = o.detach()
+        want = fa_ref.mha_reference(q, k, v, causal=causal, window=window)
+        r = [t.float().requires_grad_(True) for t in (q, k, v)]
+        ref_grads = torch.autograd.grad(
+            fa_ref.mha_reference(*r, causal=causal, window=window), r, do.float())
+        _sync(dev)
+        tol = 2e-5 if dt == torch.float32 else 2e-2
+        err = float((o.float() - want.float()).abs().max())
+        if o.dtype != want.dtype or not torch.allclose(o.float(), want.float(),
+                                                       atol=tol, rtol=tol):
+            raise AssertionError(f"flash_attention_fwd/{name}: max |kernel - plain| "
+                                 f"= {err} beyond atol = rtol = {tol}")
+        gerr = {}
+        for gname, got, ref in zip(("dq", "dk", "dv"), (dq, dk, dv), ref_grads):
+            e = float((got.float() - ref).abs().max())
+            gerr[gname] = e
+            if dt == torch.float32:
+                ok = torch.allclose(got, ref, atol=1e-4, rtol=1e-4)
+            else:
+                ok = e <= 2e-2 * float(ref.abs().max())
+            if got.dtype != dt or not ok:
+                raise AssertionError(f"flash_attention_bwd/{name}: {gname} differs "
+                                     f"from the plain gradient by {e}")
+        rec = dict(case=name, BH=BH, G=G, T=T, Dh=Dh, dtype=str(dt), causal=causal,
+                   window=window, max_abs_err=err, tol=tol, grad_max_abs_err=gerr)
+        del want, r, ref_grads, dq, dk, dv
+        if on_card:
+            fwd = lambda: fa_ops.forward_cuda(q, k, v, causal, window)  # noqa: E731
+            bwd = lambda: fa_ops.backward_cuda(q, k, v, o, lse, do, causal, window)  # noqa: E731
+            reps = 3 if T >= 4096 else 10
+            rec["fwd_ms"] = _time_ms(fwd, reps)
+            rec["fwd_device_ms"] = _device_ms(lambda: (l2_flush.zero_(), fwd()), reps,
+                                              KERNEL_FUNCTIONS["flash_attention_fwd"])
+            rec["bwd_ms"] = _time_ms(bwd, reps)
+            rec["bwd_device_ms"] = _device_ms(lambda: (l2_flush.zero_(), bwd()), reps,
+                                              KERNEL_FUNCTIONS["flash_attention_bwd"])
+            rec["fwd_plain_ms"] = _time_ms(
+                lambda: fa_ref.mha_reference(q, k, v, causal=causal, window=window), 2)
+            rq = [t.clone().requires_grad_(True) for t in (q, k, v)]
+            ro = fa_ref.mha_reference(*rq, causal=causal, window=window)
+            rec["bwd_plain_ms"] = _time_ms(
+                lambda: torch.autograd.grad(ro, rq, do, retain_graph=True), 2)
+            del ro, rq
+            # the library call, in the model layout it would be given
+            Hkv = BH // B
+            lq, lk, lv = (t.reshape(B, -1, T, Dh) for t in (q, k, v))
+            lib = dict(enable_gqa=True)
+            if window > 0:
+                i = torch.arange(T, device=dev)
+                m = (i[:, None] - i[None, :]) < window
+                lib["attn_mask"] = m & (i[:, None] >= i[None, :]) if causal else m
+            else:
+                lib["is_causal"] = causal
+            rec["fwd_library_ms"] = _time_ms(
+                lambda: F.scaled_dot_product_attention(lq, lk, lv, **lib), reps)
+            lt = [t.clone().requires_grad_(True) for t in (lq, lk, lv)]
+            lo = F.scaled_dot_product_attention(*lt, **lib)
+            ldo = do.reshape(B, Hkv * G, T, Dh)
+            rec["bwd_library_ms"] = _time_ms(
+                lambda: torch.autograd.grad(lo, lt, ldo, retain_graph=True), reps)
+            del lo, lt
+            for kind, back in (("fwd", False), ("bwd", True)):
+                b = flash_bound(BH, G, T, Dh, dt, causal, window, back)
+                rec.update({f"{kind}_bound_ms": b[0], f"{kind}_bound_by": b[1],
+                            f"{kind}_bound_bytes": b[2], f"{kind}_bound_flops": b[3]})
+        per_case.append(rec)
+        del q, k, v, do, o
+        if on_card:
+            torch.cuda.empty_cache()
+    emit(records, dict(phase="kernels", kernel="flash_attention", cases=per_case))
+    main = per_case[0]
+
+    def pick(kind):
+        return dict(max_abs_err=main["max_abs_err"] if kind == "fwd"
+                    else max(main["grad_max_abs_err"].values()),
+                    ms=main.get(f"{kind}_ms"), device_ms=main.get(f"{kind}_device_ms"),
+                    plain_ms=main.get(f"{kind}_plain_ms"),
+                    library_ms=main.get(f"{kind}_library_ms"),
+                    bound_ms=main.get(f"{kind}_bound_ms"),
+                    bound_by=main.get(f"{kind}_bound_by"))
+
+    return {"flash_attention_fwd": pick("fwd"), "flash_attention_bwd": pick("bwd")}
+
+
+def _train_twin_model(cfg, device, seed):
+    import torch
+    from repro_torch.models import transformer
+    return transformer.init_params(
+        cfg, torch.Generator(device=device).manual_seed(seed), device)
+
+
+def train_twins(device, seed, records):
+    """The port's loss_fn and its gradients at full width, TWIN_TRAIN_LAYERS
+    deep, in float32, B 1 x T TWIN_TRAIN_SEQ, one set of weights: on the
+    card (the kernels) and on the CPU (the plain versions).  The losses must
+    agree within 1e-4 relative and each gradient leaf within 1e-3 of its
+    largest magnitude."""
+    import torch
+    from repro_torch.models import transformer
+    from repro_torch.train import train_step as ts
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    cfg = dataclasses.replace(train_config(), n_layers=TWIN_TRAIN_LAYERS,
+                              dtype="float32")
+    card = _train_twin_model(cfg, device, seed + 5)
+    cpu = _train_twin_model(cfg, "cpu", 0)
+    cpu.load_state_dict(card.state_dict())
+    toks = np.random.default_rng(seed + 6).integers(
+        0, cfg.vocab_size, (1, TWIN_TRAIN_SEQ + 1)).astype(np.int32)
+    out = {}
+    for where, model in (("card", card), ("cpu", cpu)):
+        params = ts.trainable(model)
+        dev = next(iter(params.values())).device
+        t0 = time.perf_counter()
+        loss = transformer.loss_fn(cfg, model, {"tokens": torch.as_tensor(toks, device=dev)})
+        grads = torch.autograd.grad(loss, list(params.values()))
+        _sync(dev)
+        out[where] = (float(loss.detach()), dict(zip(params, grads)),
+                      time.perf_counter() - t0)
+    (l_card, g_card, s_card), (l_cpu, g_cpu, s_cpu) = out["card"], out["cpu"]
+    worst, worst_name = 0.0, None
+    for n, gc in g_cpu.items():
+        e = float((g_card[n].cpu() - gc).abs().max()) / (float(gc.abs().max()) or 1.0)
+        if e > worst:
+            worst, worst_name = e, n
+    rec = dict(phase="train_twins", arch=cfg.name, n_layers=cfg.n_layers,
+               d_model=cfg.d_model, dtype=cfg.dtype, seq=TWIN_TRAIN_SEQ,
+               loss_card=l_card, loss_cpu=l_cpu,
+               loss_rel_err=abs(l_card - l_cpu) / abs(l_cpu),
+               worst_grad_rel_err=worst, worst_grad_leaf=worst_name,
+               leaves=len(g_cpu), card_s=s_card, cpu_s=s_cpu)
+    emit(records, rec)
+    if not (np.isfinite(l_card) and rec["loss_rel_err"] <= 1e-4):
+        raise AssertionError(f"twin losses {l_card} (card) and {l_cpu} (CPU)")
+    if worst > 1e-3:
+        raise AssertionError(f"gradient {worst_name} differs by {worst} of its "
+                             "largest magnitude")
+    return rec
+
+
+def train_restart(device, records):
+    """tests/test_trainer.py::test_restart_is_bit_exact on the card, at the
+    reduced widths: a run that fails at step 6, restarted from its step-4
+    checkpoint, ends bit-equal to a straight run."""
+    import shutil
+    import tempfile
+    import torch
+    from repro_torch.data.pipeline import TokenPipeline
+    from repro_torch.models.registry import get_config
+    from repro_torch.optim.adamw import AdamWConfig
+    from repro_torch.train.trainer import Trainer, TrainerConfig
+    cfg = get_config(TRAIN_ARCH).reduced()
+    root = tempfile.mkdtemp(prefix="chip_smoke_restart_")
+
+    def mk(d, fail_at=None):
+        return Trainer(cfg, AdamWConfig(lr=1e-3, warmup_steps=3, total_steps=50),
+                       TrainerConfig(total_steps=10, ckpt_every=4,
+                                     ckpt_dir=os.path.join(root, d), log_every=100,
+                                     fail_at_step=fail_at),
+                       TokenPipeline(cfg.vocab_size, batch=8, seq_len=32, seed=7),
+                       device=device)
+
+    try:
+        tr = mk("a", fail_at=6)
+        try:
+            tr.run()
+            raise AssertionError("the injected failure did not fire")
+        except RuntimeError as e:
+            if "injected failure" not in str(e):
+                raise
+        tr.ckpt.wait()
+        restored_from = tr.ckpt.latest_step()
+        state = mk("a").run()
+        straight = mk("b").run()
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    diff = [n for (n, a), (_, b) in zip(state.params.named_parameters(),
+                                        straight.params.named_parameters())
+            if not torch.equal(a, b)]
+    rec = dict(phase="train_restart", arch=cfg.name, restored_from=restored_from,
+               step=int(state.step), leaves=len(list(state.params.parameters())),
+               leaves_differing=diff, bit_exact=not diff)
+    emit(records, rec)
+    if restored_from != 4 or int(state.step) != 10 or diff:
+        raise AssertionError(f"restart not bit-exact: {rec}")
+    return rec
+
+
+# ---------------------------------------------------------------------------
 
 def nvidia_smi_line():
     out = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
@@ -919,6 +1375,10 @@ def main(argv=None):
     ptxas = {k: [ln.strip() for ln in v.splitlines() if "registers" in ln]
              for k, v in build.build_log.items()}
     emit(records, dict(phase="build", seconds=t_build, ptxas=ptxas))
+    # first, while the profiler has recorded nothing else in this process
+    # (see _device_ms) and the card's memory is free for the plain version
+    flash_summary = check_flash_kernels("cuda", SEED, records)
+    torch.cuda.empty_cache()
 
     n_keys = 1 << a.log2_keys
     cfg = make_f2_config(n_keys, engine="fused")
@@ -950,15 +1410,32 @@ def main(argv=None):
     del eng, live
     torch.cuda.empty_cache()
     serve_twins(scfg, "cuda", SEED, records)
+    torch.cuda.empty_cache()
+
+    tr, state, train_rec = train_main(train_config(), "cuda", SEED, records)
+    launches.update(train_rec["launches"])
+    train_profile(tr, state, records)
+    del tr, state
+    torch.cuda.empty_cache()
+    summary.update(flash_summary)
+    train_twins("cuda", SEED, records)
+    torch.cuda.empty_cache()
+    train_restart("cuda", records)
 
     csrc = "src/repro_torch/kernels/{}/csrc/{}.cu"
     src = {"fused_probe": csrc.format("f2_probe", "fused_probe"),
            "fused_write": csrc.format("f2_probe", "fused_write"),
-           "paged_attention": csrc.format("paged_attention", "paged_attention")}
+           "paged_attention": csrc.format("paged_attention", "paged_attention"),
+           "flash_attention_fwd": csrc.format("flash_attention", "flash_attention"),
+           "flash_attention_bwd": csrc.format("flash_attention", "flash_attention")}
+    fa = "src/repro/kernels/flash_attention/flash_attention.py:85"
     replaces = {"fused_probe": "src/repro/kernels/f2_probe/f2_probe.py:160",
                 "fused_write": "src/repro/kernels/f2_probe/f2_probe.py:247",
                 "paged_attention":
-                    "src/repro/kernels/paged_attention/paged_attention.py:97"}
+                    "src/repro/kernels/paged_attention/paged_attention.py:97",
+                "flash_attention_fwd": fa,
+                "flash_attention_bwd": fa + " (its gradient: JAX's autodiff of "
+                                            "src/repro/models/layers.py:109)"}
     kernels = [dict(name=k, route="cuda", source=src[k], replaces=replaces[k],
                     launches=launches[k], max_abs_err=s["max_abs_err"],
                     ms=s["ms"], device_ms=s["device_ms"],

@@ -12,6 +12,10 @@ and the JAX reference package, through plain dicts and numpy arrays.
     the reference's parameter tree (`jax.tree.map(np.asarray, params)`:
     nested dicts, blocks stacked on a leading layer axis) to and from the
     port's `transformer.Transformer`.
+  * `train_state_from_numpy(state, cfg, device)` / `train_state_to_numpy(
+    state)` map the reference's `TrainState` (`jax.tree.map(np.asarray,
+    state)`: the params tree, AdamW's `mu`/`nu`/`err` trees of the same
+    shape, `count` and `step`) to and from the port's `TrainState`.
 
 Every parity test loads one state, or one set of weights, into both
 packages this way.
@@ -28,6 +32,8 @@ from .configs.base import ModelConfig
 from .core import cold_index, hybrid_log, read_cache, store
 from .core.types import IoStats, F2Config
 from .models import layers, transformer
+from .optim import adamw
+from .train import train_step
 
 # port engine name -> the reference's name for the same backend
 ENGINE_TO_REFERENCE = {"unfused": "jnp", "fused_ref": "fused_ref",
@@ -146,9 +152,9 @@ def params_from_numpy(tree, cfg: ModelConfig, device="cpu") -> transformer.Trans
                                    blocks, norm(tree["final_norm"]))
 
 
-def params_to_numpy(model: transformer.Transformer) -> Dict:
-    """The reference's parameter tree (float32 numpy, blocks stacked on a
-    leading layer axis) of the port's model."""
+def _stack_named(items) -> Dict:
+    """The reference's nested tree (blocks stacked on a leading layer axis)
+    from (port parameter name, numpy array) pairs, layers in order."""
     tree: Dict = {}
     stacked: Dict = {}
 
@@ -158,8 +164,7 @@ def params_to_numpy(model: transformer.Transformer) -> Dict:
             node = node.setdefault(k, {})
         node[path[-1]] = a
 
-    for name, p in model.named_parameters():
-        a = p.detach().to("cpu", torch.float32).numpy()
+    for name, a in items:
         parts = name.split(".")
         if parts[0] == "blocks":      # blocks.<l>.<path>, layers in order
             stacked.setdefault(tuple(parts[2:]), []).append(a)
@@ -168,3 +173,92 @@ def params_to_numpy(model: transformer.Transformer) -> Dict:
     for path, arrs in stacked.items():
         put(("blocks",) + path, np.stack(arrs))
     return tree
+
+
+def reference_leaf(tree, name: str):
+    """The reference leaf of a port parameter name (a layer's slice of a
+    stacked block leaf)."""
+    parts = name.split(".")
+    layer = None
+    if parts[0] == "blocks":
+        layer, parts = int(parts[1]), ["blocks"] + parts[2:]
+    node = tree
+    for k in parts:
+        node = node[k]
+    return node if layer is None else node[layer]
+
+
+def _f32(t: torch.Tensor) -> np.ndarray:
+    return t.detach().to("cpu", torch.float32).numpy()
+
+
+def params_to_numpy(model: transformer.Transformer) -> Dict:
+    """The reference's parameter tree (float32 numpy, blocks stacked on a
+    leading layer axis) of the port's model."""
+    return _stack_named((n, _f32(p)) for n, p in model.named_parameters())
+
+
+def _tensor(a, device) -> torch.Tensor:
+    """A tensor of a numpy leaf, bfloat16 where the leaf is (ml_dtypes')
+    bfloat16."""
+    a = np.asarray(a)
+    if a.dtype.name == "bfloat16":
+        return torch.from_numpy(np.array(a, np.float32)).to(device, torch.bfloat16)
+    return torch.from_numpy(np.array(a, copy=True)).to(device)
+
+
+def train_state_from_numpy(state, cfg: ModelConfig, device="cpu") -> train_step.TrainState:
+    """The port's TrainState from the reference's, as numpy leaves.
+    Parameters take the port's dtypes (`params_from_numpy`); the moments
+    and residuals keep the reference's."""
+    params, opt, step = state
+    mu, nu, err, count = opt
+    model = params_from_numpy(params, cfg, device)
+    names = list(train_step.trainable(model))
+    compressed = any(np.asarray(a).size for a in _tree_leaves(err))
+
+    def named(tree):
+        return {n: _tensor(reference_leaf(tree, n), device) for n in names}
+
+    errs = (named(err) if compressed else
+            {n: torch.zeros((0,), dtype=torch.int8, device=device) for n in names})
+    return train_step.TrainState(
+        params=model,
+        opt=adamw.OptState(mu=named(mu), nu=named(nu), err=errs,
+                           count=_tensor(count, device).to(torch.int32)),
+        step=_tensor(step, device).to(torch.int32))
+
+
+def train_state_to_numpy(state: train_step.TrainState) -> Dict:
+    """{"params", "opt": {"mu", "nu", "err", "count"}, "step"} in the
+    reference's tree shapes, float32 where a leaf is bfloat16 (numpy has no
+    bfloat16); `err` leaves are int8 of shape (0,) when compression is off,
+    as the reference's."""
+    opt = state.opt
+    params = params_to_numpy(state.params)
+
+    def tree(d):
+        return _stack_named((n, _f32(t)) for n, t in d.items())
+
+    if all(t.numel() == 0 for t in opt.err.values()):
+        err = _empty_like(params)
+    else:
+        err = tree(opt.err)
+    return {"params": params,
+            "opt": {"mu": tree(opt.mu), "nu": tree(opt.nu), "err": err,
+                    "count": np.asarray(int(opt.count), np.int32)},
+            "step": np.asarray(int(state.step), np.int32)}
+
+
+def _tree_leaves(tree):
+    if isinstance(tree, dict):
+        for v in tree.values():
+            yield from _tree_leaves(v)
+    else:
+        yield tree
+
+
+def _empty_like(tree):
+    if isinstance(tree, dict):
+        return {k: _empty_like(v) for k, v in tree.items()}
+    return np.zeros((0,), np.int8)

@@ -1,0 +1,598 @@
+// Flash attention for Hopper (sm_90a): the causal / windowed GQA forward
+// with an online softmax, and its gradient.
+//
+// Replaces the Pallas TPU kernel src/repro/kernels/flash_attention/
+// flash_attention.py:24-121 (`_fa_kernel`, `flash_attention_fwd`).  The JAX
+// package has no gradient kernel: JAX differentiates the blockwise jnp loop
+// of src/repro/models/layers.py:109 (`flash_attention`), rematerialising the
+// scores per block.  The gradient here computes that derivative.
+//
+// Layout (the TPU kernel's): q, o [BH, G, T, Dh]; k, v [BH, T, Dh] (one KV
+// head per BH row, G query heads sharing it); lse, D [BH, G, T] float32.
+// q, k, v share one dtype, float32 or bfloat16.
+//
+// Forward, one CTA of 256 threads per (bh, g, block of 64 query rows).  The
+// TPU walked a sequential (BH, G, nq, nk) grid and carried m, l and the
+// accumulator in VMEM scratch across the kv axis; here a loop over 64-key
+// blocks inside the CTA carries them: warp w owns query rows 8w..8w+7, and
+// every lane of the warp holds their running max m and sum l (reduced with
+// shuffles) and an 8 x ceil(Dh/32) slice of the float32 accumulator.  Each
+// K/V block is staged in shared memory as float32, once per CTA.
+//   * scores q.k are float32 from float32 or bfloat16 inputs, times Dh^-0.5,
+//     masked to the finite -1e30 (causal: q >= k; window w > 0: q - k < w;
+//     keys past T); p = exp(s - m_new) is rounded to v's dtype before the
+//     p.v product (the TPU kernel's `p.astype(v.dtype)`), l sums p unrounded;
+//     o = acc / max(l, 1e-30) in q's dtype; lse = m + log(l) in float32.
+//   * the loop visits only the kv blocks that the mask leaves non-empty for
+//     some row of the q block.  That cannot change the result: a block that
+//     is empty for a row adds exp(-1e30 - m) = 0 once the row has seen a
+//     valid key, and before that (p = 1 on every masked key, as in the
+//     reference) the first valid block's correction exp(-1e30 - m_new) = 0
+//     clears it.  Every valid row sees at least its own key.
+//   * T need not be a multiple of 64: rows and keys past T are masked and
+//     never written.
+//
+// Gradient (FlashAttention-2's), three launches, no float atomics, so it is
+// deterministic:
+//   1. D = rowsum(dO * O) per query row (one warp per row);
+//   2. dK, dV: one CTA per (bh, block of 32 keys).  It loops over the G
+//      query heads and the 64-row q blocks that see its keys, recomputes
+//      P = exp(s - lse), dP = dO.v, dS = P (dP - D), and sums
+//      dV += P^T dO and dK += scale dS^T Q in registers;
+//   3. dQ: one CTA per (bh, g, block of 32 query rows), looping over the kv
+//      blocks the forward visits: dQ += scale dS K.
+//
+// Bound: operations.  At the training path's shape (B 2, Hkv 8, G 4, T 4096,
+// Dh 128, bf16, causal) the forward does 2.7e11 multiply-add FLOPs on 67 MB
+// of inputs and outputs; 989 TFLOP/s of bf16 tensor-core peak make 0.28 ms.
+// This first version multiplies in float32 on the CUDA cores (67 TFLOP/s
+// peak) from shared-memory tiles, 8 x 2 scores or 8 x 8 accumulator cells
+// per thread; mma/wgmma tiles and TMA are later work.
+//
+// Built by repro_torch/kernels/build.py with nvcc into a shared library with
+// a plain C interface, loaded with ctypes (repro_torch/kernels/
+// flash_attention/ops.py).
+
+#include <cuda_bf16.h>
+#include <cuda_runtime.h>
+#include <stdint.h>
+
+namespace {
+
+constexpr int THREADS = 256;
+constexpr int WARPS = THREADS / 32;
+constexpr int MAX_DH = 256;
+constexpr int NC = MAX_DH / 32;       // accumulator columns per lane
+constexpr float NEG_INF = -1e30f;
+
+constexpr int F_Q = 64;               // forward: query rows per CTA
+constexpr int F_K = 64;               //          keys per block
+constexpr int Q_Q = 32;               // dQ: query rows per CTA
+constexpr int Q_K = 64;               //     keys per block
+constexpr int K_K = 32;               // dK/dV: keys per CTA
+constexpr int K_Q = 64;               //        query rows per block
+constexpr int LDP = 64 + 4;           // row stride of the P / dS tiles
+
+__device__ __forceinline__ float to_f32(float x) { return x; }
+__device__ __forceinline__ float to_f32(__nv_bfloat16 x) { return __bfloat162float(x); }
+
+template <typename T> __device__ __forceinline__ T from_f32(float x);
+template <> __device__ __forceinline__ float from_f32<float>(float x) { return x; }
+template <> __device__ __forceinline__ __nv_bfloat16 from_f32<__nv_bfloat16>(float x) {
+  return __float2bfloat16_rn(x);
+}
+
+// Four consecutive elements (the row start is a multiple of 4 elements and
+// the wrapper checks 16-byte aligned bases) as float32.
+__device__ __forceinline__ float4 load4(const float* p) {
+  return *reinterpret_cast<const float4*>(p);
+}
+__device__ __forceinline__ float4 load4(const __nv_bfloat16* p) {
+  const uint2 u = *reinterpret_cast<const uint2*>(p);
+  const __nv_bfloat162 a = *reinterpret_cast<const __nv_bfloat162*>(&u.x);
+  const __nv_bfloat162 b = *reinterpret_cast<const __nv_bfloat162*>(&u.y);
+  const float2 fa = __bfloat1622float2(a), fb = __bfloat1622float2(b);
+  return make_float4(fa.x, fa.y, fb.x, fb.y);
+}
+
+__device__ __forceinline__ float dot4(float4 a, float4 b, float acc) {
+  acc = fmaf(a.x, b.x, acc);
+  acc = fmaf(a.y, b.y, acc);
+  acc = fmaf(a.z, b.z, acc);
+  return fmaf(a.w, b.w, acc);
+}
+
+__device__ __forceinline__ float warp_max(float x) {
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1) x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, o));
+  return x;
+}
+__device__ __forceinline__ float warp_sum(float x) {
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1) x += __shfl_xor_sync(0xffffffffu, x, o);
+  return x;
+}
+
+struct Mask {
+  int T, causal, window;
+  __device__ __forceinline__ bool ok(int qp, int kp) const {
+    return kp < T && (!causal || qp >= kp) && (window <= 0 || qp - kp < window);
+  }
+  // the keys [lo, hi] that query rows [q_lo, q_hi] can see
+  __device__ __forceinline__ int key_lo(int q_lo) const {
+    return window > 0 ? max(0, q_lo - window + 1) : 0;
+  }
+  __device__ __forceinline__ int key_hi(int q_hi) const { return causal ? q_hi : T - 1; }
+  // the query rows [lo, hi] that can see keys [k_lo, k_hi]
+  __device__ __forceinline__ int query_lo(int k_lo) const { return causal ? k_lo : 0; }
+  __device__ __forceinline__ int query_hi(int k_hi) const {
+    return window > 0 ? min(T - 1, k_hi + window - 1) : T - 1;
+  }
+};
+
+// rows [row0, row0 + rows) of a [T, Dh] matrix into shared memory
+// [rows][ld] as float32, zeros past T
+template <typename T>
+__device__ __forceinline__ void load_tile(float* dst, int ld, const T* src, int row0,
+                                          int rows, int Tn, int Dh) {
+  const int q4 = Dh >> 2;
+  for (int i = threadIdx.x; i < rows * q4; i += THREADS) {
+    const int r = i / q4, c = (i - r * q4) << 2;
+    const int gr = row0 + r;
+    const float4 x = gr < Tn ? load4(src + (size_t)gr * Dh + c) : make_float4(0.f, 0.f, 0.f, 0.f);
+    *reinterpret_cast<float4*>(dst + r * ld + c) = x;
+  }
+}
+
+// ---------------------------------------------------------------------------
+// forward
+// ---------------------------------------------------------------------------
+
+template <typename T>
+__global__ void __launch_bounds__(THREADS)
+fa_forward_kernel(const T* __restrict__ q, const T* __restrict__ k,
+                  const T* __restrict__ v, T* __restrict__ o, float* __restrict__ lse,
+                  int G, int Tn, int Dh, Mask mask, float scale) {
+  extern __shared__ __align__(16) float smem[];
+  const int ld = Dh + 4;
+  float* Qs = smem;                   // [F_Q][ld]
+  float* Ks = Qs + F_Q * ld;          // [F_K][ld]
+  float* Vs = Ks + F_K * ld;          // [F_K][ld]
+  float* Ps = Vs + F_K * ld;          // [F_Q][LDP]  p, rounded to T
+
+  constexpr int R = F_Q / WARPS;      // query rows per warp
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int q0 = blockIdx.x * F_Q, g = blockIdx.y, bh = blockIdx.z;
+  const int r0 = warp * R;
+  const size_t qrow0 = ((size_t)bh * G + g) * Tn;
+  const T* kh = k + (size_t)bh * Tn * Dh;
+  const T* vh = v + (size_t)bh * Tn * Dh;
+
+  load_tile(Qs, ld, q + qrow0 * Dh, q0, F_Q, Tn, Dh);
+
+  float m[R], l[R], acc[R][NC];
+#pragma unroll
+  for (int r = 0; r < R; ++r) {
+    m[r] = NEG_INF;
+    l[r] = 0.f;
+#pragma unroll
+    for (int c = 0; c < NC; ++c) acc[r][c] = 0.f;
+  }
+
+  const int q_hi = min(q0 + F_Q, Tn) - 1;
+  const int kb0 = mask.key_lo(q0) / F_K, kb1 = mask.key_hi(q_hi) / F_K;
+  for (int kb = kb0; kb <= kb1; ++kb) {
+    const int k0 = kb * F_K;
+    __syncthreads();                  // the previous block's K/V are consumed
+    load_tile(Ks, ld, kh, k0, F_K, Tn, Dh);
+    load_tile(Vs, ld, vh, k0, F_K, Tn, Dh);
+    __syncthreads();
+
+    float s[R][2];
+#pragma unroll
+    for (int r = 0; r < R; ++r) s[r][0] = s[r][1] = 0.f;
+    for (int d = 0; d < Dh; d += 4) {
+      const float4 ka = load4(Ks + lane * ld + d);
+      const float4 kc = load4(Ks + (lane + 32) * ld + d);
+#pragma unroll
+      for (int r = 0; r < R; ++r) {
+        const float4 qv = load4(Qs + (r0 + r) * ld + d);
+        s[r][0] = dot4(qv, ka, s[r][0]);
+        s[r][1] = dot4(qv, kc, s[r][1]);
+      }
+    }
+
+    float corr[R];
+#pragma unroll
+    for (int r = 0; r < R; ++r) {
+      const int qp = q0 + r0 + r;
+#pragma unroll
+      for (int j = 0; j < 2; ++j)
+        s[r][j] = mask.ok(qp, k0 + lane + 32 * j) ? s[r][j] * scale : NEG_INF;
+      const float m_new = fmaxf(m[r], warp_max(fmaxf(s[r][0], s[r][1])));
+      const float p0 = expf(s[r][0] - m_new), p1 = expf(s[r][1] - m_new);
+      corr[r] = expf(m[r] - m_new);
+      l[r] = l[r] * corr[r] + warp_sum(p0 + p1);
+      m[r] = m_new;
+      Ps[(r0 + r) * LDP + lane] = to_f32(from_f32<T>(p0));
+      Ps[(r0 + r) * LDP + lane + 32] = to_f32(from_f32<T>(p1));
+    }
+    __syncwarp();
+
+#pragma unroll
+    for (int r = 0; r < R; ++r)
+#pragma unroll
+      for (int c = 0; c < NC; ++c) acc[r][c] *= corr[r];
+    for (int j = 0; j < F_K; j += 4) {
+      float4 pr[R];
+#pragma unroll
+      for (int r = 0; r < R; ++r) pr[r] = load4(Ps + (r0 + r) * LDP + j);
+#pragma unroll
+      for (int c = 0; c < NC; ++c) {
+        const int d = lane + 32 * c;
+        if (d < Dh) {
+          const float v0 = Vs[j * ld + d], v1 = Vs[(j + 1) * ld + d];
+          const float v2 = Vs[(j + 2) * ld + d], v3 = Vs[(j + 3) * ld + d];
+#pragma unroll
+          for (int r = 0; r < R; ++r)
+            acc[r][c] = dot4(pr[r], make_float4(v0, v1, v2, v3), acc[r][c]);
+        }
+      }
+    }
+  }
+
+#pragma unroll
+  for (int r = 0; r < R; ++r) {
+    const int qp = q0 + r0 + r;
+    if (qp >= Tn) continue;
+    const float den = fmaxf(l[r], 1e-30f);
+    T* orow = o + (qrow0 + qp) * Dh;
+#pragma unroll
+    for (int c = 0; c < NC; ++c) {
+      const int d = lane + 32 * c;
+      if (d < Dh) orow[d] = from_f32<T>(acc[r][c] / den);
+    }
+    if (lane == 0) lse[qrow0 + qp] = m[r] + logf(l[r]);
+  }
+}
+
+// ---------------------------------------------------------------------------
+// gradient
+// ---------------------------------------------------------------------------
+
+// D[row] = sum_d dO[row, d] * O[row, d], one warp per row
+template <typename T>
+__global__ void __launch_bounds__(THREADS)
+fa_rowdot_kernel(const T* __restrict__ dout, const T* __restrict__ out,
+                 float* __restrict__ D, long long rows, int Dh) {
+  const long long row = (long long)blockIdx.x * WARPS + (threadIdx.x >> 5);
+  const int lane = threadIdx.x & 31;
+  if (row >= rows) return;
+  const T* a = dout + row * Dh;
+  const T* b = out + row * Dh;
+  float acc = 0.f;
+  for (int d = lane; d < Dh; d += 32) acc = fmaf(to_f32(a[d]), to_f32(b[d]), acc);
+  acc = warp_sum(acc);
+  if (lane == 0) D[row] = acc;
+}
+
+template <typename T>
+__global__ void __launch_bounds__(THREADS)
+fa_dq_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
+             const T* __restrict__ dout, const float* __restrict__ lse,
+             const float* __restrict__ D, T* __restrict__ dq, int G, int Tn, int Dh,
+             Mask mask, float scale) {
+  extern __shared__ __align__(16) float smem[];
+  const int ld = Dh + 4;
+  float* Qs = smem;                   // [Q_Q][ld]
+  float* dOs = Qs + Q_Q * ld;         // [Q_Q][ld]
+  float* Ks = dOs + Q_Q * ld;         // [Q_K][ld]
+  float* Vs = Ks + Q_K * ld;          // [Q_K][ld]
+  float* dSs = Vs + Q_K * ld;         // [Q_Q][LDP]
+
+  constexpr int R = Q_Q / WARPS;
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int q0 = blockIdx.x * Q_Q, g = blockIdx.y, bh = blockIdx.z;
+  const int r0 = warp * R;
+  const size_t qrow0 = ((size_t)bh * G + g) * Tn;
+  const T* kh = k + (size_t)bh * Tn * Dh;
+  const T* vh = v + (size_t)bh * Tn * Dh;
+
+  load_tile(Qs, ld, q + qrow0 * Dh, q0, Q_Q, Tn, Dh);
+  load_tile(dOs, ld, dout + qrow0 * Dh, q0, Q_Q, Tn, Dh);
+  float lse_r[R], d_r[R], acc[R][NC];
+#pragma unroll
+  for (int r = 0; r < R; ++r) {
+    const int qp = min(q0 + r0 + r, Tn - 1);
+    lse_r[r] = lse[qrow0 + qp];
+    d_r[r] = D[qrow0 + qp];
+#pragma unroll
+    for (int c = 0; c < NC; ++c) acc[r][c] = 0.f;
+  }
+
+  const int q_hi = min(q0 + Q_Q, Tn) - 1;
+  const int kb0 = mask.key_lo(q0) / Q_K, kb1 = mask.key_hi(q_hi) / Q_K;
+  for (int kb = kb0; kb <= kb1; ++kb) {
+    const int k0 = kb * Q_K;
+    __syncthreads();
+    load_tile(Ks, ld, kh, k0, Q_K, Tn, Dh);
+    load_tile(Vs, ld, vh, k0, Q_K, Tn, Dh);
+    __syncthreads();
+
+    float s[R][2], dp[R][2];
+#pragma unroll
+    for (int r = 0; r < R; ++r) s[r][0] = s[r][1] = dp[r][0] = dp[r][1] = 0.f;
+    for (int d = 0; d < Dh; d += 4) {
+      const float4 ka = load4(Ks + lane * ld + d), kc = load4(Ks + (lane + 32) * ld + d);
+      const float4 va = load4(Vs + lane * ld + d), vc = load4(Vs + (lane + 32) * ld + d);
+#pragma unroll
+      for (int r = 0; r < R; ++r) {
+        const float4 qv = load4(Qs + (r0 + r) * ld + d);
+        const float4 gv = load4(dOs + (r0 + r) * ld + d);
+        s[r][0] = dot4(qv, ka, s[r][0]);
+        s[r][1] = dot4(qv, kc, s[r][1]);
+        dp[r][0] = dot4(gv, va, dp[r][0]);
+        dp[r][1] = dot4(gv, vc, dp[r][1]);
+      }
+    }
+#pragma unroll
+    for (int r = 0; r < R; ++r) {
+      const int qp = q0 + r0 + r;
+#pragma unroll
+      for (int j = 0; j < 2; ++j) {
+        const int kp = k0 + lane + 32 * j;
+        const float p = mask.ok(qp, kp) ? expf(s[r][j] * scale - lse_r[r]) : 0.f;
+        dSs[(r0 + r) * LDP + lane + 32 * j] = p * (dp[r][j] - d_r[r]);
+      }
+    }
+    __syncwarp();
+    for (int j = 0; j < Q_K; j += 4) {
+      float4 ds[R];
+#pragma unroll
+      for (int r = 0; r < R; ++r) ds[r] = load4(dSs + (r0 + r) * LDP + j);
+#pragma unroll
+      for (int c = 0; c < NC; ++c) {
+        const int d = lane + 32 * c;
+        if (d < Dh) {
+          const float4 kv = make_float4(Ks[j * ld + d], Ks[(j + 1) * ld + d],
+                                        Ks[(j + 2) * ld + d], Ks[(j + 3) * ld + d]);
+#pragma unroll
+          for (int r = 0; r < R; ++r) acc[r][c] = dot4(ds[r], kv, acc[r][c]);
+        }
+      }
+    }
+  }
+
+#pragma unroll
+  for (int r = 0; r < R; ++r) {
+    const int qp = q0 + r0 + r;
+    if (qp >= Tn) continue;
+    T* row = dq + (qrow0 + qp) * Dh;
+#pragma unroll
+    for (int c = 0; c < NC; ++c) {
+      const int d = lane + 32 * c;
+      if (d < Dh) row[d] = from_f32<T>(acc[r][c] * scale);
+    }
+  }
+}
+
+template <typename T>
+__global__ void __launch_bounds__(THREADS)
+fa_dkdv_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
+               const T* __restrict__ dout, const float* __restrict__ lse,
+               const float* __restrict__ D, T* __restrict__ dk, T* __restrict__ dv,
+               int G, int Tn, int Dh, Mask mask, float scale) {
+  extern __shared__ __align__(16) float smem[];
+  const int ld = Dh + 4;
+  float* Ks = smem;                   // [K_K][ld]
+  float* Vs = Ks + K_K * ld;          // [K_K][ld]
+  float* Qs = Vs + K_K * ld;          // [K_Q][ld]
+  float* dOs = Qs + K_Q * ld;         // [K_Q][ld]
+  float* Ps = dOs + K_Q * ld;         // [K_K][LDP]  P^T
+  float* dSs = Ps + K_K * LDP;        // [K_K][LDP]  dS^T
+  float* lse_s = dSs + K_K * LDP;     // [K_Q]
+  float* D_s = lse_s + K_Q;           // [K_Q]
+
+  constexpr int R = K_K / WARPS;      // key rows per warp
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int k0 = blockIdx.x * K_K, bh = blockIdx.y;
+  const int r0 = warp * R;
+  const size_t krow0 = (size_t)bh * Tn;
+
+  load_tile(Ks, ld, k + krow0 * Dh, k0, K_K, Tn, Dh);
+  load_tile(Vs, ld, v + krow0 * Dh, k0, K_K, Tn, Dh);
+  float dkacc[R][NC], dvacc[R][NC];
+#pragma unroll
+  for (int r = 0; r < R; ++r)
+#pragma unroll
+    for (int c = 0; c < NC; ++c) dkacc[r][c] = dvacc[r][c] = 0.f;
+
+  const int k_hi = min(k0 + K_K, Tn) - 1;
+  const int qb0 = mask.query_lo(k0) / K_Q, qb1 = mask.query_hi(k_hi) / K_Q;
+  for (int g = 0; g < G; ++g) {
+    const size_t qrow0 = ((size_t)bh * G + g) * Tn;
+    for (int qb = qb0; qb <= qb1; ++qb) {
+      const int q0 = qb * K_Q;
+      __syncthreads();
+      load_tile(Qs, ld, q + qrow0 * Dh, q0, K_Q, Tn, Dh);
+      load_tile(dOs, ld, dout + qrow0 * Dh, q0, K_Q, Tn, Dh);
+      if (threadIdx.x < K_Q) {
+        const int qp = min(q0 + (int)threadIdx.x, Tn - 1);
+        lse_s[threadIdx.x] = lse[qrow0 + qp];
+        D_s[threadIdx.x] = D[qrow0 + qp];
+      }
+      __syncthreads();
+
+      // s^T[key r][query i] = k_r . q_i; dp^T[r][i] = v_r . dO_i, for the
+      // queries i = lane and lane + 32
+      float s[R][2], dp[R][2];
+#pragma unroll
+      for (int r = 0; r < R; ++r) s[r][0] = s[r][1] = dp[r][0] = dp[r][1] = 0.f;
+      for (int d = 0; d < Dh; d += 4) {
+        const float4 qa = load4(Qs + lane * ld + d), qc = load4(Qs + (lane + 32) * ld + d);
+        const float4 ga = load4(dOs + lane * ld + d), gc = load4(dOs + (lane + 32) * ld + d);
+#pragma unroll
+        for (int r = 0; r < R; ++r) {
+          const float4 kv = load4(Ks + (r0 + r) * ld + d);
+          const float4 vv = load4(Vs + (r0 + r) * ld + d);
+          s[r][0] = dot4(kv, qa, s[r][0]);
+          s[r][1] = dot4(kv, qc, s[r][1]);
+          dp[r][0] = dot4(vv, ga, dp[r][0]);
+          dp[r][1] = dot4(vv, gc, dp[r][1]);
+        }
+      }
+#pragma unroll
+      for (int r = 0; r < R; ++r) {
+        const int kp = k0 + r0 + r;
+#pragma unroll
+        for (int j = 0; j < 2; ++j) {
+          const int i = lane + 32 * j;
+          const int qp = q0 + i;
+          const float p = (qp < Tn && mask.ok(qp, kp))
+                              ? expf(s[r][j] * scale - lse_s[i]) : 0.f;
+          Ps[(r0 + r) * LDP + i] = p;
+          dSs[(r0 + r) * LDP + i] = p * (dp[r][j] - D_s[i]);
+        }
+      }
+      __syncwarp();
+      for (int i = 0; i < K_Q; i += 4) {
+        float4 pr[R], ds[R];
+#pragma unroll
+        for (int r = 0; r < R; ++r) {
+          pr[r] = load4(Ps + (r0 + r) * LDP + i);
+          ds[r] = load4(dSs + (r0 + r) * LDP + i);
+        }
+#pragma unroll
+        for (int c = 0; c < NC; ++c) {
+          const int d = lane + 32 * c;
+          if (d < Dh) {
+            const float4 gv = make_float4(dOs[i * ld + d], dOs[(i + 1) * ld + d],
+                                          dOs[(i + 2) * ld + d], dOs[(i + 3) * ld + d]);
+            const float4 qv = make_float4(Qs[i * ld + d], Qs[(i + 1) * ld + d],
+                                          Qs[(i + 2) * ld + d], Qs[(i + 3) * ld + d]);
+#pragma unroll
+            for (int r = 0; r < R; ++r) {
+              dvacc[r][c] = dot4(pr[r], gv, dvacc[r][c]);
+              dkacc[r][c] = dot4(ds[r], qv, dkacc[r][c]);
+            }
+          }
+        }
+      }
+    }
+  }
+
+#pragma unroll
+  for (int r = 0; r < R; ++r) {
+    const int kp = k0 + r0 + r;
+    if (kp >= Tn) continue;
+    T* krow = dk + (krow0 + kp) * Dh;
+    T* vrow = dv + (krow0 + kp) * Dh;
+#pragma unroll
+    for (int c = 0; c < NC; ++c) {
+      const int d = lane + 32 * c;
+      if (d < Dh) {
+        krow[d] = from_f32<T>(dkacc[r][c] * scale);
+        vrow[d] = from_f32<T>(dvacc[r][c]);
+      }
+    }
+  }
+}
+
+// ---------------------------------------------------------------------------
+// launchers
+// ---------------------------------------------------------------------------
+
+template <typename K>
+cudaError_t set_smem(K kern, size_t bytes) {
+  if (bytes <= 48 * 1024) return cudaSuccess;
+  return cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
+}
+
+size_t fwd_smem(int Dh) { return sizeof(float) * ((size_t)(F_Q + 2 * F_K) * (Dh + 4) + F_Q * LDP); }
+size_t dq_smem(int Dh) { return sizeof(float) * ((size_t)(2 * Q_Q + 2 * Q_K) * (Dh + 4) + Q_Q * LDP); }
+size_t dkdv_smem(int Dh) {
+  return sizeof(float) * ((size_t)(2 * K_K + 2 * K_Q) * (Dh + 4) + 2 * K_K * LDP + 2 * K_Q);
+}
+
+template <typename T>
+cudaError_t forward(const void* q, const void* k, const void* v, void* o, float* lse,
+                    int BH, int G, int Tn, int Dh, Mask mask, float scale, cudaStream_t st) {
+  auto kern = fa_forward_kernel<T>;
+  const size_t smem = fwd_smem(Dh);
+  cudaError_t e = set_smem(kern, smem);
+  if (e != cudaSuccess) return e;
+  dim3 grid((Tn + F_Q - 1) / F_Q, G, BH);
+  kern<<<grid, THREADS, smem, st>>>(static_cast<const T*>(q), static_cast<const T*>(k),
+                                    static_cast<const T*>(v), static_cast<T*>(o), lse, G,
+                                    Tn, Dh, mask, scale);
+  return cudaGetLastError();
+}
+
+template <typename T>
+cudaError_t backward(const void* q, const void* k, const void* v, const void* o,
+                     const float* lse, const void* dout, void* dq, void* dk, void* dv,
+                     float* D, int BH, int G, int Tn, int Dh, Mask mask, float scale,
+                     cudaStream_t st) {
+  const T* qt = static_cast<const T*>(q);
+  const T* kt = static_cast<const T*>(k);
+  const T* vt = static_cast<const T*>(v);
+  const T* gt = static_cast<const T*>(dout);
+  const long long rows = (long long)BH * G * Tn;
+  fa_rowdot_kernel<T><<<(unsigned)((rows + WARPS - 1) / WARPS), THREADS, 0, st>>>(
+      gt, static_cast<const T*>(o), D, rows, Dh);
+  cudaError_t e = cudaGetLastError();
+  if (e != cudaSuccess) return e;
+
+  auto kkv = fa_dkdv_kernel<T>;
+  size_t smem = dkdv_smem(Dh);
+  if ((e = set_smem(kkv, smem)) != cudaSuccess) return e;
+  kkv<<<dim3((Tn + K_K - 1) / K_K, BH), THREADS, smem, st>>>(
+      qt, kt, vt, gt, lse, D, static_cast<T*>(dk), static_cast<T*>(dv), G, Tn, Dh, mask,
+      scale);
+  if ((e = cudaGetLastError()) != cudaSuccess) return e;
+
+  auto kq = fa_dq_kernel<T>;
+  smem = dq_smem(Dh);
+  if ((e = set_smem(kq, smem)) != cudaSuccess) return e;
+  kq<<<dim3((Tn + Q_Q - 1) / Q_Q, G, BH), THREADS, smem, st>>>(
+      qt, kt, vt, gt, lse, D, static_cast<T*>(dq), G, Tn, Dh, mask, scale);
+  return cudaGetLastError();
+}
+
+bool bad_shape(int BH, int G, int Tn, int Dh, int dtype) {
+  return BH < 1 || BH > 65535 || G < 1 || G > 65535 || Tn < 1 || Dh < 4 || Dh > MAX_DH ||
+         (Dh & 3) != 0 || dtype < 0 || dtype > 1;
+}
+
+}  // namespace
+
+// dtype: 0 float32, 1 bfloat16 (q, k, v, o and the gradients share it);
+// causal 0/1; window <= 0 means none; scale is Dh^-0.5 rounded to float32.
+// Returns 0 or a cudaError_t.
+extern "C" int fa_forward(const void* q, const void* k, const void* v, void* o, void* lse,
+                          int BH, int G, int T, int Dh, int dtype, int causal, int window,
+                          float scale, void* stream) {
+  if (bad_shape(BH, G, T, Dh, dtype)) return (int)cudaErrorInvalidValue;
+  const Mask mask{T, causal, window};
+  float* l = static_cast<float*>(lse);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  return (int)(dtype == 0 ? forward<float>(q, k, v, o, l, BH, G, T, Dh, mask, scale, s)
+                          : forward<__nv_bfloat16>(q, k, v, o, l, BH, G, T, Dh, mask, scale, s));
+}
+
+// D is float32 scratch of BH * G * T elements.
+extern "C" int fa_backward(const void* q, const void* k, const void* v, const void* o,
+                           const void* lse, const void* dout, void* dq, void* dk, void* dv,
+                           void* D, int BH, int G, int T, int Dh, int dtype, int causal,
+                           int window, float scale, void* stream) {
+  if (bad_shape(BH, G, T, Dh, dtype)) return (int)cudaErrorInvalidValue;
+  const Mask mask{T, causal, window};
+  const float* l = static_cast<const float*>(lse);
+  float* d = static_cast<float*>(D);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  return (int)(dtype == 0
+                   ? backward<float>(q, k, v, o, l, dout, dq, dk, dv, d, BH, G, T, Dh, mask,
+                                     scale, s)
+                   : backward<__nv_bfloat16>(q, k, v, o, l, dout, dq, dk, dv, d, BH, G, T,
+                                             Dh, mask, scale, s));
+}

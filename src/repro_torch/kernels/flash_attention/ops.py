@@ -1,0 +1,168 @@
+"""Wrappers of the flash-attention CUDA kernels, forward and gradient.
+
+`flash_attention(q, k, v, causal, window)` takes the model's layout (q
+[B, Hq, T, Dh], k/v [B, Hkv, T, Dh]) and is differentiable.  For tensors on
+the CPU it runs the plain version in `ref.py` (autograd through it is the
+plain gradient); for CUDA tensors it runs `flash_attention_cuda`, a
+`torch.autograd.Function` whose forward launches the forward kernel and
+saves q, k, v, o and the row log-sum-exp, and whose backward launches the
+gradient kernels; any other device raises.
+
+`flash_attention_cuda` takes the kernels' layout (q [BH, G, T, Dh], k/v
+[BH, 1, T, Dh]) and raises for tensors that are not on a CUDA device.  The
+kernels take float32 or bfloat16 (one dtype for q, k and v), contiguous
+tensors with 16-byte aligned storage, 4 <= Dh <= 256 with Dh % 4 == 0, and
+G <= 16.  `launches` counts the kernel calls: "flash_attention_fwd" one per
+forward, "flash_attention_bwd" one per gradient (a call launches three CUDA
+kernels: the dO.O row pre-pass, dK/dV, dQ).
+"""
+from __future__ import annotations
+
+import ctypes
+from typing import Dict
+
+import torch
+
+from .. import build
+from .ref import mha_reference
+
+launches: Dict[str, int] = {"flash_attention_fwd": 0, "flash_attention_bwd": 0}
+MAX_GROUP = 16
+MAX_HEAD_DIM = 256
+_DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
+
+
+def reset_launches() -> None:
+    for k in launches:
+        launches[k] = 0
+
+
+def _lib():
+    lib = build.load("flash_attention")
+    if lib.fa_forward.argtypes is None:
+        P, I = ctypes.c_void_p, ctypes.c_int
+        lib.fa_forward.argtypes = [P] * 5 + [I] * 7 + [ctypes.c_float, P]
+        lib.fa_forward.restype = I
+        lib.fa_backward.argtypes = [P] * 10 + [I] * 7 + [ctypes.c_float, P]
+        lib.fa_backward.restype = I
+    return lib
+
+
+def _check(q, k, v, name):
+    dev = q.device
+    if dev.type != "cuda":
+        raise ValueError(f"{name}: q is on {dev}; the kernel needs CUDA tensors")
+    if q.dtype not in _DTYPE_CODE:
+        raise TypeError(f"{name}: dtype {q.dtype}; the kernel takes float32 or bfloat16")
+    if q.dim() != 4 or k.dim() != 4:
+        raise ValueError(f"{name}: q {tuple(q.shape)}, k {tuple(k.shape)}; "
+                         "expected [BH, G, T, Dh] and [BH, 1, T, Dh]")
+    BH, G, T, Dh = q.shape
+    if not 1 <= G <= MAX_GROUP:
+        raise ValueError(f"{name}: G={G} (max {MAX_GROUP})")
+    if not (4 <= Dh <= MAX_HEAD_DIM and Dh % 4 == 0):
+        raise ValueError(f"{name}: Dh={Dh} (a multiple of 4, at most {MAX_HEAD_DIM})")
+    if BH < 1 or BH > 65535 or T < 1:
+        raise ValueError(f"{name}: BH={BH} (1..65535), T={T}")
+    for n, t in (("k", k), ("v", v)):
+        if t.dtype != q.dtype:
+            raise TypeError(f"{name}: {n} is {t.dtype}, q is {q.dtype}")
+        if tuple(t.shape) != (BH, 1, T, Dh):
+            raise ValueError(f"{name}: {n} {tuple(t.shape)}, expected {(BH, 1, T, Dh)}")
+    for n, t in (("q", q), ("k", k), ("v", v)):
+        if t.device != dev:
+            raise ValueError(f"{name}: {n} on {t.device}, q on {dev}")
+        if not t.is_contiguous():
+            raise ValueError(f"{name}: {n} is not contiguous")
+        if t.data_ptr() % 16:
+            raise ValueError(f"{name}: {n} storage is not 16-byte aligned")
+    return BH, G, T, Dh
+
+
+def _stream(dev):
+    return torch.cuda.current_stream(dev).cuda_stream
+
+
+def forward_cuda(q, k, v, causal: bool, window: int):
+    """The forward kernel: (o [BH, G, T, Dh] in q's dtype, lse [BH, G, T]
+    float32)."""
+    BH, G, T, Dh = _check(q, k, v, "flash_attention_fwd")
+    o = torch.empty_like(q)
+    lse = torch.empty((BH, G, T), dtype=torch.float32, device=q.device)
+    err = _lib().fa_forward(q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
+                            lse.data_ptr(), BH, G, T, Dh, _DTYPE_CODE[q.dtype],
+                            int(causal), int(window), Dh ** -0.5, _stream(q.device))
+    if err != 0:
+        raise RuntimeError(f"flash_attention_fwd: CUDA error {err} at launch")
+    launches["flash_attention_fwd"] += 1
+    return o, lse
+
+
+def backward_cuda(q, k, v, o, lse, do, causal: bool, window: int):
+    """The gradient kernels: (dq, dk, dv) in the inputs' dtype."""
+    BH, G, T, Dh = _check(q, k, v, "flash_attention_bwd")
+    for n, t, shape, dt in (("o", o, q.shape, q.dtype), ("do", do, q.shape, q.dtype),
+                            ("lse", lse, (BH, G, T), torch.float32)):
+        if t.dtype != dt or tuple(t.shape) != tuple(shape) or t.device != q.device:
+            raise ValueError(f"flash_attention_bwd: {n} {t.dtype} {tuple(t.shape)} "
+                             f"on {t.device}, expected {dt} {tuple(shape)}")
+        if not t.is_contiguous() or t.data_ptr() % 16:
+            raise ValueError(f"flash_attention_bwd: {n} is not contiguous and aligned")
+    dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
+    scratch = torch.empty((BH, G, T), dtype=torch.float32, device=q.device)
+    err = _lib().fa_backward(q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
+                             lse.data_ptr(), do.data_ptr(), dq.data_ptr(), dk.data_ptr(),
+                             dv.data_ptr(), scratch.data_ptr(), BH, G, T, Dh,
+                             _DTYPE_CODE[q.dtype], int(causal), int(window), Dh ** -0.5,
+                             _stream(q.device))
+    if err != 0:
+        raise RuntimeError(f"flash_attention_bwd: CUDA error {err} at launch")
+    launches["flash_attention_bwd"] += 1
+    return dq, dk, dv
+
+
+class _FlashAttention(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, q, k, v, causal, window):
+        o, lse = forward_cuda(q, k, v, causal, window)
+        ctx.save_for_backward(q, k, v, o, lse)
+        ctx.causal, ctx.window = causal, window
+        return o
+
+    @staticmethod
+    def backward(ctx, do):
+        q, k, v, o, lse = ctx.saved_tensors
+        dq, dk, dv = backward_cuda(q, k, v, o, lse, do.contiguous(), ctx.causal,
+                                   ctx.window)
+        return dq, dk, dv, None, None
+
+
+def flash_attention_cuda(q, k, v, causal: bool = True, window: int = 0):
+    """The kernels, forced: q [BH, G, T, Dh], k/v [BH, 1, T, Dh] on a CUDA
+    device -> [BH, G, T, Dh], differentiable through the gradient kernels."""
+    if q.device.type != "cuda":
+        raise ValueError(f"flash_attention_cuda: q is on {q.device}; the kernel "
+                         "needs CUDA tensors")
+    return _FlashAttention.apply(q, k, v, bool(causal), int(window))
+
+
+def flash_attention(q, k, v, causal: bool = True, window: int = 0):
+    """Model layout: q [B, Hq, T, Dh], k/v [B, Hkv, T, Dh] -> [B, Hq, T, Dh]
+    (query head h uses KV head h // (Hq / Hkv)); window <= 0 means none."""
+    B, Hq, T, Dh = q.shape
+    Hkv = k.shape[1]
+    if Hq % Hkv or tuple(k.shape) != (B, Hkv, T, Dh) or v.shape != k.shape:
+        raise ValueError(f"flash_attention: q {tuple(q.shape)}, k {tuple(k.shape)}, "
+                         f"v {tuple(v.shape)}")
+    qr = q.reshape(B * Hkv, Hq // Hkv, T, Dh)
+    kr = k.reshape(B * Hkv, 1, T, Dh)
+    vr = v.reshape(B * Hkv, 1, T, Dh)
+    dev = q.device
+    if dev.type == "cpu":
+        out = mha_reference(qr, kr, vr, causal=causal, window=int(window))
+    elif dev.type == "cuda":
+        out = flash_attention_cuda(qr.contiguous(), kr.contiguous(), vr.contiguous(),
+                                   causal, int(window))
+    else:
+        raise ValueError(f"flash_attention: no kernel for device {dev}")
+    return out.reshape(B, Hq, T, Dh)

@@ -1,6 +1,8 @@
-"""Transformer layers of the decode path: norms, RoPE, GQA projections,
-single-token attention over a dense cache, gated MLPs, embeddings and
-logits, with the parameter containers (`nn.Module`s) they read.
+"""Transformer layers: norms, RoPE, GQA projections, full-sequence
+attention (the flash-attention kernels) and single-token attention over a
+dense cache, gated MLPs, embeddings and logits, with the parameter
+containers (`nn.Module`s) they read.  The full-sequence functions are
+differentiable: the training path takes gradients through them.
 
 Each function computes what the JAX package's `models/layers.py` function
 of the same name computes, on PyTorch tensors.  Parameters are modules
@@ -23,6 +25,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from ..configs.base import ModelConfig
+from ..kernels.flash_attention import ops as fa_ops
 
 NEG_INF = -1e30
 
@@ -158,7 +161,7 @@ def project_qkv(cfg: ModelConfig, p: Attention, x, positions, use_rope=True,
                 tables=None):
     """x: [B,T,D] -> q [B,Hq,T,Dh], k/v [B,Hkv,T,Dh] with RoPE applied.
     `tables`, if given, are `rope_tables(positions[:, None, :], ...)`, made
-    once for all layers by a caller that decodes every layer at the same
+    once for all layers by a caller that runs every layer at the same
     positions."""
     q, k, v = _heads(x, p.wq), _heads(x, p.wk), _heads(x, p.wv)
     if cfg.qk_norm:
@@ -171,6 +174,22 @@ def project_qkv(cfg: ModelConfig, p: Attention, x, positions, use_rope=True,
         q, k = apply_rope(torch.cat([q, k], dim=1), tables).split(
             [q.shape[1], k.shape[1]], dim=1)
     return q, k, v
+
+
+def flash_attention(q, k, v, *, causal: bool = True, window=None):
+    """Full-sequence GQA attention: q [B,Hq,T,Dh], k/v [B,Hkv,T,Dh] ->
+    [B,Hq,T,Dh]; window None or <= 0 means unlimited.  The flash-attention
+    kernels on a CUDA device, their plain version on the CPU.  (The
+    reference's `cross` and ragged-Tk branches serve the audio and vlm
+    families, which are not ported.)"""
+    w = 0 if window is None else int(window)
+    return fa_ops.flash_attention(q, k, v, causal=causal, window=max(w, 0))
+
+
+def attn_out(p: Attention, attn, dtype):
+    """einsum("bhtk,hkd->btd", attn, wo) as one matmul: attn [B,Hq,T,Dh]."""
+    B, H, T, K = attn.shape
+    return attn.transpose(1, 2).reshape(B, T, H * K) @ p.wo.to(dtype).reshape(H * K, -1)
 
 
 def decode_attention(q, k_cache, v_cache, cache_len, *, window=None):

@@ -6,18 +6,22 @@ The module tree keeps the JAX reference's parameter names:
 an `nn.ModuleList` walked by a Python loop where the reference scans over
 stacked blocks.
 
-Exposes `layer_flags`, `init_params`, `init_cache` and `decode_step` (the
-contiguous-cache backend of the serving engine).  The other families (moe,
-ssm, hybrid, audio, vlm) and the full-sequence `forward` are not ported
-yet (ROADMAP queue 1, item 14): asking for them raises
-`NotImplementedError`.
+Exposes `layer_flags`, `init_params`, the full-sequence path of training
+(`forward_hidden`, `forward`, `loss_fn`) and the decode path (`init_cache`,
+`decode_step`: the contiguous-cache backend of the serving engine).  The
+other families (moe, ssm, hybrid, audio, vlm) are not ported yet (ROADMAP
+queue 1, item 14): asking for them raises `NotImplementedError`.
+
+Parameters are made with `requires_grad=False`; the training step switches
+them on.  `decode_step` runs under `torch.no_grad()` whatever they hold.
 """
 from __future__ import annotations
 
-from typing import Any, Dict, List, Tuple
+from typing import Any, Dict, List, Optional, Tuple
 
 import torch
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from ..configs.base import ModelConfig
 from . import layers
@@ -90,6 +94,87 @@ def init_params(cfg: ModelConfig, generator: torch.Generator,
 
 
 # ---------------------------------------------------------------------------
+# Full-sequence forward (train)
+# ---------------------------------------------------------------------------
+
+def _attn_block_seq(cfg: ModelConfig, blk: Block, x, tables, window: int):
+    h = layers.norm(cfg, x, blk.norm1)
+    q, k, v = layers.project_qkv(cfg, blk.attn, h, None,
+                                 use_rope=(cfg.norm != "layernorm"), tables=tables)
+    att = layers.flash_attention(q, k, v, causal=True, window=window)
+    x = x + layers.attn_out(blk.attn, att, x.dtype)
+    h2 = layers.norm(cfg, x, blk.norm2)
+    return x + layers.mlp(cfg, blk.mlp, h2)
+
+
+def forward_hidden(cfg: ModelConfig, model: Transformer,
+                   batch: Dict[str, torch.Tensor], remat: bool = True) -> torch.Tensor:
+    """Final hidden states [B, T, D] of batch["tokens"] [B, T].  With remat
+    each block is recomputed in the backward pass from its input (the
+    reference's `jax.checkpoint` with nothing saveable), so only the block
+    inputs stay alive between the passes."""
+    check_family(cfg)
+    tokens = batch["tokens"]
+    x = layers.embed(cfg, model.embed, tokens)
+    B, T = tokens.shape
+    positions = torch.arange(T, device=tokens.device).expand(B, T)
+    tables = None
+    if cfg.norm != "layernorm":      # one rotary table for every layer
+        tables = layers.rope_tables(positions[:, None, :], cfg.resolved_head_dim,
+                                    cfg.rope_theta, cfg.rope_fraction)
+    windows = layer_flags(cfg)["window"].tolist()
+    for blk, w in zip(model.blocks, windows):
+        if remat:
+            x = checkpoint(_attn_block_seq, cfg, blk, x, tables, w,
+                           use_reentrant=False)
+        else:
+            x = _attn_block_seq(cfg, blk, x, tables, w)
+    return layers.norm(cfg, x, model.final_norm)
+
+
+def forward(cfg: ModelConfig, model: Transformer, batch: Dict[str, torch.Tensor],
+            remat: bool = True, last_only: bool = False) -> torch.Tensor:
+    """Logits [B, T, Vpad], or [B, 1, Vpad] with last_only."""
+    x = forward_hidden(cfg, model, batch, remat=remat)
+    if last_only:
+        x = x[:, -1:, :]
+    return layers.logits(cfg, model.embed, x)
+
+
+def _chunk_nll(cfg: ModelConfig, embed: layers.Embed, xc, tc, mc):
+    lg = layers.logits(cfg, embed, xc).float()
+    lse = torch.logsumexp(lg, dim=-1)
+    gold = torch.gather(lg, -1, tc[..., None].long())[..., 0]
+    return torch.sum((lse - gold) * mc), torch.sum(mc)
+
+
+def loss_fn(cfg: ModelConfig, model: Transformer, batch: Dict[str, torch.Tensor],
+            remat: bool = True, loss_chunk: int = 1024) -> torch.Tensor:
+    """Next-token cross-entropy over batch["tokens"] [B, T+1] (weighted by
+    batch["loss_mask"] [B, T+1] where given), computed in sequence chunks of
+    `loss_chunk` so the [B, T, V] logits never exist at once; with remat
+    each chunk's logits are recomputed in the backward pass."""
+    toks = batch["tokens"]
+    x = forward_hidden(cfg, model, {"tokens": toks[:, :-1]}, remat=remat)
+    tgt = toks[:, 1:]
+    mask: Optional[torch.Tensor] = batch.get("loss_mask")
+    mask = (torch.ones(tgt.shape, dtype=torch.float32, device=tgt.device)
+            if mask is None else mask[:, 1:].float())
+    T = x.shape[1]
+    c = min(loss_chunk, T)
+    if T % c:
+        raise ValueError(f"sequence length {T} is not a multiple of loss_chunk {c}")
+    nlls, counts = [], []
+    for i in range(0, T, c):
+        args = (cfg, model.embed, x[:, i:i + c], tgt[:, i:i + c], mask[:, i:i + c])
+        nll, n = (checkpoint(_chunk_nll, *args, use_reentrant=False) if remat
+                  else _chunk_nll(*args))
+        nlls.append(nll)
+        counts.append(n)
+    return torch.stack(nlls).sum() / torch.clamp(torch.stack(counts).sum(), min=1.0)
+
+
+# ---------------------------------------------------------------------------
 # Decode path (single new token against a cache)
 # ---------------------------------------------------------------------------
 
@@ -122,6 +207,7 @@ def _decode_attn(cfg, p: layers.Attention, x, cache_k, cache_v, cache_len,
     return layers.attn_out_token(p, att.to(dt))[:, None, :]
 
 
+@torch.no_grad()
 def decode_step(cfg: ModelConfig, model: Transformer, cache: Dict[str, Any],
                 tokens: torch.Tensor) -> Tuple[torch.Tensor, Dict[str, Any]]:
     """tokens: [B] int32 (the last generated token).  Returns

@@ -121,6 +121,7 @@ class Engine:
         toks[slot] = token
         return toks
 
+    @torch.no_grad()
     def _step_tokens(self, toks, active) -> np.ndarray:
         self.decode_steps += 1
         tk = torch.as_tensor(np.asarray(toks, np.int32), device=self.device)

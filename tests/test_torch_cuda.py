@@ -2,7 +2,11 @@
 their plain PyTorch versions, the kernel-backed store held leaf for leaf
 against the plain-engine store on the same op stream, and the
 paged-attention kernel held against its plain version within
-tests/test_kernels.py's tolerances (2e-5 in float32, 2e-2 in bfloat16).
+tests/test_kernels.py's tolerances (2e-5 in float32, 2e-2 in bfloat16), and
+the flash-attention kernels held against autograd through their plain
+version (forward as above; gradients 1e-4 in float32, and in bfloat16 2e-2
+of the largest reference gradient, the reference run in float32 on the
+same bfloat16 inputs).
 
 These tests need a CUDA device and nvcc and skip without them.  They import
 neither JAX nor the JAX package, so they also run where only PyTorch is
@@ -23,6 +27,8 @@ from repro_torch.core import hybrid_log  # noqa: E402
 from repro_torch.kernels.f2_probe import ops, ref  # noqa: E402
 from repro_torch.kernels.paged_attention import ops as pa_ops  # noqa: E402
 from repro_torch.kernels.paged_attention import ref as pa_ref  # noqa: E402
+from repro_torch.kernels.flash_attention import ops as fa_ops  # noqa: E402
+from repro_torch.kernels.flash_attention import ref as fa_ref  # noqa: E402
 
 pytestmark = pytest.mark.cuda
 
@@ -152,3 +158,67 @@ def test_paged_attention_wrapper_refuses(cuda):
     with pytest.raises(TypeError, match="int32"):
         pa_ops.paged_attention(*args[:3], args[3].long(), args[4])
     assert pa_ops.launches["paged_attention"] == 0
+
+
+# (BH, G, T, Dh, dtype, causal, window): a bfloat16 causal shape of the
+# training path's widths at a short T, and a ragged float32 one whose window
+# edge falls inside a kv block; then head_dim 256, non-causal, MQA's G 8
+FA_SHAPES = [(4, 4, 300, 128, torch.bfloat16, True, 0),
+             (3, 2, 257, 64, torch.float32, True, 48),
+             (2, 2, 130, 256, torch.float32, False, 0),
+             (1, 8, 200, 64, torch.bfloat16, False, 37)]
+
+
+def _fa_inputs(shape, dev, seed=0):
+    BH, G, T, Dh, dt = shape[:5]
+    g = torch.Generator(device="cpu").manual_seed(seed)
+    q = torch.randn((BH, G, T, Dh), generator=g).to(dev, dt)
+    k = torch.randn((BH, 1, T, Dh), generator=g).to(dev, dt)
+    v = torch.randn((BH, 1, T, Dh), generator=g).to(dev, dt)
+    do = torch.randn((BH, G, T, Dh), generator=g).to(dev, dt)
+    return q, k, v, do
+
+
+@pytest.mark.parametrize("shape", FA_SHAPES, ids=["bf16_causal", "f32_window",
+                                                   "dh256", "mqa_bf16"])
+def test_flash_attention_matches_plain_version(cuda, shape):
+    q, k, v, do = _fa_inputs(shape, cuda)
+    causal, window = shape[5], shape[6]
+    fa_ops.reset_launches()
+    qk = [t.clone().requires_grad_(True) for t in (q, k, v)]
+    out = fa_ops.flash_attention_cuda(*qk, causal=causal, window=window)
+    grads = torch.autograd.grad(out, qk, do)
+    torch.cuda.synchronize()
+    assert fa_ops.launches == {"flash_attention_fwd": 1, "flash_attention_bwd": 1}
+    want = fa_ref.mha_reference(q, k, v, causal=causal, window=window)
+    assert out.dtype == want.dtype == q.dtype
+    tol = 2e-5 if q.dtype == torch.float32 else 2e-2
+    torch.testing.assert_close(out.float(), want.float(), atol=tol, rtol=tol)
+    # the reference gradient, in float32 from the same inputs
+    r = [t.float().requires_grad_(True) for t in (q, k, v)]
+    ref_grads = torch.autograd.grad(
+        fa_ref.mha_reference(*r, causal=causal, window=window), r, do.float())
+    for name, got, ref in zip("qkv", grads, ref_grads):
+        assert got.dtype == q.dtype, name
+        if q.dtype == torch.float32:
+            torch.testing.assert_close(got, ref, atol=1e-4, rtol=1e-4, msg=name)
+        else:
+            err = float((got.float() - ref).abs().max())
+            assert err <= 2e-2 * float(ref.abs().max()), (name, err)
+
+
+def test_flash_attention_wrapper_refuses(cuda):
+    q, k, v, _ = _fa_inputs(FA_SHAPES[1], cuda)
+    fa_ops.reset_launches()
+    with pytest.raises(ValueError, match="needs CUDA tensors"):
+        fa_ops.flash_attention_cuda(q.cpu(), k.cpu(), v.cpu())
+    with pytest.raises(ValueError, match="Dh="):
+        fa_ops.flash_attention_cuda(q[..., :62].contiguous(), k[..., :62].contiguous(),
+                                    v[..., :62].contiguous())
+    with pytest.raises(ValueError, match="G="):
+        fa_ops.flash_attention_cuda(q.repeat(1, 9, 1, 1), k, v)
+    with pytest.raises(TypeError, match="float32 or bfloat16"):
+        fa_ops.flash_attention_cuda(q.half(), k.half(), v.half())
+    with pytest.raises(ValueError, match="not contiguous"):
+        fa_ops.flash_attention_cuda(q.transpose(0, 1).contiguous().transpose(0, 1), k, v)
+    assert fa_ops.launches == {"flash_attention_fwd": 0, "flash_attention_bwd": 0}

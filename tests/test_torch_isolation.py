@@ -1,7 +1,8 @@
-"""The port stands alone: it imports and runs (the store, and a reduced
-serving engine) with the JAX package, JAX and the benchmarks blocked; its
-entry points default to the CUDA device and refuse to quietly run without
-it; the forced-kernel engine refuses CPU tensors."""
+"""The port stands alone: it imports and runs (the store, a reduced
+serving engine and a reduced training run) with the JAX package, JAX and
+the benchmarks blocked; its entry points default to the CUDA device and
+refuse to quietly run without it; the forced-kernel engine refuses CPU
+tensors."""
 import ast
 import os
 import subprocess
@@ -75,6 +76,13 @@ def test_port_runs_with_the_reference_blocked():
                                max_new_tokens=3))
         fin = eng.run()
         assert sorted(len(r.out_tokens) for r in fin) == [3, 3, 3]
+        import tempfile
+        from repro_torch.launch import train
+        with tempfile.TemporaryDirectory() as d:
+            train.main(["--reduced", "--device", "cpu", "--steps", "2",
+                        "--batch", "2", "--seq", "16", "--ckpt-dir", d])
+            from repro_torch.checkpoint.checkpointer import Checkpointer
+            assert Checkpointer(d).latest_step() == 2
         bad = [m for m in sys.modules if m.split(".")[0] in {FORBIDDEN!r}]
         assert not bad, bad
         print("isolated-ok")
@@ -112,16 +120,48 @@ def test_serving_entry_points_default_to_the_cuda_device():
             make()
 
 
+def test_training_entry_points_default_to_the_cuda_device(tmp_path):
+    from repro_torch.data.pipeline import TokenPipeline
+    from repro_torch.launch import train
+    from repro_torch.models.registry import get_config
+    from repro_torch.optim.adamw import AdamWConfig
+    from repro_torch.train.trainer import Trainer, TrainerConfig
+    cfg = get_config("granite-3-8b").reduced()
+    make = lambda: Trainer(cfg, AdamWConfig(), TrainerConfig(ckpt_dir=str(tmp_path)),  # noqa: E731
+                           TokenPipeline(cfg.vocab_size, batch=2, seq_len=8))
+    if torch.cuda.is_available():
+        assert make().device.type == "cuda"
+        return
+    for run in (make, lambda: train.main(["--reduced", "--steps", "1",
+                                          "--ckpt-dir", str(tmp_path)])):
+        with pytest.raises(RuntimeError, match="CUDA is not available"):
+            run()
+
+
+def _port_module_names():
+    return {p.relative_to(ROOT / "src" / "repro_torch").as_posix()
+            for p in _port_sources() if "repro_torch" in p.parts}
+
+
 def test_port_sources_include_the_serving_slice():
     """The AST scan above walks every module of the serving slice."""
-    names = {p.relative_to(ROOT / "src" / "repro_torch").as_posix()
-             for p in _port_sources() if "repro_torch" in p.parts}
+    names = _port_module_names()
     for mod in ("configs/base.py", "configs/granite_3_8b.py",
                 "models/registry.py", "models/layers.py",
                 "models/transformer.py", "kvcache/paged.py",
                 "kernels/paged_attention/ops.py",
                 "kernels/paged_attention/ref.py", "serve/engine.py",
                 "launch/serve.py", "interop.py"):
+        assert mod in names, mod
+
+
+def test_port_sources_include_the_training_slice():
+    """The AST scan above walks every module of the training slice."""
+    names = _port_module_names()
+    for mod in ("kernels/flash_attention/ops.py", "kernels/flash_attention/ref.py",
+                "optim/adamw.py", "train/train_step.py", "train/trainer.py",
+                "checkpoint/checkpointer.py", "data/pipeline.py",
+                "testing/faults.py", "launch/train.py"):
         assert mod in names, mod
 
 

@@ -109,3 +109,34 @@ def twin_kvs(mode="f2", compact_batch=128, faster_compaction="scan",
                  faster_compaction=faster_compaction)
     return reference_kv(jcfg, **extra), T.KV(tcfg, device="cpu", **extra)
 
+
+
+def model_configs(arch: str, **over):
+    """(reference ModelConfig, port ModelConfig): `arch` reduced, fields
+    replaced by `over`."""
+    import dataclasses
+    from repro.models.registry import get_config
+    jcfg = dataclasses.replace(get_config(arch).reduced(), **over)
+    return jcfg, interop.model_config_from_dict(interop.model_config_to_dict(jcfg))
+
+
+def named_leaves(tree, names) -> dict:
+    """{port parameter name: numpy leaf} of a reference tree shaped like the
+    parameters (params, grads, mu, nu, err)."""
+    return {n: np.asarray(interop.reference_leaf(tree, n)) for n in names}
+
+
+def assert_trees_close(ttree, jtree, rel: float, ctx=""):
+    """Every leaf of two nested dicts of arrays within `rel` of the largest
+    magnitude of the reference leaf (absolute where that is 0)."""
+    if isinstance(jtree, dict):
+        assert set(ttree) == set(jtree), (ctx, set(ttree) ^ set(jtree))
+        for k in jtree:
+            assert_trees_close(ttree[k], jtree[k], rel, f"{ctx}.{k}")
+        return
+    a, b = as_np(ttree).astype(np.float32), np.asarray(jtree, np.float32)
+    assert a.shape == b.shape, (ctx, a.shape, b.shape)
+    if a.size:
+        tol = rel * (float(np.abs(b).max()) or 1.0)
+        err = float(np.abs(a - b).max())
+        assert err <= tol, (ctx, err, tol)
