@@ -1,33 +1,43 @@
 #!/usr/bin/env python3
 """Drive the PyTorch port on one CUDA GPU: the F2 store, the F2-paged
-serving engine with Granite-3-8B at full width, then Granite-3-8B's
-training at full width.
+serving engine with Granite-3-8B at full width, Granite-3-8B's training at
+full width, then RWKV-6-7B's serving, prefill and training at full width.
 
     python3 chip_smoke.py            # the full run: 2**24 keys, 40 layers
 
 Phases, each printing one JSON line:
 
   1. device   — the card's name and power limit (and nvidia-smi's raw line);
-  2. build    — the four CUDA sources compiled with nvcc for sm_90a, in
+  2. build    — the six CUDA sources compiled with nvcc for sm_90a, in
                 parallel;
   3. kernels  — the flash-attention forward and gradient against autograd
                 through their plain version at the train phase's shape and
                 edge cases (forward 2e-5 f32 / 2e-2 bf16; gradients 1e-4
                 f32, 2e-2 of the largest reference gradient in bf16), timed
-                beside their bounds and scaled_dot_product_attention (first,
-                while the profiler is fresh and the card's memory free);
+                beside their bounds and scaled_dot_product_attention; then
+                the WKV forward and gradient against autograd through the
+                plain recurrence at RWKV-6's train shape (B*H 128, T 4096),
+                its decode shape (B*H 512, T 1, from a state) and edge cases
+                (y and state 2e-3 abs and rel; each gradient 2e-3 of its
+                largest reference magnitude), timed beside their bounds
+                (first, while the profiler is fresh and the card's memory
+                free);
   4. main     — `KV(cfg, device="cuda")` at the paper's YCSB shape (8-byte
                 keys, 100-byte values, Zipf 0.99, 10% memory budget): load
                 2**24 unique keys in upsert batches of 8192 with hot->cold
-                compaction and chunk-log GC firing, one cold->cold pass,
+                compaction and chunk-log GC firing, one cold->cold pass
+                inside a two-phase read of 8192 keys (`store.read_begin`
+                snapshots their chain heads through the first-hop probe
+                kernel; `read_finish` after the pass must read every value),
                 read every key back against the numpy expectation, then
                 YCSB-A, -B and -F (~2**21 ops each) with every read checked;
                 the kernels' launch counters are zeroed before and read
-                after, and both must be > 0;
+                after, and all must be > 0;
   5. kernels  — each store kernel against its plain PyTorch version on the
                 card, bit for bit, on the loaded store at the main path's
                 shapes (B = 8192 batches, B = compact_batch compaction
                 probes) in every mode the store uses, timed with CUDA events;
+                the first-hop probe also against fused_probe's chain heads;
   6. profile  — a profiler window over 8 YCSB-A batches;
   7. twins    — the same op stream at 2**20 keys through engine="fused" and
                 engine="fused_ref" on the card, every F2State leaf equal
@@ -67,7 +77,24 @@ Phases, each printing one JSON line:
  15. train_restart — tests/test_trainer.py's restart scenario on the card
                 at reduced widths: every parameter bit-equal to a straight
                 run;
- 16. the kernels line, the nvidia-smi line, and the final ok line.
+ 16. rwkv_serve — RWKV-6-7B (32 layers, d_model 4096, bf16 weights from
+                SEED) through Engine(backend="contiguous"), 8 lanes, 16
+                requests in two waves (64- then 192-token prompts), 32 new
+                tokens each; the WKV forward counter must be 32 x decode
+                steps; every logit finite, every token < vocab;
+ 17. rwkv_prefill — `prefill_step` on 8 prompts of 1024 tokens, all 32
+                layers: 32 WKV forward launches, finite logits;
+ 18. rwkv_twins — float32, 4 layers at full width, the engine on the card
+                and on the CPU: the sampled logits within TWIN_LOGITS_TOL
+                (the prompt-feeding steps' within RWKV_PROMPT_TOL: early
+                tokens are ill-conditioned in float32), tokens equal;
+                prefill's last logits against 64 decode steps on the card;
+ 19. rwkv_train — RWKV-6-7B at full width, 8 of its 32 layers, as train:
+                WKV forward 2 x 8 x steps and gradient 8 x steps; then
+                rwkv_train_profile (the WKV kernels' share of device time
+                beside the GEMMs') and rwkv_train_twins (as train_twins,
+                gradient leaves within RWKV_TWIN_GRAD_TOL);
+ 20. the kernels line, the nvidia-smi line, and the final ok line.
 
 Any mismatch, failed build or failed launch raises, and the script exits
 non-zero.  It needs a CUDA device and the repository's `src/` next to it.
@@ -108,6 +135,31 @@ TRAIN_BATCH, TRAIN_SEQ = 2, 4096
 TRAIN_STEPS = 6
 TWIN_TRAIN_LAYERS = 2
 TWIN_TRAIN_SEQ = 1024
+# RWKV-6-7B at full width, random weights from SEED: serving (contiguous
+# backend: equal prompt lengths within a wave), prefill, training
+RWKV_ARCH = "rwkv6-7b"
+RWKV_ENGINE = dict(max_batch=8)
+RWKV_WAVES = ((64, 8), (192, 8))          # (prompt tokens, requests) per wave
+RWKV_NEW_TOKENS = 32
+RWKV_PREFILL = (8, 1024)                  # prompts x tokens
+RWKV_TWIN_PROMPT, RWKV_TWIN_NEW_TOKENS = 64, 8
+# The first tokens of a sequence are ill-conditioned in float32: while the
+# WKV state holds few tokens, a head's y_t is close to a scalar times one
+# v vector (y_0 = (sum_i u_i r_i k_i) v_0), that scalar can cancel to a
+# small fraction of its terms, and rmsnorm_heads (eps 1e-6) scales the
+# rounding up by as much; each layer amplifies it again.  The logits of the
+# prompt-feeding steps are held to RWKV_PROMPT_TOL, the logits the engine
+# samples from (the last prompt token and after, 63+ tokens of state) to
+# TWIN_LOGITS_TOL; the record keeps the largest error at every position.
+RWKV_PROMPT_TOL = 5e-2
+# The same early tokens dominate some gradient leaves in training: the
+# gradient through rmsnorm_heads of a near-zero head output is scaled by up
+# to 1/sqrt(eps), and its float32 rounding with it (rwkv_train's step-0
+# gradient norm is ~33,000 against ~260 five steps later).  The bonus `u`
+# gathers most of it, so the RWKV-6 train twins hold each gradient leaf to
+# RWKV_TWIN_GRAD_TOL of its largest magnitude; the loss keeps 1e-4.
+RWKV_TWIN_GRAD_TOL = 1e-2
+RWKV_TRAIN_LAYERS = 8
 # H100 SXM data-sheet peaks (dense): HBM bytes/s, non-tensor 32-bit ops/s,
 # bf16 tensor-core FLOP/s
 PEAK_BYTES_PER_S = 3.35e12
@@ -210,8 +262,35 @@ def cold_cold(kv, n_keys):
     kv.compact_cold_cold(n_records=max(n_keys // 64, kv.compact_batch))
 
 
+def two_phase_begin(kv, n_keys, seed):
+    """Phase 1 of the paper's two-phase read (S5.4) on BATCH loaded keys:
+    `store.read_begin` snapshots their chain heads (the first-hop probe
+    kernel under the fused engine) and the cold tail."""
+    import torch
+    from repro_torch.core import store
+    keys = np.random.default_rng(seed + 7).choice(n_keys, BATCH, replace=False)
+    keys = torch.as_tensor(keys.astype(np.int32), device=kv.device)
+    active = torch.ones(BATCH, dtype=torch.bool, device=kv.device)
+    kv.state, snap = store.read_begin(kv.cfg, kv.state, keys, active)
+    return snap
+
+
+def two_phase_finish(kv, snap, V):
+    """Phase 2 after the cold->cold pass in between: every key must read
+    back its loaded value, though the pass truncated the cold log under the
+    snapshot (the num_truncs re-check)."""
+    from repro_torch import ST_OK
+    from repro_torch.core import store
+    kv.state, st, vals = store.read_finish(kv.cfg, kv.state, snap)
+    k = snap.keys.cpu().numpy()
+    if not (np.all(st.cpu().numpy() == ST_OK)
+            and np.array_equal(vals.cpu().numpy(), val_of(k, V))):
+        raise AssertionError("two-phase read across cold->cold: a key read wrong")
+
+
 def main_path(cfg, device, n_keys, n_ops, seed):
-    """Load, cold->cold, read back, YCSB A/B/F; returns the KV."""
+    """Load, cold->cold inside a two-phase read, read back, YCSB A/B/F;
+    returns the KV."""
     import torch
     from repro_torch import KV
     from repro_torch.workload import Zipf
@@ -227,7 +306,11 @@ def main_path(cfg, device, n_keys, n_ops, seed):
 
     t0 = time.perf_counter()
     load_keys(kv, rng.permutation(n_keys).astype(np.int32), V)
+    snap = two_phase_begin(kv, n_keys, seed)
+    truncs = int(kv.state.cold_truncs)
     cold_cold(kv, n_keys)
+    truncs = int(kv.state.cold_truncs) - truncs
+    two_phase_finish(kv, snap, V)
     kv.check_invariants()
     if device != "cpu":
         torch.cuda.synchronize()
@@ -245,6 +328,7 @@ def main_path(cfg, device, n_keys, n_ops, seed):
         mark(f"ycsb_{wl}")
     kv.check_invariants()
     return kv, dict(load_s=t_load, load_ops_per_s=n_keys / t_load,
+                    two_phase_keys=BATCH, truncations_under_snapshot=truncs,
                     readback_s=t_read, readback_ops_per_s=n_keys / t_read,
                     ycsb_ops_per_s=rates, launches_by_phase=launches,
                     compactions=dict(kv.compaction_counts),
@@ -285,7 +369,10 @@ KERNEL_FUNCTIONS = {"fused_probe": ("fused_probe_kernel",),
                     "paged_attention": ("paged_attention_kernel",),
                     "flash_attention_fwd": ("fa_forward_kernel",),
                     "flash_attention_bwd": ("fa_rowdot_kernel", "fa_dkdv_kernel",
-                                            "fa_dq_kernel")}
+                                            "fa_dq_kernel"),
+                    "probe": ("first_hop_probe_kernel",),
+                    "wkv_forward": ("wkv_forward_kernel",),
+                    "wkv_backward": ("wkv_dv_kernel", "wkv_drkw_kernel")}
 
 
 def _device_ms(fn, reps, names):
@@ -493,6 +580,192 @@ def check_kernels(kv, n_keys, seed, records):
         emit(records, dict(phase="kernels", kernel=kname, cases=per_case))
         summary[kname] = per_case[0]   # the main-path case (read / mixed)
     return summary
+
+
+def check_probe_kernel(kv, n_keys, seed, records):
+    """The legacy first-hop probe against its plain version, bit for bit, on
+    the loaded store's hot index: BATCH keys (loaded and absent ones) and an
+    odd batch.  Cross-check: its (addr, is_rc) equal the chain heads that
+    fused_probe resolves in index mode on the same keys, untagged, and their
+    RC flags.  Timed beside its bound; returns the main case's summary."""
+    import torch
+    from repro_torch.core import hybrid_log
+    from repro_torch.kernels.f2_probe import ops, ref
+    st, cfg, dev = kv.state, kv.cfg, kv.device
+    on_card = dev.type == "cuda"
+    rng = np.random.default_rng(seed + 8)
+    q = np.concatenate([rng.integers(0, n_keys, BATCH - 512),
+                        n_keys + rng.integers(0, 1 << 20, 512)]).astype(np.int32)
+    keys = torch.as_tensor(q, device=dev)
+    index = st.hot_index
+    per_case = []
+    for name, k in (("read_index", keys), ("odd_B77", keys[:77].contiguous())):
+        got = ops.probe(k, index)
+        want = ref.probe_reference(k, index)
+        _sync(dev)
+        err = _max_abs_err(got, want)
+        if err != 0:
+            raise AssertionError(f"probe/{name}: max |kernel - plain| = {err}")
+        B = k.shape[0]
+        rec = dict(case=name, B=B, E=index.shape[0], max_abs_err=err,
+                   rc_tagged=int(got[1].sum()), null=int((got[0] == -1).sum()))
+        if on_card:
+            rec["ms"] = _time_ms(lambda: ops.probe(k, index), 50)
+            rec["device_ms"] = _device_ms(lambda: ops.probe(k, index), 50,
+                                          KERNEL_FUNCTIONS["probe"])
+            rec["plain_ms"] = _time_ms(lambda: ref.probe_reference(k, index), 10)
+            nbytes = B * (4 + SECTOR + 4 + 4)  # key, index sector, addr, is_rc
+            rec.update(bound_ms=nbytes / PEAK_BYTES_PER_S * 1e3, bound_by="bytes",
+                       bound_bytes=nbytes)
+        per_case.append(rec)
+    hot, rc = st.hot, st.rc
+    B = keys.shape[0]
+    heads = ops.fused_probe(keys, index, hot.begin.expand(B).contiguous(),
+                            torch.ones(B, dtype=torch.bool, device=dev),
+                            hybrid_log.head_addr(hot, cfg.hot_mem),
+                            hot.key, hot.val, hot.prev, hot.meta,
+                            rc.key, rc.val, rc.prev, rc.meta, chain_max=cfg.chain_max)[2]
+    addr, is_rc = ops.probe(keys, index)
+    flag = ((heads >= 0) & ((heads & ref.RC_FLAG) != 0)).to(torch.int32)
+    untagged = torch.where(heads >= 0, heads & ~ref.RC_FLAG, heads)
+    if not (torch.equal(addr, untagged) and torch.equal(is_rc, flag)):
+        raise AssertionError("probe disagrees with fused_probe's first hop")
+    per_case[0]["matches_fused_probe_heads"] = True
+    emit(records, dict(phase="kernels", kernel="probe", cases=per_case))
+    return per_case[0]
+
+
+# (name, B, H, T, D, lowest decay, initial state in and final state out):
+# the train phase's call, the serve phase's decode step, then
+# tests/test_kernels.py's shapes and edge cases
+WKV_CASES = [("train", 2, 64, 4096, 64, 0.8, False),
+             ("decode", 8, 64, 1, 64, 0.5, True),
+             ("kernels_0", 2, 3, 256, 64, 0.8, False),
+             ("kernels_1", 1, 2, 128, 64, 0.8, False),
+             ("kernels_2_d128", 2, 1, 64, 128, 0.8, True),
+             ("small_w_ragged", 1, 2, 197, 32, 1e-3, True),
+             ("d16", 2, 4, 70, 16, 1e-3, False)]
+
+
+def wkv_bound(B, H, T, D, state, backward):
+    """Least time of one call: each input read and each output written once
+    (forward: r, k, v, w, u in, y out, and the states where given; gradient:
+    r, k, v, w, u, dy in, dr, dk, dv, dw, du out) at HBM's rate, against
+    the float32 operations at the non-tensor peak: 4 per state element and
+    step forward (y's product and sum, the decay and k v^T), 12 for the
+    gradient (the recomputed state, the G update and the four products dr,
+    dk, dv, dw)."""
+    bhtd = B * H * T * D
+    if backward:
+        nbytes = (5 * bhtd + H * D + 4 * bhtd + H * D) * 4
+        ops_ = 12 * B * H * T * D * D
+    else:
+        nbytes = (5 * bhtd + H * D + (2 * B * H * D * D if state else 0)) * 4
+        ops_ = 4 * B * H * T * D * D
+    t_bytes = nbytes / PEAK_BYTES_PER_S * 1e3
+    t_ops = ops_ / PEAK_OPS_PER_S * 1e3
+    return (max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations",
+            nbytes, ops_)
+
+
+def check_wkv_kernels(device, seed, records):
+    """The WKV kernels against autograd through their plain version, on the
+    card, in every case: y and the final state within 2e-3 absolute and
+    relative (the JAX package's tolerance), each input's gradient within
+    2e-3 of its largest reference magnitude.  Each case is timed beside its
+    bound (the train case's forward with the saved states its gradient
+    needs, as the training path calls it).  Returns the summaries of the
+    train case (forward and gradient)."""
+    import torch
+    from repro_torch.kernels.rwkv6_wkv import ops as wkv_ops, ref as wkv_ref
+    dev = torch.device(device)
+    on_card = dev.type == "cuda"
+    g = torch.Generator(device=dev).manual_seed(seed)
+    l2_flush = (torch.empty(L2_FLUSH_BYTES, dtype=torch.uint8, device=dev)
+                if on_card else None)
+    per_case = []
+    for name, B, H, T, D, w_lo, state in WKV_CASES:
+        def rnd(*shape):
+            return torch.randn(shape, generator=g, device=dev)
+        r, k, v, dy = (rnd(B, H, T, D) for _ in range(4))
+        w = w_lo + (0.999 - w_lo) * torch.rand((B, H, T, D), generator=g, device=dev)
+        u = rnd(H, D)
+        s0 = rnd(B, H, D, D) if state else None
+        ds = rnd(B, H, D, D) if state else None
+
+        def run(fn, *ins):
+            y, s = fn(*ins)
+            loss = (y * dy).sum() + ((s * ds).sum() if state else 0)
+            return y.detach(), None if s is None else s.detach(), \
+                torch.autograd.grad(loss, ins)
+
+        ins = [t.clone().requires_grad_(True) for t in (r, k, v, w, u)]
+        if on_card:
+            y, s, grads = run(lambda *a: wkv_ops.wkv_cuda(*a, s0, state), *ins)
+        else:
+            y, s, grads = run(lambda *a: wkv_ops.wkv(*a, s0, state), *ins)
+        rin = [t.clone().requires_grad_(True) for t in (r, k, v, w, u)]
+        yr, sr, want = run(lambda *a: wkv_ref.wkv_reference(*a, s0), *rin)
+        _sync(dev)
+        err = float((y - yr).abs().max())
+        ok = torch.allclose(y, yr, atol=2e-3, rtol=2e-3)
+        if state:
+            err = max(err, float((s - sr).abs().max()))
+            ok = ok and torch.allclose(s, sr, atol=2e-3, rtol=2e-3)
+        if not ok:
+            raise AssertionError(f"wkv_forward/{name}: max |kernel - plain| = {err} "
+                                 "beyond atol = rtol = 2e-3")
+        gerr = {}
+        for gname, a, b in zip(("dr", "dk", "dv", "dw", "du"), grads, want):
+            e = float((a - b).abs().max())
+            gerr[gname] = e
+            if e > 2e-3 * float(b.abs().max()):
+                raise AssertionError(f"wkv_backward/{name}: {gname} differs from the "
+                                     f"plain gradient by {e}")
+        rec = dict(case=name, B=B, H=H, T=T, D=D, w_lo=w_lo, state=state,
+                   max_abs_err=err, tol=2e-3, grad_max_abs_err=gerr,
+                   grad_rel_err=max(gerr[n] / float(b.abs().max())
+                                    for n, b in zip(gerr, want)))
+        del y, s, grads, yr, sr, want, ins, rin
+        if on_card:
+            ckpt_on = name == "train"
+            _, _, ckpt = wkv_ops.forward_cuda(r, k, v, w, u, s0, state, checkpoints=True)
+            fwd = lambda: wkv_ops.forward_cuda(r, k, v, w, u, s0, state,  # noqa: E731
+                                               checkpoints=ckpt_on)
+            bwd = lambda: wkv_ops.backward_cuda(r, k, v, w, u, ckpt, dy, ds)  # noqa: E731
+            reps = 3 if T >= 4096 else 20
+            rec["fwd_ms"] = _time_ms(fwd, reps)
+            rec["fwd_device_ms"] = _device_ms(lambda: (l2_flush.zero_(), fwd()), reps,
+                                              KERNEL_FUNCTIONS["wkv_forward"])
+            rec["bwd_ms"] = _time_ms(bwd, reps)
+            rec["bwd_device_ms"] = _device_ms(lambda: (l2_flush.zero_(), bwd()), reps,
+                                              KERNEL_FUNCTIONS["wkv_backward"])
+            rec["fwd_plain_ms"] = _time_ms(
+                lambda: wkv_ref.wkv_reference(r, k, v, w, u, s0), 1)
+            rq = [t.clone().requires_grad_(True) for t in (r, k, v, w, u)]
+            ry, rs = wkv_ref.wkv_reference(*rq, s0)
+            rl = (ry * dy).sum() + ((rs * ds).sum() if state else 0)
+            rec["bwd_plain_ms"] = _time_ms(
+                lambda: torch.autograd.grad(rl, rq, retain_graph=True), 1)
+            del rq, ry, rs, rl, ckpt
+            for kind, back in (("fwd", False), ("bwd", True)):
+                b = wkv_bound(B, H, T, D, state, back)
+                rec.update({f"{kind}_bound_ms": b[0], f"{kind}_bound_by": b[1],
+                            f"{kind}_bound_bytes": b[2], f"{kind}_bound_ops": b[3]})
+            torch.cuda.empty_cache()
+        per_case.append(rec)
+    emit(records, dict(phase="kernels", kernel="wkv", cases=per_case))
+    main = per_case[0]
+
+    def pick(kind):
+        return dict(max_abs_err=main["max_abs_err"] if kind == "fwd"
+                    else max(main["grad_max_abs_err"].values()),
+                    ms=main.get(f"{kind}_ms"), device_ms=main.get(f"{kind}_device_ms"),
+                    plain_ms=main.get(f"{kind}_plain_ms"), library_ms=None,
+                    bound_ms=main.get(f"{kind}_bound_ms"),
+                    bound_by=main.get(f"{kind}_bound_by"))
+
+    return {"wkv_forward": pick("fwd"), "wkv_backward": pick("bwd")}
 
 
 # ---------------------------------------------------------------------------
@@ -933,11 +1206,13 @@ def train_config():
     return dataclasses.replace(get_config(TRAIN_ARCH), n_layers=TRAIN_LAYERS)
 
 
-def train_main(cfg, device, seed, records):
+def train_main(cfg, device, seed, records, phase="train", kernel_ops=None,
+               full_layers=TRAIN_FULL_LAYERS):
     """The training main path: `Trainer.run()` for TRAIN_STEPS steps of
     TRAIN_BATCH x TRAIN_SEQ tokens, ending in the trainer's blocking save of
-    the whole state to a temporary directory (removed after).  The
-    flash-attention counters are zeroed just before the run and read just
+    the whole state to a temporary directory (removed after).  The counters
+    of the sequence kernel (`kernel_ops`: flash attention by default, the
+    WKV kernels for RWKV-6) are zeroed just before the run and read just
     after: forward 2 x layers x steps (each block is recomputed in the
     backward pass), gradient layers x steps.  Returns (trainer, state,
     record)."""
@@ -947,6 +1222,7 @@ def train_main(cfg, device, seed, records):
     from repro_torch.data.pipeline import TokenPipeline
     from repro_torch.kernels.flash_attention import ops as fa_ops
     from repro_torch.optim.adamw import AdamWConfig
+    kernel_ops = kernel_ops or fa_ops
     from repro_torch.train.trainer import Trainer, TrainerConfig
     on_card = torch.device(device).type == "cuda"
     ckpt_dir = tempfile.mkdtemp(prefix="chip_smoke_ckpt_")
@@ -974,11 +1250,11 @@ def train_main(cfg, device, seed, records):
             save_s.append(time.perf_counter() - t)
 
         tr.ckpt.save = timed_save
-        fa_ops.reset_launches()
+        kernel_ops.reset_launches()
         t0 = time.perf_counter()
         state = tr.run(state)
         wall = time.perf_counter() - t0
-        launches = dict(fa_ops.launches)
+        launches = dict(kernel_ops.launches)
         log = tr.metrics_log
         ckpt_bytes = sum(os.path.getsize(os.path.join(r, f))
                          for r, _, fs in os.walk(ckpt_dir) for f in fs)
@@ -993,10 +1269,10 @@ def train_main(cfg, device, seed, records):
                       [*state.params.parameters(), *state.opt.mu.values(),
                        *state.opt.nu.values()])
     rec = dict(
-        phase="train", arch=cfg.name, n_layers=cfg.n_layers, d_model=cfg.d_model,
+        phase=phase, arch=cfg.name, n_layers=cfg.n_layers, d_model=cfg.d_model,
         n_heads=cfg.n_heads, n_kv_heads=cfg.n_kv_heads, d_ff=cfg.d_ff,
         padded_vocab=cfg.padded_vocab, dtype=cfg.dtype,
-        reduced=f"n_layers {TRAIN_FULL_LAYERS} -> {cfg.n_layers}",
+        reduced=f"n_layers {full_layers} -> {cfg.n_layers}",
         batch=TRAIN_BATCH, seq=TRAIN_SEQ, steps=TRAIN_STEPS, params=n_params,
         state_bytes=state_bytes, init_s=t_init, wall_s=wall,
         ms_per_step_median=ms, step_ms=[d * 1e3 for d in dts],
@@ -1007,9 +1283,9 @@ def train_main(cfg, device, seed, records):
         launches=launches)
     emit(records, rec)
     L = cfg.n_layers
-    if on_card and launches != {"flash_attention_fwd": 2 * L * TRAIN_STEPS,
-                                "flash_attention_bwd": L * TRAIN_STEPS}:
-        raise AssertionError(f"flash-attention launches {launches}, expected "
+    fwd, bwd = launches            # the forward and the gradient counter
+    if on_card and (launches[fwd], launches[bwd]) != (2 * L * TRAIN_STEPS, L * TRAIN_STEPS):
+        raise AssertionError(f"{phase}: launches {launches}, expected "
                              f"forward 2 x {L} x {TRAIN_STEPS}, gradient {L} x {TRAIN_STEPS}")
     if len(log) != TRAIN_STEPS or not np.isfinite(rec["losses"] + rec["grad_norms"]).all():
         raise AssertionError(f"losses {rec['losses']}, grad norms {rec['grad_norms']}")
@@ -1021,14 +1297,18 @@ def train_main(cfg, device, seed, records):
 GEMM_NAMES = ("gemm", "nvjet", "xmma", "cutlass")
 
 
-def train_profile(tr, state, records, n_steps=2):
+def train_profile(tr, state, records, n_steps=2, phase="train_profile",
+                  label="flash", kernels=("flash_attention_fwd", "flash_attention_bwd"),
+                  kernel_ops=None):
     """A profiler window over n_steps train steps of the loaded trainer (the
     pipeline's next batches): device busy and idle share, kernel launches
-    and host syncs per step, the top device kernels, and the flash kernels'
-    share of device time beside the cuBLAS GEMMs'."""
+    and host syncs per step, the top device kernels, and the sequence
+    kernels' (`kernels`, recorded under `label`) share of device time
+    beside the cuBLAS GEMMs'."""
     import torch
     from torch.profiler import ProfilerActivity, profile
     from repro_torch.kernels.flash_attention import ops as fa_ops
+    kernel_ops = kernel_ops or fa_ops
     step = int(state.step)
     batches = [{k: torch.as_tensor(v, device=tr.device)
                 for k, v in tr.pipeline.batch_at(step + i).items()}
@@ -1044,24 +1324,24 @@ def train_profile(tr, state, records, n_steps=2):
     dev, host = _device_rows(prof)
     busy = sum(d for _, d, _ in dev)
     counts = {k: c for k, _, c in host}
-    flash_names = (KERNEL_FUNCTIONS["flash_attention_fwd"]
-                   + KERNEL_FUNCTIONS["flash_attention_bwd"])
-    flash = sum(d for k, d, _ in dev if any(n in k for n in flash_names))
+    names = sum((KERNEL_FUNCTIONS[k] for k in kernels), ())
+    seq_s = sum(d for k, d, _ in dev if any(n in k for n in names))
     gemm = sum(d for k, d, _ in dev if any(n in k.lower() for n in GEMM_NAMES))
     rec = dict(
-        phase="train_profile", steps=n_steps, wall_s=wall,
+        phase=phase, steps=n_steps, wall_s=wall,
         ms_per_step=wall / n_steps * 1e3,
         device_busy_s=busy if dev else "not measured",
         device_idle_share=(1 - busy / wall) if dev else "not measured",
         launches_per_step=counts.get("cudaLaunchKernel", 0) / n_steps,
         stream_syncs_per_step=counts.get("cudaStreamSynchronize", 0) / n_steps,
-        flash_device_s=flash, flash_share=flash / busy if busy else "not measured",
+        **{f"{label}_device_s": seq_s,
+           f"{label}_share": seq_s / busy if busy else "not measured"},
         gemm_device_s=gemm, gemm_share=gemm / busy if busy else "not measured",
-        flash_kernels=[dict(name=k[:80], s=d, calls=c) for k, d, c in dev
-                       if any(n in k for n in flash_names)],
+        **{f"{label}_kernels": [dict(name=k[:80], s=d, calls=c) for k, d, c in dev
+                                if any(n in k for n in names)]},
         top_device=[dict(name=k[:80], s=d, calls=c) for k, d, c in dev[:12]],
         top_host=[dict(name=k[:80], self_s=d, calls=c) for k, d, c in host[:12]],
-        launch_counters=dict(fa_ops.launches))
+        launch_counters=dict(kernel_ops.launches))
     emit(records, rec)
     return state, rec
 
@@ -1235,22 +1515,26 @@ def check_flash_kernels(device, seed, records):
 def _train_twin_model(cfg, device, seed):
     import torch
     from repro_torch.models import transformer
-    return transformer.init_params(
+    model = transformer.init_params(
         cfg, torch.Generator(device=device).manual_seed(seed), device)
+    if cfg.family == "ssm":
+        randomise_rwkv(model, seed)
+    return model
 
 
-def train_twins(device, seed, records):
-    """The port's loss_fn and its gradients at full width, TWIN_TRAIN_LAYERS
-    deep, in float32, B 1 x T TWIN_TRAIN_SEQ, one set of weights: on the
-    card (the kernels) and on the CPU (the plain versions).  The losses must
-    agree within 1e-4 relative and each gradient leaf within 1e-3 of its
-    largest magnitude."""
+def train_twins(device, seed, records, base=None, phase="train_twins", grad_tol=1e-3):
+    """The port's loss_fn and its gradients at full width (of `base`, the
+    train phase's config by default), TWIN_TRAIN_LAYERS deep, in float32,
+    B 1 x T TWIN_TRAIN_SEQ, one set of weights: on the card (the kernels)
+    and on the CPU (the plain versions).  The losses must agree within 1e-4
+    relative and each gradient leaf within `grad_tol` of its largest
+    magnitude."""
     import torch
     from repro_torch.models import transformer
     from repro_torch.train import train_step as ts
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
-    cfg = dataclasses.replace(train_config(), n_layers=TWIN_TRAIN_LAYERS,
+    cfg = dataclasses.replace(base or train_config(), n_layers=TWIN_TRAIN_LAYERS,
                               dtype="float32")
     card = _train_twin_model(cfg, device, seed + 5)
     cpu = _train_twin_model(cfg, "cpu", 0)
@@ -1268,21 +1552,21 @@ def train_twins(device, seed, records):
         out[where] = (float(loss.detach()), dict(zip(params, grads)),
                       time.perf_counter() - t0)
     (l_card, g_card, s_card), (l_cpu, g_cpu, s_cpu) = out["card"], out["cpu"]
-    worst, worst_name = 0.0, None
-    for n, gc in g_cpu.items():
-        e = float((g_card[n].cpu() - gc).abs().max()) / (float(gc.abs().max()) or 1.0)
-        if e > worst:
-            worst, worst_name = e, n
-    rec = dict(phase="train_twins", arch=cfg.name, n_layers=cfg.n_layers,
+    rel = {n: float((g_card[n].cpu() - gc).abs().max()) / (float(gc.abs().max()) or 1.0)
+           for n, gc in g_cpu.items()}
+    worst_name = max(rel, key=rel.get)
+    worst = rel[worst_name]
+    rec = dict(phase=phase, arch=cfg.name, n_layers=cfg.n_layers,
                d_model=cfg.d_model, dtype=cfg.dtype, seq=TWIN_TRAIN_SEQ,
                loss_card=l_card, loss_cpu=l_cpu,
                loss_rel_err=abs(l_card - l_cpu) / abs(l_cpu),
                worst_grad_rel_err=worst, worst_grad_leaf=worst_name,
+               grad_tol=grad_tol, worst_leaves=sorted(rel.items(), key=lambda x: -x[1])[:6],
                leaves=len(g_cpu), card_s=s_card, cpu_s=s_cpu)
     emit(records, rec)
     if not (np.isfinite(l_card) and rec["loss_rel_err"] <= 1e-4):
         raise AssertionError(f"twin losses {l_card} (card) and {l_cpu} (CPU)")
-    if worst > 1e-3:
+    if worst > grad_tol:
         raise AssertionError(f"gradient {worst_name} differs by {worst} of its "
                              "largest magnitude")
     return rec
@@ -1337,6 +1621,212 @@ def train_restart(device, records):
 
 
 # ---------------------------------------------------------------------------
+# RWKV-6-7B: serving, prefill and training through the WKV kernels
+# ---------------------------------------------------------------------------
+
+def rwkv_config():
+    from repro_torch.models.registry import get_config
+    return get_config(RWKV_ARCH)
+
+
+def randomise_rwkv(model, seed):
+    """Token-shift mixes in [0, 1), bonus ~ N(0, 0.5), decay logits in
+    [-3, 1): the initialisation's 0 / 0 / -6 would hide the token shift and
+    the bonus term (a parity check then sees less of the model)."""
+    import torch
+    dev = model.embed.table.device
+    g = torch.Generator(device=dev).manual_seed(seed)
+    for blk in model.blocks:
+        p = blk.rwkv
+        for t, draw in ((p.mu, lambda x: torch.rand(x.shape, generator=g, device=dev)),
+                        (p.mu_c, lambda x: torch.rand(x.shape, generator=g, device=dev)),
+                        (p.u, lambda x: 0.5 * torch.randn(x.shape, generator=g, device=dev)),
+                        (p.w0, lambda x: -3 + 4 * torch.rand(x.shape, generator=g,
+                                                             device=dev))):
+            t.data.copy_(draw(t))
+
+
+def make_rwkv_engine(cfg, model, device, keep_logits=False):
+    """A contiguous-backend `Engine` that folds every decode's logits into a
+    device-side finiteness flag and, with keep_logits, keeps them (with
+    the sequence position the step decoded)."""
+    from repro_torch.serve.engine import Engine
+
+    class CheckedEngine(Engine):
+        def _contiguous_logits(self, toks):
+            pos = int(self.cache["len"][0]) if self.kept is not None else 0
+            lg = super()._contiguous_logits(toks)
+            f = lg.isfinite().all()
+            self.finite = f if self.finite is None else self.finite & f
+            if self.kept is not None:
+                self.kept.append((pos, lg))
+            return lg
+
+    eng = CheckedEngine(cfg, model, backend="contiguous", device=device, **RWKV_ENGINE)
+    eng.finite, eng.kept = None, ([] if keep_logits else None)
+    return eng
+
+
+def rwkv_prompts(vocab_size, seed, waves):
+    rng = np.random.default_rng(seed)
+    return [rng.integers(1, vocab_size, plen).astype(np.int32)
+            for plen, n in waves for _ in range(n)]
+
+
+def rwkv_serve(cfg, device, seed, records):
+    """The RWKV-6 serving main path: the RWKV_WAVES requests through
+    Engine(backend="contiguous") at the config's full width, each making
+    RWKV_NEW_TOKENS tokens; the WKV forward counter is zeroed just before
+    the run and read just after, and must be layers x decode steps.
+    Returns (model, record)."""
+    import torch
+    from repro_torch.kernels.rwkv6_wkv import ops as wkv_ops
+    from repro_torch.models import transformer
+    on_card = torch.device(device).type == "cuda"
+    if on_card:
+        torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    model = transformer.init_params(
+        cfg, torch.Generator(device=device).manual_seed(seed), device)
+    eng = make_rwkv_engine(cfg, model, device)
+    _sync(device)
+    t_init = time.perf_counter() - t0
+    prompts = rwkv_prompts(cfg.vocab_size, seed, RWKV_WAVES)
+    _submit(eng, prompts, RWKV_NEW_TOKENS)
+    wkv_ops.reset_launches()
+    t0 = time.perf_counter()
+    fin = eng.run()
+    _sync(device)
+    wall = time.perf_counter() - t0
+    launches = dict(wkv_ops.launches)
+    n_req = len(prompts)
+    rec = dict(
+        phase="rwkv_serve", arch=cfg.name, n_layers=cfg.n_layers, d_model=cfg.d_model,
+        dtype=cfg.dtype, engine=RWKV_ENGINE, waves=RWKV_WAVES, requests=n_req,
+        prompt_tokens=int(sum(len(p) for p in prompts)),
+        new_tokens_per_request=RWKV_NEW_TOKENS,
+        weights_bytes=sum(p.numel() * p.element_size() for p in model.parameters()),
+        state_bytes=sum(t.numel() * t.element_size() for t in eng.cache.values()),
+        peak_mem_bytes=torch.cuda.max_memory_allocated() if on_card else "not measured",
+        init_s=t_init, steps=eng.decode_steps, wall_s=wall,
+        ms_per_step=wall / eng.decode_steps * 1e3,
+        generated_tokens_per_s=n_req * RWKV_NEW_TOKENS / wall, launches=launches)
+    emit(records, rec)
+    if on_card and launches["wkv_forward"] != cfg.n_layers * eng.decode_steps:
+        raise AssertionError(f"wkv_forward launched {launches['wkv_forward']} times, "
+                             f"expected {cfg.n_layers} x {eng.decode_steps}")
+    if len(fin) != n_req or not all(
+            len(r.out_tokens) == RWKV_NEW_TOKENS
+            and all(0 <= t < cfg.vocab_size for t in r.out_tokens) for r in fin):
+        raise AssertionError("a request did not return its tokens below vocab_size")
+    if not bool(eng.finite):
+        raise AssertionError("non-finite logits")
+    return model, rec
+
+
+def rwkv_prefill(cfg, model, device, seed, records):
+    """The prefill main path: `prefill_step` on RWKV_PREFILL prompts at the
+    config's full depth; the WKV forward counter must read one launch per
+    layer.  A second, uncounted call is timed warm."""
+    import torch
+    from repro_torch.kernels.rwkv6_wkv import ops as wkv_ops
+    from repro_torch.serve import serve_step
+    n, T = RWKV_PREFILL
+    toks = torch.as_tensor(np.random.default_rng(seed + 9).integers(
+        1, cfg.vocab_size, (n, T)).astype(np.int32), device=device)
+    wkv_ops.reset_launches()
+    t0 = time.perf_counter()
+    lg = serve_step.prefill_step(cfg, model, {"tokens": toks})
+    _sync(device)
+    wall = time.perf_counter() - t0
+    launches = dict(wkv_ops.launches)
+    finite = bool(lg.isfinite().all())
+    t0 = time.perf_counter()
+    serve_step.prefill_step(cfg, model, {"tokens": toks})
+    _sync(device)
+    warm = time.perf_counter() - t0
+    rec = dict(phase="rwkv_prefill", arch=cfg.name, n_layers=cfg.n_layers,
+               prompts=n, prompt_tokens=T, wall_s=wall, warm_wall_s=warm,
+               tokens_per_s=n * T / warm, launches=launches,
+               logits_shape=list(lg.shape), finite=finite)
+    emit(records, rec)
+    if torch.device(device).type == "cuda" and launches["wkv_forward"] != cfg.n_layers:
+        raise AssertionError(f"prefill launched wkv_forward {launches['wkv_forward']} "
+                             f"times, expected {cfg.n_layers}")
+    if not finite or tuple(lg.shape) != (n, cfg.padded_vocab):
+        raise AssertionError(f"prefill logits {tuple(lg.shape)}, finite={finite}")
+    return rec
+
+
+def rwkv_twins(device, seed, records):
+    """RWKV-6 at full width, TWIN_LAYERS deep, float32, one set of weights
+    (token shift, bonus and decay randomised): the contiguous engine on the
+    card (the kernels) and on the CPU (the plain recurrence) on the same
+    RWKV_TWIN_PROMPT-token prompts, the logits sampled from within
+    TWIN_LOGITS_TOL, those of the prompt-feeding steps within
+    RWKV_PROMPT_TOL, and every token equal; then, on the card, prefill_step's
+    last logits against RWKV_TWIN_PROMPT decode_steps over the same prompts
+    (the kernel's sequence mode against its T = 1 mode)."""
+    import torch
+    from repro_torch.models import transformer
+    from repro_torch.serve import serve_step
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = dataclasses.replace(rwkv_config(), n_layers=TWIN_LAYERS, dtype="float32")
+    card = _train_twin_model(cfg, device, seed + 10)
+    cpu = transformer.init_params(cfg, torch.Generator().manual_seed(0), "cpu")
+    cpu.load_state_dict(card.state_dict())
+    twins = [make_rwkv_engine(cfg, m, d, keep_logits=True)
+             for m, d in ((card, device), (cpu, "cpu"))]
+    n = RWKV_ENGINE["max_batch"]
+    prompts = rwkv_prompts(cfg.vocab_size, seed + 11, ((RWKV_TWIN_PROMPT, n),))
+    for e in twins:
+        _submit(e, prompts, RWKV_TWIN_NEW_TOKENS)
+    err = [0.0] * (RWKV_TWIN_PROMPT + RWKV_TWIN_NEW_TOKENS)   # by position
+    worst, steps = -1.0, 0
+    t0 = time.perf_counter()
+    while any(e.queue or e.active for e in twins):
+        for e in twins:
+            e.step()
+        a, b = (e.kept for e in twins)
+        if len(a) != len(b):
+            raise AssertionError("the twins decoded different numbers of steps")
+        for (pos, x), (_, y) in zip(a, b):
+            d = (x.cpu() - y).abs()
+            tol = TWIN_LOGITS_TOL if pos >= RWKV_TWIN_PROMPT - 1 else RWKV_PROMPT_TOL
+            err[pos] = max(err[pos], float(d.max()))
+            worst = max(worst, float((d - tol * (1 + y.abs())).max()))
+        steps += len(a)
+        a.clear()
+        b.clear()
+    wall = time.perf_counter() - t0
+    toks = [{r.rid: r.out_tokens for r in e.finished} for e in twins]
+    # sequence mode against step mode, on the card
+    tk = torch.as_tensor(np.stack(prompts), device=device)
+    pre = serve_step.prefill_step(cfg, card, {"tokens": tk})
+    cache = transformer.init_cache(cfg, n, 0, device=device)
+    for t in range(RWKV_TWIN_PROMPT):
+        lg, cache = serve_step.decode_step(cfg, card, cache, tk[:, t])
+    seq_err = float((pre - lg).abs().max())
+    seq_worst = float(((pre - lg).abs() - TWIN_LOGITS_TOL * (1 + lg.abs())).max())
+    rec = dict(phase="rwkv_twins", arch=cfg.name, n_layers=cfg.n_layers,
+               d_model=cfg.d_model, dtype=cfg.dtype, steps=steps,
+               max_abs_logit_err=max(err[RWKV_TWIN_PROMPT - 1:]), tol=TWIN_LOGITS_TOL,
+               prompt_max_abs_logit_err=max(err[:RWKV_TWIN_PROMPT - 1]),
+               prompt_tol=RWKV_PROMPT_TOL, max_abs_logit_err_by_position=err,
+               tokens_equal=toks[0] == toks[1],
+               prefill_vs_decode_max_abs_err=seq_err, wall_s=wall)
+    emit(records, rec)
+    if worst > 0:
+        raise AssertionError(f"twin logits differ beyond their tolerance: {err}")
+    if toks[0] != toks[1] or len(toks[0]) != n:
+        raise AssertionError("twin tokens differ")
+    if seq_worst > 0:
+        raise AssertionError(f"prefill and {RWKV_TWIN_PROMPT} decode steps differ by "
+                             f"{seq_err}")
+    return rec
+
+
+# ---------------------------------------------------------------------------
 
 def nvidia_smi_line():
     out = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
@@ -1358,12 +1848,23 @@ def main(argv=None):
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 1
     sys.path.insert(0, os.path.join(ROOT, "src"))
+    records = []
+    try:
+        return run_all(a, records)
+    finally:            # every phase's record so far, also when one failed
+        if a.out:
+            os.makedirs(os.path.dirname(os.path.abspath(a.out)), exist_ok=True)
+            with open(a.out, "w") as f:
+                json.dump(records, f, indent=1)
+
+
+def run_all(a, records):
+    import torch
     from repro_torch.kernels import build
     from repro_torch.kernels.f2_probe import ops
     from repro_torch.models.registry import get_config
     from repro_torch.workload import make_f2_config
 
-    records = []
     t_all = time.perf_counter()
     smi = nvidia_smi_line()
     name = torch.cuda.get_device_name(0)
@@ -1378,6 +1879,8 @@ def main(argv=None):
     # first, while the profiler has recorded nothing else in this process
     # (see _device_ms) and the card's memory is free for the plain version
     flash_summary = check_flash_kernels("cuda", SEED, records)
+    torch.cuda.empty_cache()
+    wkv_summary = check_wkv_kernels("cuda", SEED, records)
     torch.cuda.empty_cache()
 
     n_keys = 1 << a.log2_keys
@@ -1396,6 +1899,7 @@ def main(argv=None):
             raise AssertionError(f"main path never launched {k}")
 
     summary = check_kernels(kv, n_keys, SEED, records)
+    summary["probe"] = check_probe_kernel(kv, n_keys, SEED, records)
     profile_window(kv, n_keys, SEED, records)
     del kv
     torch.cuda.empty_cache()
@@ -1421,16 +1925,48 @@ def main(argv=None):
     train_twins("cuda", SEED, records)
     torch.cuda.empty_cache()
     train_restart("cuda", records)
+    torch.cuda.empty_cache()
+
+    from repro_torch.kernels.rwkv6_wkv import ops as wkv_ops
+    rcfg = rwkv_config()
+    model, rserve = rwkv_serve(rcfg, "cuda", SEED, records)
+    rprefill = rwkv_prefill(rcfg, model, "cuda", SEED, records)
+    del model
+    torch.cuda.empty_cache()
+    rwkv_twins("cuda", SEED, records)
+    torch.cuda.empty_cache()
+    tr, state, rtrain = train_main(
+        dataclasses.replace(rcfg, n_layers=RWKV_TRAIN_LAYERS), "cuda", SEED, records,
+        phase="rwkv_train", kernel_ops=wkv_ops, full_layers=rcfg.n_layers)
+    train_profile(tr, state, records, phase="rwkv_train_profile", label="wkv",
+                  kernels=("wkv_forward", "wkv_backward"), kernel_ops=wkv_ops)
+    del tr, state
+    torch.cuda.empty_cache()
+    train_twins("cuda", SEED, records, base=rcfg, phase="rwkv_train_twins",
+                grad_tol=RWKV_TWIN_GRAD_TOL)
+    launches["wkv_forward"] = (rserve["launches"]["wkv_forward"]
+                               + rprefill["launches"]["wkv_forward"]
+                               + rtrain["launches"]["wkv_forward"])
+    launches["wkv_backward"] = rtrain["launches"]["wkv_backward"]
+    summary.update(wkv_summary)
 
     csrc = "src/repro_torch/kernels/{}/csrc/{}.cu"
     src = {"fused_probe": csrc.format("f2_probe", "fused_probe"),
            "fused_write": csrc.format("f2_probe", "fused_write"),
+           "probe": csrc.format("f2_probe", "probe"),
+           "wkv_forward": csrc.format("rwkv6_wkv", "wkv6"),
+           "wkv_backward": csrc.format("rwkv6_wkv", "wkv6"),
            "paged_attention": csrc.format("paged_attention", "paged_attention"),
            "flash_attention_fwd": csrc.format("flash_attention", "flash_attention"),
            "flash_attention_bwd": csrc.format("flash_attention", "flash_attention")}
     fa = "src/repro/kernels/flash_attention/flash_attention.py:85"
+    wkv = "src/repro/kernels/rwkv6_wkv/rwkv6_wkv.py:55"
     replaces = {"fused_probe": "src/repro/kernels/f2_probe/f2_probe.py:160",
                 "fused_write": "src/repro/kernels/f2_probe/f2_probe.py:247",
+                "probe": "src/repro/kernels/f2_probe/f2_probe.py:76",
+                "wkv_forward": wkv,
+                "wkv_backward": wkv + " (its gradient: JAX's autodiff of "
+                                      "src/repro/models/rwkv6.py:77)",
                 "paged_attention":
                     "src/repro/kernels/paged_attention/paged_attention.py:97",
                 "flash_attention_fwd": fa,
@@ -1442,13 +1978,12 @@ def main(argv=None):
                     plain_ms=s["plain_ms"], bound_ms=s["bound_ms"],
                     bound_by=s["bound_by"], library_ms=s.get("library_ms"))
                for k, s in summary.items()]
+    for e in kernels:
+        if not e["launches"] > 0:
+            raise AssertionError(f"the main paths never launched {e['name']}")
     kline = dict(kernels=kernels)
     records.append(kline)
     records.append(dict(phase="total", seconds=time.perf_counter() - t_all))
-    if a.out:
-        os.makedirs(os.path.dirname(os.path.abspath(a.out)), exist_ok=True)
-        with open(a.out, "w") as f:
-            json.dump(records, f, indent=1)
     print(json.dumps(dict(phase="total", seconds=records[-1]["seconds"])))
     print(json.dumps(kline))
     print(smi)

@@ -13,6 +13,10 @@ bit for bit:
     "fused"      — the CUDA kernel for CUDA tensors, the plain single pass
                    for CPU tensors.
 
+`index_heads` is the first hop alone (slot hash -> index entry), which the
+two-phase read snapshots: with the "fused_cuda" backend it runs the
+legacy first-hop probe kernel.
+
 The columns stay in device memory at any store size: the reference's VMEM
 budget has no counterpart here.  `target=` is the liveness mode of
 lookup-based compaction: a lane whose chain head equals its target address
@@ -112,6 +116,16 @@ def probe(cfg: F2Config, keys: torch.Tensor, log: hybrid_log.LogState,
                        meta=meta, hops=hops, io_blocks=n_io, io_ops=n_io,
                        mem_hits=hops.sum(dtype=torch.int32) - n_io,
                        exhausted=exhausted)
+
+
+def index_heads(cfg: F2Config, index: torch.Tensor, keys: torch.Tensor) -> torch.Tensor:
+    """The (RC-tagged) index entries of the keys' slots.  The kernel returns
+    each head untagged with its RC flag; tagging it again gives the entry
+    back bit for bit."""
+    if resolve(cfg.engine, keys.device) == "fused_cuda":
+        addr, rc = probe_ops.probe_cuda(keys.contiguous(), index)
+        return torch.where(rc != 0, addr | RC_FLAG, addr)
+    return index[slot_of_keys(keys, index.shape[0])]
 
 
 def _probe_unfused(cfg, keys, log, lower, head_boundary, active, *, index,

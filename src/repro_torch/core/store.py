@@ -279,7 +279,7 @@ def read_begin(cfg: F2Config, state: F2State, keys: torch.Tensor,
     entries, stats = cold_index.find_entries(state.cold_idx, cfg, keys,
                                              active, state.stats)
     snap = ReadSnapshot(keys=keys, active=active,
-                        hot_heads=state.hot_index[hot_slots(cfg, keys)],
+                        hot_heads=probe_engine.index_heads(cfg, state.hot_index, keys),
                         cold_entries=entries,
                         cold_tail=state.cold.tail.clone(),
                         num_truncs=state.cold_truncs.clone())

@@ -31,7 +31,7 @@ import torch
 from .configs.base import ModelConfig
 from .core import cold_index, hybrid_log, read_cache, store
 from .core.types import IoStats, F2Config
-from .models import layers, transformer
+from .models import layers, rwkv6, transformer
 from .optim import adamw
 from .train import train_step
 
@@ -121,9 +121,10 @@ def model_config_from_dict(d: Dict) -> ModelConfig:
 
 def params_from_numpy(tree, cfg: ModelConfig, device="cpu") -> transformer.Transformer:
     """The port's model from the reference's parameter tree of numpy arrays
-    (float32 masters).  Matmul weights and the embedding are cast to
-    `cfg.dtype` (round to nearest even, as the reference's `.astype` at
-    use), norm scales stay float32."""
+    (float32 masters).  Matmul weights, the embedding and RWKV-6's `CAST`
+    leaves are cast to `cfg.dtype` (round to nearest even, as the
+    reference's `.astype` at use); norm scales and RWKV-6's `w0`, `wB`, `u`
+    and `ln_x` stay float32."""
     transformer.check_family(cfg)
     dt = layers.weight_dtype(cfg)
 
@@ -141,6 +142,12 @@ def params_from_numpy(tree, cfg: ModelConfig, device="cpu") -> transformer.Trans
     B = tree["blocks"]
     blocks = []
     for l in range(cfg.n_layers):
+        if cfg.family == "ssm":
+            R = B["rwkv"]
+            leaves = {n: (w if n in rwkv6.CAST else f32)(R[n][l]) for n in rwkv6.NAMES}
+            blocks.append(transformer.RWKVBlock(norm(B["norm1"], l), norm(B["norm2"], l),
+                                                rwkv6.RWKV(**leaves)))
+            continue
         a = B["attn"]
         qk = (f32(a["q_norm"][l]), f32(a["k_norm"][l])) if "q_norm" in a else ()
         attn = layers.Attention(w(a["wq"][l]), w(a["wk"][l]), w(a["wv"][l]),
@@ -209,11 +216,12 @@ def _tensor(a, device) -> torch.Tensor:
 
 def train_state_from_numpy(state, cfg: ModelConfig, device="cpu") -> train_step.TrainState:
     """The port's TrainState from the reference's, as numpy leaves.
-    Parameters take the port's dtypes (`params_from_numpy`); the moments
-    and residuals keep the reference's."""
+    Parameters take the dtypes of the reference's training state
+    (`params_from_numpy`, then `train_step.cast_like_reference`); the
+    moments and residuals keep the reference's."""
     params, opt, step = state
     mu, nu, err, count = opt
-    model = params_from_numpy(params, cfg, device)
+    model = train_step.cast_like_reference(cfg, params_from_numpy(params, cfg, device))
     names = list(train_step.trainable(model))
     compressed = any(np.asarray(a).size for a in _tree_leaves(err))
 

@@ -31,6 +31,8 @@ SOURCES = {
     "fused_write": KERNELS_DIR / "f2_probe" / "csrc" / "fused_write.cu",
     "paged_attention": KERNELS_DIR / "paged_attention" / "csrc" / "paged_attention.cu",
     "flash_attention": KERNELS_DIR / "flash_attention" / "csrc" / "flash_attention.cu",
+    "wkv6": KERNELS_DIR / "rwkv6_wkv" / "csrc" / "wkv6.cu",
+    "probe": KERNELS_DIR / "f2_probe" / "csrc" / "probe.cu",
 }
 
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",

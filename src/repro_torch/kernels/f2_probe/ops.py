@@ -1,12 +1,13 @@
-"""Wrappers of the F2 probe/write CUDA kernels.
+"""Wrappers of the F2 probe/write CUDA kernels (and the legacy first-hop
+probe).
 
 Each wrapper checks device, dtype, shape and contiguity, allocates its
 outputs with `torch.empty`, launches on the current CUDA stream and raises
 if the C entry point reports a CUDA error.  For tensors on the CPU (the
 tests) it runs the plain version in `ref.py`; for any other device it
 raises.  `launches[name]` counts the CUDA kernel launches of each wrapper:
-one per `fused_probe` call, three per `fused_write` call (its per-lane
-pass, the scan of the append flags and the slot-chaining pass).
+one per `fused_probe` or `probe` call, three per `fused_write` call (its
+per-lane pass, the scan of the append flags and the slot-chaining pass).
 """
 from __future__ import annotations
 
@@ -18,7 +19,7 @@ import torch
 from .. import build
 from . import ref
 
-launches: Dict[str, int] = {"fused_probe": 0, "fused_write": 0}
+launches: Dict[str, int] = {"fused_probe": 0, "fused_write": 0, "probe": 0}
 WRITE_KERNELS_PER_CALL = 3   # f2_fused_write launches three kernels
 
 _P = ctypes.c_void_p
@@ -62,6 +63,40 @@ def _raise_on(err: int, what: str) -> None:
 
 def _ptr(t):
     return None if t is None else t.data_ptr()
+
+
+def probe_cuda(keys, index_addr):
+    """The first-hop kernel, forced: keys [B], index_addr [E] (E a power of
+    two) contiguous int32 on a CUDA device -> (addr, is_rc) [B] int32 as in
+    `ref.probe_reference`."""
+    dev = keys.device
+    if dev.type != "cuda":
+        raise ValueError(f"probe_cuda: keys are on {dev}; the kernel needs CUDA tensors")
+    B, E = keys.shape[0], index_addr.shape[0]
+    _pow2(E, "index size")
+    _check("keys", keys, torch.int32, (B,), dev)
+    _check("index", index_addr, torch.int32, (E,), dev)
+    addr = torch.empty((B,), dtype=torch.int32, device=dev)
+    is_rc = torch.empty((B,), dtype=torch.int32, device=dev)
+    if B == 0:
+        return addr, is_rc
+    fn = _bind("probe", "f2_probe", 2, 2, 2)
+    err = fn(_ptr(keys), _ptr(index_addr), B, E, _ptr(addr), _ptr(is_rc),
+             torch.cuda.current_stream(dev).cuda_stream)
+    _raise_on(err, "probe")
+    launches["probe"] += 1
+    return addr, is_rc
+
+
+def probe(keys, index_addr):
+    """The first hop of a key batch: the plain version for CPU tensors, the
+    kernel for CUDA tensors; any other device raises."""
+    dev = keys.device
+    if dev.type == "cpu":
+        return ref.probe_reference(keys, index_addr)
+    if dev.type != "cuda":
+        raise ValueError(f"probe: no kernel for device {dev}")
+    return probe_cuda(keys, index_addr)
 
 
 def fused_probe(keys, heads_src, lower, active, head_boundary,

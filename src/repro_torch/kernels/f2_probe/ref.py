@@ -1,5 +1,7 @@
-"""Plain PyTorch versions of the two F2 kernels.
+"""Plain PyTorch versions of the three F2 kernels.
 
+  * `probe_reference` — the legacy first hop: slot hash -> index gather ->
+    RC-flag decode (the chain head untagged, and whether it was tagged).
   * `fused_probe_body` — the read engine: slot hash -> index gather (or
     caller-given heads) -> bounded chain walk with a per-lane lower bound,
     resolving log or read-cache records by the RC_FLAG tag and skipping
@@ -50,6 +52,16 @@ def _mix(x):
 
 def _is_rc(a):
     return (a >= 0) & ((a & RC_FLAG) != 0)
+
+
+def probe_reference(keys, index_addr):
+    """keys [B], index_addr [E] (E a power of two) int32 -> (addr [B] int32
+    untagged chain heads, is_rc [B] int32)."""
+    slot = _mix(keys) & (index_addr.shape[0] - 1)
+    entry = index_addr[slot]
+    is_rc = _is_rc(entry).to(torch.int32)
+    untagged = torch.where(entry >= 0, entry & ~RC_FLAG, entry)
+    return untagged, is_rc
 
 
 def _in_range(cur, lower):

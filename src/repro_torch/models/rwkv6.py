@@ -1,0 +1,144 @@
+"""RWKV-6 "Finch" block (the JAX package's `models/rwkv6.py`): token-shift
+time-mix with data-dependent decay, and squared-ReLU channel-mix.
+
+Recurrence per head (state S [Dk, Dv]):
+    y_t = r_t^T (S_{t-1} + diag(u) k_t v_t^T)
+    S_t = diag(w_t) S_{t-1} + k_t v_t^T
+with w_t = exp(-exp(w0 + tanh(x_w A) B)) computed from the input.  Training
+and prefill run the recurrence over the sequence, decode one step of it
+(T = 1) from the cached state: both go through `wkv_scan`, which is the WKV
+CUDA kernels on a CUDA device and their plain version on the CPU.
+
+The parameters are an `RWKV` module whose attribute names are the
+reference's leaves.  `CAST` leaves are stored in `cfg.dtype` (the
+reference casts its float32 masters at every use, which gives the same
+bits as casting once); `w0`, `wB`, `u` and `ln_x` stay float32 (in a
+training state they take `cfg.dtype` too, as the reference's
+`init_state` casts every float32 leaf of two or more dimensions; the
+functions here read them in float32 either way).  The cast
+points of the activations are the reference's: the lerps run in the
+activation dtype, the decay is computed in float32 from the float32 cast
+of tanh(x_w A), r/k/v go to float32 for the recurrence, and y goes back to
+the activation dtype before the per-head norm.
+"""
+from __future__ import annotations
+
+from typing import Optional
+
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+from ..configs.base import ModelConfig
+from ..kernels.rwkv6_wkv import ops as wkv_ops
+from .layers import _heads, _normal, _param, weight_dtype
+
+LORA_R = 32
+NAMES = ("mu", "wr", "wk", "wv", "wg", "wo", "w0", "wA", "wB", "u", "ln_x",
+         "mu_c", "ck", "cv", "cr")
+CAST = ("mu", "wr", "wk", "wv", "wg", "wo", "wA", "mu_c", "ck", "cv", "cr")
+
+
+class RWKV(nn.Module):
+    """mu [5, D], wr/wk/wv/wg [D, H, Dh], wo [H, Dh, D], w0 [H, Dh], wA [D, R],
+    wB [R, H, Dh], u [H, Dh], ln_x [H, Dh], mu_c [2, D], ck [D, F], cv [F, D],
+    cr [D, D]."""
+
+    def __init__(self, **leaves: torch.Tensor):
+        super().__init__()
+        if set(leaves) != set(NAMES):
+            raise ValueError(f"RWKV leaves {sorted(leaves)}, expected {sorted(NAMES)}")
+        for n in NAMES:
+            setattr(self, n, _param(leaves[n]))
+
+
+def rwkv_params(cfg: ModelConfig, gen: torch.Generator, device=None) -> RWKV:
+    """Random weights from the reference's distributions, drawn with `gen`."""
+    d, hd, H = cfg.d_model, cfg.resolved_head_dim, cfg.n_heads
+    dt = weight_dtype(cfg)
+    s = d ** -0.5
+
+    def normal(shape, std, dtype=dt):
+        return _normal(gen, shape, std, dtype, device)
+
+    def full(shape, v):
+        return torch.full(shape, v, dtype=torch.float32, device=device)
+
+    return RWKV(
+        mu=torch.zeros((5, d), dtype=dt, device=device),
+        wr=normal((d, H, hd), s), wk=normal((d, H, hd), s),
+        wv=normal((d, H, hd), s), wg=normal((d, H, hd), s),
+        wo=normal((H, hd, d), s),
+        w0=full((H, hd), -6.0),
+        wA=normal((d, LORA_R), s),
+        wB=normal((LORA_R, H, hd), 0.01, torch.float32),
+        u=full((H, hd), 0.0),
+        ln_x=full((H, hd), 1.0),
+        mu_c=torch.zeros((2, d), dtype=dt, device=device),
+        ck=normal((d, cfg.d_ff), s),
+        cv=normal((cfg.d_ff, d), cfg.d_ff ** -0.5),
+        cr=normal((d, d), s))
+
+
+def _shift(x, x_prev):
+    """Token shift: x_{t-1} with x_prev seeding position 0. x: [B,T,D]."""
+    return torch.cat([x_prev[:, None, :], x[:, :-1, :]], dim=1)
+
+
+def _time_mix_inputs(cfg: ModelConfig, p: RWKV, x, x_prev):
+    """(r, k, v, g [B,H,T,Dh] in x's dtype, w [B,H,T,Dh] float32)."""
+    dt = x.dtype
+    diff = _shift(x, x_prev) - x
+    mu = p.mu.to(dt)
+    xr, xk, xv, xw, xg = (x + diff * mu[i] for i in range(5))
+    r = _heads(xr, p.wr)
+    k = _heads(xk, p.wk)
+    v = _heads(xv, p.wv)
+    g = F.silu(_heads(xg, p.wg))
+    dd = torch.tanh(xw @ p.wA.to(dt))                               # [B,T,R]
+    B, T, _ = x.shape
+    R, H, hd = p.wB.shape
+    lw = (dd.float() @ p.wB.float().reshape(R, H * hd)).view(B, T, H, hd).transpose(1, 2)
+    lw = p.w0.float()[None, :, None, :] + lw
+    w = torch.exp(-torch.exp(lw))                                    # (0,1) decay
+    return r, k, v, g, w
+
+
+def wkv_scan(r, k, v, w, u, state: Optional[torch.Tensor], need_state: bool = True):
+    """The WKV recurrence.  r, k, v: [B,H,T,Dh] (taken in float32); w:
+    [B,H,T,Dh] decay; u: [H,Dh]; state: [B,H,Dh,Dh] or None (zeros).
+    Returns (y [B,H,T,Dh] float32, state' or None without need_state)."""
+    return wkv_ops.wkv(r, k, v, w, u, state, need_state=need_state)
+
+
+def time_mix(cfg: ModelConfig, p: RWKV, x, x_prev, wkv_state,
+             need_state: bool = True):
+    """Returns (out [B,T,D], new_x_prev [B,D], new_wkv_state or None)."""
+    dt = x.dtype
+    r, k, v, g, w = _time_mix_inputs(cfg, p, x, x_prev)
+    y, new_state = wkv_scan(r, k, v, w, p.u.float(), wkv_state, need_state)
+    # per-head group norm then gate
+    y = rmsnorm_heads(y.to(dt), p.ln_x) * g
+    B, H, T, K = y.shape
+    out = y.transpose(1, 2).reshape(B, T, H * K) @ p.wo.to(dt).reshape(H * K, -1)
+    return out, x[:, -1, :], new_state
+
+
+def rmsnorm_heads(y, scale, eps=1e-6):
+    dt = y.dtype
+    yf = y.float()
+    yf = yf * torch.rsqrt(torch.mean(yf * yf, dim=-1, keepdim=True) + eps)
+    return (yf * scale.float()[None, :, None, :]).to(dt)
+
+
+def channel_mix(cfg: ModelConfig, p: RWKV, x, x_prev):
+    """Returns (out [B,T,D], new_x_prev [B,D])."""
+    dt = x.dtype
+    diff = _shift(x, x_prev) - x
+    mu = p.mu_c.to(dt)
+    xk = x + diff * mu[0]
+    xr = x + diff * mu[1]
+    kk = torch.square(F.relu(xk @ p.ck.to(dt)))
+    vv = kk @ p.cv.to(dt)
+    rr = torch.sigmoid(xr @ p.cr.to(dt))
+    return rr * vv, x[:, -1, :]

@@ -1,16 +1,18 @@
-"""The decoder of the dense family as `nn.Module`s, and its decode path.
+"""The decoders of the dense and ssm (RWKV-6) families as `nn.Module`s,
+and their decode paths.
 
-The module tree keeps the JAX reference's parameter names:
-`embed.table`, `blocks[l].{norm1,norm2,attn.{wq,wk,wv,wo},mlp.{wi,wo}}` and
-`final_norm` (`attn.q_norm`/`attn.k_norm` with qk-norm).  The layer stack is
-an `nn.ModuleList` walked by a Python loop where the reference scans over
+The module tree keeps the JAX reference's parameter names: `embed.table`,
+`final_norm` and, per block, `blocks[l].{norm1,norm2,attn.{wq,wk,wv,wo},
+mlp.{wi,wo}}` (dense; `attn.q_norm`/`attn.k_norm` with qk-norm) or
+`blocks[l].{norm1,norm2,rwkv.{mu,wr,...,cr}}` (ssm).  The layer stack is an
+`nn.ModuleList` walked by a Python loop where the reference scans over
 stacked blocks.
 
 Exposes `layer_flags`, `init_params`, the full-sequence path of training
-(`forward_hidden`, `forward`, `loss_fn`) and the decode path (`init_cache`,
-`decode_step`: the contiguous-cache backend of the serving engine).  The
-other families (moe, ssm, hybrid, audio, vlm) are not ported yet (ROADMAP
-queue 1, item 14): asking for them raises `NotImplementedError`.
+and prefill (`forward_hidden`, `forward`, `loss_fn`) and the decode path
+(`init_cache`, `decode_step`: the contiguous-cache backend of the serving
+engine).  The other families (moe, hybrid, audio, vlm) are not ported yet
+(ROADMAP queue 1, item 14): asking for them raises `NotImplementedError`.
 
 Parameters are made with `requires_grad=False`; the training step switches
 them on.  `decode_step` runs under `torch.no_grad()` whatever they hold.
@@ -24,14 +26,16 @@ from torch import nn
 from torch.utils.checkpoint import checkpoint
 
 from ..configs.base import ModelConfig
-from . import layers
+from . import layers, rwkv6
+
+PORTED_FAMILIES = ("dense", "ssm")
 
 
 def check_family(cfg: ModelConfig) -> None:
-    if cfg.family != "dense":
+    if cfg.family not in PORTED_FAMILIES:
         raise NotImplementedError(
             f"{cfg.name}: the {cfg.family!r} family is not ported to PyTorch "
-            f"yet (ROADMAP queue 1, item 14); only 'dense' runs")
+            f"yet (ROADMAP queue 1, item 14); {PORTED_FAMILIES} run")
 
 
 # ---------------------------------------------------------------------------
@@ -67,9 +71,15 @@ class Block(nn.Module):
         self.norm1, self.norm2, self.attn, self.mlp = norm1, norm2, attn, mlp
 
 
+class RWKVBlock(nn.Module):
+    def __init__(self, norm1: layers.Norm, norm2: layers.Norm, rwkv: rwkv6.RWKV):
+        super().__init__()
+        self.norm1, self.norm2, self.rwkv = norm1, norm2, rwkv
+
+
 class Transformer(nn.Module):
     def __init__(self, cfg: ModelConfig, embed: layers.Embed,
-                 blocks: List[Block], final_norm: layers.Norm):
+                 blocks: List[nn.Module], final_norm: layers.Norm):
         super().__init__()
         self.cfg = cfg
         self.embed = embed
@@ -84,6 +94,12 @@ def init_params(cfg: ModelConfig, generator: torch.Generator,
     check_family(cfg)
     d = cfg.d_model
     embed = layers.embed_params(cfg, generator, device)
+    if cfg.family == "ssm":
+        blocks = [RWKVBlock(layers.norm_params(cfg, d, device),
+                            layers.norm_params(cfg, d, device),
+                            rwkv6.rwkv_params(cfg, generator, device))
+                  for _ in range(cfg.n_layers)]
+        return Transformer(cfg, embed, blocks, layers.norm_params(cfg, d, device))
     blocks = [Block(layers.norm_params(cfg, d, device),
                     layers.norm_params(cfg, d, device),
                     layers.attn_params(cfg, generator, d, device),
@@ -94,7 +110,7 @@ def init_params(cfg: ModelConfig, generator: torch.Generator,
 
 
 # ---------------------------------------------------------------------------
-# Full-sequence forward (train)
+# Full-sequence forward (train / prefill)
 # ---------------------------------------------------------------------------
 
 def _attn_block_seq(cfg: ModelConfig, blk: Block, x, tables, window: int):
@@ -107,6 +123,18 @@ def _attn_block_seq(cfg: ModelConfig, blk: Block, x, tables, window: int):
     return x + layers.mlp(cfg, blk.mlp, h2)
 
 
+def _rwkv_block_seq(cfg: ModelConfig, blk: RWKVBlock, x):
+    """One RWKV-6 block over a whole sequence, from zero token shift and
+    zero WKV state (the final state is not computed)."""
+    zero_prev = torch.zeros((x.shape[0], x.shape[2]), dtype=x.dtype, device=x.device)
+    h = layers.norm(cfg, x, blk.norm1)
+    tm, _, _ = rwkv6.time_mix(cfg, blk.rwkv, h, zero_prev, None, need_state=False)
+    x = x + tm
+    h2 = layers.norm(cfg, x, blk.norm2)
+    cm, _ = rwkv6.channel_mix(cfg, blk.rwkv, h2, zero_prev)
+    return x + cm
+
+
 def forward_hidden(cfg: ModelConfig, model: Transformer,
                    batch: Dict[str, torch.Tensor], remat: bool = True) -> torch.Tensor:
     """Final hidden states [B, T, D] of batch["tokens"] [B, T].  With remat
@@ -116,6 +144,11 @@ def forward_hidden(cfg: ModelConfig, model: Transformer,
     check_family(cfg)
     tokens = batch["tokens"]
     x = layers.embed(cfg, model.embed, tokens)
+    if cfg.family == "ssm":
+        for blk in model.blocks:
+            x = (checkpoint(_rwkv_block_seq, cfg, blk, x, use_reentrant=False)
+                 if remat else _rwkv_block_seq(cfg, blk, x))
+        return layers.norm(cfg, x, model.final_norm)
     B, T = tokens.shape
     positions = torch.arange(T, device=tokens.device).expand(B, T)
     tables = None
@@ -180,9 +213,19 @@ def loss_fn(cfg: ModelConfig, model: Transformer, batch: Dict[str, torch.Tensor]
 
 def init_cache(cfg: ModelConfig, batch: int, max_len: int, dtype=None,
                device=None) -> Dict[str, Any]:
+    """{"len": int32 [B]} and, dense: "k"/"v" [L, B, Hkv, max_len, Dh] in
+    the model dtype; ssm: "wkv" [L, B, H, Dh, Dh] float32 and "shift"
+    [L, 2, B, D] in the model dtype (max_len unused)."""
     check_family(cfg)
     dt = getattr(torch, dtype or cfg.dtype)
     L, Hkv, Dh = cfg.n_layers, cfg.n_kv_heads, cfg.resolved_head_dim
+    if cfg.family == "ssm":
+        H = cfg.n_heads
+        return {"len": torch.zeros((batch,), dtype=torch.int32, device=device),
+                "wkv": torch.zeros((L, batch, H, Dh, Dh), dtype=torch.float32,
+                                   device=device),
+                "shift": torch.zeros((L, 2, batch, cfg.d_model), dtype=dt,
+                                     device=device)}
     return {"len": torch.zeros((batch,), dtype=torch.int32, device=device),
             "k": torch.zeros((L, batch, Hkv, max_len, Dh), dtype=dt, device=device),
             "v": torch.zeros((L, batch, Hkv, max_len, Dh), dtype=dt, device=device)}
@@ -212,10 +255,26 @@ def decode_step(cfg: ModelConfig, model: Transformer, cache: Dict[str, Any],
                 tokens: torch.Tensor) -> Tuple[torch.Tensor, Dict[str, Any]]:
     """tokens: [B] int32 (the last generated token).  Returns
     (logits [B, Vpad], cache).  Uses cache["len"] as the position.  The
-    cache's K/V tensors are updated in place; "len" is replaced by len+1."""
+    cache's K/V (dense) or WKV-state and shift (ssm) tensors are updated in
+    place; "len" is replaced by len+1."""
     check_family(cfg)
     x = layers.embed(cfg, model.embed, tokens[:, None])
     cache_len = cache["len"]
+    if cfg.family == "ssm":
+        for l, blk in enumerate(model.blocks):
+            shift = cache["shift"][l]
+            h = layers.norm(cfg, x, blk.norm1)
+            tm, sh1, wkv = rwkv6.time_mix(cfg, blk.rwkv, h, shift[0], cache["wkv"][l])
+            x = x + tm
+            cache["wkv"][l].copy_(wkv)
+            shift[0].copy_(sh1)
+            h2 = layers.norm(cfg, x, blk.norm2)
+            cm, sh2 = rwkv6.channel_mix(cfg, blk.rwkv, h2, shift[1])
+            x = x + cm
+            shift[1].copy_(sh2)
+        cache = dict(cache, len=cache_len + 1)
+        x = layers.norm(cfg, x, model.final_norm)
+        return layers.logits(cfg, model.embed, x)[:, 0], cache
     windows = layer_flags(cfg)["window"].tolist()
     tables = layers.rope_tables(cache_len[:, None, None], cfg.resolved_head_dim,
                                 cfg.rope_theta, cfg.rope_fraction)

@@ -1,6 +1,8 @@
 """Serving engine: continuous batching over either cache backend.
 
-  * backend="contiguous": the model's dense KV cache (`decode_step`);
+  * backend="contiguous": the model's own cache (`decode_step`): dense K/V,
+    or RWKV-6's per-lane WKV state and token shift (the only backend of
+    the ssm family, which has no K/V to page);
   * backend="paged": the F2-tiered paged cache (`repro_torch.kvcache`) with
     the paged-attention CUDA kernel per layer — hot/cold page tiering,
     demotion under pressure, promotion of re-read pages, metered cold
@@ -45,6 +47,12 @@ class Engine:
                  max_len: int = 256, backend: str = "contiguous",
                  page_size: int = 16, device=None, interpret: bool = False):
         transformer.check_family(cfg)
+        if backend not in ("contiguous", "paged"):
+            raise ValueError(f"backend {backend!r}: 'contiguous' or 'paged'")
+        if backend == "paged" and cfg.family == "ssm":
+            raise ValueError(f"{cfg.name}: backend='paged' pages attention K/V, and the "
+                             "ssm family has none (its state is O(1) per lane); "
+                             "use backend='contiguous'")
         self.cfg = cfg
         self.model = model
         self.max_batch = max_batch
@@ -126,11 +134,17 @@ class Engine:
         self.decode_steps += 1
         tk = torch.as_tensor(np.asarray(toks, np.int32), device=self.device)
         if self.backend == "contiguous":
-            logits, self.cache = transformer.decode_step(
-                self.cfg, self.model, self.cache, tk)
+            logits = self._contiguous_logits(tk)
         else:
             logits = self._paged_logits(tk, active)
         return torch.argmax(logits, dim=-1).cpu().numpy()
+
+    def _contiguous_logits(self, toks: torch.Tensor) -> torch.Tensor:
+        """One token for every lane through the model's own cache; returns
+        the logits [max_batch, Vpad]."""
+        logits, self.cache = transformer.decode_step(self.cfg, self.model,
+                                                     self.cache, toks)
+        return logits
 
     # -- paged data path --------------------------------------------------------
     def _paged_logits(self, toks: torch.Tensor, active) -> torch.Tensor:

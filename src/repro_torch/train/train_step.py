@@ -32,12 +32,26 @@ def trainable(model: transformer.Transformer) -> Dict[str, torch.Tensor]:
     return params
 
 
+def cast_like_reference(cfg: ModelConfig, model: transformer.Transformer):
+    """The reference's `init_state` cast of its float32 masters: every
+    float32 leaf of two or more dimensions takes `cfg.dtype`.  The
+    reference stacks the blocks' leaves on a layer axis, so a block's norm
+    scales (and RWKV-6's `w0`, `wB`, `u`, `ln_x`) are cast, and only
+    `final_norm` stays float32.  The functions read these leaves in float32
+    whatever their dtype."""
+    dt = getattr(torch, cfg.dtype)
+    for name, p in model.named_parameters():
+        ndim = p.dim() + (1 if name.startswith("blocks.") else 0)
+        if p.dtype == torch.float32 and ndim >= 2:
+            p.data = p.data.to(dt)
+    return model
+
+
 def init_state(cfg: ModelConfig, ocfg: adamw.AdamWConfig,
                generator: torch.Generator, device=None) -> TrainState:
-    """Random weights from `generator` (on `device`).  `init_params` stores
-    matmul weights and the embedding in `cfg.dtype` and norm scales in
-    float32, which is what the reference's cast of its float32 masters gives."""
-    model = transformer.init_params(cfg, generator, device)
+    """Random weights from `generator` (on `device`), in the dtypes of the
+    reference's training state (`cast_like_reference`)."""
+    model = cast_like_reference(cfg, transformer.init_params(cfg, generator, device))
     params = trainable(model)
     return TrainState(params=model, opt=adamw.init(ocfg, params),
                       step=torch.zeros((), dtype=torch.int32, device=device))

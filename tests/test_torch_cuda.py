@@ -6,7 +6,11 @@ tests/test_kernels.py's tolerances (2e-5 in float32, 2e-2 in bfloat16), and
 the flash-attention kernels held against autograd through their plain
 version (forward as above; gradients 1e-4 in float32, and in bfloat16 2e-2
 of the largest reference gradient, the reference run in float32 on the
-same bfloat16 inputs).
+same bfloat16 inputs); the WKV forward and gradient kernels against the
+plain recurrence and autograd through it (the forward 2e-3 absolute and
+relative, the JAX package's tolerance; each gradient within 2e-3 of its
+largest magnitude, since dw sums D products of two accumulated states and
+its float32 rounding scales with them), and the legacy first-hop probe bit for bit.
 
 These tests need a CUDA device and nvcc and skip without them.  They import
 neither JAX nor the JAX package, so they also run where only PyTorch is
@@ -29,6 +33,8 @@ from repro_torch.kernels.paged_attention import ops as pa_ops  # noqa: E402
 from repro_torch.kernels.paged_attention import ref as pa_ref  # noqa: E402
 from repro_torch.kernels.flash_attention import ops as fa_ops  # noqa: E402
 from repro_torch.kernels.flash_attention import ref as fa_ref  # noqa: E402
+from repro_torch.kernels.rwkv6_wkv import ops as wkv_ops  # noqa: E402
+from repro_torch.kernels.rwkv6_wkv import ref as wkv_ref  # noqa: E402
 
 pytestmark = pytest.mark.cuda
 
@@ -222,3 +228,91 @@ def test_flash_attention_wrapper_refuses(cuda):
     with pytest.raises(ValueError, match="not contiguous"):
         fa_ops.flash_attention_cuda(q.transpose(0, 1).contiguous().transpose(0, 1), k, v)
     assert fa_ops.launches == {"flash_attention_fwd": 0, "flash_attention_bwd": 0}
+
+
+# (B, H, T, D, lowest decay, initial state): tests/test_kernels.py's shapes
+# (D 64 and 128), a decode step from a state, ragged T over a checkpoint
+# boundary with decays down to 1e-3, and the reduced configs' D 16
+WKV_SHAPES = [(2, 3, 256, 64, 0.8, False), (1, 2, 128, 64, 0.8, False),
+              (2, 1, 64, 128, 0.8, True), (4, 8, 1, 64, 0.5, True),
+              (1, 2, 197, 32, 1e-3, True), (2, 4, 70, 16, 1e-3, False)]
+
+
+def _wkv_inputs(shape, dev, seed=0):
+    B, H, T, D, w_lo, state = shape
+    g = torch.Generator(device="cpu").manual_seed(seed)
+    r, k, v, dy = (torch.randn((B, H, T, D), generator=g) for _ in range(4))
+    w = w_lo + (0.999 - w_lo) * torch.rand((B, H, T, D), generator=g)
+    u = torch.randn((H, D), generator=g)
+    s0 = torch.randn((B, H, D, D), generator=g) if state else None
+    ds = torch.randn((B, H, D, D), generator=g)
+    return [t.to(dev) if t is not None else None for t in (r, k, v, w, u, s0, dy, ds)]
+
+
+def _wkv_close(got, want):
+    torch.testing.assert_close(got, want, atol=2e-3, rtol=2e-3)
+
+
+def _wkv_grad_close(got, want, name=""):
+    err = float((got - want).abs().max())
+    assert err <= 2e-3 * float(want.abs().max()), (name, err)
+
+
+@pytest.mark.parametrize("shape", WKV_SHAPES, ids=["kernels_a", "kernels_b", "d128",
+                                                   "decode", "small_w", "d16"])
+def test_wkv_matches_plain_version(cuda, shape):
+    r, k, v, w, u, s0, dy, ds = _wkv_inputs(shape, cuda)
+    wkv_ops.reset_launches()
+    ins = [t.clone().requires_grad_(True) for t in (r, k, v, w, u)]
+    y, s = wkv_ops.wkv_cuda(*ins, s0, need_state=True)
+    grads = torch.autograd.grad((y * dy).sum() + (s * ds).sum(), ins)
+    torch.cuda.synchronize()
+    assert wkv_ops.launches == {"wkv_forward": 1, "wkv_backward": 1}
+    rin = [t.clone().requires_grad_(True) for t in (r, k, v, w, u)]
+    yr, sr = wkv_ref.wkv_reference(*rin, s0)
+    _wkv_close(y, yr.detach())
+    _wkv_close(s, sr.detach())
+    want = torch.autograd.grad((yr * dy).sum() + (sr * ds).sum(), rin)
+    for name, a, b in zip("rkvwu", grads, want):
+        _wkv_grad_close(a, b, name)
+    # the initial state's gradient, and the forward without the final state
+    if s0 is not None:
+        s0g = s0.clone().requires_grad_(True)
+        y2, _ = wkv_ops.wkv_cuda(r, k, v, w, u, s0g)
+        (d0,) = torch.autograd.grad((y2 * dy).sum(), [s0g])
+        plain = wkv_ref.wkv_backward_reference(r, k, v, w, u, dy, s0)
+        _wkv_grad_close(d0, plain[5], "state")
+        _wkv_close(y2, yr.detach())
+
+
+def test_wkv_wrapper_refuses(cuda):
+    r, k, v, w, u, s0, _, _ = _wkv_inputs(WKV_SHAPES[3], cuda)
+    wkv_ops.reset_launches()
+    with pytest.raises(ValueError, match="needs CUDA tensors"):
+        wkv_ops.wkv_cuda(r.cpu(), k.cpu(), v.cpu(), w.cpu(), u.cpu())
+    with pytest.raises(ValueError, match="D="):
+        wkv_ops.wkv_cuda(*(t[..., :48].contiguous() for t in (r, k, v, w, u)))
+    with pytest.raises(TypeError, match="float32"):
+        wkv_ops.wkv_cuda(r.bfloat16(), k, v, w, u)
+    with pytest.raises(ValueError, match="not contiguous"):
+        wkv_ops.wkv_cuda(r.transpose(0, 1).contiguous().transpose(0, 1), k, v, w, u)
+    assert wkv_ops.launches == {"wkv_forward": 0, "wkv_backward": 0}
+
+
+@pytest.mark.parametrize("E,b", [(1 << 12, 2048), (1 << 10, 1024), (1 << 9, 77)])
+def test_first_hop_probe_matches_plain_version(cuda, E, b):
+    rng = np.random.default_rng(E + b)
+    idx = rng.integers(-1, 1000, (E,)).astype(np.int32)
+    idx[1::5] = -1
+    idx[::7] |= 1 << 30
+    keys = torch.as_tensor(rng.integers(0, 1 << 30, (b,)).astype(np.int32), device=cuda)
+    index = torch.as_tensor(idx, device=cuda)
+    ops.reset_launches()
+    got = ops.probe(keys, index)
+    want = ref.probe_reference(keys, index)
+    torch.cuda.synchronize()
+    assert ops.launches["probe"] == 1
+    for x, y in zip(got, want):
+        assert x.dtype == y.dtype == torch.int32 and torch.equal(x, y)
+    with pytest.raises(ValueError, match="needs CUDA tensors"):
+        ops.probe_cuda(keys.cpu(), index.cpu())

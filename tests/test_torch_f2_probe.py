@@ -8,6 +8,8 @@ reached through the `ops.py` wrappers) and its unfused oracle.  The CUDA
 kernels run only on a card: tests/test_torch_cuda.py holds them against
 the plain versions there.
 """
+import dataclasses
+
 import numpy as np
 import pytest
 
@@ -232,3 +234,38 @@ def test_write_plan_parity(cfgs, jstate, dist):
     assert rep.sum() > 0
     if dist == "duplicate_keys":
         assert rep.sum() < B
+
+
+# --- the legacy first-hop probe (tests/test_kernels.py::test_f2_probe) -----
+
+@pytest.mark.parametrize("E,nb", [(1 << 12, 2048), (1 << 10, 1024), (1 << 9, 77)])
+def test_first_hop_probe_parity(E, nb):
+    """Bit-exact against the reference's `probe_ref` and its Pallas kernel in
+    interpret mode, on indexes with every seventh entry RC-tagged (NULL
+    entries stay NULL under the tag)."""
+    from repro.kernels.f2_probe import ops as jfp
+    rng = np.random.default_rng(E + nb)
+    idx = rng.integers(-1, 1000, (E,)).astype(np.int32)
+    idx[1::5] = -1
+    idx[::7] |= 1 << 30
+    keys = rng.integers(0, 1 << 30, (nb,)).astype(np.int32)
+    got = tops.probe(t(keys), t(idx))
+    assert_same(got, tref.probe_reference(t(keys), t(idx)))
+    assert_same(got, tuple(jfp.probe_ref(jnp.asarray(keys), jnp.asarray(idx))))
+    if nb % 1024 == 0:      # the Pallas kernel tiles the batch by 1024
+        assert_same(got, tuple(jfp.probe(jnp.asarray(keys), jnp.asarray(idx),
+                                         interpret=True)))
+    assert int(got[1].sum()) > 0 and int((got[0] == -1).sum()) > 0
+
+
+def test_index_heads_retag_the_first_hop(cfgs, jstate):
+    """The two-phase read's snapshot (`index_heads`) equals a plain gather of
+    the index entries, RC tags included, with every engine."""
+    jcfg, tcfg = cfgs
+    st = to_port(jstate)
+    keys = torch.arange(-40, 600, dtype=torch.int32)
+    want = st.hot_index[tref._mix(keys) & (st.hot_index.shape[0] - 1)]
+    assert bool(((want >= 0) & ((want & (1 << 30)) != 0)).any())
+    for engine in PORT_ENGINES:
+        cfg = dataclasses.replace(tcfg, engine=engine)
+        assert_same(tpe.index_heads(cfg, st.hot_index, keys), want, engine)

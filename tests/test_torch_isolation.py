@@ -1,6 +1,6 @@
-"""The port stands alone: it imports and runs (the store, a reduced
-serving engine and a reduced training run) with the JAX package, JAX and
-the benchmarks blocked; its entry points default to the CUDA device and
+"""The port stands alone: it imports and runs (the store, reduced serving
+engines and reduced training runs of the dense and RWKV-6 families) with
+the JAX package, JAX and the benchmarks blocked; its entry points default to the CUDA device and
 refuse to quietly run without it; the forced-kernel engine refuses CPU
 tensors."""
 import ast
@@ -83,6 +83,19 @@ def test_port_runs_with_the_reference_blocked():
                         "--batch", "2", "--seq", "16", "--ckpt-dir", d])
             from repro_torch.checkpoint.checkpointer import Checkpointer
             assert Checkpointer(d).latest_step() == 2
+        rcfg = get_config("rwkv6-7b").reduced()
+        rmodel = transformer.init_params(rcfg, torch.Generator().manual_seed(0), "cpu")
+        eng = Engine(rcfg, rmodel, max_batch=2, max_len=32, backend="contiguous",
+                     device="cpu")
+        for i in range(2):
+            eng.submit(Request(rid=i, prompt=np.arange(1, 5, dtype=np.int32) + i,
+                               max_new_tokens=3))
+        assert sorted(len(r.out_tokens) for r in eng.run()) == [3, 3]
+        with tempfile.TemporaryDirectory() as d:
+            train.main(["--arch", "rwkv6-7b", "--reduced", "--device", "cpu",
+                        "--steps", "1", "--batch", "2", "--seq", "16",
+                        "--ckpt-dir", d])
+            assert Checkpointer(d).latest_step() == 1
         bad = [m for m in sys.modules if m.split(".")[0] in {FORBIDDEN!r}]
         assert not bad, bad
         print("isolated-ok")
@@ -138,6 +151,31 @@ def test_training_entry_points_default_to_the_cuda_device(tmp_path):
             run()
 
 
+def test_rwkv6_entry_points_default_to_the_cuda_device(tmp_path):
+    from repro_torch.data.pipeline import TokenPipeline
+    from repro_torch.launch import serve, train
+    from repro_torch.models import transformer
+    from repro_torch.models.registry import get_config
+    from repro_torch.optim.adamw import AdamWConfig
+    from repro_torch.serve.engine import Engine
+    from repro_torch.train.trainer import Trainer, TrainerConfig
+    cfg = get_config("rwkv6-7b").reduced()
+    model = transformer.init_params(cfg, torch.Generator().manual_seed(0), "cpu")
+    trainer = lambda: Trainer(cfg, AdamWConfig(), TrainerConfig(ckpt_dir=str(tmp_path)),  # noqa: E731
+                              TokenPipeline(cfg.vocab_size, batch=2, seq_len=8))
+    if torch.cuda.is_available():
+        assert Engine(cfg, model.cuda()).device.type == "cuda"
+        assert trainer().device.type == "cuda"
+        return
+    for make in (lambda: Engine(cfg, model), trainer,
+                 lambda: serve.main(["--arch", "rwkv6-7b", "--reduced",
+                                     "--backend", "contiguous", "--requests", "1"]),
+                 lambda: train.main(["--arch", "rwkv6-7b", "--reduced", "--steps", "1",
+                                     "--ckpt-dir", str(tmp_path)])):
+        with pytest.raises(RuntimeError, match="CUDA is not available"):
+            make()
+
+
 def _port_module_names():
     return {p.relative_to(ROOT / "src" / "repro_torch").as_posix()
             for p in _port_sources() if "repro_torch" in p.parts}
@@ -162,6 +200,15 @@ def test_port_sources_include_the_training_slice():
                 "optim/adamw.py", "train/train_step.py", "train/trainer.py",
                 "checkpoint/checkpointer.py", "data/pipeline.py",
                 "testing/faults.py", "launch/train.py"):
+        assert mod in names, mod
+
+
+def test_port_sources_include_the_ssm_slice():
+    """The AST scan above walks every module of the RWKV-6 slice."""
+    names = _port_module_names()
+    for mod in ("models/rwkv6.py", "kernels/rwkv6_wkv/ops.py",
+                "kernels/rwkv6_wkv/ref.py", "serve/serve_step.py",
+                "configs/rwkv6_7b.py"):
         assert mod in names, mod
 
 
@@ -194,7 +241,11 @@ def test_kernel_wrappers_count_only_launches():
                     torch.ones((16, 2), dtype=torch.int32), st.hot_index,
                     st.hot.begin, st.hot.begin, st.hot.begin, st.hot.tail,
                     *cols, chain_max=8)
-    assert ops.launches == {"fused_probe": 0, "fused_write": 0}
+    addr, _ = ops.probe(keys, st.hot_index)
+    assert addr.dtype == torch.int32 and addr.shape == (16,)
+    assert ops.launches == {"fused_probe": 0, "fused_write": 0, "probe": 0}
+    with pytest.raises(ValueError, match="needs CUDA tensors"):
+        ops.probe_cuda(keys, st.hot_index)
     meta = torch.arange(4, dtype=torch.int32, device="meta")
     with pytest.raises(ValueError, match="no kernel for device"):
         ops.fused_probe(meta, st.hot_index, meta, meta.bool(), st.hot.tail,

@@ -141,7 +141,7 @@ def test_decode_step_contiguous_cache(arch):
     assert tc["len"].tolist() == np.asarray(jc["len"]).tolist()
 
 
-@pytest.mark.parametrize("family", ["moe", "ssm", "hybrid", "audio", "vlm"])
+@pytest.mark.parametrize("family", ["moe", "hybrid", "audio", "vlm"])
 def test_other_families_are_not_ported(family):
     cfg = dataclasses.replace(
         interop.model_config_from_dict(interop.model_config_to_dict(

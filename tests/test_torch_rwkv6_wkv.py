@@ -1,0 +1,107 @@
+"""The port's WKV recurrence (`kernels/rwkv6_wkv`) on the CPU against the
+JAX package's: the forward against `wkv_ref` and the Pallas kernel in
+interpret mode at tests/test_kernels.py's shapes, and against
+`models/rwkv6.wkv_scan` (y and the final state) from a non-zero initial
+state, at T = 1, and with decays down to 1e-3; the gradients of r, k, v, w
+and u (autograd through the port's plain version, and the plain reverse
+recurrence the gradient kernels run) against `jax.grad` of wkv_scan.  The
+stated tolerance is tests/test_kernels.py's 2e-3 (absolute and relative);
+the differences observed are float32 rounding, below 1e-4."""
+import numpy as np
+import jax
+import jax.numpy as jnp
+import pytest
+import torch
+
+from repro.kernels.rwkv6_wkv import ops as jwkv
+from repro.models import rwkv6 as jrwkv
+from repro_torch.kernels.rwkv6_wkv import ops, ref
+
+TOL = 2e-3
+
+
+def _inputs(B, H, T, D, seed, w_lo=0.8, w_hi=0.999, state=False):
+    rng = np.random.default_rng(seed)
+    r, k, v = (rng.standard_normal((B, H, T, D)).astype(np.float32) for _ in range(3))
+    w = rng.uniform(w_lo, w_hi, (B, H, T, D)).astype(np.float32)
+    u = rng.standard_normal((H, D)).astype(np.float32)
+    s0 = (rng.standard_normal((B, H, D, D)).astype(np.float32) if state
+          else np.zeros((B, H, D, D), np.float32))
+    return r, k, v, w, u, s0
+
+
+def _t(*arrays):
+    return [torch.from_numpy(a.copy()) for a in arrays]
+
+
+def _close(got, want):
+    np.testing.assert_allclose(np.asarray(got), np.asarray(want), atol=TOL, rtol=TOL)
+
+
+@pytest.mark.parametrize("B,H,T,D,chunk", [
+    (2, 3, 256, 64, 64), (1, 2, 128, 64, 128), (2, 1, 64, 128, 32),
+])
+def test_forward_matches_wkv_ref_and_interpret_kernel(B, H, T, D, chunk):
+    r, k, v, w, u, _ = _inputs(B, H, T, D, seed=T + D)
+    y, s = ops.wkv(*_t(r, k, v, w, u))
+    assert s is None and y.dtype == torch.float32 and y.shape == (B, H, T, D)
+    jin = [jnp.asarray(a) for a in (r, k, v, w, u)]
+    _close(y, jwkv.wkv_ref(*jin))
+    _close(y, jwkv.wkv(*jin, chunk=chunk, interpret=True))
+
+
+@pytest.mark.parametrize("B,H,T,D,w_lo,state", [
+    (2, 3, 40, 16, 0.8, True),      # non-zero initial state
+    (3, 2, 1, 64, 0.8, True),       # one decode step
+    (1, 2, 33, 32, 1e-3, False),    # decays down to 1e-3, ragged T
+    (2, 2, 70, 16, 1e-3, True),     # both, over a checkpoint boundary
+], ids=["state", "t1", "small_w", "small_w_state"])
+def test_forward_matches_wkv_scan(B, H, T, D, w_lo, state):
+    r, k, v, w, u, s0 = _inputs(B, H, T, D, seed=7 * T, w_lo=w_lo, state=state)
+    y, s = ops.wkv(*_t(r, k, v, w, u), torch.from_numpy(s0) if state else None,
+                   need_state=True)
+    jy, js = jrwkv.wkv_scan(*(jnp.asarray(a) for a in (r, k, v, w, u, s0)))
+    _close(y, jy)
+    _close(s, js)
+
+
+@pytest.mark.parametrize("B,H,T,D,w_lo,state", [
+    (2, 3, 24, 16, 0.8, False), (1, 2, 70, 16, 1e-3, True), (2, 1, 1, 32, 0.5, True),
+], ids=["zero_state", "small_w_state", "t1"])
+def test_gradients_match_jax_grad_of_wkv_scan(B, H, T, D, w_lo, state):
+    """d/d(r, k, v, w, u) of sum(y * c) + sum(S_T * cs), and the initial
+    state's gradient from the plain reverse recurrence."""
+    r, k, v, w, u, s0 = _inputs(B, H, T, D, seed=11 * T + D, w_lo=w_lo, state=state)
+    rng = np.random.default_rng(5)
+    c = rng.standard_normal((B, H, T, D)).astype(np.float32)
+    cs = rng.standard_normal((B, H, D, D)).astype(np.float32)
+
+    def loss(r, k, v, w, u, s0):
+        y, s = jrwkv.wkv_scan(r, k, v, w, u, s0)
+        return jnp.sum(y * c) + jnp.sum(s * cs)
+
+    want = jax.grad(loss, argnums=tuple(range(6)))(
+        *(jnp.asarray(a) for a in (r, k, v, w, u, s0)))
+    ins = [x.requires_grad_(True) for x in _t(r, k, v, w, u)]
+    y, s = ops.wkv(*ins, torch.from_numpy(s0), need_state=True)
+    got = torch.autograd.grad((y * torch.from_numpy(c)).sum()
+                              + (s * torch.from_numpy(cs)).sum(), ins)
+    plain = ref.wkv_backward_reference(*_t(r, k, v, w, u, c, s0, cs))
+    for name, a, p, b in zip("rkvwu", got, plain, want):
+        _close(a, b)
+        _close(p, b)
+    _close(plain[5], want[5])
+
+
+def test_wrappers_refuse_and_count_nothing_on_the_cpu():
+    r, k, v, w, u, _ = _t(*_inputs(1, 1, 4, 16, seed=0))
+    ops.reset_launches()
+    ops.wkv(r, k, v, w, u)
+    assert ops.launches == {"wkv_forward": 0, "wkv_backward": 0}
+    with pytest.raises(ValueError, match="needs CUDA tensors"):
+        ops.wkv_cuda(r, k, v, w, u)
+    with pytest.raises(ValueError, match="needs CUDA tensors"):
+        ops.forward_cuda(r, k, v, w, u)
+    meta = r.to("meta")
+    with pytest.raises(ValueError, match="no kernel for device"):
+        ops.wkv(meta, meta, meta, meta, u.to("meta"))
