@@ -8,13 +8,19 @@ full width, then RWKV-6-7B's serving, prefill and training at full width.
 Phases, each printing one JSON line:
 
   1. device   — the card's name and power limit (and nvidia-smi's raw line);
-  2. build    — the six CUDA sources compiled with nvcc for sm_90a, in
-                parallel;
+  2. build    — the seven CUDA sources compiled with nvcc for sm_90a, in
+                parallel; then (build_tc) each tensor-core flash kernel's
+                registers and spills from ptxas, and its HMMA / HGMMA
+                instruction count from cuobjdump where the toolkit has it;
   3. kernels  — the flash-attention forward and gradient against autograd
                 through their plain version at the train phase's shape and
                 edge cases (forward 2e-5 f32 / 2e-2 bf16; gradients 1e-4
-                f32, 2e-2 of the largest reference gradient in bf16), timed
-                beside their bounds and scaled_dot_product_attention; then
+                f32, 2e-2 of the largest reference gradient in bf16), each
+                case on its route (bf16 at Dh 16, 32, 64, 112, 128, 256 on
+                the tensor-core kernels, the rest on the CUDA-core ones, as
+                the per-route counters must show), two gradient calls bit
+                for bit equal, timed beside their bounds and
+                scaled_dot_product_attention; then
                 the WKV forward and gradient against autograd through the
                 plain recurrence at RWKV-6's train shape (B*H 128, T 4096),
                 its decode shape (B*H 512, T 1, from a state) and edge cases
@@ -42,12 +48,13 @@ Phases, each printing one JSON line:
   7. twins    — the same op stream at 2**20 keys through engine="fused" and
                 engine="fused_ref" on the card, every F2State leaf equal
                 after each phase;
-  8. serve    — Granite-3-8B (40 layers, d_model 4096, bf16 weights from
-                `init_params` with SEED) through Engine(backend="paged"):
+  8. serve    — Granite-3-8B (20 of its 40 layers, d_model 4096, bf16
+                weights from `init_params` with SEED) through
+                Engine(backend="paged"):
                 16 requests, prompts of 16-256 tokens, 32 new tokens each,
                 8 lanes, max_len 512, pages of 16 (16 hot, 272 cold);
                 the paged-attention counter is zeroed before and read after
-                and must be 40 x decode steps; demotions and cold reads
+                and must be 20 x decode steps; demotions and cold reads
                 must be > 0, every logit finite, every token < vocab;
   9. serve_profile — a profiler window over 8 full decodes of the loaded
                 engine (8 new 16-token prompts): device busy/idle share,
@@ -69,7 +76,8 @@ Phases, each printing one JSON line:
                 (remat) and gradient 8 x steps; every loss finite;
  13. train_profile — a profiler window over 2 more steps: device busy/idle
                 share, launches and host syncs per step, the flash kernels'
-                share of device time beside the cuBLAS GEMMs';
+                share of device time beside the cuBLAS GEMMs'; all of the
+                flash time must lie in the tensor-core kernels;
  14. train_twins — loss_fn and its gradients, f32, 2 layers at full width,
                 B 1 x T 1024, on the card and on the CPU: loss within 1e-4
                 relative, each gradient leaf within 1e-3 of its largest
@@ -106,6 +114,8 @@ import argparse
 import dataclasses
 import json
 import os
+import re
+import shutil
 import subprocess
 import sys
 import time
@@ -118,6 +128,7 @@ SEED = 0
 TWIN_LOG2_KEYS = 20
 # serving: Granite-3-8B at full width, random weights from SEED
 SERVE_ARCH = "granite-3-8b"
+SERVE_LAYERS = 20                         # of its 40: the host-bound decode loop
 SERVE_ENGINE = dict(max_batch=8, max_len=512, page_size=16)
 SERVE_REQUESTS = 16
 SERVE_NEW_TOKENS = 32
@@ -367,9 +378,12 @@ KERNEL_FUNCTIONS = {"fused_probe": ("fused_probe_kernel",),
                     "fused_write": ("write_lanes_kernel", "append_offsets_kernel",
                                     "chain_slots_kernel"),
                     "paged_attention": ("paged_attention_kernel",),
-                    "flash_attention_fwd": ("fa_forward_kernel",),
-                    "flash_attention_bwd": ("fa_rowdot_kernel", "fa_dkdv_kernel",
-                                            "fa_dq_kernel"),
+                    "flash_attention_fwd_tc": ("fa_tc_forward_kernel",),
+                    "flash_attention_bwd_tc": ("fa_tc_rowdot_kernel", "fa_tc_dkdv_kernel",
+                                               "fa_tc_dq_kernel"),
+                    "flash_attention_fwd_simt": ("fa_forward_kernel",),
+                    "flash_attention_bwd_simt": ("fa_rowdot_kernel", "fa_dkdv_kernel",
+                                                 "fa_dq_kernel"),
                     "probe": ("first_hop_probe_kernel",),
                     "wkv_forward": ("wkv_forward_kernel",),
                     "wkv_backward": ("wkv_dv_kernel", "wkv_drkw_kernel")}
@@ -919,6 +933,7 @@ def serve_main(cfg, device, seed, records):
     import torch
     from repro_torch.kernels.paged_attention import ops as pa_ops
     from repro_torch.models import transformer
+    from repro_torch.models.registry import get_config
     on_card = torch.device(device).type == "cuda"
     if on_card:
         torch.cuda.reset_peak_memory_stats()
@@ -945,6 +960,7 @@ def serve_main(cfg, device, seed, records):
     launches = pa_ops.launches["paged_attention"]
     rec = dict(
         phase="serve", arch=cfg.name, n_layers=cfg.n_layers, d_model=cfg.d_model,
+        reduced=f"n_layers {get_config(SERVE_ARCH).n_layers} -> {cfg.n_layers}",
         dtype=cfg.dtype, engine=SERVE_ENGINE, requests=SERVE_REQUESTS,
         prompt_tokens=int(sum(len(p) for p in prompts)),
         new_tokens_per_request=SERVE_NEW_TOKENS,
@@ -1297,14 +1313,21 @@ def train_main(cfg, device, seed, records, phase="train", kernel_ops=None,
 GEMM_NAMES = ("gemm", "nvjet", "xmma", "cutlass")
 
 
+FLASH_KERNELS = ("flash_attention_fwd_tc", "flash_attention_bwd_tc",
+                 "flash_attention_fwd_simt", "flash_attention_bwd_simt")
+
+
 def train_profile(tr, state, records, n_steps=2, phase="train_profile",
-                  label="flash", kernels=("flash_attention_fwd", "flash_attention_bwd"),
+                  label="flash", kernels=FLASH_KERNELS,
+                  expect=("flash_attention_fwd_tc", "flash_attention_bwd_tc"),
                   kernel_ops=None):
     """A profiler window over n_steps train steps of the loaded trainer (the
     pipeline's next batches): device busy and idle share, kernel launches
     and host syncs per step, the top device kernels, and the sequence
     kernels' (`kernels`, recorded under `label`) share of device time
-    beside the cuBLAS GEMMs'."""
+    beside the cuBLAS GEMMs'.  Fails unless all of the sequence kernels'
+    device time lies in the `expect` entries of KERNEL_FUNCTIONS, each of
+    them with some (for flash: the tensor-core route alone)."""
     import torch
     from torch.profiler import ProfilerActivity, profile
     from repro_torch.kernels.flash_attention import ops as fa_ops
@@ -1326,6 +1349,8 @@ def train_profile(tr, state, records, n_steps=2, phase="train_profile",
     counts = {k: c for k, _, c in host}
     names = sum((KERNEL_FUNCTIONS[k] for k in kernels), ())
     seq_s = sum(d for k, d, _ in dev if any(n in k for n in names))
+    per_entry = {e: sum(d for k, d, _ in dev if any(n in k for n in KERNEL_FUNCTIONS[e]))
+                 for e in kernels}
     gemm = sum(d for k, d, _ in dev if any(n in k.lower() for n in GEMM_NAMES))
     rec = dict(
         phase=phase, steps=n_steps, wall_s=wall,
@@ -1339,10 +1364,15 @@ def train_profile(tr, state, records, n_steps=2, phase="train_profile",
         gemm_device_s=gemm, gemm_share=gemm / busy if busy else "not measured",
         **{f"{label}_kernels": [dict(name=k[:80], s=d, calls=c) for k, d, c in dev
                                 if any(n in k for n in names)]},
+        **{f"{label}_device_s_by_entry": per_entry},
         top_device=[dict(name=k[:80], s=d, calls=c) for k, d, c in dev[:12]],
         top_host=[dict(name=k[:80], self_s=d, calls=c) for k, d, c in host[:12]],
         launch_counters=dict(kernel_ops.launches))
     emit(records, rec)
+    if dev and (any(per_entry[e] <= 0 for e in expect)
+                or any(per_entry[e] > 0 for e in kernels if e not in expect)):
+        raise AssertionError(f"{phase}: {label} device time by kernel {per_entry}; "
+                             f"expected it all in {expect}")
     return state, rec
 
 
@@ -1364,6 +1394,18 @@ def flash_cases():
     cases += [("dh256", 2 * 2, 2, 512, 256, f32, True, 0, 2),
               ("ragged_t1000", 1 * 8, 4, 1000, 128, bf, True, 0, 1),
               ("window_edge_in_block", 1 * 8, 4, 1024, 128, f32, True, 100, 1)]
+    # the tensor-core route's shapes: GLM-4-9B's G 16 (2 KV heads), Kimi's
+    # Dh 112 (G 8), Gemma-7B's Dh 256 (G 1), T 1 and 17, a window edge inside
+    # a 128-key tile, the reduced configs' Dh 16, Dh 128 non-causal with a
+    # window
+    cases += [("g16_bf16", 1 * 2, 16, 1024, 128, bf, True, 0, 1),
+              ("dh112_bf16", 1 * 8, 8, 1024, 112, bf, True, 0, 1),
+              ("dh256_bf16", 1 * 16, 1, 1024, 256, bf, True, 0, 1),
+              ("t1_bf16", 2 * 8, 4, 1, 128, bf, True, 0, 2),
+              ("t17_bf16", 2 * 8, 4, 17, 128, bf, True, 0, 2),
+              ("window_edge_in_tile_bf16", 1 * 8, 4, 1024, 128, bf, True, 100, 1),
+              ("dh16_bf16", 8 * 2, 2, 32, 16, bf, True, 0, 8),
+              ("noncausal_window_bf16", 1 * 8, 4, 1000, 128, bf, False, 300, 1)]
     return cases
 
 
@@ -1407,8 +1449,11 @@ def check_flash_kernels(device, seed, records):
     (bfloat16) of the plain version on the same inputs; gradients within
     1e-4 (float32, abs and rel) or 2e-2 of the largest reference gradient
     (bfloat16, the reference run in float32 on the same bfloat16 inputs).
-    Each case is timed beside its bound and scaled_dot_product_attention.
-    Returns the train case's (forward, gradient) summaries."""
+    Each case runs on the route `ops.route` picks, which the per-route
+    counters must confirm, and its gradient is taken twice and must be
+    bitwise equal.  Each case is timed beside its bound and
+    scaled_dot_product_attention.  Returns the train case's (forward,
+    gradient) summaries."""
     import torch
     import torch.nn.functional as F
     from repro_torch.kernels.flash_attention import ops as fa_ops, ref as fa_ref
@@ -1421,9 +1466,25 @@ def check_flash_kernels(device, seed, records):
     for name, BH, G, T, Dh, dt, causal, window, B in flash_cases():
         q, k, v, do = (torch.randn(s, generator=g, device=dev).to(dt) for s in
                        ((BH, G, T, Dh), (BH, 1, T, Dh), (BH, 1, T, Dh), (BH, G, T, Dh)))
+        route = fa_ops.route(dt, Dh)
+        if (route == "tc") != (dt == torch.bfloat16 and Dh in (16, 32, 64, 112, 128, 256)):
+            raise AssertionError(f"flash/{name}: route {route} for {dt} at Dh {Dh}")
+        bitwise = None
         if on_card:
+            fa_ops.reset_launches()
             o, lse = fa_ops.forward_cuda(q, k, v, causal, window)
             dq, dk, dv = fa_ops.backward_cuda(q, k, v, o, lse, do, causal, window)
+            again = fa_ops.backward_cuda(q, k, v, o, lse, do, causal, window)
+            bitwise = all(torch.equal(a, b) for a, b in zip((dq, dk, dv), again))
+            del again
+            counts = {k_: n for k_, n in fa_ops.route_launches.items() if n}
+            if counts != {f"flash_attention_fwd_{route}": 1,
+                          f"flash_attention_bwd_{route}": 2}:
+                raise AssertionError(f"flash/{name}: route launches {counts}, "
+                                     f"expected the {route} route")
+            if not bitwise:
+                raise AssertionError(f"flash_attention_bwd/{name}: two gradient calls on "
+                                     "the same inputs differ")
         else:
             qkv = [t.clone().requires_grad_(True) for t in (q, k, v)]
             o = fa_ref.mha_reference(*qkv, causal=causal, window=window)
@@ -1447,12 +1508,18 @@ def check_flash_kernels(device, seed, records):
             if dt == torch.float32:
                 ok = torch.allclose(got, ref, atol=1e-4, rtol=1e-4)
             else:
-                ok = e <= 2e-2 * float(ref.abs().max())
+                # an identically zero gradient (dq and dk at T 1: the softmax
+                # over one key has no derivative) is held to the largest of
+                # the three reference gradients
+                scale = (float(ref.abs().max())
+                         or max(float(r_.abs().max()) for r_ in ref_grads))
+                ok = e <= 2e-2 * scale
             if got.dtype != dt or not ok:
                 raise AssertionError(f"flash_attention_bwd/{name}: {gname} differs "
                                      f"from the plain gradient by {e}")
-        rec = dict(case=name, BH=BH, G=G, T=T, Dh=Dh, dtype=str(dt), causal=causal,
-                   window=window, max_abs_err=err, tol=tol, grad_max_abs_err=gerr)
+        rec = dict(case=name, route=route, BH=BH, G=G, T=T, Dh=Dh, dtype=str(dt),
+                   causal=causal, window=window, max_abs_err=err, tol=tol,
+                   grad_max_abs_err=gerr, grad_bitwise_equal=bitwise)
         del want, r, ref_grads, dq, dk, dv
         if on_card:
             fwd = lambda: fa_ops.forward_cuda(q, k, v, causal, window)  # noqa: E731
@@ -1460,10 +1527,14 @@ def check_flash_kernels(device, seed, records):
             reps = 3 if T >= 4096 else 10
             rec["fwd_ms"] = _time_ms(fwd, reps)
             rec["fwd_device_ms"] = _device_ms(lambda: (l2_flush.zero_(), fwd()), reps,
-                                              KERNEL_FUNCTIONS["flash_attention_fwd"])
+                                              KERNEL_FUNCTIONS[f"flash_attention_fwd_{route}"])
             rec["bwd_ms"] = _time_ms(bwd, reps)
             rec["bwd_device_ms"] = _device_ms(lambda: (l2_flush.zero_(), bwd()), reps,
-                                              KERNEL_FUNCTIONS["flash_attention_bwd"])
+                                              KERNEL_FUNCTIONS[f"flash_attention_bwd_{route}"])
+            if name == "train":        # the gradient's three kernels apart
+                rec["bwd_device_ms_by_kernel"] = {
+                    n: _device_ms(lambda: (l2_flush.zero_(), bwd()), reps, (n,))
+                    for n in KERNEL_FUNCTIONS[f"flash_attention_bwd_{route}"]}
             rec["fwd_plain_ms"] = _time_ms(
                 lambda: fa_ref.mha_reference(q, k, v, causal=causal, window=window), 2)
             rq = [t.clone().requires_grad_(True) for t in (q, k, v)]
@@ -1828,6 +1899,54 @@ def rwkv_twins(device, seed, records):
 
 # ---------------------------------------------------------------------------
 
+def _short_name(mangled):
+    """`fa_tc_forward_kernel<64>` from its mangled name."""
+    m = re.search(r"(fa_tc_[a-z_]+)(?:ILi(\d+)E)?", mangled)
+    if not m:
+        return mangled[:80]
+    return f"{m.group(1)}<{m.group(2)}>" if m.group(2) else m.group(1)
+
+
+def tc_kernel_report(build):
+    """Registers and spill bytes of the tensor-core flash kernels from the
+    build's ptxas output, and the count of HMMA / HGMMA instructions in each
+    from `cuobjdump -sass` where the toolkit has it."""
+    rows, cur = {}, None
+    log = build.build_log.get("flash_attention_tc")
+    if log is None:
+        rows["ptxas"] = "not built in this process: no ptxas output"
+    for ln in (log or "").splitlines():
+        m = re.search(r"Compiling entry function '([^']+)'", ln)
+        if m:
+            cur = rows.setdefault(_short_name(m.group(1)), {})
+            continue
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", ln)
+        if m and cur is not None:
+            cur.update(spill_stores=int(m.group(1)), spill_loads=int(m.group(2)))
+        m = re.search(r"Used (\d+) registers", ln)
+        if m and cur is not None:
+            cur["registers"] = int(m.group(1))
+    exe = shutil.which("cuobjdump") or os.path.join(
+        os.environ.get("CUDA_HOME", "/usr/local/cuda"), "bin", "cuobjdump")
+    if os.path.exists(exe):
+        sass = subprocess.run([exe, "-sass", str(build.lib_path("flash_attention_tc"))],
+                              capture_output=True, text=True, timeout=300).stdout
+        cur = None
+        for ln in sass.splitlines():
+            m = re.search(r"Function : (\S+)", ln)
+            if m:
+                cur = rows.setdefault(_short_name(m.group(1)), {})
+                cur.update(hmma=0, hgmma=0)
+            elif cur is not None and "HGMMA" in ln:
+                cur["hgmma"] += 1
+            elif cur is not None and "HMMA" in ln:
+                cur["hmma"] += 1
+    else:
+        for r in rows.values():
+            r.update(hmma="cuobjdump not found", hgmma="cuobjdump not found")
+    return rows
+
+
 def nvidia_smi_line():
     out = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
@@ -1876,6 +1995,7 @@ def run_all(a, records):
     ptxas = {k: [ln.strip() for ln in v.splitlines() if "registers" in ln]
              for k, v in build.build_log.items()}
     emit(records, dict(phase="build", seconds=t_build, ptxas=ptxas))
+    emit(records, dict(phase="build_tc", kernels=tc_kernel_report(build)))
     # first, while the profiler has recorded nothing else in this process
     # (see _device_ms) and the card's memory is free for the plain version
     flash_summary = check_flash_kernels("cuda", SEED, records)
@@ -1906,7 +2026,7 @@ def run_all(a, records):
     twin_parity(make_f2_config(1 << TWIN_LOG2_KEYS), "cuda",
                 1 << TWIN_LOG2_KEYS, 1 << (a.log2_ops - 4), SEED, records)
 
-    scfg = get_config(SERVE_ARCH)
+    scfg = dataclasses.replace(get_config(SERVE_ARCH), n_layers=SERVE_LAYERS)
     eng, serve_rec, live = serve_main(scfg, "cuda", SEED, records)
     launches["paged_attention"] = serve_rec["launches"]
     serve_profile(eng, SEED, records)
@@ -1939,7 +2059,8 @@ def run_all(a, records):
         dataclasses.replace(rcfg, n_layers=RWKV_TRAIN_LAYERS), "cuda", SEED, records,
         phase="rwkv_train", kernel_ops=wkv_ops, full_layers=rcfg.n_layers)
     train_profile(tr, state, records, phase="rwkv_train_profile", label="wkv",
-                  kernels=("wkv_forward", "wkv_backward"), kernel_ops=wkv_ops)
+                  kernels=("wkv_forward", "wkv_backward"),
+                  expect=("wkv_forward", "wkv_backward"), kernel_ops=wkv_ops)
     del tr, state
     torch.cuda.empty_cache()
     train_twins("cuda", SEED, records, base=rcfg, phase="rwkv_train_twins",
@@ -1957,8 +2078,8 @@ def run_all(a, records):
            "wkv_forward": csrc.format("rwkv6_wkv", "wkv6"),
            "wkv_backward": csrc.format("rwkv6_wkv", "wkv6"),
            "paged_attention": csrc.format("paged_attention", "paged_attention"),
-           "flash_attention_fwd": csrc.format("flash_attention", "flash_attention"),
-           "flash_attention_bwd": csrc.format("flash_attention", "flash_attention")}
+           "flash_attention_fwd": csrc.format("flash_attention", "flash_attention_tc"),
+           "flash_attention_bwd": csrc.format("flash_attention", "flash_attention_tc")}
     fa = "src/repro/kernels/flash_attention/flash_attention.py:85"
     wkv = "src/repro/kernels/rwkv6_wkv/rwkv6_wkv.py:55"
     replaces = {"fused_probe": "src/repro/kernels/f2_probe/f2_probe.py:160",

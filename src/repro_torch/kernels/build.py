@@ -31,6 +31,7 @@ SOURCES = {
     "fused_write": KERNELS_DIR / "f2_probe" / "csrc" / "fused_write.cu",
     "paged_attention": KERNELS_DIR / "paged_attention" / "csrc" / "paged_attention.cu",
     "flash_attention": KERNELS_DIR / "flash_attention" / "csrc" / "flash_attention.cu",
+    "flash_attention_tc": KERNELS_DIR / "flash_attention" / "csrc" / "flash_attention_tc.cu",
     "wkv6": KERNELS_DIR / "rwkv6_wkv" / "csrc" / "wkv6.cu",
     "probe": KERNELS_DIR / "f2_probe" / "csrc" / "probe.cu",
 }
@@ -54,7 +55,7 @@ def nvcc_path() -> str:
                        "the CUDA kernels cannot be built")
 
 
-def _lib_path(name: str) -> Path:
+def lib_path(name: str) -> Path:
     src = SOURCES[name]
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
     for f in sorted(src.parent.glob("*.cu*")):
@@ -67,7 +68,7 @@ def build_all(names: Optional[List[str]] = None) -> float:
     """Compile the named kernels (all by default) that are not built yet, in
     parallel; returns the wall seconds spent.  Raises on any failure."""
     names = list(SOURCES) if names is None else names
-    todo = [n for n in names if not _lib_path(n).exists()]
+    todo = [n for n in names if not lib_path(n).exists()]
     t0 = time.perf_counter()
     if not todo:
         return 0.0
@@ -75,7 +76,7 @@ def build_all(names: Optional[List[str]] = None) -> float:
     nvcc = nvcc_path()
     procs = {}
     for n in todo:
-        out = _lib_path(n)
+        out = lib_path(n)
         tmp = out.with_suffix(f".{os.getpid()}.tmp")
         cmd = [nvcc, *NVCC_FLAGS, "-o", str(tmp), str(SOURCES[n])]
         procs[n] = (subprocess.Popen(cmd, stdout=subprocess.PIPE,
@@ -99,6 +100,6 @@ def load(name: str) -> ctypes.CDLL:
     lib = _loaded.get(name)
     if lib is None:
         build_all([name])
-        lib = ctypes.CDLL(str(_lib_path(name)))
+        lib = ctypes.CDLL(str(lib_path(name)))
         _loaded[name] = lib
     return lib

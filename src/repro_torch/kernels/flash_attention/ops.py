@@ -12,9 +12,18 @@ gradient kernels; any other device raises.
 [BH, 1, T, Dh]) and raises for tensors that are not on a CUDA device.  The
 kernels take float32 or bfloat16 (one dtype for q, k and v), contiguous
 tensors with 16-byte aligned storage, 4 <= Dh <= 256 with Dh % 4 == 0, and
-G <= 16.  `launches` counts the kernel calls: "flash_attention_fwd" one per
-forward, "flash_attention_bwd" one per gradient (a call launches three CUDA
-kernels: the dO.O row pre-pass, dK/dV, dQ).
+G <= 16.
+
+Two routes, picked by `route(dtype, Dh)`: "tc", the tensor-core kernels of
+`csrc/flash_attention_tc.cu` (the forward on `wgmma` at Dh 128, on
+`mma.sync` at the other head dims; the gradient on `mma.sync`), for
+bfloat16 at the head dims in `TC_HEAD_DIMS`; "simt", the CUDA-core kernels
+of `csrc/flash_attention.cu`, for everything else (float32 keeps exact
+float32 arithmetic there).
+`launches` counts the kernel calls: "flash_attention_fwd" one per forward,
+"flash_attention_bwd" one per gradient (a call launches three CUDA kernels:
+the dO.O row pre-pass, dK/dV, dQ); `route_launches` counts the same calls
+per route.
 """
 from __future__ import annotations
 
@@ -27,25 +36,41 @@ from .. import build
 from .ref import mha_reference
 
 launches: Dict[str, int] = {"flash_attention_fwd": 0, "flash_attention_bwd": 0}
+route_launches: Dict[str, int] = {f"{k}_{r}": 0 for k in launches for r in ("tc", "simt")}
 MAX_GROUP = 16
 MAX_HEAD_DIM = 256
+TC_HEAD_DIMS = (16, 32, 64, 112, 128, 256)
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 
 
 def reset_launches() -> None:
-    for k in launches:
-        launches[k] = 0
+    for d in (launches, route_launches):
+        for k in d:
+            d[k] = 0
 
 
-def _lib():
-    lib = build.load("flash_attention")
-    if lib.fa_forward.argtypes is None:
+def route(dtype: torch.dtype, head_dim: int) -> str:
+    """"tc" (tensor-core kernels) for bfloat16 at a head dim in
+    TC_HEAD_DIMS, else "simt" (CUDA-core kernels)."""
+    return "tc" if dtype == torch.bfloat16 and head_dim in TC_HEAD_DIMS else "simt"
+
+
+def _lib(which: str):
+    """The (forward, gradient) C functions of a route, typed; both routes
+    share one interface."""
+    if which == "tc":
+        lib = build.load("flash_attention_tc")
+        fwd, bwd = lib.fa_tc_forward, lib.fa_tc_backward
+    else:
+        lib = build.load("flash_attention")
+        fwd, bwd = lib.fa_forward, lib.fa_backward
+    if fwd.argtypes is None:
         P, I = ctypes.c_void_p, ctypes.c_int
-        lib.fa_forward.argtypes = [P] * 5 + [I] * 7 + [ctypes.c_float, P]
-        lib.fa_forward.restype = I
-        lib.fa_backward.argtypes = [P] * 10 + [I] * 7 + [ctypes.c_float, P]
-        lib.fa_backward.restype = I
-    return lib
+        fwd.argtypes = [P] * 5 + [I] * 7 + [ctypes.c_float, P]
+        fwd.restype = I
+        bwd.argtypes = [P] * 10 + [I] * 7 + [ctypes.c_float, P]
+        bwd.restype = I
+    return fwd, bwd
 
 
 def _check(q, k, v, name):
@@ -87,14 +112,16 @@ def forward_cuda(q, k, v, causal: bool, window: int):
     """The forward kernel: (o [BH, G, T, Dh] in q's dtype, lse [BH, G, T]
     float32)."""
     BH, G, T, Dh = _check(q, k, v, "flash_attention_fwd")
+    r = route(q.dtype, Dh)
     o = torch.empty_like(q)
     lse = torch.empty((BH, G, T), dtype=torch.float32, device=q.device)
-    err = _lib().fa_forward(q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
-                            lse.data_ptr(), BH, G, T, Dh, _DTYPE_CODE[q.dtype],
-                            int(causal), int(window), Dh ** -0.5, _stream(q.device))
+    err = _lib(r)[0](q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
+                     lse.data_ptr(), BH, G, T, Dh, _DTYPE_CODE[q.dtype], int(causal),
+                     int(window), Dh ** -0.5, _stream(q.device))
     if err != 0:
-        raise RuntimeError(f"flash_attention_fwd: CUDA error {err} at launch")
+        raise RuntimeError(f"flash_attention_fwd: CUDA error {err} at launch ({r} route)")
     launches["flash_attention_fwd"] += 1
+    route_launches[f"flash_attention_fwd_{r}"] += 1
     return o, lse
 
 
@@ -108,16 +135,18 @@ def backward_cuda(q, k, v, o, lse, do, causal: bool, window: int):
                              f"on {t.device}, expected {dt} {tuple(shape)}")
         if not t.is_contiguous() or t.data_ptr() % 16:
             raise ValueError(f"flash_attention_bwd: {n} is not contiguous and aligned")
+    r = route(q.dtype, Dh)
     dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
     scratch = torch.empty((BH, G, T), dtype=torch.float32, device=q.device)
-    err = _lib().fa_backward(q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
-                             lse.data_ptr(), do.data_ptr(), dq.data_ptr(), dk.data_ptr(),
-                             dv.data_ptr(), scratch.data_ptr(), BH, G, T, Dh,
-                             _DTYPE_CODE[q.dtype], int(causal), int(window), Dh ** -0.5,
-                             _stream(q.device))
+    err = _lib(r)[1](q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
+                     lse.data_ptr(), do.data_ptr(), dq.data_ptr(), dk.data_ptr(),
+                     dv.data_ptr(), scratch.data_ptr(), BH, G, T, Dh,
+                     _DTYPE_CODE[q.dtype], int(causal), int(window), Dh ** -0.5,
+                     _stream(q.device))
     if err != 0:
-        raise RuntimeError(f"flash_attention_bwd: CUDA error {err} at launch")
+        raise RuntimeError(f"flash_attention_bwd: CUDA error {err} at launch ({r} route)")
     launches["flash_attention_bwd"] += 1
+    route_launches[f"flash_attention_bwd_{r}"] += 1
     return dq, dk, dv
 
 

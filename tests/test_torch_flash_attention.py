@@ -100,3 +100,87 @@ def test_cpu_tensors_take_the_plain_version():
     meta = torch.empty((1, 2, 8, 16), device="meta")
     with pytest.raises(ValueError, match="no kernel for device"):
         tfa.flash_attention(meta, meta[:, :1], meta[:, :1])
+
+
+@pytest.mark.parametrize("dtype,head_dim,want",
+                         [(torch.bfloat16, d, "tc") for d in tfa.TC_HEAD_DIMS]
+                         + [(torch.float32, d, "simt") for d in (64, 112, 128, 256)]
+                         + [(torch.bfloat16, d, "simt") for d in (4, 60, 96, 200)])
+def test_route_picks_tensor_cores_for_bf16_at_instantiated_head_dims(dtype, head_dim, want):
+    assert tfa.route(dtype, head_dim) == want
+
+
+# the tensor-core route's shapes that SHAPES lacks (B, Hq, Hkv, T, Dh, causal,
+# window): GLM-4-9B's grouping (G 16 at Dh 128), Kimi's Dh 112, Gemma-7B's Dh 256
+TC_SHAPES = [(1, 16, 1, 256, 128, True, 0),
+             (2, 8, 2, 256, 112, True, 0),
+             (1, 4, 2, 256, 256, True, 0)]
+
+
+@pytest.mark.parametrize("shape", TC_SHAPES, ids=["g16", "dh112", "dh256"])
+def test_forward_at_tensor_core_shapes_matches_pallas_kernel_and_oracle(shape):
+    causal, window = shape[5], shape[6]
+    q, k, v, _ = _inputs(shape, 4)
+    jq, jk, jv = (jnp.asarray(x, "bfloat16") for x in (q, k, v))
+    tq, tk, tv = (torch.from_numpy(x).to(torch.bfloat16) for x in (q, k, v))
+    got = tfa.flash_attention(tq, tk, tv, causal=causal, window=window)
+    assert got.dtype == torch.bfloat16 and got.shape == tq.shape
+    _close(got, jfa.flash_attention_reference(jq, jk, jv, causal=causal, window=window),
+           2e-2)
+    _close(got, jfa.flash_attention(jq, jk, jv, causal=causal, window=window,
+                                    interpret=True), 2e-2)
+
+
+def _bf16(x):
+    return x.to(torch.bfloat16).float()
+
+
+def _tc_gradient(q, k, v, do, causal, window):
+    """The tensor-core kernels' gradient in plain torch: bf16 inputs, float32
+    scores and accumulators, P rounded to bf16 before P.V and P^T.dO, dS
+    rounded to bf16 before dS.K and dS^T.Q, outputs rounded to bf16.  Kernel
+    layout: q [BH, G, T, Dh], k/v [BH, 1, T, Dh], all float32 holding bf16
+    values."""
+    T, Dh = q.shape[2], q.shape[3]
+    scale = Dh ** -0.5
+    i = torch.arange(T)
+    mask = torch.ones(T, T, dtype=torch.bool)
+    if causal:
+        mask &= i[:, None] >= i[None, :]
+    if window > 0:
+        mask &= (i[:, None] - i[None, :]) < window
+    s = torch.where(mask, q @ k.transpose(-1, -2) * scale, torch.tensor(-1e30))
+    lse = torch.logsumexp(s, -1, keepdim=True)
+    p = torch.where(mask, torch.exp(s - lse), torch.tensor(0.0))
+    o = _bf16(_bf16(p) @ v)
+    d = (do * o).sum(-1, keepdim=True)
+    ds = p * (do @ v.transpose(-1, -2) - d)
+    dq = _bf16(_bf16(ds) @ k * scale)
+    dk = _bf16((_bf16(ds).transpose(-1, -2) @ q).sum(1, keepdim=True) * scale)
+    dv = _bf16((_bf16(p).transpose(-1, -2) @ do).sum(1, keepdim=True))
+    return dq, dk, dv
+
+
+@pytest.mark.parametrize("window", [0, 100], ids=["causal", "windowed"])
+def test_bf16_rounded_gradient_within_tolerance_of_float32_gradient(window):
+    """P and dS rounded to bf16 before their products, as the tensor-core
+    kernels round them, keep every gradient within 2e-2 of the largest
+    float32 gradient of the JAX models' attention (the card's bf16
+    tolerance), at T 1024, Dh 128, G 4."""
+    shape = (1, 4, 1, 1024, 128, True, window)
+    q, k, v, do = (_bf16(torch.from_numpy(x)).numpy() for x in _inputs(shape, 5))
+
+    def jloss(q, k, v):
+        out = jl.flash_attention(q, k, v, causal=True, window=jnp.asarray(window, jnp.int32))
+        return jnp.sum(out * do)
+
+    jgrads = jax.grad(jloss, argnums=(0, 1, 2))(*(jnp.asarray(x) for x in (q, k, v)))
+    G = shape[1] // shape[2]
+    kr = [torch.from_numpy(x).reshape(1, G, 1024, 128) for x in (q, do)]
+    kv = [torch.from_numpy(x).reshape(1, 1, 1024, 128) for x in (k, v)]
+    got = _tc_gradient(kr[0], kv[0], kv[1], kr[1], True, window)
+    for name, g, jg in zip("qkv", got, jgrads):
+        ref = np.asarray(jg).reshape(g.shape)
+        err = float(np.abs(g.numpy() - ref).max())
+        assert err <= 2e-2 * float(np.abs(ref).max()), (name, err)
+        assert err > 0, name          # the rounding is there
