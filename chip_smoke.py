@@ -18,7 +18,10 @@ Phases, each printing one JSON line:
                 f32, 2e-2 of the largest reference gradient in bf16), each
                 case on its route (bf16 at Dh 16, 32, 64, 112, 128, 256 on
                 the tensor-core kernels, the rest on the CUDA-core ones, as
-                the per-route counters must show), two gradient calls bit
+                the per-route counters must show), key lengths Tk other than
+                the query length among them (Whisper-large's cross-attention,
+                causal with either longer, rows that see no key; dK and dV of
+                keys no query sees exactly 0), two gradient calls bit
                 for bit equal, timed beside their bounds and
                 scaled_dot_product_attention; then
                 the WKV forward and gradient against autograd through the
@@ -59,10 +62,12 @@ Phases, each printing one JSON line:
   9. serve_profile — a profiler window over 8 full decodes of the loaded
                 engine (8 new 16-token prompts): device busy/idle share,
                 top kernels and host ops, host syncs per step;
- 10. kernels  — paged_attention against its plain version on the serve
-                run's live pools and table (its last state with all 8
-                lanes active) and on edge cases (2e-5 float32,
-                2e-2 bfloat16), timed beside its bound and
+ 10. kernels  — paged_attention (its split and merge kernels) against its
+                plain version on the serve run's live pools and table (its
+                last state with all 8 lanes active) and on edge cases (a
+                4096-key table, lengths of 0, lengths at the split
+                boundaries; 2e-5 float32, 2e-2 bfloat16), a second call bit
+                for bit equal, timed beside its bound and
                 scaled_dot_product_attention;
  11. serve_twins — the same requests through two float32 engines, 4 layers
                 at full width, kernel against plain version: every decode's
@@ -95,7 +100,11 @@ Phases, each printing one JSON line:
  18. rwkv_twins — float32, 4 layers at full width, the engine on the card
                 and on the CPU: the sampled logits within TWIN_LOGITS_TOL
                 (the prompt-feeding steps' within RWKV_PROMPT_TOL: early
-                tokens are ill-conditioned in float32), tokens equal;
+                tokens are ill-conditioned in float32), tokens equal; at
+                each prompt position the WKV kernel's y within
+                RWKV_F64_RATIO times the plain recurrence's distance from
+                float64 on the same inputs, and the logits' distances from
+                a float64 run of the model on the CPU recorded;
                 prefill's last logits against 64 decode steps on the card;
  19. rwkv_train — RWKV-6-7B at full width, 8 of its 32 layers, as train:
                 WKV forward 2 x 8 x steps and gradient 8 x steps; then
@@ -163,6 +172,17 @@ RWKV_TWIN_PROMPT, RWKV_TWIN_NEW_TOKENS = 64, 8
 # samples from (the last prompt token and after, 63+ tokens of state) to
 # TWIN_LOGITS_TOL; the record keeps the largest error at every position.
 RWKV_PROMPT_TOL = 5e-2
+# That this is float32's rounding and not the kernel's is checked against
+# float64 over the prompt positions.  At each WKV call of the card's kernel
+# route, the kernel's y, the plain recurrence's on the card and on the CPU
+# (float32) are held against the plain recurrence in float64 on the same
+# inputs: the kernel's largest distance may be at most RWKV_F64_RATIO times
+# the card's plain recurrence's.  The logits of the card, of the card with
+# the plain recurrence in the kernel's place and of the CPU are recorded
+# against a float64 run of the whole model, not held: at the first positions
+# the model amplifies y's rounding a thousand-fold and more, so which route
+# lands farther there is down to a few heads' rounding.
+RWKV_F64_RATIO = 10.0
 # The same early tokens dominate some gradient leaves in training: the
 # gradient through rmsnorm_heads of a near-zero head output is scaled by up
 # to 1/sqrt(eps), and its float32 rounding with it (rwkv_train's step-0
@@ -377,7 +397,8 @@ def _time_ms(fn, reps):
 KERNEL_FUNCTIONS = {"fused_probe": ("fused_probe_kernel",),
                     "fused_write": ("write_lanes_kernel", "append_offsets_kernel",
                                     "chain_slots_kernel"),
-                    "paged_attention": ("paged_attention_kernel",),
+                    "paged_attention": ("paged_attention_split_kernel",
+                                        "paged_attention_merge_kernel"),
                     "flash_attention_fwd_tc": ("fa_tc_forward_kernel",),
                     "flash_attention_bwd_tc": ("fa_tc_rowdot_kernel", "fa_tc_dkdv_kernel",
                                                "fa_tc_dq_kernel"),
@@ -1027,7 +1048,7 @@ def serve_profile(eng, seed, records, n_steps=8):
         launches_per_step=counts.get("cudaLaunchKernel", 0) / n_steps,
         syncs_per_step=syncs,
         paged_attention=[dict(name=k[:80], s=d, calls=c) for k, d, c in dev
-                         if "paged_attention_kernel" in k],
+                         if any(n in k for n in KERNEL_FUNCTIONS["paged_attention"])],
         top_device=[dict(name=k[:80], s=d, calls=c) for k, d, c in dev[:12]],
         top_host=[dict(name=k[:80], self_s=d, calls=c) for k, d, c in host[:12]])
     emit(records, rec)
@@ -1038,8 +1059,11 @@ def paged_cases(cfg, live, seed):
     """(name, (q, k_pool, v_pool, table, lengths)) of paged_attention: the
     main path's call on its live layer-0 pools, page table and lengths
     (`live`, kept by serve_main with every lane active) first, then the
-    edge cases."""
+    edge cases: among them a long table (256 pages of 16, lengths 1 to 4096
+    over the batch, many splits live), lengths of 0 over a table of more
+    than one split, and lengths at the split boundaries."""
     import torch
+    from repro_torch.kernels.paged_attention import ops as pa_ops
     kp, vp, page_table, seq_lens = live
     dev = kp.device
     g = torch.Generator(device=dev).manual_seed(seed)
@@ -1065,6 +1089,13 @@ def paged_cases(cfg, live, seed):
     small = dict(B=3, Hkv=2, G=4, Dh=64, ps=64, n_pool=16, mp=4)
     k3, v3 = rnd(2, 16, 64, 64), rnd(2, 16, 64, 64)
     k256, v256 = rnd(2, 12, 16, 256), rnd(2, 12, 16, 256)
+    long_pages = 256
+    long_table = full_table(B, n_pool, long_pages)
+    long_lens = i32(np.linspace(1, ps * long_pages, B).round().astype(np.int64).tolist())
+    sms = (torch.cuda.get_device_properties(dev).multi_processor_count
+           if dev.type == "cuda" else 132)
+    span = pa_ops.splits(B * Hkv, mp, sms)[0] * ps
+    bounds = [span * (i // 2 + 1) + (i % 2) * (1 if i % 4 == 1 else -1) for i in range(B)]
     return [
         ("live", (q, kp, vp, table, lens)),
         ("live_bf16_pools", (q, kp.to(torch.bfloat16), vp.to(torch.bfloat16),
@@ -1080,6 +1111,9 @@ def paged_cases(cfg, live, seed):
                    full_table(5, 12, 5), i32([1, 16, 33, 64, 80]))),
         ("b_odd", (q[:5].contiguous(), kp, vp, table[:5].contiguous(),
                    lens[:5].contiguous())),
+        ("long_4096", (q, kp, vp, long_table, long_lens)),
+        ("len_0_multi_split", (q, kp, vp, ft, i32([0, 5, 0, ps * mp, 0, 1, 0, 0][:B]))),
+        ("split_boundaries", (q, kp, vp, ft, i32([min(x, ps * mp) for x in bounds]))),
     ]
 
 
@@ -1115,8 +1149,9 @@ def _library_call(q, k_pool, v_pool, table, lens):
 
 def check_paged_kernel(cfg, live, seed, records):
     """paged_attention against its plain version on the card in every case
-    (2e-5 where the output is float32, 2e-2 where it is bfloat16), each
-    timed beside its bound and the library call; returns the live case."""
+    (2e-5 where the output is float32, 2e-2 where it is bfloat16), a second
+    call bit-equal to the first, each timed beside its bound and the
+    library call; returns the live case."""
     import torch
     from repro_torch.kernels.paged_attention import ops as pa_ops, ref as pa_ref
     dev = live[0].device
@@ -1136,11 +1171,15 @@ def check_paged_kernel(cfg, live, seed, records):
         if not torch.allclose(got.float(), want.float(), atol=tol, rtol=tol):
             raise AssertionError(f"paged_attention/{name}: max |kernel - plain| = "
                                  f"{err} beyond atol = rtol = {tol}")
+        bitwise = torch.equal(got, pa_ops.paged_attention(*args))
+        if not bitwise:
+            raise AssertionError(f"paged_attention/{name}: two calls on the same "
+                                 "inputs differ")
         q, kp, vp, table, lens = args
         rec = dict(case=name, B=q.shape[0], Hkv=q.shape[1], G=q.shape[2],
                    Dh=q.shape[3], page=kp.shape[2], max_pages=table.shape[1],
                    q_dtype=str(q.dtype), pool_dtype=str(kp.dtype),
-                   max_abs_err=err, tol=tol)
+                   max_abs_err=err, tol=tol, bitwise_equal=bitwise)
         if on_card:
             lib = _library_call(*args)
             rec["ms"] = _time_ms(lambda: pa_ops.paged_attention(*args), 50)
@@ -1377,43 +1416,55 @@ def train_profile(tr, state, records, n_steps=2, phase="train_profile",
 
 
 def flash_cases():
-    """(name, BH, G, T, Dh, dtype, causal, window, B) of the flash kernels:
-    the train phase's call first, then the edge cases."""
+    """(name, BH, G, Tq, Tk, Dh, dtype, causal, window, B) of the flash
+    kernels: the train phase's call first, then the edge cases."""
     import torch
     bf, f32 = torch.bfloat16, torch.float32
     Hkv = 8
-    cases = [("train", TRAIN_BATCH * Hkv, 4, TRAIN_SEQ, 128, bf, True, 0, TRAIN_BATCH),
-             ("train_f32_b1", Hkv, 4, TRAIN_SEQ, 128, f32, True, 0, 1)]
+    T = TRAIN_SEQ
+    cases = [("train", TRAIN_BATCH * Hkv, 4, T, T, 128, bf, True, 0, TRAIN_BATCH),
+             ("train_f32_b1", Hkv, 4, T, T, 128, f32, True, 0, 1)]
     # tests/test_kernels.py's shapes (B, Hq, Hkv, T, Dh, causal, window)
     for i, (B, Hq, hk, T, Dh, causal, window) in enumerate((
             (2, 4, 2, 256, 64, True, 0), (1, 2, 1, 128, 128, True, 64),
             (2, 2, 2, 256, 64, False, 0), (1, 8, 1, 512, 64, True, 0))):
         for dt in (f32, bf):
-            cases.append((f"kernels_{i}_{str(dt)[6:]}", B * hk, Hq // hk, T, Dh, dt,
+            cases.append((f"kernels_{i}_{str(dt)[6:]}", B * hk, Hq // hk, T, T, Dh, dt,
                           causal, window, B))
-    cases += [("dh256", 2 * 2, 2, 512, 256, f32, True, 0, 2),
-              ("ragged_t1000", 1 * 8, 4, 1000, 128, bf, True, 0, 1),
-              ("window_edge_in_block", 1 * 8, 4, 1024, 128, f32, True, 100, 1)]
+    cases += [("dh256", 2 * 2, 2, 512, 512, 256, f32, True, 0, 2),
+              ("ragged_t1000", 1 * 8, 4, 1000, 1000, 128, bf, True, 0, 1),
+              ("window_edge_in_block", 1 * 8, 4, 1024, 1024, 128, f32, True, 100, 1)]
     # the tensor-core route's shapes: GLM-4-9B's G 16 (2 KV heads), Kimi's
     # Dh 112 (G 8), Gemma-7B's Dh 256 (G 1), T 1 and 17, a window edge inside
     # a 128-key tile, the reduced configs' Dh 16, Dh 128 non-causal with a
     # window
-    cases += [("g16_bf16", 1 * 2, 16, 1024, 128, bf, True, 0, 1),
-              ("dh112_bf16", 1 * 8, 8, 1024, 112, bf, True, 0, 1),
-              ("dh256_bf16", 1 * 16, 1, 1024, 256, bf, True, 0, 1),
-              ("t1_bf16", 2 * 8, 4, 1, 128, bf, True, 0, 2),
-              ("t17_bf16", 2 * 8, 4, 17, 128, bf, True, 0, 2),
-              ("window_edge_in_tile_bf16", 1 * 8, 4, 1024, 128, bf, True, 100, 1),
-              ("dh16_bf16", 8 * 2, 2, 32, 16, bf, True, 0, 8),
-              ("noncausal_window_bf16", 1 * 8, 4, 1000, 128, bf, False, 300, 1)]
+    cases += [("g16_bf16", 1 * 2, 16, 1024, 1024, 128, bf, True, 0, 1),
+              ("dh112_bf16", 1 * 8, 8, 1024, 1024, 112, bf, True, 0, 1),
+              ("dh256_bf16", 1 * 16, 1, 1024, 1024, 256, bf, True, 0, 1),
+              ("t1_bf16", 2 * 8, 4, 1, 1, 128, bf, True, 0, 2),
+              ("t17_bf16", 2 * 8, 4, 17, 17, 128, bf, True, 0, 2),
+              ("window_edge_in_tile_bf16", 1 * 8, 4, 1024, 1024, 128, bf, True, 100, 1),
+              ("dh16_bf16", 8 * 2, 2, 32, 32, 16, bf, True, 0, 8),
+              ("noncausal_window_bf16", 1 * 8, 4, 1000, 1000, 128, bf, False, 300, 1)]
+    # query and key lengths that differ, on both routes: Whisper-large's
+    # cross-attention (20 heads of 64, 448 decoder tokens over 1500 encoder
+    # frames, B 2; bf16 on mma.sync, and float32), causal with Tq > Tk and
+    # with Tk > Tq (keys past Tq: exact-zero dK, dV) at Dh 128 (wgmma), and a
+    # window with Tq > Tk whose rows at and past Tk - 1 + window see no key
+    cases += [("whisper_cross_bf16", 2 * 20, 1, 448, 1500, 64, bf, False, 0, 2),
+              ("whisper_cross_f32", 2 * 20, 1, 448, 1500, 64, f32, False, 0, 2),
+              ("causal_q1000_k300_bf16", 1 * 8, 4, 1000, 300, 128, bf, True, 0, 1),
+              ("causal_window_q200_k1000_bf16", 1 * 8, 4, 200, 1000, 128, bf, True, 40, 1),
+              ("blind_rows_q300_k64_bf16", 1 * 8, 4, 300, 64, 128, bf, True, 16, 1),
+              ("blind_rows_q300_k64_f32", 1 * 8, 4, 300, 64, 64, f32, True, 16, 1)]
     return cases
 
 
-def _valid_pairs(T, causal, window):
+def _valid_pairs(Tq, Tk, causal, window):
     """(query, key) pairs the mask keeps."""
-    i = np.arange(T)[:, None]
-    j = np.arange(T)[None, :]
-    m = np.ones((T, T), bool)
+    i = np.arange(Tq)[:, None]
+    j = np.arange(Tk)[None, :]
+    m = np.ones((Tq, Tk), bool)
     if causal:
         m &= i >= j
     if window > 0:
@@ -1421,18 +1472,18 @@ def _valid_pairs(T, causal, window):
     return int(m.sum())
 
 
-def flash_bound(BH, G, T, Dh, dtype, causal, window, backward):
+def flash_bound(BH, G, Tq, Tk, Dh, dtype, causal, window, backward):
     """Least time of one call on these inputs: the multiply-adds of the
     pairs the mask keeps (forward: q.k and p.v; gradient: the recomputed
     q.k, dO.v, p^T dO, dS k and dS^T q, five products) at the dtype's peak,
     against each input read and each output written once at HBM's rate."""
     import torch
     esz = 2 if dtype == torch.bfloat16 else 4
-    pairs = _valid_pairs(T, causal, window) * BH * G
+    pairs = _valid_pairs(Tq, Tk, causal, window) * BH * G
     flops = (10 if backward else 4) * pairs * Dh
-    q_bytes = BH * G * T * Dh * esz
-    kv_bytes = 2 * BH * T * Dh * esz
-    lse = BH * G * T * 4
+    q_bytes = BH * G * Tq * Dh * esz
+    kv_bytes = 2 * BH * Tk * Dh * esz
+    lse = BH * G * Tq * 4
     if backward:    # q, k, v, o, dO, lse in; dq, dk, dv out
         nbytes = 3 * q_bytes + kv_bytes + lse + q_bytes + kv_bytes
     else:           # q, k, v in; o, lse out
@@ -1463,9 +1514,9 @@ def check_flash_kernels(device, seed, records):
     l2_flush = (torch.empty(L2_FLUSH_BYTES, dtype=torch.uint8, device=dev)
                 if on_card else None)
     per_case = []
-    for name, BH, G, T, Dh, dt, causal, window, B in flash_cases():
+    for name, BH, G, T, Tk, Dh, dt, causal, window, B in flash_cases():
         q, k, v, do = (torch.randn(s, generator=g, device=dev).to(dt) for s in
-                       ((BH, G, T, Dh), (BH, 1, T, Dh), (BH, 1, T, Dh), (BH, G, T, Dh)))
+                       ((BH, G, T, Dh), (BH, 1, Tk, Dh), (BH, 1, Tk, Dh), (BH, G, T, Dh)))
         route = fa_ops.route(dt, Dh)
         if (route == "tc") != (dt == torch.bfloat16 and Dh in (16, 32, 64, 112, 128, 256)):
             raise AssertionError(f"flash/{name}: route {route} for {dt} at Dh {Dh}")
@@ -1517,7 +1568,10 @@ def check_flash_kernels(device, seed, records):
             if got.dtype != dt or not ok:
                 raise AssertionError(f"flash_attention_bwd/{name}: {gname} differs "
                                      f"from the plain gradient by {e}")
-        rec = dict(case=name, route=route, BH=BH, G=G, T=T, Dh=Dh, dtype=str(dt),
+        if causal and Tk > T and (dk[:, :, T:].count_nonzero() or dv[:, :, T:].count_nonzero()):
+            raise AssertionError(f"flash_attention_bwd/{name}: dk or dv of keys that no "
+                                 "query sees is not zero")
+        rec = dict(case=name, route=route, BH=BH, G=G, T=T, Tk=Tk, Dh=Dh, dtype=str(dt),
                    causal=causal, window=window, max_abs_err=err, tol=tol,
                    grad_max_abs_err=gerr, grad_bitwise_equal=bitwise)
         del want, r, ref_grads, dq, dk, dv
@@ -1544,12 +1598,13 @@ def check_flash_kernels(device, seed, records):
             del ro, rq
             # the library call, in the model layout it would be given
             Hkv = BH // B
-            lq, lk, lv = (t.reshape(B, -1, T, Dh) for t in (q, k, v))
+            lq, lk, lv = (t.reshape(B, -1, t.shape[2], Dh) for t in (q, k, v))
             lib = dict(enable_gqa=True)
             if window > 0:
-                i = torch.arange(T, device=dev)
-                m = (i[:, None] - i[None, :]) < window
-                lib["attn_mask"] = m & (i[:, None] >= i[None, :]) if causal else m
+                i = torch.arange(T, device=dev)[:, None]
+                j = torch.arange(Tk, device=dev)[None, :]
+                m = (i - j) < window
+                lib["attn_mask"] = m & (i >= j) if causal else m
             else:
                 lib["is_causal"] = causal
             rec["fwd_library_ms"] = _time_ms(
@@ -1561,7 +1616,7 @@ def check_flash_kernels(device, seed, records):
                 lambda: torch.autograd.grad(lo, lt, ldo, retain_graph=True), reps)
             del lo, lt
             for kind, back in (("fwd", False), ("bwd", True)):
-                b = flash_bound(BH, G, T, Dh, dt, causal, window, back)
+                b = flash_bound(BH, G, T, Tk, Dh, dt, causal, window, back)
                 rec.update({f"{kind}_bound_ms": b[0], f"{kind}_bound_by": b[1],
                             f"{kind}_bound_bytes": b[2], f"{kind}_bound_flops": b[3]})
         per_case.append(rec)
@@ -1829,15 +1884,81 @@ def rwkv_prefill(cfg, model, device, seed, records):
     return rec
 
 
+def rwkv_prompt_logits(cfg, model, prompts, plain_wkv=False):
+    """The logits [P, n, V] of `model` (on its device, in cfg.dtype) fed the
+    n prompts' P tokens one decode step at a time, as the engine feeds a
+    prompt; with plain_wkv, the plain recurrence runs in the WKV kernel's
+    place on a CUDA device."""
+    import torch
+    from repro_torch.kernels.rwkv6_wkv import ops as wkv_ops, ref as wkv_ref
+    from repro_torch.models import transformer
+    dev = model.embed.table.device
+    tk = torch.as_tensor(np.stack(prompts), device=dev)
+    cache = transformer.init_cache(cfg, len(prompts), 0, device=dev)
+    kernel = wkv_ops.wkv_cuda
+    if plain_wkv:
+        wkv_ops.wkv_cuda = lambda r, k, v, w, u, state=None, need_state=False: (
+            lambda y, s: (y, s if need_state else None))(
+                *wkv_ref.wkv_reference(r, k, v, w, u, state))
+    out = []
+    try:
+        with torch.no_grad():
+            for t in range(tk.shape[1]):
+                lg, cache = transformer.decode_step(cfg, model, cache, tk[:, t])
+                out.append(lg)
+    finally:
+        wkv_ops.wkv_cuda = kernel
+    return torch.stack(out)
+
+
+def wkv_f64_distances(cfg, model, prompts):
+    """Feeding the prompts through `model` on the card (the WKV kernel), at
+    each WKV call: max |y - y64| of the kernel's y, of the plain recurrence
+    on the card and of the plain recurrence on the CPU in float32, where y64
+    is the plain recurrence in float64 on the same inputs; the largest over
+    the layers at each prompt position."""
+    import torch
+    from repro_torch.kernels.rwkv6_wkv import ops as wkv_ops, ref as wkv_ref
+    P = len(prompts[0])
+    dist = {"kernel": [0.0] * P, "card_plain": [0.0] * P, "cpu": [0.0] * P}
+    calls = [0]
+    wkv = wkv_ops.wkv
+
+    def measured(r, k, v, w, u, state=None, need_state=False):
+        y, s = wkv(r, k, v, w, u, state, need_state)
+        pos = calls[0] // cfg.n_layers
+        calls[0] += 1
+        args = [t.float() for t in (r, k, v, w, u)] + [state]
+        y64 = wkv_ref.wkv_reference(*(None if t is None else t.cpu().double()
+                                      for t in args))[0]
+        for route, yy in (("kernel", y), ("card_plain", wkv_ref.wkv_reference(*args)[0]),
+                          ("cpu", wkv_ref.wkv_reference(*(None if t is None else t.cpu()
+                                                          for t in args))[0])):
+            dist[route][pos] = max(dist[route][pos],
+                                   float((yy.cpu().double() - y64).abs().max()))
+        return y, s
+
+    wkv_ops.wkv = measured
+    try:
+        rwkv_prompt_logits(cfg, model, prompts)
+    finally:
+        wkv_ops.wkv = wkv
+    return dist
+
+
 def rwkv_twins(device, seed, records):
     """RWKV-6 at full width, TWIN_LAYERS deep, float32, one set of weights
     (token shift, bonus and decay randomised): the contiguous engine on the
     card (the kernels) and on the CPU (the plain recurrence) on the same
     RWKV_TWIN_PROMPT-token prompts, the logits sampled from within
     TWIN_LOGITS_TOL, those of the prompt-feeding steps within
-    RWKV_PROMPT_TOL, and every token equal; then, on the card, prefill_step's
-    last logits against RWKV_TWIN_PROMPT decode_steps over the same prompts
-    (the kernel's sequence mode against its T = 1 mode)."""
+    RWKV_PROMPT_TOL, and every token equal; at every prompt position, the
+    WKV kernel's y within RWKV_F64_RATIO times the plain recurrence's
+    distance from float64 on the same inputs, and the logits' distances
+    from a float64 run of the model recorded; then, on the card,
+    prefill_step's last logits against RWKV_TWIN_PROMPT decode_steps over
+    the same prompts (the kernel's sequence mode against its T = 1 mode)."""
+    import copy
     import torch
     from repro_torch.models import transformer
     from repro_torch.serve import serve_step
@@ -1850,6 +1971,17 @@ def rwkv_twins(device, seed, records):
              for m, d in ((card, device), (cpu, "cpu"))]
     n = RWKV_ENGINE["max_batch"]
     prompts = rwkv_prompts(cfg.vocab_size, seed + 11, ((RWKV_TWIN_PROMPT, n),))
+    t0 = time.perf_counter()
+    f64 = rwkv_prompt_logits(dataclasses.replace(cfg, dtype="float64"),
+                             copy.deepcopy(cpu).to(torch.float64), prompts)
+    f64_s = time.perf_counter() - t0
+    d64 = {"card": [0.0] * RWKV_TWIN_PROMPT, "cpu": [0.0] * RWKV_TWIN_PROMPT}
+    wkv64 = None
+    if torch.device(device).type == "cuda":
+        plain = rwkv_prompt_logits(cfg, card, prompts, plain_wkv=True).cpu().double()
+        d64["card_plain_wkv"] = (plain - f64).abs().amax(dim=(1, 2)).tolist()
+        del plain
+        wkv64 = wkv_f64_distances(cfg, card, prompts)
     for e in twins:
         _submit(e, prompts, RWKV_TWIN_NEW_TOKENS)
     err = [0.0] * (RWKV_TWIN_PROMPT + RWKV_TWIN_NEW_TOKENS)   # by position
@@ -1866,6 +1998,10 @@ def rwkv_twins(device, seed, records):
             tol = TWIN_LOGITS_TOL if pos >= RWKV_TWIN_PROMPT - 1 else RWKV_PROMPT_TOL
             err[pos] = max(err[pos], float(d.max()))
             worst = max(worst, float((d - tol * (1 + y.abs())).max()))
+            if pos < RWKV_TWIN_PROMPT:
+                for route, z in (("card", x.cpu()), ("cpu", y)):
+                    d64[route][pos] = max(d64[route][pos],
+                                          float((z.double() - f64[pos]).abs().max()))
         steps += len(a)
         a.clear()
         b.clear()
@@ -1885,10 +2021,21 @@ def rwkv_twins(device, seed, records):
                prompt_max_abs_logit_err=max(err[:RWKV_TWIN_PROMPT - 1]),
                prompt_tol=RWKV_PROMPT_TOL, max_abs_logit_err_by_position=err,
                tokens_equal=toks[0] == toks[1],
-               prefill_vs_decode_max_abs_err=seq_err, wall_s=wall)
+               prefill_vs_decode_max_abs_err=seq_err, wall_s=wall,
+               f64_max_abs_logit_err_by_position=d64, f64_s=f64_s,
+               f64_card_over_cpu=max(d64["card"]) / max(max(d64["cpu"]), 1e-30),
+               wkv_f64_max_abs_err_by_position=wkv64 or "not measured",
+               wkv_f64_kernel_over_plain=(
+                   max(wkv64["kernel"]) / max(max(wkv64["card_plain"]), 1e-30)
+                   if wkv64 else "not measured"),
+               f64_ratio_limit=RWKV_F64_RATIO)
     emit(records, rec)
     if worst > 0:
         raise AssertionError(f"twin logits differ beyond their tolerance: {err}")
+    if wkv64 and max(wkv64["kernel"]) > RWKV_F64_RATIO * max(wkv64["card_plain"]):
+        raise AssertionError(f"the WKV kernel's y sits {max(wkv64['kernel'])} from "
+                             f"float64, the plain recurrence's on the same card "
+                             f"{max(wkv64['card_plain'])}: a WKV kernel fault")
     if toks[0] != toks[1] or len(toks[0]) != n:
         raise AssertionError("twin tokens differ")
     if seq_worst > 0:

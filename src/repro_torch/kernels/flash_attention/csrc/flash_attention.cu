@@ -7,9 +7,11 @@
 // of src/repro/models/layers.py:109 (`flash_attention`), rematerialising the
 // scores per block.  The gradient here computes that derivative.
 //
-// Layout (the TPU kernel's): q, o [BH, G, T, Dh]; k, v [BH, T, Dh] (one KV
-// head per BH row, G query heads sharing it); lse, D [BH, G, T] float32.
-// q, k, v share one dtype, float32 or bfloat16.
+// Layout (the TPU kernel's): q, o [BH, G, Tq, Dh]; k, v [BH, Tk, Dh] (one
+// KV head per BH row, G query heads sharing it); lse, D [BH, G, Tq] float32.
+// q, k, v share one dtype, float32 or bfloat16.  Tq and Tk are independent
+// (cross-attention, a ragged cache); the causal mask is the reference's
+// top-left one, q >= k with both counted from 0.
 //
 // Forward, one CTA of 256 threads per (bh, g, block of 64 query rows).  The
 // TPU walked a sequential (BH, G, nq, nk) grid and carried m, l and the
@@ -19,8 +21,8 @@
 // shuffles) and an 8 x ceil(Dh/32) slice of the float32 accumulator.  Each
 // K/V block is staged in shared memory as float32, once per CTA.
 //   * scores q.k are float32 from float32 or bfloat16 inputs, times Dh^-0.5,
-//     masked to the finite -1e30 (causal: q >= k; window w > 0: q - k < w;
-//     keys past T); p = exp(s - m_new) is rounded to v's dtype before the
+//     masked to the finite -1e30 (causal: q >= k; window w > 0: q - k < w)
+//     and to -inf past Tk; p = exp(s - m_new) is rounded to v's dtype before the
 //     p.v product (the TPU kernel's `p.astype(v.dtype)`), l sums p unrounded;
 //     o = acc / max(l, 1e-30) in q's dtype; lse = m + log(l) in float32.
 //   * the loop visits only the kv blocks that the mask leaves non-empty for
@@ -28,15 +30,26 @@
 //     is empty for a row adds exp(-1e30 - m) = 0 once the row has seen a
 //     valid key, and before that (p = 1 on every masked key, as in the
 //     reference) the first valid block's correction exp(-1e30 - m_new) = 0
-//     clears it.  Every valid row sees at least its own key.
-//   * T need not be a multiple of 64: rows and keys past T are masked and
-//     never written.
+//     clears it.
+//   * a row that sees no key at all (only with a window and Tq > Tk: rows
+//     at and past Tk - 1 + window) gets what the reference gives it, the
+//     mean of V over all Tk keys: every key is masked to the same -1e30, so
+//     p = 1 on each of them, and -inf past Tk keeps the padding out.  A q
+//     block holding such rows visits every kv block.  In the gradient these
+//     rows have dS = 0 (no dQ, dK) and P = 1 / Tk on every key, so they add
+//     one vector, (1 / Tk) sum of their dO, to every dV row: the pre-pass
+//     sums it and the dK/dV epilogue adds it.
+//   * Tq and Tk need not be multiples of 64: rows past Tq and keys past Tk
+//     are masked and never written.
 //
 // Gradient (FlashAttention-2's), three launches, no float atomics, so it is
 // deterministic:
-//   1. D = rowsum(dO * O) per query row (one warp per row);
+//   1. D = rowsum(dO * O) per query row (one warp per row), and where rows
+//      see no key, the sum of their dO per bh (one more CTA per bh);
 //   2. dK, dV: one CTA per (bh, block of 32 keys).  It loops over the G
-//      query heads and the 64-row q blocks that see its keys, recomputes
+//      query heads and the 64-row q blocks that see its keys (none for the
+//      keys at and past Tq when causal with Tk > Tq: their dK and dV are
+//      written as zeros), recomputes
 //      P = exp(s - lse), dP = dO.v, dS = P (dP - D), and sums
 //      dV += P^T dO and dK += scale dS^T Q in registers;
 //   3. dQ: one CTA per (bh, g, block of 32 query rows), looping over the kv
@@ -55,6 +68,7 @@
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
+#include <math.h>
 #include <stdint.h>
 
 namespace {
@@ -113,22 +127,34 @@ __device__ __forceinline__ float warp_sum(float x) {
   return x;
 }
 
+// Built on the host and passed by value, so its fields sit in the kernel
+// parameters' constant bank, not in registers.
 struct Mask {
-  int T, causal, window;
+  int Tq, Tk, causal, window;
+  int blind;        // the first query row that sees no key (Tq where none does)
+  float inv_tk;     // 1 / Tk: such a row's P on every key (dV)
   __device__ __forceinline__ bool ok(int qp, int kp) const {
-    return kp < T && (!causal || qp >= kp) && (window <= 0 || qp - kp < window);
+    return kp < Tk && (!causal || qp >= kp) && (window <= 0 || qp - kp < window);
   }
-  // the keys [lo, hi] that query rows [q_lo, q_hi] can see
-  __device__ __forceinline__ int key_lo(int q_lo) const {
-    return window > 0 ? max(0, q_lo - window + 1) : 0;
+  // the keys [lo, hi] that query rows [q_lo, q_hi] visit: all of them where
+  // a row sees none
+  __device__ __forceinline__ int key_lo(int q_lo, int q_hi) const {
+    return window > 0 && q_hi < blind ? max(0, q_lo - window + 1) : 0;
   }
-  __device__ __forceinline__ int key_hi(int q_hi) const { return causal ? q_hi : T - 1; }
-  // the query rows [lo, hi] that can see keys [k_lo, k_hi]
+  __device__ __forceinline__ int key_hi(int q_hi) const {
+    return causal ? min(q_hi, Tk - 1) : Tk - 1;
+  }
+  // the query rows [lo, hi] that see keys [k_lo, k_hi]
   __device__ __forceinline__ int query_lo(int k_lo) const { return causal ? k_lo : 0; }
   __device__ __forceinline__ int query_hi(int k_hi) const {
-    return window > 0 ? min(T - 1, k_hi + window - 1) : T - 1;
+    return window > 0 ? min(Tq - 1, k_hi + window - 1) : Tq - 1;
   }
 };
+
+Mask make_mask(int Tq, int Tk, int causal, int window) {
+  const int blind = window > 0 && window <= Tq - Tk ? Tk - 1 + window : Tq;
+  return Mask{Tq, Tk, causal, window, blind, 1.f / Tk};
+}
 
 // rows [row0, row0 + rows) of a [T, Dh] matrix into shared memory
 // [rows][ld] as float32, zeros past T
@@ -152,9 +178,10 @@ template <typename T>
 __global__ void __launch_bounds__(THREADS)
 fa_forward_kernel(const T* __restrict__ q, const T* __restrict__ k,
                   const T* __restrict__ v, T* __restrict__ o, float* __restrict__ lse,
-                  int G, int Tn, int Dh, Mask mask, float scale) {
+                  int G, int Dh, Mask mask, float scale) {
   extern __shared__ __align__(16) float smem[];
   const int ld = Dh + 4;
+  const int Tq = mask.Tq, Tk = mask.Tk;
   float* Qs = smem;                   // [F_Q][ld]
   float* Ks = Qs + F_Q * ld;          // [F_K][ld]
   float* Vs = Ks + F_K * ld;          // [F_K][ld]
@@ -164,11 +191,11 @@ fa_forward_kernel(const T* __restrict__ q, const T* __restrict__ k,
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
   const int q0 = blockIdx.x * F_Q, g = blockIdx.y, bh = blockIdx.z;
   const int r0 = warp * R;
-  const size_t qrow0 = ((size_t)bh * G + g) * Tn;
-  const T* kh = k + (size_t)bh * Tn * Dh;
-  const T* vh = v + (size_t)bh * Tn * Dh;
+  const size_t qrow0 = ((size_t)bh * G + g) * Tq;
+  const T* kh = k + (size_t)bh * Tk * Dh;
+  const T* vh = v + (size_t)bh * Tk * Dh;
 
-  load_tile(Qs, ld, q + qrow0 * Dh, q0, F_Q, Tn, Dh);
+  load_tile(Qs, ld, q + qrow0 * Dh, q0, F_Q, Tq, Dh);
 
   float m[R], l[R], acc[R][NC];
 #pragma unroll
@@ -179,13 +206,13 @@ fa_forward_kernel(const T* __restrict__ q, const T* __restrict__ k,
     for (int c = 0; c < NC; ++c) acc[r][c] = 0.f;
   }
 
-  const int q_hi = min(q0 + F_Q, Tn) - 1;
-  const int kb0 = mask.key_lo(q0) / F_K, kb1 = mask.key_hi(q_hi) / F_K;
+  const int q_hi = min(q0 + F_Q, Tq) - 1;
+  const int kb0 = mask.key_lo(q0, q_hi) / F_K, kb1 = mask.key_hi(q_hi) / F_K;
   for (int kb = kb0; kb <= kb1; ++kb) {
     const int k0 = kb * F_K;
     __syncthreads();                  // the previous block's K/V are consumed
-    load_tile(Ks, ld, kh, k0, F_K, Tn, Dh);
-    load_tile(Vs, ld, vh, k0, F_K, Tn, Dh);
+    load_tile(Ks, ld, kh, k0, F_K, Tk, Dh);
+    load_tile(Vs, ld, vh, k0, F_K, Tk, Dh);
     __syncthreads();
 
     float s[R][2];
@@ -207,8 +234,10 @@ fa_forward_kernel(const T* __restrict__ q, const T* __restrict__ k,
     for (int r = 0; r < R; ++r) {
       const int qp = q0 + r0 + r;
 #pragma unroll
-      for (int j = 0; j < 2; ++j)
-        s[r][j] = mask.ok(qp, k0 + lane + 32 * j) ? s[r][j] * scale : NEG_INF;
+      for (int j = 0; j < 2; ++j) {
+        const int kp = k0 + lane + 32 * j;
+        s[r][j] = mask.ok(qp, kp) ? s[r][j] * scale : kp < Tk ? NEG_INF : -INFINITY;
+      }
       const float m_new = fmaxf(m[r], warp_max(fmaxf(s[r][0], s[r][1])));
       const float p0 = expf(s[r][0] - m_new), p1 = expf(s[r][1] - m_new);
       corr[r] = expf(m[r] - m_new);
@@ -244,7 +273,7 @@ fa_forward_kernel(const T* __restrict__ q, const T* __restrict__ k,
 #pragma unroll
   for (int r = 0; r < R; ++r) {
     const int qp = q0 + r0 + r;
-    if (qp >= Tn) continue;
+    if (qp >= Tq) continue;
     const float den = fmaxf(l[r], 1e-30f);
     T* orow = o + (qrow0 + qp) * Dh;
 #pragma unroll
@@ -260,11 +289,27 @@ fa_forward_kernel(const T* __restrict__ q, const T* __restrict__ k,
 // gradient
 // ---------------------------------------------------------------------------
 
-// D[row] = sum_d dO[row, d] * O[row, d], one warp per row
+// D[row] = sum_d dO[row, d] * O[row, d], one warp per row; the CTAs past the
+// rows' (one per bh, launched only where some query row sees no key) sum dO
+// over those rows of all G heads, in order, into colsum [BH, Dh]
 template <typename T>
 __global__ void __launch_bounds__(THREADS)
 fa_rowdot_kernel(const T* __restrict__ dout, const T* __restrict__ out,
-                 float* __restrict__ D, long long rows, int Dh) {
+                 float* __restrict__ D, long long rows, int Dh, float* __restrict__ colsum,
+                 int G, Mask mask) {
+  const long long row_blocks = (rows + WARPS - 1) / WARPS;
+  if (blockIdx.x >= row_blocks) {
+    const int bh = (int)(blockIdx.x - row_blocks);
+    for (int d = threadIdx.x; d < Dh; d += THREADS) {
+      float acc = 0.f;
+      for (int g = 0; g < G; ++g) {
+        const T* col = dout + (size_t)(bh * G + g) * mask.Tq * Dh + d;
+        for (int i = mask.blind; i < mask.Tq; ++i) acc += to_f32(col[(size_t)i * Dh]);
+      }
+      colsum[(size_t)bh * Dh + d] = acc;
+    }
+    return;
+  }
   const long long row = (long long)blockIdx.x * WARPS + (threadIdx.x >> 5);
   const int lane = threadIdx.x & 31;
   if (row >= rows) return;
@@ -280,10 +325,11 @@ template <typename T>
 __global__ void __launch_bounds__(THREADS)
 fa_dq_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
              const T* __restrict__ dout, const float* __restrict__ lse,
-             const float* __restrict__ D, T* __restrict__ dq, int G, int Tn, int Dh,
+             const float* __restrict__ D, T* __restrict__ dq, int G, int Dh,
              Mask mask, float scale) {
   extern __shared__ __align__(16) float smem[];
   const int ld = Dh + 4;
+  const int Tq = mask.Tq, Tk = mask.Tk;
   float* Qs = smem;                   // [Q_Q][ld]
   float* dOs = Qs + Q_Q * ld;         // [Q_Q][ld]
   float* Ks = dOs + Q_Q * ld;         // [Q_K][ld]
@@ -294,29 +340,29 @@ fa_dq_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restri
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
   const int q0 = blockIdx.x * Q_Q, g = blockIdx.y, bh = blockIdx.z;
   const int r0 = warp * R;
-  const size_t qrow0 = ((size_t)bh * G + g) * Tn;
-  const T* kh = k + (size_t)bh * Tn * Dh;
-  const T* vh = v + (size_t)bh * Tn * Dh;
+  const size_t qrow0 = ((size_t)bh * G + g) * Tq;
+  const T* kh = k + (size_t)bh * Tk * Dh;
+  const T* vh = v + (size_t)bh * Tk * Dh;
 
-  load_tile(Qs, ld, q + qrow0 * Dh, q0, Q_Q, Tn, Dh);
-  load_tile(dOs, ld, dout + qrow0 * Dh, q0, Q_Q, Tn, Dh);
+  load_tile(Qs, ld, q + qrow0 * Dh, q0, Q_Q, Tq, Dh);
+  load_tile(dOs, ld, dout + qrow0 * Dh, q0, Q_Q, Tq, Dh);
   float lse_r[R], d_r[R], acc[R][NC];
 #pragma unroll
   for (int r = 0; r < R; ++r) {
-    const int qp = min(q0 + r0 + r, Tn - 1);
+    const int qp = min(q0 + r0 + r, Tq - 1);
     lse_r[r] = lse[qrow0 + qp];
     d_r[r] = D[qrow0 + qp];
 #pragma unroll
     for (int c = 0; c < NC; ++c) acc[r][c] = 0.f;
   }
 
-  const int q_hi = min(q0 + Q_Q, Tn) - 1;
-  const int kb0 = mask.key_lo(q0) / Q_K, kb1 = mask.key_hi(q_hi) / Q_K;
+  const int q_hi = min(q0 + Q_Q, Tq) - 1;
+  const int kb0 = mask.key_lo(q0, q_hi) / Q_K, kb1 = mask.key_hi(q_hi) / Q_K;
   for (int kb = kb0; kb <= kb1; ++kb) {
     const int k0 = kb * Q_K;
     __syncthreads();
-    load_tile(Ks, ld, kh, k0, Q_K, Tn, Dh);
-    load_tile(Vs, ld, vh, k0, Q_K, Tn, Dh);
+    load_tile(Ks, ld, kh, k0, Q_K, Tk, Dh);
+    load_tile(Vs, ld, vh, k0, Q_K, Tk, Dh);
     __syncthreads();
 
     float s[R][2], dp[R][2];
@@ -366,7 +412,7 @@ fa_dq_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restri
 #pragma unroll
   for (int r = 0; r < R; ++r) {
     const int qp = q0 + r0 + r;
-    if (qp >= Tn) continue;
+    if (qp >= Tq) continue;
     T* row = dq + (qrow0 + qp) * Dh;
 #pragma unroll
     for (int c = 0; c < NC; ++c) {
@@ -380,10 +426,12 @@ template <typename T>
 __global__ void __launch_bounds__(THREADS)
 fa_dkdv_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
                const T* __restrict__ dout, const float* __restrict__ lse,
-               const float* __restrict__ D, T* __restrict__ dk, T* __restrict__ dv,
-               int G, int Tn, int Dh, Mask mask, float scale) {
+               const float* __restrict__ D, const float* __restrict__ colsum,
+               T* __restrict__ dk, T* __restrict__ dv, int G, int Dh, Mask mask,
+               float scale) {
   extern __shared__ __align__(16) float smem[];
   const int ld = Dh + 4;
+  const int Tq = mask.Tq, Tk = mask.Tk;
   float* Ks = smem;                   // [K_K][ld]
   float* Vs = Ks + K_K * ld;          // [K_K][ld]
   float* Qs = Vs + K_K * ld;          // [K_Q][ld]
@@ -397,27 +445,27 @@ fa_dkdv_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __rest
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
   const int k0 = blockIdx.x * K_K, bh = blockIdx.y;
   const int r0 = warp * R;
-  const size_t krow0 = (size_t)bh * Tn;
+  const size_t krow0 = (size_t)bh * Tk;
 
-  load_tile(Ks, ld, k + krow0 * Dh, k0, K_K, Tn, Dh);
-  load_tile(Vs, ld, v + krow0 * Dh, k0, K_K, Tn, Dh);
+  load_tile(Ks, ld, k + krow0 * Dh, k0, K_K, Tk, Dh);
+  load_tile(Vs, ld, v + krow0 * Dh, k0, K_K, Tk, Dh);
   float dkacc[R][NC], dvacc[R][NC];
 #pragma unroll
   for (int r = 0; r < R; ++r)
 #pragma unroll
     for (int c = 0; c < NC; ++c) dkacc[r][c] = dvacc[r][c] = 0.f;
 
-  const int k_hi = min(k0 + K_K, Tn) - 1;
+  const int k_hi = min(k0 + K_K, Tk) - 1;
   const int qb0 = mask.query_lo(k0) / K_Q, qb1 = mask.query_hi(k_hi) / K_Q;
   for (int g = 0; g < G; ++g) {
-    const size_t qrow0 = ((size_t)bh * G + g) * Tn;
+    const size_t qrow0 = ((size_t)bh * G + g) * Tq;
     for (int qb = qb0; qb <= qb1; ++qb) {
       const int q0 = qb * K_Q;
       __syncthreads();
-      load_tile(Qs, ld, q + qrow0 * Dh, q0, K_Q, Tn, Dh);
-      load_tile(dOs, ld, dout + qrow0 * Dh, q0, K_Q, Tn, Dh);
+      load_tile(Qs, ld, q + qrow0 * Dh, q0, K_Q, Tq, Dh);
+      load_tile(dOs, ld, dout + qrow0 * Dh, q0, K_Q, Tq, Dh);
       if (threadIdx.x < K_Q) {
-        const int qp = min(q0 + (int)threadIdx.x, Tn - 1);
+        const int qp = min(q0 + (int)threadIdx.x, Tq - 1);
         lse_s[threadIdx.x] = lse[qrow0 + qp];
         D_s[threadIdx.x] = D[qrow0 + qp];
       }
@@ -448,7 +496,7 @@ fa_dkdv_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __rest
         for (int j = 0; j < 2; ++j) {
           const int i = lane + 32 * j;
           const int qp = q0 + i;
-          const float p = (qp < Tn && mask.ok(qp, kp))
+          const float p = (qp < Tq && mask.ok(qp, kp))
                               ? expf(s[r][j] * scale - lse_s[i]) : 0.f;
           Ps[(r0 + r) * LDP + i] = p;
           dSs[(r0 + r) * LDP + i] = p * (dp[r][j] - D_s[i]);
@@ -484,15 +532,17 @@ fa_dkdv_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __rest
 #pragma unroll
   for (int r = 0; r < R; ++r) {
     const int kp = k0 + r0 + r;
-    if (kp >= Tn) continue;
+    if (kp >= Tk) continue;
     T* krow = dk + (krow0 + kp) * Dh;
     T* vrow = dv + (krow0 + kp) * Dh;
 #pragma unroll
     for (int c = 0; c < NC; ++c) {
       const int d = lane + 32 * c;
       if (d < Dh) {
+        // rows that see no key: P = 1 / Tk on every key
+        const float blind = mask.blind < Tq ? mask.inv_tk * colsum[(size_t)bh * Dh + d] : 0.f;
         krow[d] = from_f32<T>(dkacc[r][c] * scale);
-        vrow[d] = from_f32<T>(dvacc[r][c]);
+        vrow[d] = from_f32<T>(dvacc[r][c] + blind);
       }
     }
   }
@@ -516,52 +566,54 @@ size_t dkdv_smem(int Dh) {
 
 template <typename T>
 cudaError_t forward(const void* q, const void* k, const void* v, void* o, float* lse,
-                    int BH, int G, int Tn, int Dh, Mask mask, float scale, cudaStream_t st) {
+                    int BH, int G, int Dh, Mask mask, float scale, cudaStream_t st) {
   auto kern = fa_forward_kernel<T>;
   const size_t smem = fwd_smem(Dh);
   cudaError_t e = set_smem(kern, smem);
   if (e != cudaSuccess) return e;
-  dim3 grid((Tn + F_Q - 1) / F_Q, G, BH);
+  dim3 grid((mask.Tq + F_Q - 1) / F_Q, G, BH);
   kern<<<grid, THREADS, smem, st>>>(static_cast<const T*>(q), static_cast<const T*>(k),
                                     static_cast<const T*>(v), static_cast<T*>(o), lse, G,
-                                    Tn, Dh, mask, scale);
+                                    Dh, mask, scale);
   return cudaGetLastError();
 }
 
 template <typename T>
 cudaError_t backward(const void* q, const void* k, const void* v, const void* o,
                      const float* lse, const void* dout, void* dq, void* dk, void* dv,
-                     float* D, int BH, int G, int Tn, int Dh, Mask mask, float scale,
+                     float* D, int BH, int G, int Dh, Mask mask, float scale,
                      cudaStream_t st) {
   const T* qt = static_cast<const T*>(q);
   const T* kt = static_cast<const T*>(k);
   const T* vt = static_cast<const T*>(v);
   const T* gt = static_cast<const T*>(dout);
-  const long long rows = (long long)BH * G * Tn;
-  fa_rowdot_kernel<T><<<(unsigned)((rows + WARPS - 1) / WARPS), THREADS, 0, st>>>(
-      gt, static_cast<const T*>(o), D, rows, Dh);
+  const long long rows = (long long)BH * G * mask.Tq;
+  float* colsum = D + rows;
+  const long long blocks = (rows + WARPS - 1) / WARPS + (mask.blind < mask.Tq ? BH : 0);
+  fa_rowdot_kernel<T><<<(unsigned)blocks, THREADS, 0, st>>>(
+      gt, static_cast<const T*>(o), D, rows, Dh, colsum, G, mask);
   cudaError_t e = cudaGetLastError();
   if (e != cudaSuccess) return e;
 
   auto kkv = fa_dkdv_kernel<T>;
   size_t smem = dkdv_smem(Dh);
   if ((e = set_smem(kkv, smem)) != cudaSuccess) return e;
-  kkv<<<dim3((Tn + K_K - 1) / K_K, BH), THREADS, smem, st>>>(
-      qt, kt, vt, gt, lse, D, static_cast<T*>(dk), static_cast<T*>(dv), G, Tn, Dh, mask,
-      scale);
+  kkv<<<dim3((mask.Tk + K_K - 1) / K_K, BH), THREADS, smem, st>>>(
+      qt, kt, vt, gt, lse, D, colsum, static_cast<T*>(dk), static_cast<T*>(dv), G, Dh,
+      mask, scale);
   if ((e = cudaGetLastError()) != cudaSuccess) return e;
 
   auto kq = fa_dq_kernel<T>;
   smem = dq_smem(Dh);
   if ((e = set_smem(kq, smem)) != cudaSuccess) return e;
-  kq<<<dim3((Tn + Q_Q - 1) / Q_Q, G, BH), THREADS, smem, st>>>(
-      qt, kt, vt, gt, lse, D, static_cast<T*>(dq), G, Tn, Dh, mask, scale);
+  kq<<<dim3((mask.Tq + Q_Q - 1) / Q_Q, G, BH), THREADS, smem, st>>>(
+      qt, kt, vt, gt, lse, D, static_cast<T*>(dq), G, Dh, mask, scale);
   return cudaGetLastError();
 }
 
-bool bad_shape(int BH, int G, int Tn, int Dh, int dtype) {
-  return BH < 1 || BH > 65535 || G < 1 || G > 65535 || Tn < 1 || Dh < 4 || Dh > MAX_DH ||
-         (Dh & 3) != 0 || dtype < 0 || dtype > 1;
+bool bad_shape(int BH, int G, int Tq, int Tk, int Dh, int dtype) {
+  return BH < 1 || BH > 65535 || G < 1 || G > 65535 || Tq < 1 || Tk < 1 || Dh < 4 ||
+         Dh > MAX_DH || (Dh & 3) != 0 || dtype < 0 || dtype > 1;
 }
 
 }  // namespace
@@ -570,29 +622,29 @@ bool bad_shape(int BH, int G, int Tn, int Dh, int dtype) {
 // causal 0/1; window <= 0 means none; scale is Dh^-0.5 rounded to float32.
 // Returns 0 or a cudaError_t.
 extern "C" int fa_forward(const void* q, const void* k, const void* v, void* o, void* lse,
-                          int BH, int G, int T, int Dh, int dtype, int causal, int window,
-                          float scale, void* stream) {
-  if (bad_shape(BH, G, T, Dh, dtype)) return (int)cudaErrorInvalidValue;
-  const Mask mask{T, causal, window};
+                          int BH, int G, int Tq, int Tk, int Dh, int dtype, int causal,
+                          int window, float scale, void* stream) {
+  if (bad_shape(BH, G, Tq, Tk, Dh, dtype)) return (int)cudaErrorInvalidValue;
+  const Mask mask = make_mask(Tq, Tk, causal, window);
   float* l = static_cast<float*>(lse);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  return (int)(dtype == 0 ? forward<float>(q, k, v, o, l, BH, G, T, Dh, mask, scale, s)
-                          : forward<__nv_bfloat16>(q, k, v, o, l, BH, G, T, Dh, mask, scale, s));
+  return (int)(dtype == 0 ? forward<float>(q, k, v, o, l, BH, G, Dh, mask, scale, s)
+                          : forward<__nv_bfloat16>(q, k, v, o, l, BH, G, Dh, mask, scale, s));
 }
 
-// D is float32 scratch of BH * G * T elements.
+// D is float32 scratch of BH * G * Tq + BH * Dh elements.
 extern "C" int fa_backward(const void* q, const void* k, const void* v, const void* o,
                            const void* lse, const void* dout, void* dq, void* dk, void* dv,
-                           void* D, int BH, int G, int T, int Dh, int dtype, int causal,
-                           int window, float scale, void* stream) {
-  if (bad_shape(BH, G, T, Dh, dtype)) return (int)cudaErrorInvalidValue;
-  const Mask mask{T, causal, window};
+                           void* D, int BH, int G, int Tq, int Tk, int Dh, int dtype,
+                           int causal, int window, float scale, void* stream) {
+  if (bad_shape(BH, G, Tq, Tk, Dh, dtype)) return (int)cudaErrorInvalidValue;
+  const Mask mask = make_mask(Tq, Tk, causal, window);
   const float* l = static_cast<const float*>(lse);
   float* d = static_cast<float*>(D);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   return (int)(dtype == 0
-                   ? backward<float>(q, k, v, o, l, dout, dq, dk, dv, d, BH, G, T, Dh, mask,
+                   ? backward<float>(q, k, v, o, l, dout, dq, dk, dv, d, BH, G, Dh, mask,
                                      scale, s)
-                   : backward<__nv_bfloat16>(q, k, v, o, l, dout, dq, dk, dv, d, BH, G, T,
-                                             Dh, mask, scale, s));
+                   : backward<__nv_bfloat16>(q, k, v, o, l, dout, dq, dk, dv, d, BH, G, Dh,
+                                             mask, scale, s));
 }

@@ -9,8 +9,9 @@
 // arithmetic holds the float32 tolerances; this file has the same layout, the
 // same mask and the same results up to bfloat16 rounding of P and dS.
 //
-// Layout: q, o [BH, G, T, Dh]; k, v [BH, T, Dh] (one KV head per BH row, G
-// query heads sharing it); lse, D [BH, G, T] float32.
+// Layout: q, o [BH, G, Tq, Dh]; k, v [BH, Tk, Dh] (one KV head per BH row, G
+// query heads sharing it); lse, D [BH, G, Tq] float32.  Tq and Tk are
+// independent; the causal mask is the reference's top-left one (q >= k).
 //
 // Bound: operations.  At the training path's shape (B 2, Hkv 8, G 4, T 4096,
 // Dh 128, causal) the forward does 2.7e11 FLOPs (0.28 ms at the 989 TFLOP/s
@@ -38,17 +39,25 @@
 // masked scores take the finite -1e30, so a row that sees no valid key in a
 // visited block takes p = 1 there and the first valid block's correction
 // exp(-1e30 - m) = 0 clears it; only the blocks that cross the diagonal, the
-// window edge or T are masked element by element.  Scores are kept in the
-// log2 domain (scale * log2 e folded into one multiply, exp2); lse is
-// returned in natural log.
+// window edge, Tq or Tk are masked element by element, keys past Tk to -inf.
+// A row that sees no key at all (a window with Tq > Tk: rows at and past
+// Tk - 1 + window) takes p = 1 on every key and so the mean of V over the Tk
+// keys, as the reference does; a q block holding one visits every key
+// block.  In the gradient such rows have dS = 0 and P = 1 / Tk on every
+// key, so they add one vector, (1 / Tk) sum of their dO, to every dV row:
+// the pre-pass sums it and the dK/dV epilogue adds it.
+// Scores are kept in the log2 domain (scale * log2 e folded into one
+// multiply, exp2); lse is returned in natural log.
 //
 // Gradient (FlashAttention-2's), three launches and no float atomics, so it is
 // deterministic:
-//   1. D = rowsum(dO * O) per query row (one warp per row);
+//   1. D = rowsum(dO * O) per query row (one warp per row), and where rows
+//      see no key, the sum of their dO per bh (one more CTA per bh);
 //   2. dK, dV: one CTA per (bh, block of 128 keys, 64 at Dh 256).  Warp w owns
 //      16 keys (at Dh 256 two warps share them, each accumulating half of the
 //      columns).  It loops over the G query heads and the 64-row q blocks
-//      that see its keys, Q, dO, lse and D double-buffered by cp.async:
+//      that see its keys (none, and dK = dV = 0, for keys at and past Tq
+//      when causal with Tk > Tq), Q, dO, lse and D double-buffered by cp.async:
 //      S^T = K Q^T, P^T = exp(scale S^T - lse); dP^T = V dO^T;
 //      dS^T = P^T (dP^T - D); dV += P^T dO and dK += dS^T Q with P^T and dS^T
 //      rounded to bf16 in registers as the A operands;
@@ -64,6 +73,7 @@
 #include <cuda.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
+#include <math.h>
 #include <stdint.h>
 
 namespace {
@@ -76,28 +86,40 @@ constexpr float NEG_INF = -1e30f;
 constexpr float LOG2E = 1.4426950408889634f;
 constexpr float LN2 = 0.6931471805599453f;
 
+// Built on the host and passed by value, so its fields sit in the kernel
+// parameters' constant bank, not in registers.
 struct Mask {
-  int T, causal, window;
+  int Tq, Tk, causal, window;
+  int blind;        // the first query row that sees no key (Tq where none does)
+  float inv_tk;     // 1 / Tk: such a row's P on every key (dV)
   __device__ __forceinline__ bool ok(int qp, int kp) const {
-    return kp < T && (!causal || qp >= kp) && (window <= 0 || qp - kp < window);
+    return kp < Tk && (!causal || qp >= kp) && (window <= 0 || qp - kp < window);
   }
-  // the keys [lo, hi] that query rows [q_lo, q_hi] can see
-  __device__ __forceinline__ int key_lo(int q_lo) const {
-    return window > 0 ? max(0, q_lo - window + 1) : 0;
+  // the keys [lo, hi] that query rows [q_lo, q_hi] visit: all of them where
+  // a row sees none
+  __device__ __forceinline__ int key_lo(int q_lo, int q_hi) const {
+    return window > 0 && q_hi < blind ? max(0, q_lo - window + 1) : 0;
   }
-  __device__ __forceinline__ int key_hi(int q_hi) const { return causal ? q_hi : T - 1; }
-  // the query rows [lo, hi] that can see keys [k_lo, k_hi]
+  __device__ __forceinline__ int key_hi(int q_hi) const {
+    return causal ? min(q_hi, Tk - 1) : Tk - 1;
+  }
+  // the query rows [lo, hi] that see keys [k_lo, k_hi]
   __device__ __forceinline__ int query_lo(int k_lo) const { return causal ? k_lo : 0; }
   __device__ __forceinline__ int query_hi(int k_hi) const {
-    return window > 0 ? min(T - 1, k_hi + window - 1) : T - 1;
+    return window > 0 ? min(Tq - 1, k_hi + window - 1) : Tq - 1;
   }
   // whether some pair of query rows [q0, q0 + nq) and keys [k0, k0 + nk) is
   // masked (or out of range), so the block needs the element-wise mask
   __device__ __forceinline__ bool edge(int q0, int nq, int k0, int nk) const {
-    return k0 + nk > T || q0 + nq > T || (causal && k0 + nk - 1 > q0) ||
+    return k0 + nk > Tk || q0 + nq > Tq || (causal && k0 + nk - 1 > q0) ||
            (window > 0 && q0 + nq - 1 - k0 >= window);
   }
 };
+
+Mask make_mask(int Tq, int Tk, int causal, int window) {
+  const int blind = window > 0 && window <= Tq - Tk ? Tk - 1 + window : Tq;
+  return Mask{Tq, Tk, causal, window, blind, 1.f / Tk};
+}
 
 // element offset of 16-byte chunk `chunk` of row `row` in a swizzled tile
 // whose rows hold DP elements (DP a multiple of 64)
@@ -215,7 +237,10 @@ __device__ __forceinline__ void softmax_step(float (&s)[NS][4], float (&acc)[NO]
 #pragma unroll
     for (int e = 0; e < 4; ++e) {
       float x = s[j][e] * scale_log2;
-      if (edge && !mask.ok(e < 2 ? row_a : row_b, k0 + 8 * j + 2 * tq + (e & 1))) x = NEG_INF;
+      if (edge) {
+        const int kp = k0 + 8 * j + 2 * tq + (e & 1);
+        if (!mask.ok(e < 2 ? row_a : row_b, kp)) x = kp < mask.Tk ? NEG_INF : -INFINITY;
+      }
       s[j][e] = x;
     }
     mx_a = fmaxf(mx_a, fmaxf(s[j][0], s[j][1]));
@@ -245,7 +270,7 @@ __device__ __forceinline__ void softmax_step(float (&s)[NS][4], float (&acc)[NO]
 }
 
 // O = acc / l in bf16 and lse = m + log l (natural log) for rows row_a and
-// row_b of the rows that start at qrow0, those below T
+// row_b of the rows that start at qrow0, those below Tq
 template <int NO>
 __device__ __forceinline__ void store_rows(const float (&acc)[NO][4], float m_a, float m_b,
                                            float l_a, float l_b, bf16* o, float* lse,
@@ -286,8 +311,9 @@ template <int DH>
 __global__ void __launch_bounds__(THREADS, 1)
 fa_tc_forward_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
                      const bf16* __restrict__ v, bf16* __restrict__ o,
-                     float* __restrict__ lse, int G, int Tn, Mask mask, float scale_log2) {
+                     float* __restrict__ lse, int G, Mask mask, float scale_log2) {
   using C = Fwd<DH>;
+  const int Tq = mask.Tq, Tk = mask.Tk;
   constexpr int BM = C::BM, BN = C::BN, DP = C::DP;
   constexpr int KS = DH / 16;       // k-steps of Q K^T
   constexpr int NO = DH / 8;        // n-tiles of O
@@ -301,21 +327,21 @@ fa_tc_forward_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
   const int gq = lane >> 2, tq = lane & 3;
   const int bh = blockIdx.x / G;
   const int q0 = (gridDim.y - 1 - blockIdx.y) * BM;   // the longest causal blocks first
-  const size_t qrow0 = (size_t)blockIdx.x * Tn;        // (bh * G + g) * T
-  const bf16* kh = k + (size_t)bh * Tn * DH;
-  const bf16* vh = v + (size_t)bh * Tn * DH;
+  const size_t qrow0 = (size_t)blockIdx.x * Tq;        // (bh * G + g) * Tq
+  const bf16* kh = k + (size_t)bh * Tk * DH;
+  const bf16* vh = v + (size_t)bh * Tk * DH;
   // per-lane parts of the ldmatrix addresses: the A / transposed-B pattern and
   // the B pattern
   const int a_row = lane & 15, a_chk = lane >> 4;
   const int b_row = (lane & 7) + ((lane >> 4) << 3), b_chk = (lane >> 3) & 1;
 
-  const int q_hi = min(q0 + BM, Tn) - 1;
-  const int kb0 = mask.key_lo(q0) / BN, kb1 = mask.key_hi(q_hi) / BN;
+  const int q_hi = min(q0 + BM, Tq) - 1;
+  const int kb0 = mask.key_lo(q0, q_hi) / BN, kb1 = mask.key_hi(q_hi) / BN;
 
-  load_tile<BM, DH, DP>(Qs, q + qrow0 * DH, q0, Tn);
+  load_tile<BM, DH, DP>(Qs, q + qrow0 * DH, q0, Tq);
   cp_async_commit();
-  load_tile<BN, DH, DP>(Ks, kh, kb0 * BN, Tn);
-  load_tile<BN, DH, DP>(Vs, vh, kb0 * BN, Tn);
+  load_tile<BN, DH, DP>(Ks, kh, kb0 * BN, Tk);
+  load_tile<BN, DH, DP>(Vs, vh, kb0 * BN, Tk);
   cp_async_commit();
 
   uint32_t qf[C::Q_REGS ? KS : 1][4];
@@ -336,8 +362,8 @@ fa_tc_forward_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
   for (int kb = kb0; kb <= kb1; ++kb) {
     const int st = (kb - kb0) & 1;
     if (kb < kb1) {
-      load_tile<BN, DH, DP>(Ks + (st ^ 1) * BN * DP, kh, (kb + 1) * BN, Tn);
-      load_tile<BN, DH, DP>(Vs + (st ^ 1) * BN * DP, vh, (kb + 1) * BN, Tn);
+      load_tile<BN, DH, DP>(Ks + (st ^ 1) * BN * DP, kh, (kb + 1) * BN, Tk);
+      load_tile<BN, DH, DP>(Vs + (st ^ 1) * BN * DP, vh, (kb + 1) * BN, Tk);
       cp_async_commit();
       cp_async_wait<1>();
     } else {
@@ -387,7 +413,7 @@ fa_tc_forward_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
     __syncthreads();                  // this stage is consumed
   }
 
-  store_rows(acc, m_a, m_b, l_a, l_b, o, lse, qrow0, row_a, row_b, Tn, tq);
+  store_rows(acc, m_a, m_b, l_a, l_b, o, lse, qrow0, row_a, row_b, Tq, tq);
 }
 
 
@@ -400,7 +426,7 @@ fa_tc_forward_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
 // and O += P V eight more with P from registers (the mma.sync A layout, so
 // the softmax of the mma.sync kernel carries over) and V read transposed.
 // Q, K and V arrive by TMA as boxes of [128 rows][64 columns] (one 128-byte
-// row each, 128-byte swizzle: wgmma's canonical layout), zero past T.  Thread
+// row each, 128-byte swizzle: wgmma's canonical layout), zero past Tq / Tk.  Thread
 // 0 starts the copies: Q and the first two K/V blocks up front, block i + 2
 // into the stage of block i once all eight warps have released it.
 
@@ -527,8 +553,7 @@ __global__ void __launch_bounds__(THREADS, 1)
 fa_tc_forward_kernel_wgmma(const __grid_constant__ CUtensorMap tq,
                            const __grid_constant__ CUtensorMap tk,
                            const __grid_constant__ CUtensorMap tv, bf16* __restrict__ o,
-                           float* __restrict__ lse, int G, int Tn, Mask mask,
-                           float scale_log2) {
+                           float* __restrict__ lse, int G, Mask mask, float scale_log2) {
   constexpr int DH = 128, NS = WG_ROWS / 8, NO = DH / 8;
   extern __shared__ __align__(1024) unsigned char smem_raw[];
   const uint32_t base = (smem_u32(smem_raw) + 1023u) & ~1023u;   // swizzle atoms: 1 KB
@@ -546,8 +571,9 @@ fa_tc_forward_kernel_wgmma(const __grid_constant__ CUtensorMap tq,
   const int gq = lane >> 2, tq4 = lane & 3;
   const int head = blockIdx.x, bh = head / G;
   const int q0 = (gridDim.y - 1 - blockIdx.y) * WG_ROWS;   // the longest causal blocks first
-  const int q_hi = min(q0 + WG_ROWS, Tn) - 1;
-  const int kb0 = mask.key_lo(q0) / WG_ROWS, nkb = mask.key_hi(q_hi) / WG_ROWS - kb0 + 1;
+  const int q_hi = min(q0 + WG_ROWS, mask.Tq) - 1;
+  const int kb0 = mask.key_lo(q0, q_hi) / WG_ROWS;
+  const int nkb = mask.key_hi(q_hi) / WG_ROWS - kb0 + 1;
 
   if (tid == 0) {
     mbar_init(q_full, 1);
@@ -621,18 +647,35 @@ fa_tc_forward_kernel_wgmma(const __grid_constant__ CUtensorMap tq,
       fetch(i + 2);
     }
   }
-  store_rows(acc, m_a, m_b, l_a, l_b, o, lse, (size_t)head * Tn, row_a, row_b, Tn, tq4);
+  store_rows(acc, m_a, m_b, l_a, l_b, o, lse, (size_t)head * mask.Tq, row_a, row_b, mask.Tq,
+             tq4);
 }
 
 // ---------------------------------------------------------------------------
 // gradient
 // ---------------------------------------------------------------------------
 
-// D[row] = sum_d dO[row, d] * O[row, d], one warp per row
+// D[row] = sum_d dO[row, d] * O[row, d], one warp per row; the CTAs past the
+// rows' (one per bh, launched only where some query row sees no key) sum dO
+// over those rows of all G heads, in order, into colsum [BH, DH]
 template <int DH>
 __global__ void __launch_bounds__(THREADS)
 fa_tc_rowdot_kernel(const bf16* __restrict__ dout, const bf16* __restrict__ out,
-                    float* __restrict__ D, long long rows) {
+                    float* __restrict__ D, long long rows, float* __restrict__ colsum, int G,
+                    Mask mask) {
+  const long long row_blocks = (rows + WARPS - 1) / WARPS;
+  if (blockIdx.x >= row_blocks) {
+    const int bh = (int)(blockIdx.x - row_blocks);
+    for (int d = threadIdx.x; d < DH; d += THREADS) {
+      float acc = 0.f;
+      for (int g = 0; g < G; ++g) {
+        const bf16* col = dout + (size_t)(bh * G + g) * mask.Tq * DH + d;
+        for (int i = mask.blind; i < mask.Tq; ++i) acc += __bfloat162float(col[(size_t)i * DH]);
+      }
+      colsum[(size_t)bh * DH + d] = acc;
+    }
+    return;
+  }
   const long long row = (long long)blockIdx.x * WARPS + (threadIdx.x >> 5);
   const int lane = threadIdx.x & 31;
   if (row >= rows) return;
@@ -673,9 +716,10 @@ __global__ void __launch_bounds__(THREADS, 1)
 fa_tc_dkdv_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
                   const bf16* __restrict__ v, const bf16* __restrict__ dout,
                   const float* __restrict__ lse, const float* __restrict__ D,
-                  bf16* __restrict__ dk, bf16* __restrict__ dv, int G, int Tn, Mask mask,
-                  float scale_log2, float scale) {
+                  const float* __restrict__ colsum, bf16* __restrict__ dk,
+                  bf16* __restrict__ dv, int G, Mask mask, float scale_log2, float scale) {
   using C = Bwd<DH>;
+  const int Tq = mask.Tq, Tk = mask.Tk;
   constexpr int WD = C::WD, BK = C::BR, BQ = C::BS, DP = C::DP;
   constexpr int KS = DH / 16;          // k-steps over the head dim
   constexpr int DW = DH / WD;          // output columns per warp
@@ -693,25 +737,26 @@ fa_tc_dkdv_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
   const int gq = lane >> 2, tq = lane & 3;
   const int kw = warp / WD, col0 = (warp % WD) * DW;
   const int bh = blockIdx.x, k0 = blockIdx.y * BK;   // the longest causal blocks first
-  const size_t krow0 = (size_t)bh * Tn;
+  const size_t krow0 = (size_t)bh * Tk;
   const int a_row = lane & 15, a_chk = lane >> 4;
   const int b_row = (lane & 7) + ((lane >> 4) << 3), b_chk = (lane >> 3) & 1;
 
-  load_tile<BK, DH, DP>(Ks, k + krow0 * DH, k0, Tn);
-  load_tile<BK, DH, DP>(Vs, v + krow0 * DH, k0, Tn);
+  load_tile<BK, DH, DP>(Ks, k + krow0 * DH, k0, Tk);
+  load_tile<BK, DH, DP>(Vs, v + krow0 * DH, k0, Tk);
 
-  const int k_hi = min(k0 + BK, Tn) - 1;
-  const int qb0 = mask.query_lo(k0) / BQ, nq = mask.query_hi(k_hi) / BQ - qb0 + 1;
+  const int k_hi = min(k0 + BK, Tk) - 1;
+  const int qb0 = mask.query_lo(k0) / BQ;
+  const int nq = max(0, mask.query_hi(k_hi) / BQ - qb0 + 1);   // 0: no query sees these keys
   const int steps = G * nq;
   auto fetch = [&](int it, int st) {
     const int g = it / nq, qs = (qb0 + it - g * nq) * BQ;
-    const size_t qrow0 = ((size_t)bh * G + g) * Tn;
-    load_tile<BQ, DH, DP>(Qs + st * BQ * DP, q + qrow0 * DH, qs, Tn);
-    load_tile<BQ, DH, DP>(Os + st * BQ * DP, dout + qrow0 * DH, qs, Tn);
-    load_vec<BQ>(Ls + st * BQ, lse + qrow0, qs, Tn);
-    load_vec<BQ>(Dsm + st * BQ, D + qrow0, qs, Tn);
+    const size_t qrow0 = ((size_t)bh * G + g) * Tq;
+    load_tile<BQ, DH, DP>(Qs + st * BQ * DP, q + qrow0 * DH, qs, Tq);
+    load_tile<BQ, DH, DP>(Os + st * BQ * DP, dout + qrow0 * DH, qs, Tq);
+    load_vec<BQ>(Ls + st * BQ, lse + qrow0, qs, Tq);
+    load_vec<BQ>(Dsm + st * BQ, D + qrow0, qs, Tq);
   };
-  fetch(0, 0);
+  if (steps > 0) fetch(0, 0);
   cp_async_commit();
 
   float dka[NO][4], dva[NO][4];
@@ -773,7 +818,7 @@ fa_tc_dkdv_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
         float p = exp2f(s[j][e] * scale_log2 - (c ? l2.y : l2.x) * LOG2E);
         if (edge) {
           const int qp = q0 + qi + c;
-          if (qp >= Tn || !mask.ok(qp, e < 2 ? key_a : key_b)) p = 0.f;
+          if (qp >= Tq || !mask.ok(qp, e < 2 ? key_a : key_b)) p = 0.f;
         }
         s[j][e] = p;
         dp[j][e] = p * (dp[j][e] - (c ? d2.y : d2.x));
@@ -800,9 +845,20 @@ fa_tc_dkdv_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
     }
     __syncthreads();                  // this stage is consumed
   }
+  cp_async_wait<0>();                 // K and V, where no step waited for them
 
   const int c0 = col0 + 2 * tq;
-  if (key_a < Tn) {
+  if (mask.blind < Tq) {              // rows that see no key: P = 1 / Tk on every key
+    const float pb = __bfloat162float(__float2bfloat16_rn(mask.inv_tk));
+    const float* cs = colsum + (size_t)bh * DH + c0;
+#pragma unroll
+    for (int n = 0; n < NO; ++n) {
+      const float x0 = pb * cs[8 * n], x1 = pb * cs[8 * n + 1];
+      dva[n][0] += x0; dva[n][1] += x1;
+      dva[n][2] += x0; dva[n][3] += x1;
+    }
+  }
+  if (key_a < Tk) {
     bf16* kr = dk + (krow0 + key_a) * DH + c0;
     bf16* vr = dv + (krow0 + key_a) * DH + c0;
 #pragma unroll
@@ -811,7 +867,7 @@ fa_tc_dkdv_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
       *reinterpret_cast<uint32_t*>(vr + 8 * n) = pack_bf16(dva[n][0], dva[n][1]);
     }
   }
-  if (key_b < Tn) {
+  if (key_b < Tk) {
     bf16* kr = dk + (krow0 + key_b) * DH + c0;
     bf16* vr = dv + (krow0 + key_b) * DH + c0;
 #pragma unroll
@@ -827,9 +883,10 @@ __global__ void __launch_bounds__(THREADS, 1)
 fa_tc_dq_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
                 const bf16* __restrict__ v, const bf16* __restrict__ dout,
                 const float* __restrict__ lse, const float* __restrict__ D,
-                bf16* __restrict__ dq, int G, int Tn, Mask mask, float scale_log2,
+                bf16* __restrict__ dq, int G, Mask mask, float scale_log2,
                 float scale) {
   using C = Bwd<DH>;
+  const int Tq = mask.Tq, Tk = mask.Tk;
   constexpr int WD = C::WD, BM = C::BR, BN = C::BS, DP = C::DP;
   constexpr int KS = DH / 16;
   constexpr int DW = DH / WD;
@@ -846,24 +903,24 @@ fa_tc_dq_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
   const int rw = warp / WD, col0 = (warp % WD) * DW;
   const int bh = blockIdx.x / G;
   const int q0 = (gridDim.y - 1 - blockIdx.y) * BM;   // the longest causal blocks first
-  const size_t qrow0 = (size_t)blockIdx.x * Tn;
-  const bf16* kh = k + (size_t)bh * Tn * DH;
-  const bf16* vh = v + (size_t)bh * Tn * DH;
+  const size_t qrow0 = (size_t)blockIdx.x * Tq;
+  const bf16* kh = k + (size_t)bh * Tk * DH;
+  const bf16* vh = v + (size_t)bh * Tk * DH;
   const int a_row = lane & 15, a_chk = lane >> 4;
   const int b_row = (lane & 7) + ((lane >> 4) << 3), b_chk = (lane >> 3) & 1;
 
-  const int q_hi = min(q0 + BM, Tn) - 1;
-  const int kb0 = mask.key_lo(q0) / BN, kb1 = mask.key_hi(q_hi) / BN;
-  load_tile<BM, DH, DP>(Qs, q + qrow0 * DH, q0, Tn);
-  load_tile<BM, DH, DP>(Os, dout + qrow0 * DH, q0, Tn);
-  load_tile<BN, DH, DP>(Ks, kh, kb0 * BN, Tn);
-  load_tile<BN, DH, DP>(Vs, vh, kb0 * BN, Tn);
+  const int q_hi = min(q0 + BM, Tq) - 1;
+  const int kb0 = mask.key_lo(q0, q_hi) / BN, kb1 = mask.key_hi(q_hi) / BN;
+  load_tile<BM, DH, DP>(Qs, q + qrow0 * DH, q0, Tq);
+  load_tile<BM, DH, DP>(Os, dout + qrow0 * DH, q0, Tq);
+  load_tile<BN, DH, DP>(Ks, kh, kb0 * BN, Tk);
+  load_tile<BN, DH, DP>(Vs, vh, kb0 * BN, Tk);
   cp_async_commit();
 
   const int row_a = q0 + rw * 16 + gq, row_b = row_a + 8;
-  const float ll_a = lse[qrow0 + min(row_a, Tn - 1)] * LOG2E;
-  const float ll_b = lse[qrow0 + min(row_b, Tn - 1)] * LOG2E;
-  const float d_a = D[qrow0 + min(row_a, Tn - 1)], d_b = D[qrow0 + min(row_b, Tn - 1)];
+  const float ll_a = lse[qrow0 + min(row_a, Tq - 1)] * LOG2E;
+  const float ll_b = lse[qrow0 + min(row_b, Tq - 1)] * LOG2E;
+  const float d_a = D[qrow0 + min(row_a, Tq - 1)], d_b = D[qrow0 + min(row_b, Tq - 1)];
   float acc[NO][4];
 #pragma unroll
   for (int n = 0; n < NO; ++n) acc[n][0] = acc[n][1] = acc[n][2] = acc[n][3] = 0.f;
@@ -871,8 +928,8 @@ fa_tc_dq_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
   for (int kb = kb0; kb <= kb1; ++kb) {
     const int st = (kb - kb0) & 1;
     if (kb < kb1) {
-      load_tile<BN, DH, DP>(Ks + (st ^ 1) * BN * DP, kh, (kb + 1) * BN, Tn);
-      load_tile<BN, DH, DP>(Vs + (st ^ 1) * BN * DP, vh, (kb + 1) * BN, Tn);
+      load_tile<BN, DH, DP>(Ks + (st ^ 1) * BN * DP, kh, (kb + 1) * BN, Tk);
+      load_tile<BN, DH, DP>(Vs + (st ^ 1) * BN * DP, vh, (kb + 1) * BN, Tk);
       cp_async_commit();
       cp_async_wait<1>();
     } else {
@@ -935,13 +992,13 @@ fa_tc_dq_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
   }
 
   const int c0 = col0 + 2 * tq;
-  if (row_a < Tn) {
+  if (row_a < Tq) {
     bf16* r = dq + (qrow0 + row_a) * DH + c0;
 #pragma unroll
     for (int n = 0; n < NO; ++n)
       *reinterpret_cast<uint32_t*>(r + 8 * n) = pack_bf16(acc[n][0] * scale, acc[n][1] * scale);
   }
-  if (row_b < Tn) {
+  if (row_b < Tq) {
     bf16* r = dq + (qrow0 + row_b) * DH + c0;
 #pragma unroll
     for (int n = 0; n < NO; ++n)
@@ -961,13 +1018,13 @@ cudaError_t set_smem(K kern, size_t bytes) {
 
 template <int DH>
 cudaError_t forward(const bf16* q, const bf16* k, const bf16* v, bf16* o, float* lse, int BH,
-                    int G, int Tn, Mask mask, float scale, cudaStream_t st) {
+                    int G, Mask mask, float scale, cudaStream_t st) {
   using C = Fwd<DH>;
   auto kern = fa_tc_forward_kernel<DH>;
   cudaError_t e = set_smem(kern, C::SMEM);
   if (e != cudaSuccess) return e;
-  const dim3 grid(BH * G, (Tn + C::BM - 1) / C::BM);
-  kern<<<grid, THREADS, C::SMEM, st>>>(q, k, v, o, lse, G, Tn, mask, scale * LOG2E);
+  const dim3 grid(BH * G, (mask.Tq + C::BM - 1) / C::BM);
+  kern<<<grid, THREADS, C::SMEM, st>>>(q, k, v, o, lse, G, mask, scale * LOG2E);
   return cudaGetLastError();
 }
 
@@ -991,8 +1048,8 @@ EncodeTiled encode_tiled() {
   return fn;
 }
 
-// a [heads, T, 128] bf16 tensor in boxes of [128 rows][64 columns], 128-byte
-// swizzle, zeros past T
+// a [heads, Tn, 128] bf16 tensor in boxes of [128 rows][64 columns], 128-byte
+// swizzle, zeros past Tn
 bool tensor_map(CUtensorMap* map, const void* base, int heads, int Tn) {
   EncodeTiled fn = encode_tiled();
   if (fn == nullptr) return false;
@@ -1007,15 +1064,15 @@ bool tensor_map(CUtensorMap* map, const void* base, int heads, int Tn) {
 }
 
 cudaError_t forward_wgmma(const bf16* q, const bf16* k, const bf16* v, bf16* o, float* lse,
-                          int BH, int G, int Tn, Mask mask, float scale, cudaStream_t st) {
+                          int BH, int G, Mask mask, float scale, cudaStream_t st) {
   CUtensorMap tq, tk, tv;
-  if (!tensor_map(&tq, q, BH * G, Tn) || !tensor_map(&tk, k, BH, Tn) ||
-      !tensor_map(&tv, v, BH, Tn))
+  if (!tensor_map(&tq, q, BH * G, mask.Tq) || !tensor_map(&tk, k, BH, mask.Tk) ||
+      !tensor_map(&tv, v, BH, mask.Tk))
     return cudaErrorInvalidValue;
   cudaError_t e = set_smem(fa_tc_forward_kernel_wgmma, WG_SMEM);
   if (e != cudaSuccess) return e;
-  const dim3 grid(BH * G, (Tn + WG_ROWS - 1) / WG_ROWS);
-  fa_tc_forward_kernel_wgmma<<<grid, THREADS, WG_SMEM, st>>>(tq, tk, tv, o, lse, G, Tn, mask,
+  const dim3 grid(BH * G, (mask.Tq + WG_ROWS - 1) / WG_ROWS);
+  fa_tc_forward_kernel_wgmma<<<grid, THREADS, WG_SMEM, st>>>(tq, tk, tv, o, lse, G, mask,
                                                              scale * LOG2E);
   return cudaGetLastError();
 }
@@ -1023,30 +1080,31 @@ cudaError_t forward_wgmma(const bf16* q, const bf16* k, const bf16* v, bf16* o, 
 template <int DH>
 cudaError_t backward(const bf16* q, const bf16* k, const bf16* v, const bf16* o,
                      const float* lse, const bf16* dout, bf16* dq, bf16* dk, bf16* dv,
-                     float* D, int BH, int G, int Tn, Mask mask, float scale,
-                     cudaStream_t st) {
+                     float* D, int BH, int G, Mask mask, float scale, cudaStream_t st) {
   using C = Bwd<DH>;
-  const long long rows = (long long)BH * G * Tn;
-  fa_tc_rowdot_kernel<DH><<<(unsigned)((rows + WARPS - 1) / WARPS), THREADS, 0, st>>>(
-      dout, o, D, rows);
+  const long long rows = (long long)BH * G * mask.Tq;
+  float* colsum = D + rows;
+  const long long blocks = (rows + WARPS - 1) / WARPS + (mask.blind < mask.Tq ? BH : 0);
+  fa_tc_rowdot_kernel<DH><<<(unsigned)blocks, THREADS, 0, st>>>(dout, o, D, rows, colsum, G,
+                                                                  mask);
   cudaError_t e = cudaGetLastError();
   if (e != cudaSuccess) return e;
 
   auto kkv = fa_tc_dkdv_kernel<DH>;
   if ((e = set_smem(kkv, C::DKDV_SMEM)) != cudaSuccess) return e;
-  kkv<<<dim3(BH, (Tn + C::BR - 1) / C::BR), THREADS, C::DKDV_SMEM, st>>>(
-      q, k, v, dout, lse, D, dk, dv, G, Tn, mask, scale * LOG2E, scale);
+  kkv<<<dim3(BH, (mask.Tk + C::BR - 1) / C::BR), THREADS, C::DKDV_SMEM, st>>>(
+      q, k, v, dout, lse, D, colsum, dk, dv, G, mask, scale * LOG2E, scale);
   if ((e = cudaGetLastError()) != cudaSuccess) return e;
 
   auto kq = fa_tc_dq_kernel<DH>;
   if ((e = set_smem(kq, C::DQ_SMEM)) != cudaSuccess) return e;
-  kq<<<dim3(BH * G, (Tn + C::BR - 1) / C::BR), THREADS, C::DQ_SMEM, st>>>(
-      q, k, v, dout, lse, D, dq, G, Tn, mask, scale * LOG2E, scale);
+  kq<<<dim3(BH * G, (mask.Tq + C::BR - 1) / C::BR), THREADS, C::DQ_SMEM, st>>>(
+      q, k, v, dout, lse, D, dq, G, mask, scale * LOG2E, scale);
   return cudaGetLastError();
 }
 
-bool bad_shape(int BH, int G, int Tn) {
-  return BH < 1 || BH > 65535 || G < 1 || G > 65535 || Tn < 1 ||
+bool bad_shape(int BH, int G, int Tq, int Tk) {
+  return BH < 1 || BH > 65535 || G < 1 || G > 65535 || Tq < 1 || Tk < 1 ||
          (long long)BH * G > 0x7fffffffLL;
 }
 
@@ -1057,10 +1115,10 @@ bool bad_shape(int BH, int G, int Tn) {
 // means none; scale is Dh^-0.5 rounded to float32.  Returns 0 or a
 // cudaError_t.
 extern "C" int fa_tc_forward(const void* q, const void* k, const void* v, void* o, void* lse,
-                             int BH, int G, int T, int Dh, int dtype, int causal, int window,
-                             float scale, void* stream) {
-  if (bad_shape(BH, G, T) || dtype != 1) return (int)cudaErrorInvalidValue;
-  const Mask mask{T, causal, window};
+                             int BH, int G, int Tq, int Tk, int Dh, int dtype, int causal,
+                             int window, float scale, void* stream) {
+  if (bad_shape(BH, G, Tq, Tk) || dtype != 1) return (int)cudaErrorInvalidValue;
+  const Mask mask = make_mask(Tq, Tk, causal, window);
   const bf16* qb = static_cast<const bf16*>(q);
   const bf16* kb = static_cast<const bf16*>(k);
   const bf16* vb = static_cast<const bf16*>(v);
@@ -1068,23 +1126,23 @@ extern "C" int fa_tc_forward(const void* q, const void* k, const void* v, void* 
   float* l = static_cast<float*>(lse);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (Dh) {
-    case 16: return (int)forward<16>(qb, kb, vb, ob, l, BH, G, T, mask, scale, s);
-    case 32: return (int)forward<32>(qb, kb, vb, ob, l, BH, G, T, mask, scale, s);
-    case 64: return (int)forward<64>(qb, kb, vb, ob, l, BH, G, T, mask, scale, s);
-    case 112: return (int)forward<112>(qb, kb, vb, ob, l, BH, G, T, mask, scale, s);
-    case 128: return (int)forward_wgmma(qb, kb, vb, ob, l, BH, G, T, mask, scale, s);
-    case 256: return (int)forward<256>(qb, kb, vb, ob, l, BH, G, T, mask, scale, s);
+    case 16: return (int)forward<16>(qb, kb, vb, ob, l, BH, G, mask, scale, s);
+    case 32: return (int)forward<32>(qb, kb, vb, ob, l, BH, G, mask, scale, s);
+    case 64: return (int)forward<64>(qb, kb, vb, ob, l, BH, G, mask, scale, s);
+    case 112: return (int)forward<112>(qb, kb, vb, ob, l, BH, G, mask, scale, s);
+    case 128: return (int)forward_wgmma(qb, kb, vb, ob, l, BH, G, mask, scale, s);
+    case 256: return (int)forward<256>(qb, kb, vb, ob, l, BH, G, mask, scale, s);
     default: return (int)cudaErrorInvalidValue;
   }
 }
 
-// D is float32 scratch of BH * G * T elements.
+// D is float32 scratch of BH * G * Tq + BH * Dh elements.
 extern "C" int fa_tc_backward(const void* q, const void* k, const void* v, const void* o,
                               const void* lse, const void* dout, void* dq, void* dk, void* dv,
-                              void* D, int BH, int G, int T, int Dh, int dtype, int causal,
-                              int window, float scale, void* stream) {
-  if (bad_shape(BH, G, T) || dtype != 1) return (int)cudaErrorInvalidValue;
-  const Mask mask{T, causal, window};
+                              void* D, int BH, int G, int Tq, int Tk, int Dh, int dtype,
+                              int causal, int window, float scale, void* stream) {
+  if (bad_shape(BH, G, Tq, Tk) || dtype != 1) return (int)cudaErrorInvalidValue;
+  const Mask mask = make_mask(Tq, Tk, causal, window);
   const bf16* a[4] = {static_cast<const bf16*>(q), static_cast<const bf16*>(k),
                       static_cast<const bf16*>(v), static_cast<const bf16*>(o)};
   const bf16* g = static_cast<const bf16*>(dout);
@@ -1093,7 +1151,7 @@ extern "C" int fa_tc_backward(const void* q, const void* k, const void* v, const
   float* d = static_cast<float*>(D);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
 #define FA_TC_BWD(N) \
-  (int)backward<N>(a[0], a[1], a[2], a[3], l, g, r[0], r[1], r[2], d, BH, G, T, mask, scale, s)
+  (int)backward<N>(a[0], a[1], a[2], a[3], l, g, r[0], r[1], r[2], d, BH, G, mask, scale, s)
   switch (Dh) {
     case 16: return FA_TC_BWD(16);
     case 32: return FA_TC_BWD(32);

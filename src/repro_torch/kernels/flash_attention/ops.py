@@ -1,15 +1,16 @@
 """Wrappers of the flash-attention CUDA kernels, forward and gradient.
 
 `flash_attention(q, k, v, causal, window)` takes the model's layout (q
-[B, Hq, T, Dh], k/v [B, Hkv, T, Dh]) and is differentiable.  For tensors on
+[B, Hq, Tq, Dh], k/v [B, Hkv, Tk, Dh], Tk independent of Tq as in the
+reference: cross-attention, a ragged cache) and is differentiable.  For tensors on
 the CPU it runs the plain version in `ref.py` (autograd through it is the
 plain gradient); for CUDA tensors it runs `flash_attention_cuda`, a
 `torch.autograd.Function` whose forward launches the forward kernel and
 saves q, k, v, o and the row log-sum-exp, and whose backward launches the
 gradient kernels; any other device raises.
 
-`flash_attention_cuda` takes the kernels' layout (q [BH, G, T, Dh], k/v
-[BH, 1, T, Dh]) and raises for tensors that are not on a CUDA device.  The
+`flash_attention_cuda` takes the kernels' layout (q [BH, G, Tq, Dh], k/v
+[BH, 1, Tk, Dh]) and raises for tensors that are not on a CUDA device.  The
 kernels take float32 or bfloat16 (one dtype for q, k and v), contiguous
 tensors with 16-byte aligned storage, 4 <= Dh <= 256 with Dh % 4 == 0, and
 G <= 16.
@@ -66,9 +67,9 @@ def _lib(which: str):
         fwd, bwd = lib.fa_forward, lib.fa_backward
     if fwd.argtypes is None:
         P, I = ctypes.c_void_p, ctypes.c_int
-        fwd.argtypes = [P] * 5 + [I] * 7 + [ctypes.c_float, P]
+        fwd.argtypes = [P] * 5 + [I] * 8 + [ctypes.c_float, P]
         fwd.restype = I
-        bwd.argtypes = [P] * 10 + [I] * 7 + [ctypes.c_float, P]
+        bwd.argtypes = [P] * 10 + [I] * 8 + [ctypes.c_float, P]
         bwd.restype = I
     return fwd, bwd
 
@@ -81,19 +82,20 @@ def _check(q, k, v, name):
         raise TypeError(f"{name}: dtype {q.dtype}; the kernel takes float32 or bfloat16")
     if q.dim() != 4 or k.dim() != 4:
         raise ValueError(f"{name}: q {tuple(q.shape)}, k {tuple(k.shape)}; "
-                         "expected [BH, G, T, Dh] and [BH, 1, T, Dh]")
-    BH, G, T, Dh = q.shape
+                         "expected [BH, G, Tq, Dh] and [BH, 1, Tk, Dh]")
+    BH, G, Tq, Dh = q.shape
+    Tk = k.shape[2]
     if not 1 <= G <= MAX_GROUP:
         raise ValueError(f"{name}: G={G} (max {MAX_GROUP})")
     if not (4 <= Dh <= MAX_HEAD_DIM and Dh % 4 == 0):
         raise ValueError(f"{name}: Dh={Dh} (a multiple of 4, at most {MAX_HEAD_DIM})")
-    if BH < 1 or BH > 65535 or T < 1:
-        raise ValueError(f"{name}: BH={BH} (1..65535), T={T}")
+    if BH < 1 or BH > 65535 or Tq < 1 or Tk < 1:
+        raise ValueError(f"{name}: BH={BH} (1..65535), Tq={Tq}, Tk={Tk}")
     for n, t in (("k", k), ("v", v)):
         if t.dtype != q.dtype:
             raise TypeError(f"{name}: {n} is {t.dtype}, q is {q.dtype}")
-        if tuple(t.shape) != (BH, 1, T, Dh):
-            raise ValueError(f"{name}: {n} {tuple(t.shape)}, expected {(BH, 1, T, Dh)}")
+        if tuple(t.shape) != (BH, 1, Tk, Dh):
+            raise ValueError(f"{name}: {n} {tuple(t.shape)}, expected {(BH, 1, Tk, Dh)}")
     for n, t in (("q", q), ("k", k), ("v", v)):
         if t.device != dev:
             raise ValueError(f"{name}: {n} on {t.device}, q on {dev}")
@@ -101,7 +103,7 @@ def _check(q, k, v, name):
             raise ValueError(f"{name}: {n} is not contiguous")
         if t.data_ptr() % 16:
             raise ValueError(f"{name}: {n} storage is not 16-byte aligned")
-    return BH, G, T, Dh
+    return BH, G, Tq, Tk, Dh
 
 
 def _stream(dev):
@@ -109,14 +111,14 @@ def _stream(dev):
 
 
 def forward_cuda(q, k, v, causal: bool, window: int):
-    """The forward kernel: (o [BH, G, T, Dh] in q's dtype, lse [BH, G, T]
+    """The forward kernel: (o [BH, G, Tq, Dh] in q's dtype, lse [BH, G, Tq]
     float32)."""
-    BH, G, T, Dh = _check(q, k, v, "flash_attention_fwd")
+    BH, G, Tq, Tk, Dh = _check(q, k, v, "flash_attention_fwd")
     r = route(q.dtype, Dh)
     o = torch.empty_like(q)
-    lse = torch.empty((BH, G, T), dtype=torch.float32, device=q.device)
+    lse = torch.empty((BH, G, Tq), dtype=torch.float32, device=q.device)
     err = _lib(r)[0](q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
-                     lse.data_ptr(), BH, G, T, Dh, _DTYPE_CODE[q.dtype], int(causal),
+                     lse.data_ptr(), BH, G, Tq, Tk, Dh, _DTYPE_CODE[q.dtype], int(causal),
                      int(window), Dh ** -0.5, _stream(q.device))
     if err != 0:
         raise RuntimeError(f"flash_attention_fwd: CUDA error {err} at launch ({r} route)")
@@ -126,10 +128,11 @@ def forward_cuda(q, k, v, causal: bool, window: int):
 
 
 def backward_cuda(q, k, v, o, lse, do, causal: bool, window: int):
-    """The gradient kernels: (dq, dk, dv) in the inputs' dtype."""
-    BH, G, T, Dh = _check(q, k, v, "flash_attention_bwd")
+    """The gradient kernels: (dq, dk, dv) in the inputs' dtype, dq of q's
+    shape and dk, dv of k's (zeros for keys that no query sees)."""
+    BH, G, Tq, Tk, Dh = _check(q, k, v, "flash_attention_bwd")
     for n, t, shape, dt in (("o", o, q.shape, q.dtype), ("do", do, q.shape, q.dtype),
-                            ("lse", lse, (BH, G, T), torch.float32)):
+                            ("lse", lse, (BH, G, Tq), torch.float32)):
         if t.dtype != dt or tuple(t.shape) != tuple(shape) or t.device != q.device:
             raise ValueError(f"flash_attention_bwd: {n} {t.dtype} {tuple(t.shape)} "
                              f"on {t.device}, expected {dt} {tuple(shape)}")
@@ -137,10 +140,11 @@ def backward_cuda(q, k, v, o, lse, do, causal: bool, window: int):
             raise ValueError(f"flash_attention_bwd: {n} is not contiguous and aligned")
     r = route(q.dtype, Dh)
     dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
-    scratch = torch.empty((BH, G, T), dtype=torch.float32, device=q.device)
+    # D = rowsum(dO * O) [BH, G, Tq], then [BH, Dh] for the rows that see no key
+    scratch = torch.empty(BH * G * Tq + BH * Dh, dtype=torch.float32, device=q.device)
     err = _lib(r)[1](q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
                      lse.data_ptr(), do.data_ptr(), dq.data_ptr(), dk.data_ptr(),
-                     dv.data_ptr(), scratch.data_ptr(), BH, G, T, Dh,
+                     dv.data_ptr(), scratch.data_ptr(), BH, G, Tq, Tk, Dh,
                      _DTYPE_CODE[q.dtype], int(causal), int(window), Dh ** -0.5,
                      _stream(q.device))
     if err != 0:
@@ -167,8 +171,8 @@ class _FlashAttention(torch.autograd.Function):
 
 
 def flash_attention_cuda(q, k, v, causal: bool = True, window: int = 0):
-    """The kernels, forced: q [BH, G, T, Dh], k/v [BH, 1, T, Dh] on a CUDA
-    device -> [BH, G, T, Dh], differentiable through the gradient kernels."""
+    """The kernels, forced: q [BH, G, Tq, Dh], k/v [BH, 1, Tk, Dh] on a CUDA
+    device -> [BH, G, Tq, Dh], differentiable through the gradient kernels."""
     if q.device.type != "cuda":
         raise ValueError(f"flash_attention_cuda: q is on {q.device}; the kernel "
                          "needs CUDA tensors")
@@ -176,16 +180,19 @@ def flash_attention_cuda(q, k, v, causal: bool = True, window: int = 0):
 
 
 def flash_attention(q, k, v, causal: bool = True, window: int = 0):
-    """Model layout: q [B, Hq, T, Dh], k/v [B, Hkv, T, Dh] -> [B, Hq, T, Dh]
-    (query head h uses KV head h // (Hq / Hkv)); window <= 0 means none."""
-    B, Hq, T, Dh = q.shape
-    Hkv = k.shape[1]
-    if Hq % Hkv or tuple(k.shape) != (B, Hkv, T, Dh) or v.shape != k.shape:
+    """Model layout: q [B, Hq, Tq, Dh], k/v [B, Hkv, Tk, Dh] -> [B, Hq, Tq, Dh]
+    (query head h uses KV head h // (Hq / Hkv)); window <= 0 means none.
+    The causal mask is the reference's top-left one: query i sees keys
+    j <= i, so with Tq > Tk the rows at and past Tk see every key."""
+    B, Hq, Tq, Dh = q.shape
+    if (k.dim() != 4 or v.shape != k.shape or k.shape[0] != B or k.shape[3] != Dh
+            or k.shape[1] < 1 or Hq % k.shape[1]):
         raise ValueError(f"flash_attention: q {tuple(q.shape)}, k {tuple(k.shape)}, "
                          f"v {tuple(v.shape)}")
-    qr = q.reshape(B * Hkv, Hq // Hkv, T, Dh)
-    kr = k.reshape(B * Hkv, 1, T, Dh)
-    vr = v.reshape(B * Hkv, 1, T, Dh)
+    Hkv, Tk = k.shape[1], k.shape[2]
+    qr = q.reshape(B * Hkv, Hq // Hkv, Tq, Dh)
+    kr = k.reshape(B * Hkv, 1, Tk, Dh)
+    vr = v.reshape(B * Hkv, 1, Tk, Dh)
     dev = q.device
     if dev.type == "cpu":
         out = mha_reference(qr, kr, vr, causal=causal, window=int(window))
@@ -194,4 +201,4 @@ def flash_attention(q, k, v, causal: bool = True, window: int = 0):
                                    causal, int(window))
     else:
         raise ValueError(f"flash_attention: no kernel for device {dev}")
-    return out.reshape(B, Hq, T, Dh)
+    return out.reshape(B, Hq, Tq, Dh)

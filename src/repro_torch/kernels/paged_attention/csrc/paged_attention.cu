@@ -4,34 +4,55 @@
 //
 // Replaces the Pallas TPU kernel src/repro/kernels/paged_attention/
 // paged_attention.py:26-102 (`_pa_kernel` and `paged_attention`).  It
-// computes the same function; it is not carried over block by block:
+// computes the same function; it is not carried over block by block.
 //
-//   * one block per (sequence, KV head), 128 threads.  The TPU walked a
-//     sequential (B, Hkv, max_pages) grid and carried the softmax state in
-//     VMEM scratch across grid steps; here a loop over the sequence's pages
-//     inside the block carries it (running max m, running sum l per query
-//     row in shared memory, the G x Dh accumulator in registers);
-//   * the block reads its own page ids from the table, which takes the
-//     place of the TPU's scalar prefetch, and stages each page's K and V
-//     tile in shared memory with all its threads (the page is contiguous
-//     in the pool), so a page costs one round trip to memory, not one per
-//     key row;
-//   * the loop stops after ceil(len / page_size) pages.  The TPU walked all
-//     max_pages pages and masked those past the length: a fully masked page
-//     adds exp(-1e30 - m) = 0 to the sum and scales by exp(0) = 1, so the
-//     result is the same.  A length <= 0 masks every position; the
-//     reference then averages V over every page of the table, so the loop
-//     walks all max_pages pages for it;
-//   * scores are float32 (q promoted, as the TPU's preferred_element_type),
-//     multiplied by Dh^-0.5 after the dot product, masked to the finite
-//     -1e30 at and past the length; p is rounded to the pools' dtype before
-//     the PV product, the output is acc / max(l, 1e-30) cast to q's dtype.
+// What it computes: scores q.k in float32 (q promoted, as the TPU's
+// preferred_element_type), multiplied by Dh^-0.5 after the dot product,
+// positions at or past a sequence's length masked to the finite -1e30; p is
+// rounded to the pools' dtype before the PV product; the output is
+// acc / max(l, 1e-30) cast to q's dtype.  Table entries are clamped to
+// [0, n_pool).  The TPU walked all max_pages pages and masked those past the
+// length; a key past the length adds exp(-1e30 - m) = 0 once a valid key has
+// set m, so only the keys below the length are visited.  A length <= 0
+// masks every position, and the reference then averages V over every key
+// of every page of the table: such a sequence visits all max_pages pages,
+// each key with p = 1.
 //
-// Bound: bytes.  Each valid page's K and V tile is read once (16 KB per
-// page and head in float32 at page 16, Dh 128), against 2*G multiply-adds
-// per element read.  At the serving path's shapes (B 8, Hkv 8) it runs only
-// B*Hkv = 64 blocks on 132 SMs; splitting a sequence's pages across blocks
-// (a second reduction pass) is later performance work.
+// Bound: bytes.  Each valid key's K and V rows are read once (1 KB per key
+// and KV head in float32 at Dh 128), against 2 G multiply-adds per element
+// read.  So the design is about keeping enough bytes in flight:
+//
+//   * split-K over pages (flash-decoding): grid (B * Hkv, n_split); CTA s of
+//     a (sequence, KV head) takes pages [s * pps, (s + 1) * pps) and writes
+//     a partial (m, l, acc[G][Dh]) in float32 to a scratch the wrapper
+//     allocates.  The TPU walked a sequential (B, Hkv, max_pages) grid and
+//     carried the softmax state in VMEM scratch; one CTA per (sequence,
+//     head) gives only 64 CTAs on 132 SMs at the serving shape.  pps comes
+//     from max_pages and B * Hkv on the host (ops.splits), never from the
+//     lengths: the launch needs no host sync.  A CTA whose pages lie past
+//     the length writes an empty partial (m = -1e30, l = 0) and exits;
+//   * a second kernel merges the partials of each (sequence, head) in split
+//     order, M = max m_s, L = sum l_s e^(m_s - M), O = sum acc_s e^(m_s - M)
+//     / max(L, 1e-30), skipping the empty ones.  No float atomics, so two
+//     calls give the same bits;
+//   * asynchronous, vectorised loads: the CTA's keys are walked in chunks of
+//     32 (a page's rows are contiguous in the pool, so a chunk may span
+//     pages); each chunk's K and V rows come in with 16-byte cp.async into a
+//     ring of up to 3 stages in shared memory, in the pools' dtype, so the
+//     next chunks are in flight while this one's scores and PV run.  Rows of
+//     a head dim whose bytes are not a multiple of 16 (or pools not 16-byte
+//     aligned) are copied element by element instead;
+//   * two barriers per chunk: thread (warp w, lane j) computes the scores of
+//     key j for the query rows g = w, w + 4, ... over all of Dh (K row read
+//     as 16-byte vectors from a padded, conflict-free layout; q broadcast);
+//     the warp then runs the online-softmax update of its rows across its
+//     32 lanes (shuffle max and sum) and writes p and the correction to
+//     shared memory; after the barrier thread t accumulates acc[g][d] for
+//     its columns d = t, t + 128 over the chunk's 32 keys.
+//
+// Tensor cores are not needed: G <= 16 query rows fill at most one m16
+// tile, the serving path's pools are float32, and the kernel is bound by
+// bytes, not operations.
 //
 // Built by repro_torch/kernels/build.py with nvcc into a shared library with
 // a plain C interface, loaded with ctypes (repro_torch/kernels/
@@ -39,15 +60,20 @@
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
+#include <math.h>
+#include <stdint.h>
 
 namespace {
 
 constexpr int THREADS = 128;
 constexpr int WARPS = THREADS / 32;
+constexpr int KC = 32;                 // keys per chunk: one per lane
 constexpr int MAX_G = 16;              // query heads per KV head
 constexpr int MAX_DH = 256;            // head dim
-constexpr int COLS = MAX_DH / THREADS; // V columns per thread
+constexpr int COLS = MAX_DH / THREADS; // PV columns per thread
+constexpr int G_PER_WARP = MAX_G / WARPS;
 constexpr float NEG_INF = -1e30f;
+constexpr int STAGE_BUDGET = 112 * 1024;   // bytes of the K/V ring
 
 __device__ __forceinline__ float to_f32(float x) { return x; }
 __device__ __forceinline__ float to_f32(__nv_bfloat16 x) { return __bfloat162float(x); }
@@ -58,170 +84,378 @@ template <> __device__ __forceinline__ __nv_bfloat16 from_f32<__nv_bfloat16>(flo
   return __float2bfloat16_rn(x);
 }
 
+// row stride in shared memory (elements): Dh rounded up to a 16-byte vector
+// and one vector more, so that the 8 lanes of a phase reading 8 rows at one
+// column hit 8 distinct 16-byte bank groups
+template <typename T> __host__ __device__ __forceinline__ int row_ld(int Dh) {
+  constexpr int V = 16 / (int)sizeof(T);
+  return (Dh + V - 1) / V * V + V;
+}
+
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+// 16 bytes global -> shared, or 16 zero bytes where !valid
+__device__ __forceinline__ void cp_async16(uint32_t dst, const void* src, bool valid) {
+  const int n = valid ? 16 : 0;
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(dst), "l"(src), "r"(n)
+               : "memory");
+}
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+// wait until at most n groups are pending (n small, runtime)
+__device__ __forceinline__ void cp_async_wait(int n) {
+  if (n <= 0)
+    asm volatile("cp.async.wait_group 0;\n" ::: "memory");
+  else if (n == 1)
+    asm volatile("cp.async.wait_group 1;\n" ::: "memory");
+  else
+    asm volatile("cp.async.wait_group 2;\n" ::: "memory");
+}
+
+// dot of a 16-byte vector of K with q's float32 row at the same columns
+__device__ __forceinline__ float dot_vec(const float* k, const float* q, float acc) {
+  const float4 a = *reinterpret_cast<const float4*>(k);
+  const float4 b = *reinterpret_cast<const float4*>(q);
+  acc = fmaf(a.x, b.x, acc);
+  acc = fmaf(a.y, b.y, acc);
+  acc = fmaf(a.z, b.z, acc);
+  return fmaf(a.w, b.w, acc);
+}
+__device__ __forceinline__ float dot_vec(const __nv_bfloat16* k, const float* q, float acc) {
+  const uint4 u = *reinterpret_cast<const uint4*>(k);
+  const __nv_bfloat162* h = reinterpret_cast<const __nv_bfloat162*>(&u);
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const float2 f = __bfloat1622float2(h[i]);
+    const float2 b = *reinterpret_cast<const float2*>(q + 2 * i);
+    acc = fmaf(f.x, b.x, acc);
+    acc = fmaf(f.y, b.y, acc);
+  }
+  return acc;
+}
+
+__device__ __forceinline__ float warp_max(float x) {
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1) x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, o));
+  return x;
+}
+__device__ __forceinline__ float warp_sum(float x) {
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1) x += __shfl_xor_sync(0xffffffffu, x, o);
+  return x;
+}
+
+struct Shape {
+  int Hkv, G, Dh, n_pool, page, max_pages, pps, n_split, stages, vec;
+};
+
+// Keys [c0, c0 + KC) of one sequence's head (those below `end`; zeros past
+// it) into one stage of the ring: K and V rows [KC][ld] in the pools' dtype.
+// Warp w takes rows w, w + WARPS, ...; its lanes split the row.
+template <typename TKV>
+__device__ __forceinline__ void load_chunk(TKV* ks, TKV* vs, const TKV* kh, const TKV* vh,
+                                           const int* trow, int c0, int end, const Shape& sh) {
+  constexpr int V = 16 / (int)sizeof(TKV);
+  const int ld = row_ld<TKV>(sh.Dh);
+  const int lane = threadIdx.x & 31;
+  for (int r = threadIdx.x >> 5; r < KC; r += WARPS) {
+    const int pos = c0 + r;
+    const bool ok = pos < end;
+    size_t off = 0;
+    if (ok) {
+      const int pg = pos / sh.page;
+      const int phys = min(max(__ldg(trow + pg), 0), sh.n_pool - 1);
+      off = ((size_t)phys * sh.page + (pos - pg * sh.page)) * sh.Dh;
+    }
+    if (sh.vec) {
+      for (int c = lane * V; c < sh.Dh; c += 32 * V) {
+        cp_async16(smem_u32(ks + r * ld + c), kh + off + c, ok);
+        cp_async16(smem_u32(vs + r * ld + c), vh + off + c, ok);
+      }
+    } else {                          // element by element; the padding stays 0
+      for (int c = lane; c < sh.Dh; c += 32) {
+        ks[r * ld + c] = ok ? kh[off + c] : from_f32<TKV>(0.f);
+        vs[r * ld + c] = ok ? vh[off + c] : from_f32<TKV>(0.f);
+      }
+    }
+  }
+}
+
+// Grid (B * Hkv, n_split), THREADS threads.  Writes this split's partial
+// m, l [G] and acc [G][Dh] (unnormalised) of one (sequence, KV head).
 template <typename TQ, typename TKV>
 __global__ void __launch_bounds__(THREADS)
-paged_attention_kernel(const TQ* __restrict__ q, const TKV* __restrict__ k_pool,
-                       const TKV* __restrict__ v_pool, const int* __restrict__ table,
-                       const int* __restrict__ lens, TQ* __restrict__ out,
-                       int Hkv, int G, int Dh, int n_pool, int page_size,
-                       int max_pages, float scale) {
-  extern __shared__ float smem[];
-  const int tile = page_size * Dh;
-  float* q_s = smem;                    // [G][Dh] query rows, float32
-  float* k_s = q_s + G * Dh;            // [page_size][Dh] this page's K
-  float* v_s = k_s + tile;              // [page_size][Dh] this page's V
-  float* s_s = v_s + tile;              // [G][page_size] scores, then p
-  float* m_s = s_s + G * page_size;     // [G] running max
-  float* l_s = m_s + G;                 // [G] running sum
-  float* c_s = l_s + G;                 // [G] this page's correction
+paged_attention_split_kernel(const TQ* __restrict__ q, const TKV* __restrict__ k_pool,
+                             const TKV* __restrict__ v_pool, const int* __restrict__ table,
+                             const int* __restrict__ lens, float* __restrict__ part_acc,
+                             float* __restrict__ part_ml, Shape sh, float scale) {
+  constexpr int V = 16 / (int)sizeof(TKV);   // pool elements in a 16-byte vector
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  const int G = sh.G, Dh = sh.Dh;
+  const int ld = row_ld<TKV>(Dh);
+  const int dv = (Dh + V - 1) / V * V;       // the K columns the scores read
+  const int ldq = (Dh + 7) / 8 * 8;   // q rows in float32, zeros past Dh (ldq >= dv)
+  TKV* kv_s = reinterpret_cast<TKV*>(smem_raw);               // [stages][2][KC][ld]
+  float* q_s = reinterpret_cast<float*>(kv_s + (size_t)sh.stages * 2 * KC * ld);  // [G][ldq]
+  float* p_s = q_s + G * ldq;                                 // [G][KC] p, rounded
+  float* c_s = p_s + G * KC;                                  // [G] correction
 
-  const int bh = blockIdx.x;            // b * Hkv + h
-  const int b = bh / Hkv, h = bh % Hkv;
+  const int bh = blockIdx.x, split = blockIdx.y;
+  const int b = bh / sh.Hkv, h = bh - b * sh.Hkv;
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
-
-  const TQ* qp = q + (size_t)bh * G * Dh;
-  for (int i = tid; i < G * Dh; i += THREADS) q_s[i] = to_f32(qp[i]);
-  if (tid < G) {
-    m_s[tid] = NEG_INF;
-    l_s[tid] = 0.f;
-  }
   const int len = lens[b];
-  const int n_iter = len > 0 ? min((len + page_size - 1) / page_size, max_pages)
-                             : max_pages;
-  const TKV* kh = k_pool + (size_t)h * n_pool * tile;
-  const TKV* vh = v_pool + (size_t)h * n_pool * tile;
+  const int total = sh.max_pages * sh.page;
+  const bool masked = len <= 0;        // every position masked: walk the whole table
+  const int end = masked ? total : min(len, total);
+  const int k_begin = split * sh.pps * sh.page;
+  const int k_end = min(end, k_begin + sh.pps * sh.page);
+  const size_t part = (size_t)bh * sh.n_split + split;
+  float* ml = part_ml + part * G * 2;
+  if (k_begin >= k_end) {              // past the length: an empty partial
+    if (tid < G) {
+      ml[2 * tid] = NEG_INF;
+      ml[2 * tid + 1] = 0.f;
+    }
+    return;
+  }
 
+  const size_t head = (size_t)h * sh.n_pool * sh.page * Dh;
+  const TKV* kh = k_pool + head;
+  const TKV* vh = v_pool + head;
+  const int* trow = table + (size_t)b * sh.max_pages;
+  const int n_chunks = (k_end - k_begin + KC - 1) / KC;
+  const int stage_elems = 2 * KC * ld;
+
+  if (!sh.vec) {                       // the padding columns must read as zeros
+    for (int i = tid; i < sh.stages * stage_elems; i += THREADS) kv_s[i] = from_f32<TKV>(0.f);
+    __syncthreads();
+  }
+  // the first stages - 1 chunks in flight, then q (the loop's first barrier
+  // publishes it)
+  for (int c = 0; c < sh.stages - 1; ++c) {
+    if (c < n_chunks) {
+      TKV* st = kv_s + (size_t)c * stage_elems;
+      load_chunk(st, st + KC * ld, kh, vh, trow, k_begin + c * KC, k_end, sh);
+    }
+    cp_async_commit();
+  }
+  const TQ* qp = q + (size_t)bh * G * Dh;
+  for (int i = tid; i < G * ldq; i += THREADS) {
+    const int g = i / ldq, d = i - g * ldq;
+    q_s[i] = d < Dh ? to_f32(qp[g * Dh + d]) : 0.f;
+  }
+
+  float m[G_PER_WARP], l[G_PER_WARP];  // the running max and sum of rows warp + 4 i
+#pragma unroll
+  for (int i = 0; i < G_PER_WARP; ++i) {
+    m[i] = NEG_INF;
+    l[i] = 0.f;
+  }
   float acc[MAX_G][COLS];
 #pragma unroll
   for (int g = 0; g < MAX_G; ++g)
 #pragma unroll
     for (int c = 0; c < COLS; ++c) acc[g][c] = 0.f;
 
-  for (int pi = 0; pi < n_iter; ++pi) {
-    // attend() clamps the table to >= 0; this only keeps reads in the pool
-    const int phys = min(max(table[(size_t)b * max_pages + pi], 0), n_pool - 1);
-    const TKV* kp = kh + (size_t)phys * tile;
-    const TKV* vp = vh + (size_t)phys * tile;
-
-    // the page's K and V tiles (contiguous in the pool) into shared
-    // memory, all threads, many loads in flight
-#pragma unroll 4
-    for (int i = tid; i < tile; i += THREADS) {
-      k_s[i] = to_f32(kp[i]);
-      v_s[i] = to_f32(vp[i]);
-    }
-    __syncthreads();
-
-    // scores: warp w takes key rows w, w + WARPS, ...; lanes split Dh
-    for (int j = warp; j < page_size; j += WARPS) {
-      const bool valid = pi * page_size + j < len;
-      const float* kr = k_s + j * Dh;
-      for (int g = 0; g < G; ++g) {
-        float part = 0.f;
-        for (int d = lane; d < Dh; d += 32) part += q_s[g * Dh + d] * kr[d];
-#pragma unroll
-        for (int o = 16; o > 0; o >>= 1) part += __shfl_xor_sync(0xffffffffu, part, o);
-        if (lane == 0) s_s[g * page_size + j] = valid ? part * scale : NEG_INF;
+  for (int c = 0; c < n_chunks; ++c) {
+    cp_async_wait(sh.stages - 2);
+    __syncthreads();                   // chunk c landed; chunk c - 1 consumed
+    {                                  // chunk c + stages - 1 into chunk c - 1's stage
+      const int n = c + sh.stages - 1;
+      if (n < n_chunks) {
+        TKV* st = kv_s + (size_t)(n % sh.stages) * stage_elems;
+        load_chunk(st, st + KC * ld, kh, vh, trow, k_begin + n * KC, k_end, sh);
       }
+      cp_async_commit();
     }
-    __syncthreads();
+    const TKV* ks = kv_s + (size_t)(c % sh.stages) * stage_elems;
+    const TKV* vs = ks + KC * ld;
+    const int pos = k_begin + c * KC + lane;
 
-    // online softmax over this page, one thread per query row
-    if (tid < G) {
-      float* srow = s_s + tid * page_size;
-      float mx = NEG_INF;
-      for (int j = 0; j < page_size; ++j) mx = fmaxf(mx, srow[j]);
-      const float m_prev = m_s[tid];
-      const float m_new = fmaxf(m_prev, mx);
-      float sum = 0.f;
-      for (int j = 0; j < page_size; ++j) {
-        const float p = expf(srow[j] - m_new);
-        sum += p;
-        srow[j] = to_f32(from_f32<TKV>(p));   // p in the pools' dtype
-      }
-      const float corr = expf(m_prev - m_new);
-      l_s[tid] = l_s[tid] * corr + sum;
-      m_s[tid] = m_new;
-      c_s[tid] = corr;
-    }
-    __syncthreads();
-
-    // acc = acc * corr + p @ V, thread t owning columns t, t + THREADS
+    // scores of key `lane` for rows warp, warp + 4, ...; then their online
+    // softmax across the warp
 #pragma unroll
-    for (int c = 0; c < COLS; ++c) {
-      const int d = tid + c * THREADS;
+    for (int i = 0; i < G_PER_WARP; ++i) {
+      const int g = warp + WARPS * i;
+      if (g >= G) break;
+      float s = 0.f;
+      const TKV* kr = ks + lane * ld;
+      const float* qr = q_s + g * ldq;
+      for (int d = 0; d < dv; d += V) s = dot_vec(kr + d, qr + d, s);
+      s = pos >= k_end ? -INFINITY : masked ? NEG_INF : s * scale;
+      const float m_new = fmaxf(m[i], warp_max(s));
+      const float p = expf(s - m_new);
+      const float corr = expf(m[i] - m_new);
+      l[i] = l[i] * corr + warp_sum(p);
+      m[i] = m_new;
+      p_s[g * KC + lane] = to_f32(from_f32<TKV>(p));   // p in the pools' dtype
+      if (lane == 0) c_s[g] = corr;
+    }
+    __syncthreads();
+
+    // acc = acc * corr + p @ V over the chunk, thread t owning columns
+    // t, t + THREADS
+#pragma unroll
+    for (int cc = 0; cc < COLS; ++cc) {
+      const int d = tid + cc * THREADS;
       if (d >= Dh) continue;
-      float part[MAX_G];
+      float part_g[MAX_G];
 #pragma unroll
-      for (int g = 0; g < MAX_G; ++g) part[g] = 0.f;
-      for (int j = 0; j < page_size; ++j) {
-        const float vj = v_s[j * Dh + d];
+      for (int g = 0; g < MAX_G; ++g) part_g[g] = 0.f;
+      for (int j = 0; j < KC; j += 4) {
+        const float v0 = to_f32(vs[j * ld + d]), v1 = to_f32(vs[(j + 1) * ld + d]);
+        const float v2 = to_f32(vs[(j + 2) * ld + d]), v3 = to_f32(vs[(j + 3) * ld + d]);
 #pragma unroll
-        for (int g = 0; g < MAX_G; ++g)
-          if (g < G) part[g] += s_s[g * page_size + j] * vj;
+        for (int g = 0; g < MAX_G; ++g) {
+          if (g < G) {
+            const float4 p = *reinterpret_cast<const float4*>(p_s + g * KC + j);
+            part_g[g] = fmaf(p.x, v0, fmaf(p.y, v1, fmaf(p.z, v2, fmaf(p.w, v3, part_g[g]))));
+          }
+        }
       }
 #pragma unroll
       for (int g = 0; g < MAX_G; ++g)
-        if (g < G) acc[g][c] = acc[g][c] * c_s[g] + part[g];
+        if (g < G) acc[g][cc] = acc[g][cc] * c_s[g] + part_g[g];
     }
-    __syncthreads();   // the tiles, s_s and c_s are rewritten by the next page
   }
+  cp_async_wait(0);
 
-  TQ* op = out + (size_t)bh * G * Dh;
+  float* pa = part_acc + part * G * Dh;
 #pragma unroll
-  for (int c = 0; c < COLS; ++c) {
-    const int d = tid + c * THREADS;
+  for (int cc = 0; cc < COLS; ++cc) {
+    const int d = tid + cc * THREADS;
     if (d >= Dh) continue;
 #pragma unroll
     for (int g = 0; g < MAX_G; ++g)
-      if (g < G) op[g * Dh + d] = from_f32<TQ>(acc[g][c] / fmaxf(l_s[g], 1e-30f));
+      if (g < G) pa[g * Dh + d] = acc[g][cc];
+  }
+  if (lane == 0) {
+#pragma unroll
+    for (int i = 0; i < G_PER_WARP; ++i) {
+      const int g = warp + WARPS * i;
+      if (g < G) {
+        ml[2 * g] = m[i];
+        ml[2 * g + 1] = l[i];
+      }
+    }
   }
 }
 
-template <typename TQ, typename TKV>
-cudaError_t launch(const void* q, const void* k_pool, const void* v_pool,
-                   const int* table, const int* lens, void* out, int B, int Hkv,
-                   int G, int Dh, int n_pool, int page_size, int max_pages,
-                   float scale, cudaStream_t stream) {
-  const size_t smem = sizeof(float) * ((size_t)G * Dh + 2 * (size_t)page_size * Dh +
-                                       (size_t)G * page_size + 3 * G);
-  auto kern = paged_attention_kernel<TQ, TKV>;
-  if (smem > 48 * 1024) {
-    const cudaError_t e = cudaFuncSetAttribute(
-        kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-    if (e != cudaSuccess) return e;
+// Grid B * Hkv, THREADS threads: the partials of one (sequence, KV head) in
+// split order into out [G][Dh].  The live splits are a prefix (a sequence's
+// keys start at 0), the empty ones (l = 0) follow.  Shared memory: the
+// partials' m, l [n_split][G][2], then w [n_split][G], inv_l [G].
+template <typename TQ>
+__global__ void __launch_bounds__(THREADS)
+paged_attention_merge_kernel(const float* __restrict__ part_acc,
+                             const float* __restrict__ part_ml, TQ* __restrict__ out, int G,
+                             int Dh, int n_split) {
+  extern __shared__ float msmem[];
+  float* ml = msmem;                   // [n_split][G][2]
+  float* w = ml + n_split * G * 2;     // [n_split][G]
+  float* inv_l = w + n_split * G;      // [G]
+  __shared__ int n_live;
+  const int bh = blockIdx.x;
+  const float* src = part_ml + (size_t)bh * n_split * G * 2;
+  for (int i = threadIdx.x; i < n_split * G * 2; i += THREADS) ml[i] = src[i];
+  __syncthreads();
+  if (threadIdx.x < G) {
+    const int g = threadIdx.x;
+    int live = 0;
+    float M = -INFINITY;
+    while (live < n_split && ml[(live * G + g) * 2 + 1] > 0.f)
+      M = fmaxf(M, ml[(live++ * G + g) * 2]);
+    float L = 0.f;
+    for (int s = 0; s < live; ++s) {
+      const float e = expf(ml[(s * G + g) * 2] - M);
+      w[s * G + g] = e;
+      L += ml[(s * G + g) * 2 + 1] * e;
+    }
+    inv_l[g] = 1.f / fmaxf(L, 1e-30f);
+    if (g == 0) n_live = live;
   }
-  kern<<<B * Hkv, THREADS, smem, stream>>>(
+  __syncthreads();
+  const float* pa = part_acc + (size_t)bh * n_split * G * Dh;
+  TQ* o = out + (size_t)bh * G * Dh;
+  const int live = n_live;
+  for (int i = threadIdx.x; i < G * Dh; i += THREADS) {
+    const int g = i / Dh;
+    float acc = 0.f;
+#pragma unroll 4
+    for (int s = 0; s < live; ++s) acc = fmaf(pa[(size_t)s * G * Dh + i], w[s * G + g], acc);
+    o[i] = from_f32<TQ>(acc * inv_l[g]);
+  }
+}
+
+template <typename K>
+cudaError_t set_smem(K kern, size_t bytes) {
+  if (bytes <= 48 * 1024) return cudaSuccess;
+  return cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
+}
+
+template <typename TQ, typename TKV>
+cudaError_t launch(const void* q, const void* k_pool, const void* v_pool, const int* table,
+                   const int* lens, void* out, float* part, int B, Shape sh, float scale,
+                   cudaStream_t stream) {
+  const int ld = row_ld<TKV>(sh.Dh);
+  const size_t stage = sizeof(TKV) * 2 * KC * (size_t)ld;
+  sh.stages = STAGE_BUDGET >= 3 * stage ? 3 : 2;
+  const int ldq = (sh.Dh + 7) / 8 * 8;
+  const size_t smem = stage * sh.stages + sizeof(float) * ((size_t)sh.G * (ldq + KC + 1));
+  auto split = paged_attention_split_kernel<TQ, TKV>;
+  cudaError_t e = set_smem(split, smem);
+  if (e != cudaSuccess) return e;
+  const int BH = B * sh.Hkv;
+  float* part_acc = part;
+  float* part_ml = part + (size_t)BH * sh.n_split * sh.G * sh.Dh;
+  split<<<dim3(BH, sh.n_split), THREADS, smem, stream>>>(
       static_cast<const TQ*>(q), static_cast<const TKV*>(k_pool),
-      static_cast<const TKV*>(v_pool), table, lens, static_cast<TQ*>(out), Hkv, G,
-      Dh, n_pool, page_size, max_pages, scale);
+      static_cast<const TKV*>(v_pool), table, lens, part_acc, part_ml, sh, scale);
+  if ((e = cudaGetLastError()) != cudaSuccess) return e;
+  const size_t msmem = sizeof(float) * ((size_t)sh.n_split * sh.G * 3 + sh.G);
+  auto merge = paged_attention_merge_kernel<TQ>;
+  if ((e = set_smem(merge, msmem)) != cudaSuccess) return e;
+  merge<<<BH, THREADS, msmem, stream>>>(part_acc, part_ml, static_cast<TQ*>(out), sh.G,
+                                        sh.Dh, sh.n_split);
   return cudaGetLastError();
 }
 
 }  // namespace
 
 // dtype codes: 0 float32, 1 bfloat16; scale is Dh^-0.5 rounded to float32
-// by the caller.  Returns 0 or a cudaError_t.
+// by the caller.  pages_per_split and n_split = ceil(max_pages /
+// pages_per_split) come from the caller, which allocates `part`: float32
+// scratch of B * Hkv * n_split * G * (Dh + 2) elements.  vec16 is 1 where
+// Dh * sizeof(pool dtype) is a multiple of 16 and both pools are 16-byte
+// aligned.  Returns 0 or a cudaError_t.
 extern "C" int pa_paged_attention(const void* q, const void* k_pool, const void* v_pool,
-                                  const void* table, const void* lens, void* out,
-                                  int B, int Hkv, int G, int Dh, int n_pool,
-                                  int page_size, int max_pages, int q_dtype,
-                                  int kv_dtype, float scale, void* stream) {
+                                  const void* table, const void* lens, void* out, void* part,
+                                  int B, int Hkv, int G, int Dh, int n_pool, int page_size,
+                                  int max_pages, int pages_per_split, int q_dtype,
+                                  int kv_dtype, int vec16, float scale, void* stream) {
   if (G < 1 || G > MAX_G || Dh < 1 || Dh > MAX_DH || page_size < 1 || max_pages < 1 ||
-      n_pool < 1 || q_dtype < 0 || q_dtype > 1 || kv_dtype < 0 || kv_dtype > 1)
+      n_pool < 1 || pages_per_split < 1 || q_dtype < 0 || q_dtype > 1 || kv_dtype < 0 ||
+      kv_dtype > 1 || (long long)max_pages * page_size > 0x7fffffffLL)
     return (int)cudaErrorInvalidValue;
   if (B * Hkv == 0) return 0;
+  const int n_split = (max_pages + pages_per_split - 1) / pages_per_split;
+  if (n_split > 65535) return (int)cudaErrorInvalidValue;
+  const Shape sh{Hkv, G, Dh, n_pool, page_size, max_pages, pages_per_split, n_split, 0,
+                 vec16 != 0};
   const int* t = static_cast<const int*>(table);
   const int* l = static_cast<const int*>(lens);
+  float* p = static_cast<float*>(part);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   cudaError_t e;
   if (q_dtype == 0 && kv_dtype == 0)
-    e = launch<float, float>(q, k_pool, v_pool, t, l, out, B, Hkv, G, Dh, n_pool, page_size, max_pages, scale, s);
+    e = launch<float, float>(q, k_pool, v_pool, t, l, out, p, B, sh, scale, s);
   else if (q_dtype == 0)
-    e = launch<float, __nv_bfloat16>(q, k_pool, v_pool, t, l, out, B, Hkv, G, Dh, n_pool, page_size, max_pages, scale, s);
+    e = launch<float, __nv_bfloat16>(q, k_pool, v_pool, t, l, out, p, B, sh, scale, s);
   else if (kv_dtype == 0)
-    e = launch<__nv_bfloat16, float>(q, k_pool, v_pool, t, l, out, B, Hkv, G, Dh, n_pool, page_size, max_pages, scale, s);
+    e = launch<__nv_bfloat16, float>(q, k_pool, v_pool, t, l, out, p, B, sh, scale, s);
   else
-    e = launch<__nv_bfloat16, __nv_bfloat16>(q, k_pool, v_pool, t, l, out, B, Hkv, G, Dh, n_pool, page_size, max_pages, scale, s);
+    e = launch<__nv_bfloat16, __nv_bfloat16>(q, k_pool, v_pool, t, l, out, p, B, sh, scale, s);
   return (int)e;
 }

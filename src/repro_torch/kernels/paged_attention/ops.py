@@ -1,11 +1,15 @@
-"""Wrapper of the paged-attention CUDA kernel.
+"""Wrapper of the paged-attention CUDA kernels.
 
 `paged_attention` checks device, dtype, shape and contiguity, allocates the
-output with `torch.empty`, launches on the current CUDA stream and raises
-if the C entry point reports a CUDA error.  For tensors on the CPU it runs
-the plain version in `ref.py`; for CUDA tensors it launches the kernel or
-raises; any other device raises.  `launches["paged_attention"]` counts the
-kernel's launches, one per call.
+output and the split kernel's float32 partials with `torch.empty`, launches
+on the current CUDA stream and raises if the C entry point reports a CUDA
+error.  For tensors on the CPU it runs the plain version in `ref.py`; for
+CUDA tensors it launches the kernels or raises; any other device raises.
+A call launches two CUDA kernels: the split kernel (grid B * Hkv x
+n_split, each CTA a run of `pages_per_split` pages) and the merge of the
+partials; `splits` picks the split from max_pages and the shape, never from
+the lengths, so a call makes no host sync.  `launches["paged_attention"]`
+counts calls, one per call.
 """
 from __future__ import annotations
 
@@ -20,6 +24,8 @@ from .ref import paged_attention_reference
 launches: Dict[str, int] = {"paged_attention": 0}
 MAX_GROUP = 16        # query heads per KV head the kernel holds
 MAX_HEAD_DIM = 256
+CTAS_PER_SM = 4       # split CTAs launched per SM, live or not
+MAX_SPLITS = 128
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 
 
@@ -32,9 +38,19 @@ def _entry():
     f = build.load("paged_attention").pa_paged_attention
     if f.argtypes is None:
         P, I = ctypes.c_void_p, ctypes.c_int
-        f.argtypes = [P] * 6 + [I] * 9 + [ctypes.c_float, P]
+        f.argtypes = [P] * 7 + [I] * 11 + [ctypes.c_float, P]
         f.restype = I
     return f
+
+
+def splits(bh: int, max_pages: int, sms: int):
+    """(pages_per_split, n_split) for B * Hkv = bh sequences' heads over a
+    table of max_pages pages on a card of `sms` SMs: about CTAS_PER_SM * sms
+    CTAs (at most MAX_SPLITS per head), whatever the lengths turn out to be,
+    since they are not read on the host."""
+    want = min(MAX_SPLITS, max(1, -(-CTAS_PER_SM * sms // bh)))
+    pps = -(-max_pages // want)
+    return pps, -(-max_pages // pps)
 
 
 def _check(name, t, dtype, shape, device):
@@ -88,10 +104,15 @@ def paged_attention_cuda(q, k_pool, v_pool, page_table, lengths):
     out = torch.empty_like(q)
     if B * Hkv == 0:
         return out
+    pps, n_split = splits(B * Hkv, max_pages,
+                          torch.cuda.get_device_properties(dev).multi_processor_count)
+    part = torch.empty(B * Hkv * n_split * G * (Dh + 2), dtype=torch.float32, device=dev)
+    vec16 = int((Dh * k_pool.element_size()) % 16 == 0
+                and k_pool.data_ptr() % 16 == 0 and v_pool.data_ptr() % 16 == 0)
     err = _entry()(q.data_ptr(), k_pool.data_ptr(), v_pool.data_ptr(),
                    page_table.data_ptr(), lengths.data_ptr(), out.data_ptr(),
-                   B, Hkv, G, Dh, n_pool, page, max_pages,
-                   _DTYPE_CODE[q.dtype], _DTYPE_CODE[k_pool.dtype], Dh ** -0.5,
+                   part.data_ptr(), B, Hkv, G, Dh, n_pool, page, max_pages, pps,
+                   _DTYPE_CODE[q.dtype], _DTYPE_CODE[k_pool.dtype], vec16, Dh ** -0.5,
                    torch.cuda.current_stream(dev).cuda_stream)
     if err != 0:
         raise RuntimeError(f"paged_attention: CUDA error {err} at launch")

@@ -29,15 +29,17 @@ import torch
 
 def wkv_reference(r, k, v, w, u, state: Optional[torch.Tensor] = None):
     """r, k, v, w: [B, H, T, D]; u: [H, D]; state: [B, H, D, D] or None
-    (zeros).  Returns (y [B, H, T, D], state' [B, H, D, D]), float32."""
+    (zeros).  Returns (y [B, H, T, D], state' [B, H, D, D]), float32 (float64
+    where r is float64)."""
     B, H, T, D = r.shape
-    S = (torch.zeros((B, H, D, D), dtype=torch.float32, device=r.device)
-         if state is None else state.float())
-    uu = u.float()[None, :, :, None]
+    ct = torch.float64 if r.dtype == torch.float64 else torch.float32
+    S = (torch.zeros((B, H, D, D), dtype=ct, device=r.device)
+         if state is None else state.to(ct))
+    uu = u.to(ct)[None, :, :, None]
     ys = []
     for t in range(T):
-        rt, kt, vt = (x[:, :, t].float() for x in (r, k, v))
-        wt = w[:, :, t].float()
+        rt, kt, vt = (x[:, :, t].to(ct) for x in (r, k, v))
+        wt = w[:, :, t].to(ct)
         kv = kt[..., :, None] * vt[..., None, :]
         ys.append(torch.einsum("bhk,bhkv->bhv", rt, S + uu * kv))
         S = wt[..., :, None] * S + kv

@@ -45,6 +45,12 @@ def weight_dtype(cfg: ModelConfig) -> torch.dtype:
     return getattr(torch, cfg.dtype)
 
 
+def upcast(x):
+    """x in float32 for the norms' and the recurrence's arithmetic, or left
+    in float64 (a float64 model, the yardstick of float32's rounding)."""
+    return x if x.dtype == torch.float64 else x.float()
+
+
 # ---------------------------------------------------------------------------
 # Norms
 # ---------------------------------------------------------------------------
@@ -62,14 +68,14 @@ class Norm(nn.Module):
 
 def rmsnorm(x, scale, eps=1e-6):
     dt = x.dtype
-    x = x.float()
+    x = upcast(x)
     x = x * torch.rsqrt(torch.mean(x * x, dim=-1, keepdim=True) + eps)
     return (x * (1.0 + scale.float())).to(dt)
 
 
 def layernorm(x, scale, bias, eps=1e-5):
     dt = x.dtype
-    x = x.float()
+    x = upcast(x)
     mu = torch.mean(x, dim=-1, keepdim=True)
     var = torch.mean((x - mu) ** 2, dim=-1, keepdim=True)
     x = (x - mu) * torch.rsqrt(var + eps)
@@ -177,11 +183,11 @@ def project_qkv(cfg: ModelConfig, p: Attention, x, positions, use_rope=True,
 
 
 def flash_attention(q, k, v, *, causal: bool = True, window=None):
-    """Full-sequence GQA attention: q [B,Hq,T,Dh], k/v [B,Hkv,T,Dh] ->
-    [B,Hq,T,Dh]; window None or <= 0 means unlimited.  The flash-attention
+    """Full-sequence GQA attention: q [B,Hq,Tq,Dh], k/v [B,Hkv,Tk,Dh] ->
+    [B,Hq,Tq,Dh]; window None or <= 0 means unlimited.  The flash-attention
     kernels on a CUDA device, their plain version on the CPU.  (The
-    reference's `cross` and ragged-Tk branches serve the audio and vlm
-    families, which are not ported.)"""
+    reference's `cross` branch serves the audio family, which is not
+    ported.)"""
     w = 0 if window is None else int(window)
     return fa_ops.flash_attention(q, k, v, causal=causal, window=max(w, 0))
 

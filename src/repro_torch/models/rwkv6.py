@@ -31,7 +31,7 @@ from torch import nn
 
 from ..configs.base import ModelConfig
 from ..kernels.rwkv6_wkv import ops as wkv_ops
-from .layers import _heads, _normal, _param, weight_dtype
+from .layers import _heads, _normal, _param, upcast, weight_dtype
 
 LORA_R = 32
 NAMES = ("mu", "wr", "wk", "wv", "wg", "wo", "w0", "wA", "wB", "u", "ln_x",
@@ -98,7 +98,8 @@ def _time_mix_inputs(cfg: ModelConfig, p: RWKV, x, x_prev):
     dd = torch.tanh(xw @ p.wA.to(dt))                               # [B,T,R]
     B, T, _ = x.shape
     R, H, hd = p.wB.shape
-    lw = (dd.float() @ p.wB.float().reshape(R, H * hd)).view(B, T, H, hd).transpose(1, 2)
+    dd = upcast(dd)
+    lw = (dd @ p.wB.to(dd.dtype).reshape(R, H * hd)).view(B, T, H, hd).transpose(1, 2)
     lw = p.w0.float()[None, :, None, :] + lw
     w = torch.exp(-torch.exp(lw))                                    # (0,1) decay
     return r, k, v, g, w
@@ -126,7 +127,7 @@ def time_mix(cfg: ModelConfig, p: RWKV, x, x_prev, wkv_state,
 
 def rmsnorm_heads(y, scale, eps=1e-6):
     dt = y.dtype
-    yf = y.float()
+    yf = upcast(y)
     yf = yf * torch.rsqrt(torch.mean(yf * yf, dim=-1, keepdim=True) + eps)
     return (yf * scale.float()[None, :, None, :]).to(dt)
 

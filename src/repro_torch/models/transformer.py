@@ -214,16 +214,17 @@ def loss_fn(cfg: ModelConfig, model: Transformer, batch: Dict[str, torch.Tensor]
 def init_cache(cfg: ModelConfig, batch: int, max_len: int, dtype=None,
                device=None) -> Dict[str, Any]:
     """{"len": int32 [B]} and, dense: "k"/"v" [L, B, Hkv, max_len, Dh] in
-    the model dtype; ssm: "wkv" [L, B, H, Dh, Dh] float32 and "shift"
-    [L, 2, B, D] in the model dtype (max_len unused)."""
+    the model dtype; ssm: "wkv" [L, B, H, Dh, Dh] float32 (float64 in a
+    float64 model) and "shift" [L, 2, B, D] in the model dtype (max_len
+    unused)."""
     check_family(cfg)
     dt = getattr(torch, dtype or cfg.dtype)
     L, Hkv, Dh = cfg.n_layers, cfg.n_kv_heads, cfg.resolved_head_dim
     if cfg.family == "ssm":
         H = cfg.n_heads
         return {"len": torch.zeros((batch,), dtype=torch.int32, device=device),
-                "wkv": torch.zeros((L, batch, H, Dh, Dh), dtype=torch.float32,
-                                   device=device),
+                "wkv": torch.zeros((L, batch, H, Dh, Dh), device=device,
+                                   dtype=dt if dt == torch.float64 else torch.float32),
                 "shift": torch.zeros((L, 2, batch, cfg.d_model), dtype=dt,
                                      device=device)}
     return {"len": torch.zeros((batch,), dtype=torch.int32, device=device),

@@ -120,16 +120,31 @@ def test_kernels_match_plain_versions(cuda, b):
     assert ops.launches["fused_write"] == 2 * ops.WRITE_KERNELS_PER_CALL
 
 
-# (B, Hkv, G, Dh, page, n_pool, max_pages, q dtype, pool dtype): the serving
-# path's shape (Granite-3-8B, pools float32, q bfloat16), tests/
-# test_kernels.py's first shape, and head_dim 256 with bf16 pools and odd B
+# (B, Hkv, G, Dh, page, n_pool, max_pages, q dtype, pool dtype[, lengths]):
+# the serving path's shape (Granite-3-8B, pools float32, q bfloat16), tests/
+# test_kernels.py's first shape, and head_dim 256 with bf16 pools and odd B;
+# then a long table (256 pages of 16, lengths 1 to 4096 spread over the
+# batch, so many splits are live), lengths of 0 with max_pages above one
+# split (every key of the table, p = 1), lengths exactly at the split
+# boundaries (and one key either side), the serving shape with bf16
+# pools, and bf16 pools at Dh 36, whose 72-byte rows the kernel copies
+# element by element instead of in 16-byte vectors.  Lengths are random in [1, page * max_pages] with the first 1 and
+# the last page * max_pages unless given.
 PA_SHAPES = [(8, 8, 4, 128, 16, 288, 33, torch.bfloat16, torch.float32),
              (3, 2, 4, 64, 64, 16, 4, torch.float32, torch.float32),
-             (5, 2, 1, 256, 16, 12, 5, torch.bfloat16, torch.bfloat16)]
+             (5, 2, 1, 256, 16, 12, 5, torch.bfloat16, torch.bfloat16),
+             (8, 8, 4, 128, 16, 512, 256, torch.bfloat16, torch.float32),
+             (8, 8, 4, 128, 16, 64, 40, torch.float32, torch.float32,
+              [0, 0, 5, 640, 0, 1, 17, 0]),
+             (8, 8, 4, 128, 16, 64, 40, torch.float32, torch.float32, "split_boundaries"),
+             (8, 8, 4, 128, 16, 288, 33, torch.bfloat16, torch.bfloat16),
+             (3, 2, 4, 36, 16, 12, 5, torch.bfloat16, torch.bfloat16)]
+PA_IDS = ["serve", "kernels_a", "dh256", "long_4096", "len_0_multi_split",
+          "split_boundaries", "bf16_pools", "dh36_element_copies"]
 
 
 def _pa_inputs(shape, dev, seed=0):
-    B, Hkv, G, Dh, ps, npool, mp, qdt, pdt = shape
+    B, Hkv, G, Dh, ps, npool, mp, qdt, pdt = shape[:9]
     g = torch.Generator(device="cpu").manual_seed(seed)
     q = torch.randn((B, Hkv, G, Dh), generator=g).to(dev, qdt)
     kp = torch.randn((Hkv, npool, ps, Dh), generator=g).to(dev, pdt)
@@ -138,10 +153,17 @@ def _pa_inputs(shape, dev, seed=0):
     ln = torch.randint(1, ps * mp + 1, (B,), generator=g, dtype=torch.int32)
     ln[0] = 1
     ln[-1] = ps * mp
+    lens = shape[9] if len(shape) > 9 else None
+    if lens == "split_boundaries":
+        sms = torch.cuda.get_device_properties(dev).multi_processor_count
+        span = pa_ops.splits(B * Hkv, mp, sms)[0] * ps
+        lens = [span, 2 * span, span - 1, span + 1, 3 * span, ps * mp, 1, 2 * span + 1]
+    if lens is not None:
+        ln = torch.tensor(lens, dtype=torch.int32)
     return q, kp, vp, pt, ln.to(dev)
 
 
-@pytest.mark.parametrize("shape", PA_SHAPES, ids=["serve", "kernels_a", "dh256"])
+@pytest.mark.parametrize("shape", PA_SHAPES, ids=PA_IDS)
 def test_paged_attention_matches_plain_version(cuda, shape):
     args = _pa_inputs(shape, cuda)
     pa_ops.reset_launches()
@@ -152,6 +174,17 @@ def test_paged_attention_matches_plain_version(cuda, shape):
     assert got.dtype == want.dtype == args[0].dtype
     tol = 2e-5 if got.dtype == torch.float32 else 2e-2
     torch.testing.assert_close(got.float(), want.float(), atol=tol, rtol=tol)
+
+
+@pytest.mark.parametrize("shape", [PA_SHAPES[0], PA_SHAPES[3]], ids=["serve", "long_4096"])
+def test_paged_attention_is_deterministic(cuda, shape):
+    """Two calls on the same inputs give bit-equal outputs (the partials are
+    merged in split order, with no float atomics)."""
+    args = _pa_inputs(shape, cuda, seed=1)
+    first = pa_ops.paged_attention(*args)
+    again = pa_ops.paged_attention(*args)
+    torch.cuda.synchronize()
+    assert torch.equal(first, again)
 
 
 def test_paged_attention_wrapper_refuses(cuda):
@@ -166,14 +199,19 @@ def test_paged_attention_wrapper_refuses(cuda):
     assert pa_ops.launches["paged_attention"] == 0
 
 
-# (BH, G, T, Dh, dtype, causal, window): a bfloat16 causal shape of the
+# (BH, G, T, Dh, dtype, causal, window[, Tk]): a bfloat16 causal shape of the
 # training path's widths at a short T, and a ragged float32 one whose window
 # edge falls inside a kv block; then head_dim 256, non-causal, MQA's G 8;
 # then the tensor-core route's shapes: GLM-4-9B's G 16, Kimi's Dh 112,
 # Gemma-7B's Dh 256, T 1, 17 and 1000, a window edge inside a 128-key tile,
 # Dh 32 non-causal, the reduced configs' Dh 16, a bf16 Dh that only the
 # CUDA-core route takes, and the wgmma forward's Dh 128 non-causal, with and
-# without a window
+# without a window; then key lengths Tk that differ from the query length T
+# on both routes (float32 on the CUDA cores, bf16 at Dh 64 on mma.sync and at
+# Dh 128 on wgmma): cross-attention, a whisper-like 7 x 150, causal with
+# T > Tk (rows past Tk see every key) and with Tk > T (keys past T get
+# exact-zero dK and dV), and a window with T > Tk, whose rows at and past
+# Tk - 1 + window see no key
 FA_SHAPES = [(4, 4, 300, 128, torch.bfloat16, True, 0),
              (3, 2, 257, 64, torch.float32, True, 48),
              (2, 2, 130, 256, torch.float32, False, 0),
@@ -189,19 +227,34 @@ FA_SHAPES = [(4, 4, 300, 128, torch.bfloat16, True, 0),
              (2, 2, 64, 16, torch.bfloat16, True, 0),
              (1, 2, 100, 60, torch.bfloat16, True, 0),
              (2, 4, 333, 128, torch.bfloat16, False, 0),
-             (2, 4, 333, 128, torch.bfloat16, False, 70)]
+             (2, 4, 333, 128, torch.bfloat16, False, 70),
+             (2, 2, 64, 64, torch.float32, False, 0, 128),
+             (2, 2, 64, 64, torch.float32, True, 40, 256),
+             (1, 4, 300, 64, torch.float32, True, 16, 64),
+             (2, 2, 7, 64, torch.bfloat16, False, 0, 150),
+             (2, 4, 128, 64, torch.bfloat16, True, 0, 64),
+             (1, 4, 300, 64, torch.bfloat16, True, 16, 64),
+             (2, 4, 64, 128, torch.bfloat16, False, 0, 128),
+             (2, 4, 1000, 128, torch.bfloat16, True, 0, 300),
+             (2, 4, 200, 128, torch.bfloat16, True, 40, 1000),
+             (1, 4, 300, 128, torch.bfloat16, True, 16, 64)]
 FA_IDS = ["bf16_causal", "f32_window", "dh256", "mqa_bf16", "bf16_g16", "bf16_dh112",
           "bf16_dh256", "bf16_t1", "bf16_t17", "bf16_t1000", "bf16_window_in_tile",
           "bf16_dh32_noncausal", "bf16_dh16", "bf16_dh60_simt", "bf16_dh128_noncausal",
-          "bf16_dh128_noncausal_window"]
+          "bf16_dh128_noncausal_window", "f32_cross_q64_k128", "f32_causal_window_q64_k256",
+          "f32_blind_rows_q300_k64", "bf16_dh64_whisper_q7_k150", "bf16_dh64_causal_q128_k64",
+          "bf16_dh64_blind_rows_q300_k64", "bf16_dh128_cross_q64_k128",
+          "bf16_dh128_causal_q1000_k300", "bf16_dh128_causal_window_q200_k1000",
+          "bf16_dh128_blind_rows_q300_k64"]
 
 
 def _fa_inputs(shape, dev, seed=0):
     BH, G, T, Dh, dt = shape[:5]
+    Tk = shape[7] if len(shape) > 7 else T
     g = torch.Generator(device="cpu").manual_seed(seed)
     q = torch.randn((BH, G, T, Dh), generator=g).to(dev, dt)
-    k = torch.randn((BH, 1, T, Dh), generator=g).to(dev, dt)
-    v = torch.randn((BH, 1, T, Dh), generator=g).to(dev, dt)
+    k = torch.randn((BH, 1, Tk, Dh), generator=g).to(dev, dt)
+    v = torch.randn((BH, 1, Tk, Dh), generator=g).to(dev, dt)
     do = torch.randn((BH, G, T, Dh), generator=g).to(dev, dt)
     return q, k, v, do
 
@@ -239,10 +292,14 @@ def test_flash_attention_matches_plain_version(cuda, shape):
             # of the three reference gradients
             scale = float(ref.abs().max()) or max(float(g.abs().max()) for g in ref_grads)
             assert err <= 2e-2 * scale, (name, err)
+    if causal and k.shape[2] > q.shape[2]:      # keys that no query sees
+        for name, got in zip("kv", grads[1:]):
+            assert torch.count_nonzero(got[:, :, q.shape[2]:]) == 0, name
 
 
-@pytest.mark.parametrize("shape", [FA_SHAPES[0], FA_SHAPES[1], FA_SHAPES[10]],
-                         ids=["bf16_tc", "f32_simt", "bf16_tc_window"])
+@pytest.mark.parametrize("shape", [FA_SHAPES[0], FA_SHAPES[1], FA_SHAPES[10], FA_SHAPES[24]],
+                         ids=["bf16_tc", "f32_simt", "bf16_tc_window",
+                              "bf16_tc_causal_window_q200_k1000"])
 def test_flash_attention_gradient_is_deterministic(cuda, shape):
     """Two gradient calls on the same inputs give bit-equal dq, dk, dv (no
     float atomics; the trainer's bit-exact restart relies on it)."""

@@ -114,3 +114,67 @@ def test_wrapper_dispatch_and_launch_count():
     meta = q.to("meta")
     with pytest.raises(ValueError, match="no kernel for device"):
         ops.paged_attention(meta, kp, vp, pt, ln)
+
+
+@pytest.mark.parametrize("bh,max_pages,sms", [(64, 33, 132), (64, 256, 132), (1, 1, 132),
+                                              (2000, 33, 132), (5, 700, 132), (3, 4, 8)])
+def test_splits_cover_the_table(bh, max_pages, sms):
+    """The split kernel's runs of pages cover the table once, with at most
+    MAX_SPLITS per head; the serving shape (B 8 x Hkv 8, 33 pages) gets at
+    least two CTAs per SM of an H100's 132."""
+    pps, n_split = ops.splits(bh, max_pages, sms)
+    assert pps >= 1 and 1 <= n_split <= ops.MAX_SPLITS
+    assert (n_split - 1) * pps < max_pages <= n_split * pps
+    if (bh, max_pages) == (64, 33):
+        assert bh * n_split >= 2 * sms
+
+
+def _split_merge(q, kp, vp, pt, ln, pps):
+    """The split kernel's and the merge kernel's arithmetic in plain torch:
+    each run of pps pages gives a partial (m, l, acc) over its keys below
+    the length (all of the table's keys, every score -1e30, where the length
+    is <= 0), an empty run gives (-1e30, 0, -); the partials are merged in
+    split order."""
+    B, Hkv, G, Dh = q.shape
+    ps, mp = kp.shape[2], pt.shape[1]
+    total, n_split = mp * ps, -(-mp // pps)
+    idx = pt.long().clamp(0, kp.shape[1] - 1)
+    k = kp[:, idx].transpose(0, 1).reshape(B, Hkv, total, Dh).float()
+    v = vp[:, idx].transpose(0, 1).reshape(B, Hkv, total, Dh).float()
+    s = torch.einsum("bhgd,bhkd->bhgk", q.float(), k) * (Dh ** -0.5)
+    out = torch.empty(B, Hkv, G, Dh)
+    for b in range(B):
+        n = int(ln[b])
+        end = total if n <= 0 else min(n, total)
+        parts = []
+        for i in range(n_split):
+            k0, k1 = i * pps * ps, min(end, (i + 1) * pps * ps)
+            if k0 >= k1:
+                parts.append(None)
+                continue
+            sc = s[b, :, :, k0:k1] if n > 0 else torch.full_like(s[b, :, :, k0:k1], -1e30)
+            m = sc.amax(-1)
+            p = torch.exp(sc - m[..., None])
+            acc = torch.einsum("hgk,hkd->hgd", p.to(kp.dtype).float(), v[b, :, k0:k1])
+            parts.append((m, p.sum(-1), acc))
+        M = torch.stack([pt_[0] for pt_ in parts if pt_]).amax(0)
+        L, O = torch.zeros(Hkv, G), torch.zeros(Hkv, G, Dh)
+        for pt_ in parts:
+            if pt_:
+                w = torch.exp(pt_[0] - M)
+                L += pt_[1] * w
+                O += pt_[2] * w[..., None]
+        out[b] = O / torch.clamp(L, min=1e-30)[..., None]
+    return out.to(q.dtype)
+
+
+@pytest.mark.parametrize("pps", [1, 2, 3])
+@pytest.mark.parametrize("case", sorted(CASES))
+def test_split_and_merge_arithmetic_matches_plain_version(case, pps):
+    """Splitting the pages into runs and merging the partials gives the
+    plain version's result (2e-5 in float32) at every length, including
+    lengths of 0 and lengths that end a run."""
+    q, kp, vp, pt, ln = (torch.from_numpy(a) for a in _inputs(case, seed=3))
+    want = ref.paged_attention_reference(q, kp, vp, pt, ln)
+    got = _split_merge(q, kp, vp, pt, ln, pps)
+    torch.testing.assert_close(got, want, atol=2e-5, rtol=2e-5)
