@@ -28,7 +28,8 @@ Phases, each printing one JSON line:
                 plain recurrence at RWKV-6's train shape (B*H 128, T 4096),
                 its decode shape (B*H 512, T 1, from a state) and edge cases
                 (y and state 2e-3 abs and rel; each gradient 2e-3 of its
-                largest reference magnitude), timed beside their bounds
+                largest reference magnitude; two gradient calls bit for bit
+                equal), timed beside their bounds
                 (first, while the profiler is fresh and the card's memory
                 free);
   4. main     — `KV(cfg, device="cuda")` at the paper's YCSB shape (8-byte
@@ -43,9 +44,12 @@ Phases, each printing one JSON line:
                 the kernels' launch counters are zeroed before and read
                 after, and all must be > 0;
   5. kernels  — each store kernel against its plain PyTorch version on the
-                card, bit for bit, on the loaded store at the main path's
-                shapes (B = 8192 batches, B = compact_batch compaction
-                probes) in every mode the store uses, timed with CUDA events;
+                card, bit for bit and a second call bit for bit equal, on the
+                loaded store at the main path's shapes (B = 8192 batches,
+                B = compact_batch compaction probes) in every mode the store
+                uses (fused_write also on YCSB-A's Zipf-0.99 keys and on one
+                key in every lane with wrapping sums), timed with CUDA
+                events and the profiler (device ms per kernel of a call);
                 the first-hop probe also against fused_probe's chain heads;
   6. profile  — a profiler window over 8 YCSB-A batches;
   7. twins    — the same op stream at 2**20 keys through engine="fused" and
@@ -395,8 +399,9 @@ def _time_ms(fn, reps):
 
 
 KERNEL_FUNCTIONS = {"fused_probe": ("fused_probe_kernel",),
-                    "fused_write": ("write_lanes_kernel", "append_offsets_kernel",
-                                    "chain_slots_kernel"),
+                    "fused_write": ("write_clear_kernel", "write_group_kernel",
+                                    "write_sum_kernel", "write_plan_kernel",
+                                    "write_chain_kernel"),
                     "paged_attention": ("paged_attention_split_kernel",
                                         "paged_attention_merge_kernel"),
                     "flash_attention_fwd_tc": ("fa_tc_forward_kernel",),
@@ -410,11 +415,12 @@ KERNEL_FUNCTIONS = {"fused_probe": ("fused_probe_kernel",),
                     "wkv_backward": ("wkv_dv_kernel", "wkv_drkw_kernel")}
 
 
-def _device_ms(fn, reps, names):
+def _device_ms(fn, reps, names, parts=None):
     """Device time per call of the named CUDA functions, from the profiler
     (CUDA events around a short kernel also time the wrapper's host side,
     which can be longer than the kernel): each function's mean over the
-    records the profiler kept, summed over the functions.  Late in a long
+    records the profiler kept, summed over the functions (and, where
+    `parts` is a dict, each function's mean put in it).  Late in a long
     process, after large profiler windows, the profiler can drop kernel
     records, so a total over `reps` would undercount; "not measured" where a
     function kept no record."""
@@ -435,6 +441,8 @@ def _device_ms(fn, reps, names):
                     per_name[n][1] += e.count
     if any(c == 0 for _, c in per_name.values()):
         return "not measured"
+    if parts is not None:
+        parts.update({n: us / c / 1e3 for n, (us, c) in per_name.items()})
     return sum(us / c for us, c in per_name.values()) / 1e3
 
 
@@ -496,6 +504,7 @@ def write_cases(kv, rng, n_keys):
     import torch
     from repro_torch import OP_DELETE, OP_READ, OP_RMW, OP_UPSERT
     from repro_torch.core import hybrid_log
+    from repro_torch.workload import Zipf
     st, cfg, dev = kv.state, kv.cfg, kv.device
     V = cfg.value_width
     E = cfg.hot_index_size
@@ -521,6 +530,18 @@ def write_cases(kv, rng, n_keys):
     pure = mk(np.concatenate([rng.integers(0, n_keys, B // 2),
                               n_keys + rng.integers(0, n_keys, B // 2)]),
               np.full(B, OP_RMW))
+    # YCSB-A's keys (Zipf 0.99: the hottest key fills ~5% of the lanes)
+    # with the mixed case's ops
+    zipf = mk(Zipf(n_keys, 0.99).sample(rng, B),
+              rng.choice([OP_READ, OP_UPSERT, OP_RMW, OP_DELETE], B, p=[.25, .35, .25, .15]))
+    # every lane one key; values near +-2^31, so the RMW sums wrap
+    hot_ops = rng.choice([OP_UPSERT, OP_RMW, OP_RMW, OP_DELETE], B)
+    hot_ops[-9:] = OP_RMW
+    near = rng.integers(0, 97, (B, V))
+    one_hot = (torch.full((B,), int(rng.integers(0, n_keys)), dtype=torch.int32, device=dev),
+               torch.as_tensor(hot_ops.astype(np.int32), device=dev),
+               torch.as_tensor(np.where(near < 12, -2**31 + near, 2**31 - 1 - near)
+                               .astype(np.int32), device=dev))
     hot, rc = st.hot, st.rc
     tail = (hot.key, hot.val, hot.prev, hot.meta, rc.key, rc.val, rc.prev, rc.meta)
     bounds = (st.hot_index, hot.begin, hybrid_log.head_addr(hot, cfg.hot_mem),
@@ -530,7 +551,8 @@ def write_cases(kv, rng, n_keys):
     cases = []
     for name, (k, o, v) in (("mixed", mixed), ("duplicate_keys", dup),
                             ("all_colliding_slot", coll),
-                            ("rmw_after_delete", rad), ("pure_rmw", pure)):
+                            ("rmw_after_delete", rad), ("pure_rmw", pure),
+                            ("zipf_099", zipf), ("one_hot_key", one_hot)):
         cases.append((name, (k, o, v, *bounds, *tail), kw))
     k, o, v = mixed
     cases.append(("odd_B8191", (k[:8191], o[:8191], v[:8191], *bounds, *tail), kw))
@@ -599,11 +621,16 @@ def check_kernels(kv, n_keys, seed, records):
             err = _max_abs_err(got, want)
             if err != 0:
                 raise AssertionError(f"{kname}/{name}: max |kernel - plain| = {err}")
-            rec = dict(case=name, B=int(args[0].shape[0]), max_abs_err=err)
+            if _max_abs_err(got, kern(*args, **kw)) != 0:
+                raise AssertionError(f"{kname}/{name}: two calls differ")
+            rec = dict(case=name, B=int(args[0].shape[0]), max_abs_err=err,
+                       bit_equal_twice=True)
             if kv.device.type == "cuda":
                 rec["ms"] = _time_ms(lambda: kern(*args, **kw), 20)
+                parts = {}
                 rec["device_ms"] = _device_ms(lambda: kern(*args, **kw), 20,
-                                              KERNEL_FUNCTIONS[kname])
+                                              KERNEL_FUNCTIONS[kname], parts)
+                rec["device_ms_by_kernel"] = parts
                 rec["plain_ms"] = _time_ms(lambda: plain(*args, **kw), 3)
                 if kname == "fused_probe":
                     b = probe_bound(args, kw, got)
@@ -768,13 +795,18 @@ def check_wkv_kernels(device, seed, records):
             fwd = lambda: wkv_ops.forward_cuda(r, k, v, w, u, s0, state,  # noqa: E731
                                                checkpoints=ckpt_on)
             bwd = lambda: wkv_ops.backward_cuda(r, k, v, w, u, ckpt, dy, ds)  # noqa: E731
+            if not all(torch.equal(a, b) for a, b in zip(bwd()[:5], bwd()[:5])):
+                raise AssertionError(f"wkv_backward/{name}: two calls differ")
+            rec["bwd_bit_equal_twice"] = True
             reps = 3 if T >= 4096 else 20
             rec["fwd_ms"] = _time_ms(fwd, reps)
             rec["fwd_device_ms"] = _device_ms(lambda: (l2_flush.zero_(), fwd()), reps,
                                               KERNEL_FUNCTIONS["wkv_forward"])
             rec["bwd_ms"] = _time_ms(bwd, reps)
+            parts = {}
             rec["bwd_device_ms"] = _device_ms(lambda: (l2_flush.zero_(), bwd()), reps,
-                                              KERNEL_FUNCTIONS["wkv_backward"])
+                                              KERNEL_FUNCTIONS["wkv_backward"], parts)
+            rec["bwd_device_ms_by_kernel"] = parts
             rec["fwd_plain_ms"] = _time_ms(
                 lambda: wkv_ref.wkv_reference(r, k, v, w, u, s0), 1)
             rq = [t.clone().requires_grad_(True) for t in (r, k, v, w, u)]

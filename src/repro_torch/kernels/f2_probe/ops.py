@@ -6,8 +6,10 @@ outputs with `torch.empty`, launches on the current CUDA stream and raises
 if the C entry point reports a CUDA error.  For tensors on the CPU (the
 tests) it runs the plain version in `ref.py`; for any other device it
 raises.  `launches[name]` counts the CUDA kernel launches of each wrapper:
-one per `fused_probe` or `probe` call, three per `fused_write` call (its
-per-lane pass, the scan of the append flags and the slot-chaining pass).
+one per `fused_probe` or `probe` call, `WRITE_KERNELS_PER_CALL` per
+`fused_write` call (clearing its group table, grouping lanes by key, the RMW
+sums, the per-lane plan with its walks, and the append offsets with the slot
+chaining).
 """
 from __future__ import annotations
 
@@ -20,7 +22,7 @@ from .. import build
 from . import ref
 
 launches: Dict[str, int] = {"fused_probe": 0, "fused_write": 0, "probe": 0}
-WRITE_KERNELS_PER_CALL = 3   # f2_fused_write launches three kernels
+WRITE_KERNELS_PER_CALL = 5   # f2_fused_write launches five kernels
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -166,6 +168,14 @@ def fused_probe(keys, heads_src, lower, active, head_boundary,
     return found, addr, heads, value, meta, hops, ios, exhausted
 
 
+def _write_scratch_words(B: int) -> int:
+    f = build.load("fused_write").f2_fused_write_scratch_words
+    if f.argtypes is None:
+        f.argtypes = [_I]
+        f.restype = ctypes.c_longlong
+    return int(f(B))
+
+
 def fused_write(keys, ops, vals, index, begin, head_boundary, ro_addr, tail,
                 log_key, log_val, log_prev, log_meta,
                 rc_key, rc_val, rc_prev, rc_meta, *, chain_max: int):
@@ -209,7 +219,7 @@ def fused_write(keys, ops, vals, index, begin, head_boundary, ro_addr, tail,
            lanes(b), lanes(n), lanes(n), lanes(b))
     if B == 0:
         return out
-    scratch = torch.empty((2 * B,), dtype=n, device=dev)
+    scratch = torch.empty((_write_scratch_words(B),), dtype=n, device=dev)
     fn = _bind("fused_write", "f2_fused_write", 13, 6, 20)
     stream = torch.cuda.current_stream(dev).cuda_stream
     err = fn(_ptr(keys), _ptr(ops), _ptr(vals), _ptr(index), _ptr(bounds),

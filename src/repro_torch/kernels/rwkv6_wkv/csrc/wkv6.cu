@@ -22,38 +22,59 @@
 // contiguous; u [H, D] (row bh uses head bh % H); states [BH, D, D] with
 // S[i][j] at i * D + j.  D is 16, 32, 64 or 128.
 //
-// The TPU kernel walked a sequential (BH, chunks) grid and carried S in a
-// VMEM scratch.  Here one CTA owns one (b, h) and carries S in registers
-// through a loop over T; the CTAs run in parallel.
-//   * forward, "column" layout: P = 4 threads per value column j, thread
-//     (j, p) holding S[i][j] for the D/P rows i = ii*P + p.  Each step the
-//     P threads of a column sum r_i (S_ij + u_i k_i v_j) over their rows and
-//     finish with two shuffles; then S_ij <- w_i S_ij + k_i v_j.  Inputs are
-//     staged in shared memory C = 16 steps at a time with float4 loads.
-//     With a checkpoint buffer, the state entering every CK = 64th step is
-//     written out for the gradient.
-//   * gradient, two kernels, no float atomics (deterministic):
-//     1. dv, column layout: G runs backwards from dL/dS_T without S, since
-//        its recurrence needs only w, r and dy; dv_j sums over rows like y.
-//     2. dr, dk, dw, du and G_{-1}, "row" layout: thread (i, p) holds G[i][j]
-//        and S[i][j] for the D/P columns j = jj*P + p, so the sums over j
-//        finish with two shuffles.  dw_t needs S_{t-1} while G runs
-//        backwards.  S is not rebuilt by dividing by w_t (w = exp(-exp(lw))
-//        reaches 0 in float32): the CTA walks the CK-step segments from the
-//        last, recomputes each segment's CK states forward from the saved
-//        checkpoint into a scratch of CK * D * D floats per CTA (each thread
-//        writes and reads back only its own slice), then walks the segment
-//        backwards, prefetching the next state slice one step ahead.
+// Forward: one CTA owns one (b, h) and carries S in registers through a
+// loop over T, "column" layout: P = 4 threads per value column j, thread
+// (j, p) holding S[i][j] for the D/P rows i = ii*P + p.  Each step the P
+// threads of a column sum r_i (S_ij + u_i k_i v_j) over their rows and
+// finish with two shuffles; then S_ij <- w_i S_ij + k_i v_j.  Inputs are
+// staged in shared memory C = 16 steps at a time with float4 loads.  With a
+// checkpoint buffer, the state entering every CK = 64th step is written out
+// for the gradient.  At the training path's shape (BH 128, T 4096, D 64)
+// it does 4*BH*T*D^2 = 8.6e9 float32 operations (0.128 ms at 67 TFLOP/s)
+// on 0.68 GB of inputs and outputs (0.20 ms at 3.35 TB/s), so it is bound
+// by bytes on paper; in practice 128 CTAs walk T steps one after another
+// and the step's latency bounds it.
 //
-// Bound: the recurrence is serial in T, and each CTA does D*D*O(1) work per
-// step.  At the training path's shape (BH 128, T 4096, D 64) the forward
-// does 4*BH*T*D^2 = 8.6e9 float32 operations (0.128 ms at 67 TFLOP/s) on
-// 0.68 GB of inputs and outputs (0.20 ms at 3.35 TB/s), so it is bound by
-// bytes on paper; in practice one CTA per (b, h) walks T steps one
-// after another, and the step's latency (shared-memory loads, two shuffles,
-// a barrier every C steps) bounds it.  Splitting a column over P threads
-// puts 4x more warps on each SM than one thread per column; a chunked
-// (matrix) form of the recurrence on the tensor cores is later work.
+// Gradient: the state is separable.  Row i of S and of G evolves alone
+// (S_t[i,:] = w_ti S_{t-1}[i,:] + k_ti v_t, G likewise), and dr, dk, dw and
+// du of row i need only row i of S and G plus all of v and dy; column j of
+// G evolves alone too, and dv of column j needs only that column and the
+// per-step scalar sum_i u_i r_ti k_ti.  So the two kernels split the state
+// over rows and over columns, with no sum across CTAs, no atomics and no
+// state in device memory, on CTAs of up to 128 threads, the CTAs of one
+// (b, h) adjacent so they share their inputs in L2.  The P = D / 8 threads
+// of a row (column) are neighbouring lanes, each holding GR = 8 entries.
+//   1. wkv_dv_kernel, column split (BH * D / 32 CTAs at D 64): G runs
+//      backwards from dL/dS_T (its recurrence needs only w, r and dy).  Each
+//      thread holds 8 rows of two columns, since every row value it loads
+//      from shared memory then serves two columns: that load rate, not the
+//      FMAs, bounds this kernel.  sum_i u_i r_i k_i is one warp's dot
+//      product per step.
+//   2. wkv_drkw_kernel, row split (BH * D / 16 CTAs at D 64, at most 128
+//      registers a thread so four CTAs fit on an SM and the grid runs in
+//      one wave), also dL/dS_{-1}: dr and dw need S_{t-1}
+//      while G runs backwards, and S is not rebuilt by dividing by w_t
+//      (w = exp(-exp(lw)) reaches 0 in float32).  For each CK-step segment,
+//      from the last, a forward pass from the forward's saved state writes
+//      the state entering every LB = 8th step into shared memory; then each
+//      LB-step sub-segment, from the last, is recomputed from its state into
+//      registers and walked backwards.  The recomputation costs one more
+//      forward pass; the states never leave the SM.
+// Per step a thread's sums over its 8 entries are partial; each LB (dv: LV)
+// steps the P threads of a row (column) finish all of them at once with a
+// reduce-scatter by shuffles (each lane ends holding whole sums of a few
+// steps and writes those outputs), log2(P) rounds for 4 * LB sums instead
+// of log2(P) rounds per sum.  Inputs come in chunks of steps through
+// cp.async into two shared-memory buffers, the next chunk in flight while
+// the current one is computed.
+//
+// Bound: at the training path's shape the gradient does 12*BH*T*D^2 =
+// 2.6e10 float32 operations (0.385 ms at 67 TFLOP/s) on 1.21 GB of inputs
+// and outputs (0.36 ms), so it is bound by operations on paper.  The
+// sub-segment pass recomputes the states a second time (two more
+// operations per entry and step), and the shared-memory loads of each
+// step's inputs and the serial walk over T stand between it and the FMA
+// peak.  A chunked (matrix) form on the tensor cores is later work.
 //
 // Built by repro_torch/kernels/build.py with nvcc into a shared library with
 // a plain C interface, loaded with ctypes (repro_torch/kernels/rwkv6_wkv/
@@ -64,30 +85,14 @@
 
 namespace {
 
-constexpr int P = 4;    // threads per state column (forward, dv) or row
-constexpr int C = 16;   // time steps staged in shared memory at once
-constexpr int CK = 64;  // steps between saved states (a multiple of C)
+constexpr int P = 4;    // forward: threads per state column
+constexpr int C = 16;   // forward: time steps staged in shared memory at once
+constexpr int CK = 64;  // steps between saved states (a multiple of C and LB)
 
 __device__ __forceinline__ float group_sum(float x) {
   x += __shfl_xor_sync(0xffffffffu, x, 1);
   x += __shfl_xor_sync(0xffffffffu, x, 2);
   return x;
-}
-
-// a thread's slice of one recomputed state in the gradient's scratch
-template <int R>
-__device__ __forceinline__ void load_slice(float (&dst)[R], const float* scr, int step,
-                                           int nthreads) {
-  const float4* src =
-      reinterpret_cast<const float4*>(scr + ((size_t)step * nthreads + threadIdx.x) * R);
-#pragma unroll
-  for (int q = 0; q < R / 4; ++q) {
-    const float4 x = src[q];
-    dst[4 * q] = x.x;
-    dst[4 * q + 1] = x.y;
-    dst[4 * q + 2] = x.z;
-    dst[4 * q + 3] = x.w;
-  }
 }
 
 // steps [t0, t0 + n) of one (b, h) row block [T, D] into dst [C][D]
@@ -163,168 +168,413 @@ __global__ void __launch_bounds__(D * P)
   }
 }
 
+
 // ---------------------------------------------------------------------------
-// gradient 1: dv (column layout)
+// gradient: the state split over rows (drkw) and over columns (dv)
 // ---------------------------------------------------------------------------
 
+constexpr int GT = 128;  // threads per gradient CTA (fewer at D 16)
+constexpr int GR = 8;    // state entries per thread: one row's, or one column's
+constexpr int LB = 8;    // drkw: steps per sub-segment, whose states sit in registers
+constexpr int LV = 16;   // dv: steps per chunk
+constexpr int NSUB = CK / LB;
+
+// drkw's split: each thread holds GR = 8 columns of one row
 template <int D>
-__global__ void __launch_bounds__(D * P)
+struct Split {
+  static constexpr int P = D / GR;                        // threads per row
+  static constexpr int NB = GT / P < D ? GT / P : D;      // rows per CTA
+  static constexpr int NT = NB * P;                       // threads per CTA
+  static constexpr int CTAS = D / NB;                     // CTAs per (b, h)
+  // drkw: sub-segment states [NSUB][2][NT][4], then two chunk buffers of
+  // r, k, w [LB][NB], v, dy [LB][D] and v.dy [LB]
+  static constexpr int OFF_R = 0, OFF_K = LB * NB, OFF_W = 2 * LB * NB;
+  static constexpr int OFF_V = 3 * LB * NB, OFF_DY = OFF_V + LB * D;
+  static constexpr int OFF_VDY = OFF_DY + LB * D;
+  static constexpr int STAGE = OFF_VDY + LB;
+  static constexpr int SUBCK = NSUB * GR * NT;
+  static constexpr size_t DRKW_SMEM = (SUBCK + 2 * STAGE) * sizeof(float);
+  static_assert(P >= 2 && P <= 16 && (4 * LB) % P == 0 && STAGE % 4 == 0, "split");
+};
+
+__device__ __forceinline__ void cp16(float* dst, const float* src) {
+  const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(d), "l"(src) : "memory");
+}
+__device__ __forceinline__ void cp_commit() { asm volatile("cp.async.commit_group;\n" ::: "memory"); }
+__device__ __forceinline__ void cp_wait_prev() {
+  asm volatile("cp.async.wait_group 1;\n" ::: "memory");
+}
+
+// columns [col0, col0 + W) of steps [t0, t0 + n) of a [T, D] block into
+// dst [n][W], by cp.async in 16-byte pieces
+template <int D, int NT>
+__device__ __forceinline__ void stage_async(float* dst, const float* src, int t0, int n,
+                                            int col0, int W) {
+  const int per = W / 4;
+  for (int x = threadIdx.x; x < n * per; x += NT) {
+    const int s = x / per, q = x % per;
+    cp16(dst + s * W + 4 * q, src + (size_t)(t0 + s) * D + col0 + 4 * q);
+  }
+}
+
+// Reduce-scatter over the groups of (initial) 2*S neighbouring lanes: on
+// entry each lane holds partial sums x[0, N); on exit lane g of its group
+// holds the group's whole sums of entries [g * N / (2S), (g + 1) * N / (2S))
+// in x[0, N / (2S)).  Each round a lane keeps one half, sends the other,
+// and adds what its partner sent: a fixed order, so the result is
+// deterministic.
+template <int N, int n, int s>
+__device__ __forceinline__ void reduce_scatter(float (&x)[N], int g) {
+  if constexpr (s > 0) {
+    const bool up = (g & s) != 0;
+#pragma unroll
+    for (int q = 0; q < n / 2; ++q) {
+      const float send = up ? x[q] : x[q + n / 2];
+      const float keep = up ? x[q + n / 2] : x[q];
+      x[q] = keep + __shfl_xor_sync(0xffffffffu, send, s);
+    }
+    reduce_scatter<N, n / 2, s / 2>(x, g);
+  }
+}
+
+// a thread's 8 entries: e in [0, 8) -> index (e / 4) * 4P + 4g + e % 4
+template <int PP>
+__device__ __forceinline__ int entry(int e, int g) {
+  return (e / 4) * 4 * PP + 4 * g + e % 4;
+}
+
+template <int PP>
+__device__ __forceinline__ void load8(float (&dst)[GR], const float* row, int g) {
+  const float4 a = *reinterpret_cast<const float4*>(row + 4 * g);
+  const float4 b = *reinterpret_cast<const float4*>(row + 4 * PP + 4 * g);
+  dst[0] = a.x; dst[1] = a.y; dst[2] = a.z; dst[3] = a.w;
+  dst[4] = b.x; dst[5] = b.y; dst[6] = b.z; dst[7] = b.w;
+}
+
+template <int PP>
+__device__ __forceinline__ void store8(float* row, const float (&src)[GR], int g) {
+  *reinterpret_cast<float4*>(row + 4 * g) = make_float4(src[0], src[1], src[2], src[3]);
+  *reinterpret_cast<float4*>(row + 4 * PP + 4 * g) = make_float4(src[4], src[5], src[6], src[7]);
+}
+
+// ---------------------------------------------------------------------------
+// gradient 1: dv, column split
+// ---------------------------------------------------------------------------
+
+// dv's split: each thread holds GR = 8 rows of CQ columns (two where the
+// block still fills a warp), so each row value loaded from shared memory
+// serves CQ columns: shared-memory bandwidth bounds this kernel.
+template <int D>
+struct DvSplit {
+  static constexpr int P = D / GR;                       // threads per column group
+  static constexpr int CQ = D >= 32 ? 2 : 1;             // columns per thread
+  static constexpr int NC = GT / P < D / CQ ? GT / P : D / CQ;  // column groups per CTA
+  static constexpr int NT = NC * P;                      // threads per CTA
+  static constexpr int W = NC * CQ;                      // columns per CTA
+  static constexpr int CTAS = D / W;                     // CTAs per (b, h)
+  // two chunk buffers of r, k, w [LV][D], dy [LV][W], sum_i u_i r_i k_i [LV]
+  static constexpr int OFF_K = LV * D, OFF_W = 2 * LV * D, OFF_DY = 3 * LV * D;
+  static constexpr int OFF_RUK = OFF_DY + LV * W;
+  static constexpr int STAGE = OFF_RUK + LV;
+  static constexpr size_t SMEM = 2 * STAGE * sizeof(float);
+  static_assert(NT >= 32 && (LV * CQ) % P == 0 && STAGE % 4 == 0, "dv split");
+};
+
+template <int D>
+__global__ void __launch_bounds__(DvSplit<D>::NT)
     wkv_dv_kernel(const float* __restrict__ r, const float* __restrict__ k,
                   const float* __restrict__ w, const float* __restrict__ u,
                   const float* __restrict__ dy, const float* __restrict__ ds_out,
                   float* __restrict__ dv, int H, int T) {
-  constexpr int R = D / P;
-  __shared__ __align__(16) float sr[C * D];
-  __shared__ __align__(16) float sk[C * D];
-  __shared__ __align__(16) float sw[C * D];
-  __shared__ __align__(16) float sd[C * D];
-  const int bh = blockIdx.x;
+  using SP = DvSplit<D>;
+  constexpr int PP = SP::P, CQ = SP::CQ, NC = SP::NC, NT = SP::NT, W = SP::W;
+  extern __shared__ float4 smem4[];
+  float* sm = reinterpret_cast<float*>(smem4);
+  const int bh = blockIdx.x / SP::CTAS, col0 = (blockIdx.x % SP::CTAS) * W;
   const int h = bh % H;
-  const int j = threadIdx.x / P, p = threadIdx.x % P;
+  const int g = threadIdx.x % PP, cg = threadIdx.x / PP;   // columns cg + c * NC
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
   const size_t base = (size_t)bh * T * D;
-  float G[R], uu[R];
+  constexpr int UL = (D + 31) / 32;    // this lane's entries of u, for sum_i u_i r_i k_i
+  float ul[UL];
 #pragma unroll
-  for (int ii = 0; ii < R; ++ii) {
-    const int i = ii * P + p;
-    uu[ii] = u[h * D + i];
-    G[ii] = ds_out ? ds_out[(size_t)bh * D * D + i * D + j] : 0.f;
-  }
-  for (int t0 = ((T - 1) / C) * C; t0 >= 0; t0 -= C) {
-    const int n = min(C, T - t0);
-    __syncthreads();
-    stage<D>(sr, r + base, t0, n);
-    stage<D>(sk, k + base, t0, n);
-    stage<D>(sw, w + base, t0, n);
-    stage<D>(sd, dy + base, t0, n);
-    __syncthreads();
-    for (int s = n - 1; s >= 0; --s) {
-      const float* rs = sr + s * D;
-      const float* ks = sk + s * D;
-      const float* ws = sw + s * D;
-      const float dyj = sd[s * D + j];
-      float gk = 0.f, ruk = 0.f;
+  for (int a = 0; a < UL; ++a) ul[a] = lane + 32 * a < D ? u[h * D + lane + 32 * a] : 0.f;
+  float G[CQ][GR];
 #pragma unroll
-      for (int ii = 0; ii < R; ++ii) {
-        const int i = ii * P + p;
-        gk = fmaf(G[ii], ks[i], gk);
-        ruk = fmaf(uu[ii] * rs[i], ks[i], ruk);
-        G[ii] = fmaf(ws[i], G[ii], rs[i] * dyj);
-      }
-      gk = group_sum(gk);
-      ruk = group_sum(ruk);
-      if (p == 0) dv[base + (size_t)(t0 + s) * D + j] = fmaf(ruk, dyj, gk);
+  for (int c = 0; c < CQ; ++c)
+#pragma unroll
+    for (int e = 0; e < GR; ++e)
+      G[c][e] = ds_out ? ds_out[(size_t)bh * D * D + (size_t)entry<PP>(e, g) * D + col0 +
+                                cg + c * NC]
+                       : 0.f;
+
+  const int nq = (T + LV - 1) / LV;   // chunks, walked from the last
+  auto prefetch = [&](int q) {
+    if (q < nq) {
+      float* st = sm + (q & 1) * SP::STAGE;
+      const int t0 = (nq - 1 - q) * LV, n = min(LV, T - t0);
+      stage_async<D, NT>(st, r + base, t0, n, 0, D);
+      stage_async<D, NT>(st + SP::OFF_K, k + base, t0, n, 0, D);
+      stage_async<D, NT>(st + SP::OFF_W, w + base, t0, n, 0, D);
+      stage_async<D, NT>(st + SP::OFF_DY, dy + base, t0, n, col0, W);
     }
+    cp_commit();
+  };
+  prefetch(0);
+  for (int q = 0; q < nq; ++q) {
+    prefetch(q + 1);
+    cp_wait_prev();
+    __syncthreads();
+    float* st = sm + (q & 1) * SP::STAGE;
+    const int t0 = (nq - 1 - q) * LV, n = min(LV, T - t0);
+    // sum_i u_i r_i k_i of each step, one warp per step
+    for (int s = warp; s < n; s += NT / 32) {
+      float a = 0.f;
+#pragma unroll
+      for (int b = 0; b < UL; ++b)
+        if (lane + 32 * b < D)
+          a = fmaf(ul[b] * st[s * D + lane + 32 * b], st[SP::OFF_K + s * D + lane + 32 * b], a);
+#pragma unroll
+      for (int o = 16; o > 0; o >>= 1) a += __shfl_xor_sync(0xffffffffu, a, o);
+      if (lane == 0) st[SP::OFF_RUK + s] = a;
+    }
+    __syncthreads();
+    // per step, partial sums over this thread's 8 rows of G^T k, per column
+    float x[LV * CQ];
+#pragma unroll
+    for (int s = LV - 1; s >= 0; --s) {
+      float gk[CQ];
+#pragma unroll
+      for (int c = 0; c < CQ; ++c) gk[c] = 0.f;
+      if (s < n) {
+        float rr[GR], kk[GR], ww[GR];
+        load8<PP>(rr, st + s * D, g);
+        load8<PP>(kk, st + SP::OFF_K + s * D, g);
+        load8<PP>(ww, st + SP::OFF_W + s * D, g);
+#pragma unroll
+        for (int c = 0; c < CQ; ++c) {
+          const float dyj = st[SP::OFF_DY + s * W + cg + c * NC];
+#pragma unroll
+          for (int e = 0; e < GR; ++e) {
+            gk[c] = fmaf(G[c][e], kk[e], gk[c]);
+            G[c][e] = fmaf(ww[e], G[c][e], rr[e] * dyj);
+          }
+        }
+      }
+#pragma unroll
+      for (int c = 0; c < CQ; ++c) x[s * CQ + c] = gk[c];
+    }
+    reduce_scatter<LV * CQ, LV * CQ, PP / 2>(x, g);
+    constexpr int PER = LV * CQ / PP;  // whole sums per lane
+#pragma unroll
+    for (int e = 0; e < PER; ++e) {
+      const int idx = g * PER + e, s = idx / CQ, c = idx % CQ;
+      if (s < n)
+        dv[base + (size_t)(t0 + s) * D + col0 + cg + c * NC] =
+            fmaf(st[SP::OFF_RUK + s], st[SP::OFF_DY + s * W + cg + c * NC], x[e]);
+    }
+    __syncthreads();   // before the next prefetch refills this buffer
   }
 }
 
 // ---------------------------------------------------------------------------
-// gradient 2: dr, dk, dw, du, dS_{-1} (row layout)
+// gradient 2: dr, dk, dw, du, dS_{-1}, row split
 // ---------------------------------------------------------------------------
 
+struct Chunk {
+  int c, b, nsub, t0, n;
+  bool back;
+};
+
+// The q-th chunk of a CTA's walk: segments from the last; in each, its
+// sub-segments forward (the states pass), then backward.
+__device__ __forceinline__ Chunk chunk_of(int q, int T, int nck, int last_nsub) {
+  int c, rr, nsub;
+  if (q < 2 * last_nsub) {
+    c = nck - 1;
+    rr = q;
+    nsub = last_nsub;
+  } else {
+    const int q2 = q - 2 * last_nsub;
+    c = nck - 2 - q2 / (2 * NSUB);
+    rr = q2 % (2 * NSUB);
+    nsub = NSUB;
+  }
+  Chunk x;
+  x.c = c;
+  x.nsub = nsub;
+  x.back = rr >= nsub;
+  x.b = x.back ? 2 * nsub - 1 - rr : rr;
+  x.t0 = c * CK + x.b * LB;
+  x.n = min(LB, T - x.t0);
+  return x;
+}
+
 template <int D>
-__global__ void __launch_bounds__(D * P)
+__global__ void __launch_bounds__(Split<D>::NT, 4)
     wkv_drkw_kernel(const float* __restrict__ r, const float* __restrict__ k,
                     const float* __restrict__ v, const float* __restrict__ w,
                     const float* __restrict__ u, const float* __restrict__ dy,
                     const float* __restrict__ ckpt, const float* __restrict__ ds_out,
-                    float* scratch, float* __restrict__ dr, float* __restrict__ dk,
+                    float* __restrict__ dr, float* __restrict__ dk,
                     float* __restrict__ dw, float* __restrict__ du_part,
                     float* __restrict__ ds0, int H, int T) {
-  constexpr int R = D / P;
-  __shared__ __align__(16) float sr[C * D];
-  __shared__ __align__(16) float sk[C * D];
-  __shared__ __align__(16) float sv[C * D];
-  __shared__ __align__(16) float sw[C * D];
-  __shared__ __align__(16) float sd[C * D];
-  const int bh = blockIdx.x;
+  using SP = Split<D>;
+  constexpr int PP = SP::P, NB = SP::NB, NT = SP::NT;
+  extern __shared__ float4 smem4[];
+  float* sm = reinterpret_cast<float*>(smem4);
+  float* subck = sm;                  // [NSUB][2][NT][4]
+  const int bh = blockIdx.x / SP::CTAS, row0 = (blockIdx.x % SP::CTAS) * NB;
   const int h = bh % H;
-  const int i = threadIdx.x / P, p = threadIdx.x % P;
+  const int g = threadIdx.x % PP, il = threadIdx.x / PP, i = row0 + il;
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
   const size_t base = (size_t)bh * T * D;
   const size_t sbase = (size_t)bh * D * D;
   const int nck = (T + CK - 1) / CK;
-  // this thread's slice of each of the CK recomputed states: R floats at
-  // (step * D * P + threadIdx.x) * R
-  float* scr = scratch + (size_t)bh * CK * D * D;
+  const int last_nsub = (T - (nck - 1) * CK + LB - 1) / LB;
+  const int nq = 2 * last_nsub + 2 * NSUB * (nck - 1);
   const float ui = u[h * D + i];
-  float G[R], S[R], Sp[R], Sn[R];
+  float G[GR];
+  if (ds_out) {
+    load8<PP>(G, ds_out + sbase + (size_t)i * D, g);
+  } else {
 #pragma unroll
-  for (int jj = 0; jj < R; ++jj) G[jj] = ds_out ? ds_out[sbase + i * D + jj * P + p] : 0.f;
+    for (int e = 0; e < GR; ++e) G[e] = 0.f;
+  }
   float du_acc = 0.f;
 
-  for (int c = nck - 1; c >= 0; --c) {
-    const int c0 = c * CK;
-    const int cn = min(CK, T - c0);
-    // (a) the segment's states S_{t-1}, forward from its checkpoint
-    const float* ck = ckpt + ((size_t)bh * nck + c) * D * D;
-#pragma unroll
-    for (int jj = 0; jj < R; ++jj) S[jj] = ck[i * D + jj * P + p];
-    for (int t0 = c0; t0 < c0 + cn; t0 += C) {
-      const int n = min(C, c0 + cn - t0);
-      __syncthreads();
-      stage<D>(sk, k + base, t0, n);
-      stage<D>(sv, v + base, t0, n);
-      stage<D>(sw, w + base, t0, n);
-      __syncthreads();
-      for (int s = 0; s < n; ++s) {
-        float4* dst = reinterpret_cast<float4*>(
-            scr + ((size_t)(t0 - c0 + s) * D * P + threadIdx.x) * R);
-#pragma unroll
-        for (int q = 0; q < R / 4; ++q)
-          dst[q] = make_float4(S[4 * q], S[4 * q + 1], S[4 * q + 2], S[4 * q + 3]);
-        const float ki = sk[s * D + i], wi = sw[s * D + i];
-#pragma unroll
-        for (int jj = 0; jj < R; ++jj) S[jj] = fmaf(wi, S[jj], ki * sv[s * D + jj * P + p]);
+  auto prefetch = [&](int q) {
+    if (q < nq) {
+      const Chunk x = chunk_of(q, T, nck, last_nsub);
+      float* st = sm + SP::SUBCK + (q & 1) * SP::STAGE;
+      stage_async<D, NT>(st + SP::OFF_K, k + base, x.t0, x.n, row0, NB);
+      stage_async<D, NT>(st + SP::OFF_W, w + base, x.t0, x.n, row0, NB);
+      stage_async<D, NT>(st + SP::OFF_V, v + base, x.t0, x.n, 0, D);
+      if (x.back) {
+        stage_async<D, NT>(st + SP::OFF_R, r + base, x.t0, x.n, row0, NB);
+        stage_async<D, NT>(st + SP::OFF_DY, dy + base, x.t0, x.n, 0, D);
       }
     }
-    // (b) the segment backwards
-    load_slice<R>(Sn, scr, cn - 1, D * P);
-    for (int t0 = c0 + ((cn - 1) / C) * C; t0 >= c0; t0 -= C) {
-      const int n = min(C, c0 + cn - t0);
-      __syncthreads();
-      stage<D>(sr, r + base, t0, n);
-      stage<D>(sk, k + base, t0, n);
-      stage<D>(sv, v + base, t0, n);
-      stage<D>(sw, w + base, t0, n);
-      stage<D>(sd, dy + base, t0, n);
-      __syncthreads();
-      for (int s = n - 1; s >= 0; --s) {
-        const int step = t0 - c0 + s;
+    cp_commit();
+  };
+  // this thread's slot of sub-segment state b: two float4 NT apart
+  auto sub_slot = [&](int b) { return subck + ((size_t)b * 2 * NT + threadIdx.x) * 4; };
+  auto put_slot = [&](float* slot, const float (&a)[GR]) {
+    *reinterpret_cast<float4*>(slot) = make_float4(a[0], a[1], a[2], a[3]);
+    *reinterpret_cast<float4*>(slot + 4 * NT) = make_float4(a[4], a[5], a[6], a[7]);
+  };
+  auto get_slot = [&](float (&a)[GR], const float* slot) {
+    const float4 p = *reinterpret_cast<const float4*>(slot);
+    const float4 q = *reinterpret_cast<const float4*>(slot + 4 * NT);
+    a[0] = p.x; a[1] = p.y; a[2] = p.z; a[3] = p.w;
+    a[4] = q.x; a[5] = q.y; a[6] = q.z; a[7] = q.w;
+  };
+
+  prefetch(0);
+  for (int q = 0; q < nq; ++q) {
+    prefetch(q + 1);
+    cp_wait_prev();
+    __syncthreads();
+    const Chunk x = chunk_of(q, T, nck, last_nsub);
+    float* st = sm + SP::SUBCK + (q & 1) * SP::STAGE;
+    const float* sk = st + SP::OFF_K + il;
+    const float* sw = st + SP::OFF_W + il;
+    if (!x.back) {
+      // the states pass: the state entering each sub-segment, into shared
+      // memory (each thread reads back only what it wrote)
+      float S[GR];
+      if (x.b == 0) {
+        load8<PP>(S, ckpt + ((size_t)bh * nck + x.c) * D * D + (size_t)i * D, g);
+        put_slot(sub_slot(0), S);
+      } else {
+        get_slot(S, sub_slot(x.b));
+      }
 #pragma unroll
-        for (int jj = 0; jj < R; ++jj) Sp[jj] = Sn[jj];
-        if (step > 0) load_slice<R>(Sn, scr, step - 1, D * P);
-        const float ri = sr[s * D + i], ki = sk[s * D + i], wi = sw[s * D + i];
-        const float* vs = sv + s * D;
-        const float* ds = sd + s * D;
-        float dyS = 0.f, Gv = 0.f, GS = 0.f, vdy = 0.f;
+      for (int s = 0; s < LB; ++s) {
+        if (s < x.n) {
+          float vv[GR];
+          load8<PP>(vv, st + SP::OFF_V + s * D, g);
+          const float ki = sk[s * NB], wi = sw[s * NB];
 #pragma unroll
-        for (int jj = 0; jj < R; ++jj) {
-          const int j = jj * P + p;
-          const float vj = vs[j], dyj = ds[j];
-          dyS = fmaf(dyj, Sp[jj], dyS);
-          Gv = fmaf(G[jj], vj, Gv);
-          GS = fmaf(G[jj], Sp[jj], GS);
-          vdy = fmaf(vj, dyj, vdy);
-          G[jj] = fmaf(wi, G[jj], ri * dyj);
+          for (int e = 0; e < GR; ++e) S[e] = fmaf(wi, S[e], ki * vv[e]);
         }
-        dyS = group_sum(dyS);
-        Gv = group_sum(Gv);
-        GS = group_sum(GS);
-        vdy = group_sum(vdy);
-        du_acc = fmaf(ri * ki, vdy, du_acc);
-        if (p == 0) {
-          const size_t o = base + (size_t)(t0 + s) * D + i;
-          dr[o] = fmaf(ui * ki, vdy, dyS);
-          dk[o] = fmaf(ui * ri, vdy, Gv);
-          dw[o] = GS;
+      }
+      if (x.b + 1 < x.nsub) put_slot(sub_slot(x.b + 1), S);
+    } else {
+      // v . dy of each step of the chunk, one warp per step
+      for (int s = warp; s < x.n; s += NT / 32) {
+        float a = 0.f;
+        for (int jj = lane; jj < D; jj += 32)
+          a = fmaf(st[SP::OFF_V + s * D + jj], st[SP::OFF_DY + s * D + jj], a);
+#pragma unroll
+        for (int o = 16; o > 0; o >>= 1) a += __shfl_xor_sync(0xffffffffu, a, o);
+        if (lane == 0) st[SP::OFF_VDY + s] = a;
+      }
+      __syncthreads();
+      // the sub-segment's states S_{t-1}, recomputed into registers
+      float Ss[LB][GR];
+      get_slot(Ss[0], sub_slot(x.b));
+#pragma unroll
+      for (int s = 0; s + 1 < LB; ++s) {
+        if (s + 1 < x.n) {
+          float vv[GR];
+          load8<PP>(vv, st + SP::OFF_V + s * D, g);
+          const float ki = sk[s * NB], wi = sw[s * NB];
+#pragma unroll
+          for (int e = 0; e < GR; ++e) Ss[s + 1][e] = fmaf(wi, Ss[s][e], ki * vv[e]);
+        }
+      }
+      // backwards through the sub-segment; per step partial sums over this
+      // thread's 8 columns of dy.S, G.v and G.S
+      float xs[4 * LB];
+#pragma unroll
+      for (int s = LB - 1; s >= 0; --s) {
+        float dyS = 0.f, Gv = 0.f, GS = 0.f;
+        if (s < x.n) {
+          float vv[GR], dd[GR];
+          load8<PP>(vv, st + SP::OFF_V + s * D, g);
+          load8<PP>(dd, st + SP::OFF_DY + s * D, g);
+          const float ri = st[SP::OFF_R + s * NB + il], wi = sw[s * NB];
+#pragma unroll
+          for (int e = 0; e < GR; ++e) {
+            dyS = fmaf(dd[e], Ss[s][e], dyS);
+            Gv = fmaf(G[e], vv[e], Gv);
+            GS = fmaf(G[e], Ss[s][e], GS);
+            G[e] = fmaf(wi, G[e], ri * dd[e]);
+          }
+        }
+        xs[4 * s] = dyS;
+        xs[4 * s + 1] = Gv;
+        xs[4 * s + 2] = GS;
+        xs[4 * s + 3] = 0.f;
+      }
+      reduce_scatter<4 * LB, 4 * LB, PP / 2>(xs, g);
+      constexpr int PER = 4 * LB / PP;   // whole sums per lane
+#pragma unroll
+      for (int e = 0; e < PER; ++e) {
+        const int idx = g * PER + e, s = idx / 4, kind = idx % 4;
+        if (s < x.n && kind < 3) {
+          const size_t o = base + (size_t)(x.t0 + s) * D + i;
+          const float ri = st[SP::OFF_R + s * NB + il], ki = sk[s * NB];
+          const float vdy = st[SP::OFF_VDY + s];
+          if (kind == 0) {
+            dr[o] = fmaf(ui * ki, vdy, xs[e]);
+            du_acc = fmaf(ri * ki, vdy, du_acc);
+          } else if (kind == 1) {
+            dk[o] = fmaf(ui * ri, vdy, xs[e]);
+          } else {
+            dw[o] = xs[e];
+          }
         }
       }
     }
+    __syncthreads();   // before the next prefetch refills this buffer
   }
-  if (p == 0) du_part[(size_t)bh * D + i] = du_acc;
-  if (ds0 != nullptr) {
 #pragma unroll
-    for (int jj = 0; jj < R; ++jj) ds0[sbase + i * D + jj * P + p] = G[jj];
-  }
+  for (int o = PP / 2; o > 0; o >>= 1) du_acc += __shfl_xor_sync(0xffffffffu, du_acc, o);
+  if (g == 0) du_part[(size_t)bh * D + i] = du_acc;
+  if (ds0 != nullptr) store8<PP>(ds0 + sbase + (size_t)i * D, G, g);
 }
 
 template <int D>
@@ -338,14 +588,22 @@ cudaError_t forward(const float* r, const float* k, const float* v, const float*
 template <int D>
 cudaError_t backward(const float* r, const float* k, const float* v, const float* w,
                      const float* u, const float* dy, const float* ckpt,
-                     const float* ds_out, float* scratch, float* dr, float* dk, float* dv,
-                     float* dw, float* du_part, float* ds0, int BH, int H, int T,
-                     cudaStream_t st) {
-  wkv_dv_kernel<D><<<BH, D * P, 0, st>>>(r, k, w, u, dy, ds_out, dv, H, T);
-  cudaError_t e = cudaGetLastError();
+                     const float* ds_out, float* dr, float* dk, float* dv, float* dw,
+                     float* du_part, float* ds0, int BH, int H, int T, cudaStream_t st) {
+  using SP = Split<D>;
+  using DP = DvSplit<D>;
+  cudaError_t e = cudaFuncSetAttribute(wkv_dv_kernel<D>,
+                                       cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                       (int)DP::SMEM);
   if (e != cudaSuccess) return e;
-  wkv_drkw_kernel<D><<<BH, D * P, 0, st>>>(r, k, v, w, u, dy, ckpt, ds_out, scratch, dr,
-                                           dk, dw, du_part, ds0, H, T);
+  e = cudaFuncSetAttribute(wkv_drkw_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                           (int)SP::DRKW_SMEM);
+  if (e != cudaSuccess) return e;
+  wkv_dv_kernel<D><<<BH * DP::CTAS, DP::NT, DP::SMEM, st>>>(r, k, w, u, dy, ds_out, dv, H, T);
+  e = cudaGetLastError();
+  if (e != cudaSuccess) return e;
+  wkv_drkw_kernel<D><<<BH * SP::CTAS, SP::NT, SP::DRKW_SMEM, st>>>(
+      r, k, v, w, u, dy, ckpt, ds_out, dr, dk, dw, du_part, ds0, H, T);
   return cudaGetLastError();
 }
 
@@ -374,17 +632,17 @@ extern "C" int wkv_forward(const void* r, const void* k, const void* v, const vo
 }
 
 // ckpt is the forward's; ds_out (the final state's gradient) and ds0 (the
-// initial state's) may be null.  scratch holds BH * 64 * D * D floats,
-// du_part BH * D.
+// initial state's) may be null.  du_part holds BH * D floats.  Every
+// pointer is 16-byte aligned.
 extern "C" int wkv_backward(const void* r, const void* k, const void* v, const void* w,
                             const void* u, const void* dy, const void* ckpt,
-                            const void* ds_out, void* scratch, void* dr, void* dk, void* dv,
-                            void* dw, void* du_part, void* ds0, int BH, int H, int T, int D,
+                            const void* ds_out, void* dr, void* dk, void* dv, void* dw,
+                            void* du_part, void* ds0, int BH, int H, int T, int D,
                             void* stream) {
   if (bad_shape(BH, H, T) || ckpt == nullptr) return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-#define B_ARGS F(r), F(k), F(v), F(w), F(u), F(dy), F(ckpt), F(ds_out), M(scratch), M(dr), \
-               M(dk), M(dv), M(dw), M(du_part), M(ds0), BH, H, T, s
+#define B_ARGS F(r), F(k), F(v), F(w), F(u), F(dy), F(ckpt), F(ds_out), M(dr), M(dk), \
+               M(dv), M(dw), M(du_part), M(ds0), BH, H, T, s
   switch (D) {
     case 16: return (int)backward<16>(B_ARGS);
     case 32: return (int)backward<32>(B_ARGS);

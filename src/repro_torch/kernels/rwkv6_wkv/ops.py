@@ -14,7 +14,8 @@ launches the gradient kernels.  It raises for tensors that are not on a
 CUDA device.  The kernels take float32, contiguous tensors with D in
 `HEAD_DIMS`.  `launches` counts the kernel calls: "wkv_forward" one per
 forward, "wkv_backward" one per gradient (a call launches two CUDA kernels:
-dv, then dr/dk/dw/du and the initial state's gradient).
+dv split over the state's columns, then dr/dk/dw/du and the initial state's
+gradient split over its rows; neither needs scratch in device memory).
 """
 from __future__ import annotations
 
@@ -42,7 +43,7 @@ def _lib():
         P, I = ctypes.c_void_p, ctypes.c_int
         lib.wkv_forward.argtypes = [P] * 9 + [I] * 4 + [P]
         lib.wkv_forward.restype = I
-        lib.wkv_backward.argtypes = [P] * 15 + [I] * 4 + [P]
+        lib.wkv_backward.argtypes = [P] * 14 + [I] * 4 + [P]
         lib.wkv_backward.restype = I
     return lib
 
@@ -89,6 +90,13 @@ def _raise_on(err: int, what: str) -> None:
         raise RuntimeError(f"{what}: CUDA error {err} at launch")
 
 
+def _aligned(t: torch.Tensor) -> torch.Tensor:
+    """t contiguous with 16-byte aligned storage (the kernels load float4s);
+    an incoming gradient can be a view at any offset."""
+    t = t.contiguous()
+    return t if t.data_ptr() % 16 == 0 else t.clone()
+
+
 def n_checkpoints(T: int) -> int:
     return -(-T // CHECKPOINT)
 
@@ -122,16 +130,16 @@ def backward_cuda(r, k, v, w, u, ckpt, dy, dstate=None, need_dstate0=False):
         if t is None and n == "dstate":
             continue
         if (t.dtype != torch.float32 or tuple(t.shape) != shape or t.device != dev
-                or not t.is_contiguous()):
+                or not t.is_contiguous() or t.data_ptr() % 16):
             raise ValueError(f"wkv_backward: {n} {t.dtype} {tuple(t.shape)} on "
-                             f"{t.device}, expected contiguous float32 {shape}")
+                             f"{t.device}, expected contiguous 16-byte aligned "
+                             f"float32 {shape}")
     dr, dk, dv, dw = (torch.empty_like(r) for _ in range(4))
     du_part = torch.empty((B, H, D), dtype=torch.float32, device=dev)
     ds0 = torch.empty((B, H, D, D), dtype=torch.float32, device=dev) if need_dstate0 else None
-    scratch = torch.empty((B * H, CHECKPOINT, D, D), dtype=torch.float32, device=dev)
     err = _lib().wkv_backward(r.data_ptr(), k.data_ptr(), v.data_ptr(), w.data_ptr(),
                               u.data_ptr(), dy.data_ptr(), ckpt.data_ptr(), _ptr(dstate),
-                              scratch.data_ptr(), dr.data_ptr(), dk.data_ptr(),
+                              dr.data_ptr(), dk.data_ptr(),
                               dv.data_ptr(), dw.data_ptr(), du_part.data_ptr(), _ptr(ds0),
                               B * H, H, T, D, _stream(dev))
     _raise_on(err, "wkv_backward")
@@ -156,8 +164,8 @@ class _WKV(torch.autograd.Function):
             dy = torch.zeros_like(r)
         need0 = ctx.needs_input_grad[5]
         dr, dk, dv, dw, du, ds0 = backward_cuda(
-            r, k, v, w, u, ckpt, dy.contiguous(),
-            None if dstate is None else dstate.contiguous(), need0)
+            r, k, v, w, u, ckpt, _aligned(dy), None if dstate is None else _aligned(dstate),
+            need0)
         return dr, dk, dv, dw, du, ds0, None
 
 

@@ -1,5 +1,9 @@
 """The CUDA kernels on the card: the F2 kernels held bit for bit against
-their plain PyTorch versions, the kernel-backed store held leaf for leaf
+their plain PyTorch versions (fused_write also on one key in every lane
+with wrapping RMW sums, all RMW on one key, Zipf 0.99, 1024 keys on one
+index slot, and B of 1, 77, 16384 and 20000, and two calls bit for bit
+equal),
+the kernel-backed store held leaf for leaf
 against the plain-engine store on the same op stream, and the
 paged-attention kernel held against its plain version within
 tests/test_kernels.py's tolerances (2e-5 in float32, 2e-2 in bfloat16), and
@@ -10,7 +14,8 @@ same bfloat16 inputs); the WKV forward and gradient kernels against the
 plain recurrence and autograd through it (the forward 2e-3 absolute and
 relative, the JAX package's tolerance; each gradient within 2e-3 of its
 largest magnitude, since dw sums D products of two accumulated states and
-its float32 rounding scales with them), and the legacy first-hop probe bit for bit.
+its float32 rounding scales with them; two gradient calls bit for bit
+equal), and the legacy first-hop probe bit for bit.
 
 These tests need a CUDA device and nvcc and skip without them.  They import
 neither JAX nor the JAX package, so they also run where only PyTorch is
@@ -118,6 +123,105 @@ def test_kernels_match_plain_versions(cuda, b):
                         ops.fused_write(*args, chain_max=CFG.chain_max)):
             assert torch.equal(x, y)
     assert ops.launches["fused_write"] == 2 * ops.WRITE_KERNELS_PER_CALL
+
+
+def _unmix32(h):
+    """Inverse of the store's slot hash: keys whose hash is chosen."""
+    x = np.asarray(h, np.uint64) & np.uint64(0xFFFFFFFF)
+    m = np.uint64(0xFFFFFFFF)
+    x ^= x >> np.uint64(16)
+    x = (x * np.uint64(pow(0x846CA68B, -1, 2**32))) & m
+    x ^= (x >> np.uint64(15)) ^ (x >> np.uint64(30))
+    x = (x * np.uint64(pow(0x7FEB352D, -1, 2**32))) & m
+    x ^= x >> np.uint64(16)
+    return x.astype(np.uint32).view(np.int32)
+
+
+def _write_batch(case, rng):
+    """(keys, ops) of one fused_write case: every lane one key with mixed
+    ops, every lane an RMW of one key, Zipf 0.99 over 3500 keys (the YCSB
+    skew), 1024 keys on one index slot eight times each, mixed batches of
+    1, 77 and 16384 lanes, and 20000 lanes of mostly distinct keys, whose
+    appends crowd the 512-slot index past the shared-memory sort (the
+    sort then runs in device memory)."""
+    from repro_torch.workload import Zipf
+    n = {"b1": 1, "b77": 77, "b16384": 16384, "b20000": 20000}.get(case, 8192)
+    mixed_ops = rng.choice([T.OP_READ, T.OP_UPSERT, T.OP_RMW, T.OP_DELETE], n)
+    if case == "one_hot_key":
+        hot_ops = rng.choice([T.OP_UPSERT, T.OP_RMW, T.OP_RMW, T.OP_DELETE], n)
+        hot_ops[-9:] = T.OP_RMW      # RMWs after the last set
+        return np.full(n, 1234), hot_ops
+    if case == "all_rmw_one_key":
+        return np.full(n, 77), np.full(n, T.OP_RMW)
+    if case == "zipf_099":
+        return Zipf(3500, 0.99).sample(rng, n), mixed_ops
+    if case == "all_colliding_slot":
+        E = CFG.hot_index_size
+        keys = _unmix32(np.uint64(7) + np.arange(n // 8, dtype=np.uint64) * np.uint64(E))
+        return (np.concatenate([keys] * 8),
+                rng.choice([T.OP_UPSERT, T.OP_RMW, T.OP_DELETE], n))
+    if case == "b20000":
+        return rng.integers(0, 1 << 20, n), mixed_ops
+    return rng.integers(0, 3500, n), mixed_ops
+
+
+WRITE_CASES = ["one_hot_key", "all_rmw_one_key", "zipf_099", "all_colliding_slot",
+               "b1", "b77", "b16384", "b20000"]
+
+
+@pytest.fixture(scope="module")
+def loaded(cuda):
+    kv = T.KV(CFG, device=cuda, compact_batch=128)
+    for k, o, v in _stream(1, 40):
+        kv.apply(k, o, v)
+    return kv
+
+
+def _write_args(kv, keys, ops_, rng, big_values):
+    st, hot, rc = kv.state, kv.state.hot, kv.state.rc
+    dev = kv.device
+    b = len(keys)
+    lo, hi = (-2**31, 2**31) if big_values else (0, 100)
+    vals = rng.integers(lo, hi, (b, CFG.value_width), dtype=np.int64).astype(np.int32)
+    if big_values:   # near +-2^31 (mostly +), so sums of a few wrap
+        near = vals % 97
+        vals = np.where(near < 12, -2**31 + near, 2**31 - 1 - near)
+    return (torch.as_tensor(np.asarray(keys, np.int32), device=dev),
+            torch.as_tensor(np.asarray(ops_, np.int32), device=dev),
+            torch.as_tensor(vals.astype(np.int32), device=dev), st.hot_index, hot.begin,
+            hybrid_log.head_addr(hot, CFG.hot_mem),
+            hybrid_log.read_only_addr(hot, CFG.hot_mem, CFG.hot_mutable_frac), hot.tail,
+            hot.key, hot.val, hot.prev, hot.meta, rc.key, rc.val, rc.prev, rc.meta)
+
+
+@pytest.mark.parametrize("case", WRITE_CASES)
+def test_fused_write_cases_match_plain_version(cuda, loaded, case):
+    rng = np.random.default_rng(WRITE_CASES.index(case))
+    keys, ops_ = _write_batch(case, rng)
+    args = _write_args(loaded, keys, ops_, rng, big_values=True)
+    ops.reset_launches()
+    got = ops.fused_write(*args, chain_max=CFG.chain_max)
+    want = ref.fused_write_body(*args, chain_max=CFG.chain_max)
+    torch.cuda.synchronize()
+    assert ops.launches["fused_write"] == ops.WRITE_KERNELS_PER_CALL
+    for n, (x, y) in enumerate(zip(want, got)):
+        assert x.dtype == y.dtype and torch.equal(x, y), (case, n)
+    if case in ("one_hot_key", "all_rmw_one_key"):
+        assert int(got[0].sum()) == 1      # one representative
+        # the RMWs after the last set sum beyond int32, so the kernel's must wrap
+        after = np.flatnonzero(np.asarray(ops_) != T.OP_RMW).max(initial=-1) + 1
+        assert int(args[2][after:, 0].to(torch.int64).sum()) > 2**31
+
+
+@pytest.mark.parametrize("case", ["one_hot_key", "zipf_099", "b16384"])
+def test_fused_write_is_deterministic(cuda, loaded, case):
+    rng = np.random.default_rng(100 + WRITE_CASES.index(case))
+    keys, ops_ = _write_batch(case, rng)
+    args = _write_args(loaded, keys, ops_, rng, big_values=True)
+    a = ops.fused_write(*args, chain_max=CFG.chain_max)
+    b = ops.fused_write(*args, chain_max=CFG.chain_max)
+    torch.cuda.synchronize()
+    assert all(torch.equal(x, y) for x, y in zip(a, b))
 
 
 # (B, Hkv, G, Dh, page, n_pool, max_pages, q dtype, pool dtype[, lengths]):
@@ -332,10 +436,12 @@ def test_flash_attention_wrapper_refuses(cuda):
 
 # (B, H, T, D, lowest decay, initial state): tests/test_kernels.py's shapes
 # (D 64 and 128), a decode step from a state, ragged T over a checkpoint
-# boundary with decays down to 1e-3, and the reduced configs' D 16
+# boundary with decays down to 1e-3, the reduced configs' D 16, D 128 from a
+# state over ragged segments, and D 32 at T 1
 WKV_SHAPES = [(2, 3, 256, 64, 0.8, False), (1, 2, 128, 64, 0.8, False),
               (2, 1, 64, 128, 0.8, True), (4, 8, 1, 64, 0.5, True),
-              (1, 2, 197, 32, 1e-3, True), (2, 4, 70, 16, 1e-3, False)]
+              (1, 2, 197, 32, 1e-3, True), (2, 4, 70, 16, 1e-3, False),
+              (1, 2, 197, 128, 1e-3, True), (3, 2, 1, 32, 0.5, True)]
 
 
 def _wkv_inputs(shape, dev, seed=0):
@@ -359,7 +465,8 @@ def _wkv_grad_close(got, want, name=""):
 
 
 @pytest.mark.parametrize("shape", WKV_SHAPES, ids=["kernels_a", "kernels_b", "d128",
-                                                   "decode", "small_w", "d16"])
+                                                   "decode", "small_w", "d16",
+                                                   "d128_t197", "d32_t1"])
 def test_wkv_matches_plain_version(cuda, shape):
     r, k, v, w, u, s0, dy, ds = _wkv_inputs(shape, cuda)
     wkv_ops.reset_launches()
@@ -383,6 +490,16 @@ def test_wkv_matches_plain_version(cuda, shape):
         plain = wkv_ref.wkv_backward_reference(r, k, v, w, u, dy, s0)
         _wkv_grad_close(d0, plain[5], "state")
         _wkv_close(y2, yr.detach())
+
+
+@pytest.mark.parametrize("shape", [WKV_SHAPES[0], WKV_SHAPES[6]], ids=["kernels_a", "d128_t197"])
+def test_wkv_gradient_is_deterministic(cuda, shape):
+    r, k, v, w, u, s0, dy, ds = _wkv_inputs(shape, cuda)
+    _, _, ckpt = wkv_ops.forward_cuda(r, k, v, w, u, s0, True, checkpoints=True)
+    a = wkv_ops.backward_cuda(r, k, v, w, u, ckpt, dy, ds, need_dstate0=True)
+    b = wkv_ops.backward_cuda(r, k, v, w, u, ckpt, dy, ds, need_dstate0=True)
+    torch.cuda.synchronize()
+    assert all(torch.equal(x, y) for x, y in zip(a, b))
 
 
 def test_wkv_wrapper_refuses(cuda):

@@ -179,13 +179,23 @@ def test_probe_target_mode_parity(cfgs, jstate, which):
 
 
 def _write_batches(jcfg):
-    """tests/test_write_engine.py's distributions at B lanes."""
+    """tests/test_write_engine.py's distributions at B lanes, then one key
+    in every lane (mixed ops, values near +-2^31 so its RMW sums wrap) and
+    a Zipf-0.99 batch over the keyspace the store holds (YCSB's skew)."""
     rng = np.random.default_rng(0)
 
-    def mk(keys, ops):
-        vals = rng.integers(0, 100, (B, jcfg.value_width)).astype(np.int32)
+    def mk(keys, ops, vals=None):
+        if vals is None:
+            vals = rng.integers(0, 100, (B, jcfg.value_width)).astype(np.int32)
         return (np.resize(np.asarray(keys, np.int32), B),
                 np.resize(np.asarray(ops, np.int32), B), vals)
+
+    near = rng.integers(0, 97, (B, jcfg.value_width))
+    wrap = np.where(near < 12, -2**31 + near, 2**31 - 1 - near).astype(np.int32)
+    hot_ops = rng.choice([OP_UPSERT, OP_RMW, OP_RMW, OP_RMW, OP_DELETE], B)
+    hot_ops[-9:] = OP_RMW        # RMWs after the last set
+    ranks = np.arange(1, 301, dtype=np.float64) ** -0.99
+    zipf = rng.choice(300, B, p=ranks / ranks.sum())
 
     collide = colliding_keys(jcfg.hot_index_size, 32)
     return {
@@ -201,12 +211,15 @@ def _write_batches(jcfg):
                                         OP_DELETE, OP_RMW], 13)),
         "pure_rmw_created": mk(np.concatenate([np.arange(0, 39), np.arange(9000, 9038)]),
                                np.full(B, OP_RMW)),
+        "one_hot_key": mk(np.full(B, 7), hot_ops, wrap),
+        "zipf_099": mk(zipf, rng.choice([OP_READ, OP_UPSERT, OP_RMW, OP_DELETE], B,
+                                        p=[.5, .2, .2, .1])),
     }
 
 
 @pytest.mark.parametrize("dist", ["uniform_mixed", "duplicate_keys",
                                   "all_colliding_slot", "rmw_after_delete",
-                                  "pure_rmw_created"])
+                                  "pure_rmw_created", "one_hot_key", "zipf_099"])
 def test_write_plan_parity(cfgs, jstate, dist):
     jcfg, tcfg = cfgs
     keys, ops, vals = _write_batches(jcfg)[dist]
@@ -232,8 +245,13 @@ def test_write_plan_parity(cfgs, jstate, dist):
     _assert_all_agree(jres, tres, dist)
     rep = np.asarray(jres["jnp"].rep)
     assert rep.sum() > 0
-    if dist == "duplicate_keys":
+    if dist in ("duplicate_keys", "zipf_099"):
         assert rep.sum() < B
+    if dist == "one_hot_key":
+        assert rep.sum() == 1
+        # the RMWs after the last set sum beyond int32, so the plans must wrap
+        last_set = np.flatnonzero(ops != OP_RMW).max()
+        assert int(vals[last_set + 1:, 0].astype(np.int64).sum()) > 2**31
 
 
 # --- the legacy first-hop probe (tests/test_kernels.py::test_f2_probe) -----

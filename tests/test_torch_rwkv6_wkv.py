@@ -6,7 +6,9 @@ state, at T = 1, and with decays down to 1e-3; the gradients of r, k, v, w
 and u (autograd through the port's plain version, and the plain reverse
 recurrence the gradient kernels run) against `jax.grad` of wkv_scan.  The
 stated tolerance is tests/test_kernels.py's 2e-3 (absolute and relative);
-the differences observed are float32 rounding, below 1e-4."""
+the differences observed are float32 rounding, below 1e-4.  Last, that the
+plain gradient splits over the state's rows and columns, as the gradient
+kernels' CTAs do."""
 import numpy as np
 import jax
 import jax.numpy as jnp
@@ -105,3 +107,67 @@ def test_wrappers_refuse_and_count_nothing_on_the_cpu():
     meta = r.to("meta")
     with pytest.raises(ValueError, match="no kernel for device"):
         ops.wkv(meta, meta, meta, meta, u.to("meta"))
+
+
+def _rows_alone(r, k, v, w, u, dy, s0, ds, rows):
+    """The reverse recurrence run on rows `rows` of S and G alone (all of v
+    and dy): (dr, dk, dw, du) of those rows and their initial-state rows."""
+    T = r.shape[2]
+    rr, kk, ww = (x[..., rows] for x in (r, k, w))
+    ur = u[:, rows]
+    S = s0[:, :, rows, :]
+    prev = []
+    for t in range(T):
+        prev.append(S)
+        S = ww[:, :, t, :, None] * S + kk[:, :, t, :, None] * v[:, :, t, None, :]
+    G = ds[:, :, rows, :].clone()
+    dr, dk, dw = (torch.empty_like(rr) for _ in range(3))
+    du = torch.zeros_like(rr[:, :, 0])
+    for t in reversed(range(T)):
+        vt, dyt = v[:, :, t], dy[:, :, t]
+        vdy = (vt * dyt).sum(-1, keepdim=True)
+        dr[:, :, t] = torch.einsum("bhij,bhj->bhi", prev[t], dyt) + ur * kk[:, :, t] * vdy
+        dk[:, :, t] = torch.einsum("bhij,bhj->bhi", G, vt) + ur * rr[:, :, t] * vdy
+        dw[:, :, t] = (G * prev[t]).sum(-1)
+        du += rr[:, :, t] * kk[:, :, t] * vdy
+        G = ww[:, :, t, :, None] * G + rr[:, :, t, :, None] * dyt[..., None, :]
+    return dr, dk, dw, du.sum(0), G
+
+
+def _columns_alone(r, k, w, u, dy, ds, cols):
+    """The reverse recurrence run on columns `cols` of G alone (all of r, k,
+    w): dv of those columns and their initial-state columns."""
+    T = r.shape[2]
+    G = ds[..., cols].clone()
+    dv = torch.empty_like(dy[..., cols])
+    for t in reversed(range(T)):
+        rt, kt, wt, dyt = r[:, :, t], k[:, :, t], w[:, :, t], dy[:, :, t, cols]
+        ruk = (u * rt * kt).sum(-1, keepdim=True)
+        dv[:, :, t] = torch.einsum("bhij,bhi->bhj", G, kt) + ruk * dyt
+        G = wt[..., :, None] * G + rt[..., :, None] * dyt[..., None, :]
+    return dv, G
+
+
+@pytest.mark.parametrize("T", [1, 70])
+@pytest.mark.parametrize("D", [16, 64])
+def test_plain_gradient_is_separable_over_rows_and_columns(D, T):
+    """What the gradient kernels rely on to split the state over CTAs: rows
+    of S and G evolve alone (dr, dk, dw, du of a block of rows need only
+    those rows, with all of v and dy), and columns of G evolve alone (dv of
+    a block of columns needs only those columns).  Each block, run alone,
+    equals the full plain gradient's rows (columns) within 1e-6."""
+    r, k, v, w, u, s0 = _t(*_inputs(2, 3, T, D, seed=D + T, w_lo=1e-3, state=True))
+    rng = np.random.default_rng(D * T)
+    dy, ds = _t(rng.standard_normal((2, 3, T, D)).astype(np.float32),
+                rng.standard_normal((2, 3, D, D)).astype(np.float32))
+    dr, dk, dv, dw, du, ds0 = ref.wkv_backward_reference(r, k, v, w, u, dy, s0, ds)
+    blk = D // 4
+    for b0 in range(0, D, blk):
+        sl = slice(b0, b0 + blk)
+        got = _rows_alone(r, k, v, w, u, dy, s0, ds, sl)
+        for a, want in zip(got, (dr[..., sl], dk[..., sl], dw[..., sl], du[:, sl],
+                                 ds0[:, :, sl, :])):
+            torch.testing.assert_close(a, want, atol=1e-6, rtol=1e-6)
+        gdv, gds0 = _columns_alone(r, k, w, u, dy, ds, sl)
+        torch.testing.assert_close(gdv, dv[..., sl], atol=1e-6, rtol=1e-6)
+        torch.testing.assert_close(gds0, ds0[..., sl], atol=1e-6, rtol=1e-6)

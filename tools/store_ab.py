@@ -1,0 +1,75 @@
+#!/usr/bin/env python3
+"""Run the F2 store's main path of one checkout of this repository.
+
+    python3 tools/store_ab.py [ROOT] [--log2-keys K] [--log2-ops N] [--out PATH]
+
+ROOT (default: this checkout) is a repository root whose `chip_smoke.py`
+has `main_path` and `profile_window` (every tree since the store was
+ported).  The script builds that tree's store kernels and runs its
+`main_path` at 2**K keys (default 24, as `chip_smoke.py` runs it): the load
+with its compactions, the two-phase read, the read-back and YCSB-A, -B and
+-F of about 2**N ops each, every read checked.  Then it runs that tree's
+`profile_window` over 8 YCSB-A batches.  It prints one JSON line: the card,
+load and read-back ops/s, YCSB ops/s per mix, the window's device-busy ms
+per batch and idle share, and the store kernels' device ms per batch.  To
+compare two trees, run it in turns on one card (A, B, B, A): each run is
+its own process, so the two trees' modules never meet.  Needs a CUDA
+device.
+"""
+from __future__ import annotations
+
+import argparse
+import json
+import os
+import subprocess
+import sys
+
+
+def main(argv=None):
+    p = argparse.ArgumentParser(description=__doc__.split("\n")[0])
+    p.add_argument("root", nargs="?",
+                   default=os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
+    p.add_argument("--log2-keys", type=int, default=24)
+    p.add_argument("--log2-ops", type=int, default=21)
+    p.add_argument("--out", default=None)
+    a = p.parse_args(argv)
+    root = os.path.abspath(a.root)
+    sys.path[:0] = [root, os.path.join(root, "src")]
+    import torch
+    if not torch.cuda.is_available():
+        print("store_ab: no CUDA device", file=sys.stderr)
+        return 1
+    import chip_smoke as cs
+    from repro_torch.kernels import build
+    from repro_torch.workload import make_f2_config
+
+    build.build_all(["fused_probe", "fused_write", "probe"])
+    n_keys = 1 << a.log2_keys
+    cfg = make_f2_config(n_keys, engine="fused")
+    kv, rec = cs.main_path(cfg, "cuda", n_keys, 1 << a.log2_ops, cs.SEED)
+    records = []
+    cs.profile_window(kv, n_keys, cs.SEED, records)
+    prof = records[-1]
+    batches = prof["batches"]
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True, text=True,
+                         timeout=60).stdout.strip().splitlines()[0]
+    out = dict(root=root, card=smi, n_keys=n_keys,
+               load_ops_per_s=rec["load_ops_per_s"],
+               readback_ops_per_s=rec["readback_ops_per_s"],
+               ycsb_ops_per_s=rec["ycsb_ops_per_s"],
+               window_wall_ms_per_batch=prof["wall_s"] / batches * 1e3,
+               device_busy_ms_per_batch=prof["device_busy_s"] / batches * 1e3,
+               device_idle_share=prof["device_idle_share"],
+               store_kernels_ms_per_batch={
+                   r["name"]: r["s"] / batches * 1e3 for r in prof["f2_kernels"]})
+    line = json.dumps(out)
+    print(line)
+    if a.out:
+        with open(a.out, "a") as f:
+            f.write(line + "\n")
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())
