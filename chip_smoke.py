@@ -26,9 +26,10 @@ Phases, each printing one JSON line:
                 scaled_dot_product_attention; then
                 the WKV forward and gradient against autograd through the
                 plain recurrence at RWKV-6's train shape (B*H 128, T 4096),
-                its decode shape (B*H 512, T 1, from a state) and edge cases
-                (y and state 2e-3 abs and rel; each gradient 2e-3 of its
-                largest reference magnitude; two gradient calls bit for bit
+                its decode shape (B*H 512, T 1, from a state), its prefill
+                shape (B*H 512, T 1024) and edge cases (y and state 2e-3 abs
+                and rel; each gradient 2e-3 of its largest reference
+                magnitude; two forward and two gradient calls bit for bit
                 equal), timed beside their bounds
                 (first, while the profiler is fresh and the card's memory
                 free);
@@ -50,6 +51,7 @@ Phases, each printing one JSON line:
                 uses (fused_write also on YCSB-A's Zipf-0.99 keys and on one
                 key in every lane with wrapping sums), timed with CUDA
                 events and the profiler (device ms per kernel of a call);
+                fused_probe also with its wrapper's host us per call;
                 the first-hop probe also against fused_probe's chain heads;
   6. profile  — a profiler window over 8 YCSB-A batches;
   7. twins    — the same op stream at 2**20 keys through engine="fused" and
@@ -398,7 +400,7 @@ def _time_ms(fn, reps):
     return start.elapsed_time(end) / reps
 
 
-KERNEL_FUNCTIONS = {"fused_probe": ("fused_probe_kernel",),
+KERNEL_FUNCTIONS = {"fused_probe": ("fused_probe_walk_kernel",),
                     "fused_write": ("write_clear_kernel", "write_group_kernel",
                                     "write_sum_kernel", "write_plan_kernel",
                                     "write_chain_kernel"),
@@ -411,8 +413,23 @@ KERNEL_FUNCTIONS = {"fused_probe": ("fused_probe_kernel",),
                     "flash_attention_bwd_simt": ("fa_rowdot_kernel", "fa_dkdv_kernel",
                                                  "fa_dq_kernel"),
                     "probe": ("first_hop_probe_kernel",),
-                    "wkv_forward": ("wkv_forward_kernel",),
+                    "wkv_forward": ("wkv_fwd_split_kernel",),
                     "wkv_backward": ("wkv_dv_kernel", "wkv_drkw_kernel")}
+
+
+def _host_us(fn, reps):
+    """Host microseconds per call: the wall time of `reps` calls issued back
+    to back, with no synchronisation inside the window (a kernel shorter
+    than its wrapper never makes the host wait)."""
+    import torch
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        fn()
+    t1 = time.perf_counter()
+    torch.cuda.synchronize()
+    return (t1 - t0) / reps * 1e6
 
 
 def _device_ms(fn, reps, names, parts=None):
@@ -633,6 +650,7 @@ def check_kernels(kv, n_keys, seed, records):
                 rec["device_ms_by_kernel"] = parts
                 rec["plain_ms"] = _time_ms(lambda: plain(*args, **kw), 3)
                 if kname == "fused_probe":
+                    rec["host_us"] = _host_us(lambda: kern(*args, **kw), 200)
                     b = probe_bound(args, kw, got)
                 else:
                     b = write_bound(args, got)
@@ -698,10 +716,12 @@ def check_probe_kernel(kv, n_keys, seed, records):
 
 
 # (name, B, H, T, D, lowest decay, initial state in and final state out):
-# the train phase's call, the serve phase's decode step, then
-# tests/test_kernels.py's shapes and edge cases
+# the train phase's call, the serve phase's decode step, rwkv_prefill's call
+# (`prefill_step`: no state in or out), then tests/test_kernels.py's shapes
+# and edge cases
 WKV_CASES = [("train", 2, 64, 4096, 64, 0.8, False),
              ("decode", 8, 64, 1, 64, 0.5, True),
+             ("prefill", 8, 64, 1024, 64, 0.8, False),
              ("kernels_0", 2, 3, 256, 64, 0.8, False),
              ("kernels_1", 1, 2, 128, 64, 0.8, False),
              ("kernels_2_d128", 2, 1, 64, 128, 0.8, True),
@@ -798,6 +818,9 @@ def check_wkv_kernels(device, seed, records):
             if not all(torch.equal(a, b) for a, b in zip(bwd()[:5], bwd()[:5])):
                 raise AssertionError(f"wkv_backward/{name}: two calls differ")
             rec["bwd_bit_equal_twice"] = True
+            if not all(a is b or torch.equal(a, b) for a, b in zip(fwd(), fwd())):
+                raise AssertionError(f"wkv_forward/{name}: two calls differ")
+            rec["fwd_bit_equal_twice"] = True
             reps = 3 if T >= 4096 else 20
             rec["fwd_ms"] = _time_ms(fwd, reps)
             rec["fwd_device_ms"] = _device_ms(lambda: (l2_flush.zero_(), fwd()), reps,

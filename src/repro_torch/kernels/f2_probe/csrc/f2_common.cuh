@@ -66,9 +66,12 @@ struct WalkOut {
   int addr;
   int hops;
   int ios;
+  int meta;   // the hit record's meta where a hop found it (0 otherwise)
 };
 
-// Bounded walk of one lane from `head`, searching addresses >= lower.
+// Bounded walk of one lane from `head`, searching addresses >= lower.  Each
+// hop issues its record's key, prev and meta loads together, on the
+// read-only path (no kernel writes the columns it walks).
 __device__ __forceinline__ WalkOut walk_lane(int key, int head, int lower,
                                              bool active, bool fast, int hb,
                                              const Columns& c, int chain_max,
@@ -76,27 +79,21 @@ __device__ __forceinline__ WalkOut walk_lane(int key, int head, int lower,
   int cur = head;
   bool done = fast;
   int faddr = fast ? head : kNullAddr;
-  int hops = 0, ios = 0;
+  int hops = 0, ios = 0, fmeta = 0;
   for (int it = 0; it < chain_max; ++it) {
     if (!(active && !done && in_range(cur, lower))) break;
     const bool cur_rc = is_rc(cur);
-    int k, p, m;
-    if (cur_rc && has_rc) {
-      const int r = rc_slot(cur, c.R);
-      k = c.rc_key[r];
-      p = c.rc_prev[r];
-      m = c.rc_meta[r];
-    } else {
-      const int l = log_slot(cur, c.C);
-      k = c.log_key[l];
-      p = c.log_prev[l];
-      m = c.log_meta[l];
-    }
+    const bool in_rc = cur_rc && has_rc;
+    const int x = in_rc ? rc_slot(cur, c.R) : log_slot(cur, c.C);
+    const int k = __ldg((in_rc ? c.rc_key : c.log_key) + x);
+    const int p = __ldg((in_rc ? c.rc_prev : c.log_prev) + x);
+    const int m = __ldg((in_rc ? c.rc_meta : c.log_meta) + x);
     const bool match = (m & kMetaInvalid) == 0 && k == key && (rc_match || !cur_rc);
     ios += (!cur_rc && cur < hb) ? 1 : 0;
     hops += 1;
     if (match) {
       faddr = cur;
+      fmeta = m;
       done = true;
     } else {
       cur = p;
@@ -108,19 +105,21 @@ __device__ __forceinline__ WalkOut walk_lane(int key, int head, int lower,
   o.addr = faddr;
   o.hops = hops;
   o.ios = ios;
+  o.meta = fmeta;
   return o;
 }
 
-// value row and meta of the record at a hit address (zeros when not found)
+// value row of the record at a hit address, and its meta where `meta` is
+// given
 __device__ __forceinline__ const int* hit_record(int faddr, bool has_rc,
                                                  const Columns& c, int* meta) {
   if (is_rc(faddr) && has_rc) {
     const int r = rc_slot(faddr, c.R);
-    *meta = c.rc_meta[r];
+    if (meta) *meta = c.rc_meta[r];
     return c.rc_val + static_cast<int64_t>(r) * c.V;
   }
   const int l = log_slot(faddr, c.C);
-  *meta = c.log_meta[l];
+  if (meta) *meta = c.log_meta[l];
   return c.log_val + static_cast<int64_t>(l) * c.V;
 }
 

@@ -10,20 +10,35 @@
 // What bounds it: every hop is a dependent random 4-byte gather (key, prev,
 // meta of one record) into a ring of up to millions of records, and each
 // costs a whole 32-byte sector.  Arithmetic is negligible, so the kernel is
-// bound by HBM latency and sectors moved, not by operations.
+// bound by HBM latency and sectors moved, not by operations: a call lasts as
+// long as its longest chain (absent keys walk theirs to the end).
 //
-// What the design does about it: one thread per lane, so the card keeps as
-// many independent chains in flight as the batch has lanes; each thread
-// stops as soon as its lane resolves (skewed batches resolve in a few hops),
-// and the columns stay in HBM at any store size (no VMEM budget).  The
-// ragged edge of the batch is masked in the kernel, so there is no padding.
+// What the design does about it:
+//   * one thread per lane, so the card keeps as many independent chains in
+//     flight as the batch has lanes; each thread stops as soon as its lane
+//     resolves, and the columns stay in HBM at any store size;
+//   * CTAs as small as lets the batch reach every SM (32 to 256 threads,
+//     from the SM count), so the chains' loads spread over every SM's
+//     load units instead of a quarter of them (B 8192: 128 CTAs of 64);
+//   * a hop's key, prev and meta loads go out together on the read-only
+//     path (f2::walk_lane), and the hit's meta comes from the hop that
+//     found it, so only the value row is loaded after the walk;
+//   * value rows are copied by warp: each lane posts its hit row's address
+//     (or none) in shared memory, then the warp copies its 32 rows into its
+//     contiguous [32, V] block of the output, consecutive lanes on
+//     consecutive words (coalesced loads within a row, coalesced stores),
+//     all 32 rows' loads in flight at once.
+// The ragged edge of the batch is masked in the kernel, so there is no
+// padding.
 #include <cuda_runtime.h>
 
 #include "f2_common.cuh"
 
 namespace {
 
-__global__ void fused_probe_kernel(
+constexpr int kMaxThreads = 256;
+
+__global__ void __launch_bounds__(kMaxThreads) fused_probe_walk_kernel(
     const int* __restrict__ keys, const int* __restrict__ heads_src,
     const int* __restrict__ lower, const unsigned char* __restrict__ active,
     const int* __restrict__ target, const int* __restrict__ head_boundary,
@@ -33,30 +48,71 @@ __global__ void fused_probe_kernel(
     int* __restrict__ val_out, int* __restrict__ meta_out,
     int* __restrict__ hops_out, int* __restrict__ ios_out,
     unsigned char* __restrict__ exh_out) {
+  __shared__ const int* hit_row[kMaxThreads];
+  const int lane = threadIdx.x & 31;
   const int i = blockIdx.x * blockDim.x + threadIdx.x;
-  if (i >= B) return;
-  const int key = keys[i];
-  const int head = probe_index ? heads_src[f2::mix32(key) & (E - 1)] : heads_src[i];
-  const bool act = active[i] != 0;
-  const bool fast = has_target && act && head == target[i];
-  const f2::WalkOut w = f2::walk_lane(key, head, lower[i], act, fast,
-                                      head_boundary[0], c, chain_max,
-                                      rc_match != 0, has_rc != 0);
-  int meta = 0;
-  int* vrow = val_out + static_cast<int64_t>(i) * c.V;
-  if (w.found) {
-    const int* src = f2::hit_record(w.addr, has_rc != 0, c, &meta);
-    for (int v = 0; v < c.V; ++v) vrow[v] = src[v];
-  } else {
-    for (int v = 0; v < c.V; ++v) vrow[v] = 0;
+  const int* row = nullptr;
+  if (i < B) {
+    const int key = keys[i];
+    const int head = probe_index ? __ldg(heads_src + (f2::mix32(key) & (E - 1)))
+                                 : heads_src[i];
+    const bool act = active[i] != 0;
+    const bool fast = has_target && act && head == target[i];
+    const f2::WalkOut w = f2::walk_lane(key, head, lower[i], act, fast,
+                                        head_boundary[0], c, chain_max,
+                                        rc_match != 0, has_rc != 0);
+    int meta = 0;
+    if (w.found) {
+      row = f2::hit_record(w.addr, has_rc != 0, c, fast ? &meta : nullptr);
+      if (!fast) meta = w.meta;
+    }
+    found_out[i] = w.found;
+    addr_out[i] = w.addr;
+    heads_out[i] = head;
+    meta_out[i] = meta;
+    hops_out[i] = w.hops;
+    ios_out[i] = w.ios;
+    exh_out[i] = w.exhausted;
   }
-  found_out[i] = w.found;
-  addr_out[i] = w.addr;
-  heads_out[i] = head;
-  meta_out[i] = meta;
-  hops_out[i] = w.hops;
-  ios_out[i] = w.ios;
-  exh_out[i] = w.exhausted;
+  hit_row[threadIdx.x] = row;
+  __syncwarp();
+  // the warp's rows [row0, row0 + n) of value, as one [n, V] block: lane c
+  // copies column c of all n rows, their loads in flight together
+  const int row0 = i - lane;
+  const int n = min(32, B - row0);
+  const int* const* rows = hit_row + (threadIdx.x - lane);
+  int* dst = val_out + static_cast<int64_t>(row0) * c.V;
+  for (int col = lane; col < c.V; col += 32) {
+    int x[32];
+#pragma unroll
+    for (int j = 0; j < 32; ++j) {
+      const int* src = j < n ? rows[j] : nullptr;
+      x[j] = src ? __ldg(src + col) : 0;
+    }
+#pragma unroll
+    for (int j = 0; j < 32; ++j)
+      if (j < n) dst[j * c.V + col] = x[j];
+  }
+}
+
+// the current device's SM count, asked once per device
+int sm_count() {
+  static int cached[64] = {};
+  int dev = 0;
+  if (cudaGetDevice(&dev) != cudaSuccess || dev < 0 || dev >= 64) return 132;
+  if (cached[dev] == 0) {
+    int n = 0;
+    cached[dev] = cudaDeviceGetAttribute(&n, cudaDevAttrMultiProcessorCount, dev) ==
+                              cudaSuccess && n > 0 ? n : 132;
+  }
+  return cached[dev];
+}
+
+// threads per CTA: the fewest warps (up to 8) with which B lanes fill every SM
+int threads_for(int B) {
+  const int sms = sm_count();
+  const int warps = (B + 32 * sms - 1) / (32 * sms);
+  return 32 * (warps < 1 ? 1 : warps > kMaxThreads / 32 ? kMaxThreads / 32 : warps);
 }
 
 }  // namespace
@@ -73,9 +129,9 @@ extern "C" int f2_fused_probe(
   if (B <= 0) return 0;
   f2::Columns c{log_key, log_val, log_prev, log_meta,
                 rc_key, rc_val, rc_prev, rc_meta, C, R, V};
-  constexpr int kThreads = 256;
-  const int blocks = (B + kThreads - 1) / kThreads;
-  fused_probe_kernel<<<blocks, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
+  const int threads = threads_for(B);
+  const int blocks = (B + threads - 1) / threads;
+  fused_probe_walk_kernel<<<blocks, threads, 0, static_cast<cudaStream_t>(stream)>>>(
       keys, heads_src, lower, active, target, head_boundary, c, B, E,
       chain_max, rc_match, has_rc, probe_index, has_target, found, addr,
       heads, value, meta, hops, ios, exhausted);

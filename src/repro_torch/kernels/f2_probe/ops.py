@@ -33,12 +33,16 @@ def reset_launches() -> None:
         launches[k] = 0
 
 
+_bound: Dict[str, object] = {}   # C function name -> its bound ctypes function
+
+
 def _bind(name: str, fn: str, n_ptr_in: int, n_int: int, n_ptr_out: int):
-    lib = build.load(name)
-    f = getattr(lib, fn)
-    if f.argtypes is None:
+    f = _bound.get(fn)
+    if f is None:
+        f = getattr(build.load(name), fn)
         f.argtypes = [_P] * n_ptr_in + [_I] * n_int + [_P] * n_ptr_out + [_P]
         f.restype = _I
+        _bound[fn] = f
     return f
 
 
@@ -56,6 +60,17 @@ def _check(name: str, t: torch.Tensor, dtype, shape, device) -> None:
 def _pow2(n: int, what: str) -> None:
     if n <= 0 or n & (n - 1):
         raise ValueError(f"{what}={n} must be a power of two")
+
+
+_raw_stream = getattr(torch._C, "_cuda_getCurrentRawStream", None)
+
+
+def _stream(dev) -> int:
+    """The current CUDA stream of `dev` as an int (the raw handle, without
+    building a `torch.cuda.Stream`, where this PyTorch has the call)."""
+    if _raw_stream is not None:
+        return _raw_stream(dev.index)
+    return torch.cuda.current_stream(dev).cuda_stream
 
 
 def _raise_on(err: int, what: str) -> None:
@@ -83,8 +98,7 @@ def probe_cuda(keys, index_addr):
     if B == 0:
         return addr, is_rc
     fn = _bind("probe", "f2_probe", 2, 2, 2)
-    err = fn(_ptr(keys), _ptr(index_addr), B, E, _ptr(addr), _ptr(is_rc),
-             torch.cuda.current_stream(dev).cuda_stream)
+    err = fn(_ptr(keys), _ptr(index_addr), B, E, _ptr(addr), _ptr(is_rc), _stream(dev))
     _raise_on(err, "probe")
     launches["probe"] += 1
     return addr, is_rc
@@ -101,31 +115,17 @@ def probe(keys, index_addr):
     return probe_cuda(keys, index_addr)
 
 
-def fused_probe(keys, heads_src, lower, active, head_boundary,
-                log_key, log_val, log_prev, log_meta,
-                rc_key, rc_val, rc_prev, rc_meta, *,
-                chain_max: int, rc_match: bool = True, has_rc: bool = True,
-                probe_index: bool = True, target=None):
-    """The fused probe over a key batch; arguments and results as in
-    `ref.fused_probe_body` (head_boundary a 0-d int32 tensor)."""
-    args = (keys, heads_src, lower, active, head_boundary,
-            log_key, log_val, log_prev, log_meta,
-            rc_key, rc_val, rc_prev, rc_meta)
-    kw = dict(chain_max=chain_max, rc_match=rc_match, has_rc=has_rc,
-              probe_index=probe_index, target=target)
+def _check_probe_inputs(keys, heads_src, lower, active, hb, cols, target,
+                        probe_index):
+    """fused_probe's input checks (device, dtype, shape, contiguity, powers
+    of two) against the device of `keys`; returns B, E, C, R, V."""
     dev = keys.device
-    if dev.type == "cpu":
-        return ref.fused_probe_body(*args, early_exit=True, **kw)
-    if dev.type != "cuda":
-        raise ValueError(f"fused_probe: no kernel for device {dev}")
-    B = keys.shape[0]
-    C, R = log_key.shape[0], rc_key.shape[0]
-    V = log_val.shape[1]
+    B, E = keys.shape[0], heads_src.shape[0]
+    C, R, V = cols[0].shape[0], cols[4].shape[0], cols[1].shape[-1]
     _pow2(C, "log capacity")
     _pow2(R, "read-cache capacity")
     i32 = torch.int32
     _check("keys", keys, i32, (B,), dev)
-    E = heads_src.shape[0]
     if probe_index:
         _pow2(E, "index size")
         _check("index", heads_src, i32, (E,), dev)
@@ -133,36 +133,53 @@ def fused_probe(keys, heads_src, lower, active, head_boundary,
         _check("heads", heads_src, i32, (B,), dev)
     _check("lower", lower, i32, (B,), dev)
     _check("active", active, torch.bool, (B,), dev)
-    _check("head_boundary", head_boundary.reshape(1), i32, (1,), dev)
+    _check("head_boundary", hb, i32, (1,), dev)
     if target is not None:
         _check("target", target, i32, (B,), dev)
-    for n, t, shp in (("log_key", log_key, (C,)), ("log_val", log_val, (C, V)),
-                      ("log_prev", log_prev, (C,)), ("log_meta", log_meta, (C,)),
-                      ("rc_key", rc_key, (R,)), ("rc_val", rc_val, (R, V)),
-                      ("rc_prev", rc_prev, (R,)), ("rc_meta", rc_meta, (R,))):
+    for n, t, shp in zip(("log_key", "log_val", "log_prev", "log_meta",
+                          "rc_key", "rc_val", "rc_prev", "rc_meta"), cols,
+                         ((C,), (C, V), (C,), (C,), (R,), (R, V), (R,), (R,))):
         _check(n, t, i32, shp, dev)
+    return B, E, C, R, V
 
-    found = torch.empty((B,), dtype=torch.bool, device=dev)
-    addr = torch.empty((B,), dtype=i32, device=dev)
-    heads = torch.empty((B,), dtype=i32, device=dev)
-    value = torch.empty((B, V), dtype=i32, device=dev)
-    meta = torch.empty((B,), dtype=i32, device=dev)
-    hops = torch.empty((B,), dtype=i32, device=dev)
-    ios = torch.empty((B,), dtype=i32, device=dev)
-    exhausted = torch.empty((B,), dtype=torch.bool, device=dev)
+
+def fused_probe(keys, heads_src, lower, active, head_boundary,
+                log_key, log_val, log_prev, log_meta,
+                rc_key, rc_val, rc_prev, rc_meta, *,
+                chain_max: int, rc_match: bool = True, has_rc: bool = True,
+                probe_index: bool = True, target=None):
+    """The fused probe over a key batch; arguments and results as in
+    `ref.fused_probe_body` (head_boundary a 0-d int32 tensor).  On a CUDA
+    device the int32 outputs are views of one allocation, and the two bool
+    outputs of another."""
+    dev = keys.device
+    if dev.type == "cpu":
+        return ref.fused_probe_body(
+            keys, heads_src, lower, active, head_boundary, log_key, log_val, log_prev,
+            log_meta, rc_key, rc_val, rc_prev, rc_meta, chain_max=chain_max,
+            rc_match=rc_match, has_rc=has_rc, probe_index=probe_index, target=target,
+            early_exit=True)
+    if dev.type != "cuda":
+        raise ValueError(f"fused_probe: no kernel for device {dev}")
+    cols = (log_key, log_val, log_prev, log_meta, rc_key, rc_val, rc_prev, rc_meta)
+    hb = head_boundary.reshape(1)
+    B, E, C, R, V = _check_probe_inputs(keys, heads_src, lower, active, hb, cols,
+                                        target, probe_index)
+
+    addr, heads, meta, hops, ios, value = torch.empty(
+        (B * (5 + V),), dtype=torch.int32, device=dev).split((B, B, B, B, B, B * V))
+    value = value.view(B, V)
+    found, exhausted = torch.empty((2 * B,), dtype=torch.bool, device=dev).split((B, B))
     if B == 0:
         return found, addr, heads, value, meta, hops, ios, exhausted
-    hb = head_boundary.reshape(1).contiguous()
-    fn = _bind("fused_probe", "f2_fused_probe", 14, 10, 8)
-    stream = torch.cuda.current_stream(dev).cuda_stream
-    err = fn(_ptr(keys), _ptr(heads_src), _ptr(lower), _ptr(active),
-             _ptr(target), _ptr(hb),
-             _ptr(log_key), _ptr(log_val), _ptr(log_prev), _ptr(log_meta),
-             _ptr(rc_key), _ptr(rc_val), _ptr(rc_prev), _ptr(rc_meta),
-             B, E, C, R, V, chain_max, int(rc_match), int(has_rc),
-             int(probe_index), int(target is not None),
-             _ptr(found), _ptr(addr), _ptr(heads), _ptr(value), _ptr(meta),
-             _ptr(hops), _ptr(ios), _ptr(exhausted), stream)
+    err = _bind("fused_probe", "f2_fused_probe", 14, 10, 8)(
+        keys.data_ptr(), heads_src.data_ptr(), lower.data_ptr(), active.data_ptr(),
+        _ptr(target), hb.data_ptr(), *(t.data_ptr() for t in cols),
+        B, E, C, R, V, chain_max, int(rc_match), int(has_rc), int(probe_index),
+        int(target is not None),
+        found.data_ptr(), addr.data_ptr(), heads.data_ptr(), value.data_ptr(),
+        meta.data_ptr(), hops.data_ptr(), ios.data_ptr(), exhausted.data_ptr(),
+        _stream(dev))
     _raise_on(err, "fused_probe")
     launches["fused_probe"] += 1
     return found, addr, heads, value, meta, hops, ios, exhausted
@@ -221,10 +238,9 @@ def fused_write(keys, ops, vals, index, begin, head_boundary, ro_addr, tail,
         return out
     scratch = torch.empty((_write_scratch_words(B),), dtype=n, device=dev)
     fn = _bind("fused_write", "f2_fused_write", 13, 6, 20)
-    stream = torch.cuda.current_stream(dev).cuda_stream
     err = fn(_ptr(keys), _ptr(ops), _ptr(vals), _ptr(index), _ptr(bounds),
              *(_ptr(t) for t in cols), B, E, C, R, V, chain_max,
-             *(_ptr(t) for t in out), _ptr(scratch), stream)
+             *(_ptr(t) for t in out), _ptr(scratch), _stream(dev))
     _raise_on(err, "fused_write")
     launches["fused_write"] += WRITE_KERNELS_PER_CALL
     return out

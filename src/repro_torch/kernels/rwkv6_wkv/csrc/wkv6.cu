@@ -22,18 +22,30 @@
 // contiguous; u [H, D] (row bh uses head bh % H); states [BH, D, D] with
 // S[i][j] at i * D + j.  D is 16, 32, 64 or 128.
 //
-// Forward: one CTA owns one (b, h) and carries S in registers through a
-// loop over T, "column" layout: P = 4 threads per value column j, thread
-// (j, p) holding S[i][j] for the D/P rows i = ii*P + p.  Each step the P
-// threads of a column sum r_i (S_ij + u_i k_i v_j) over their rows and
-// finish with two shuffles; then S_ij <- w_i S_ij + k_i v_j.  Inputs are
-// staged in shared memory C = 16 steps at a time with float4 loads.  With a
-// checkpoint buffer, the state entering every CK = 64th step is written out
-// for the gradient.  At the training path's shape (BH 128, T 4096, D 64)
-// it does 4*BH*T*D^2 = 8.6e9 float32 operations (0.128 ms at 67 TFLOP/s)
-// on 0.68 GB of inputs and outputs (0.20 ms at 3.35 TB/s), so it is bound
-// by bytes on paper; in practice 128 CTAs walk T steps one after another
-// and the step's latency bounds it.
+// Forward: the state is separable over its columns.  Column j evolves alone
+// (S_t[:, j] = w_t * S_{t-1}[:, j] + k_t v_tj), and y_tj needs only it:
+// y_tj = sum_i r_ti S_{t-1,ij} + v_tj (r_t . (u * k_t)).  So
+// wkv_fwd_split_kernel splits the columns over CTAs: W = 16 columns a CTA,
+// D / 16 CTAs a (b, h), adjacent so they share r, k and w in L2 (BH * 4 =
+// 512 CTAs of 64 threads at the training path's shape, all resident at
+// once), with no sum across CTAs and no atomics.  A thread holds a tile of
+// S, FR rows of CQ contiguous columns (4 x 4 for walks of 16 steps or more,
+// 8 x 2 for shorter ones such as the decode step, 4 x 2 at D 16), so each
+// row value it loads from shared memory serves CQ columns; the P = D / FR
+// threads of a column group are neighbouring lanes.  Per step a thread
+// keeps its partial sums of r_i S_ij; every LC steps (16; 4 or 8 for short
+// walks) one reduce-scatter of shuffles finishes all of them (in a fixed
+// order, so the forward is deterministic), and each lane then writes whole
+// vectors of y, adding v_tj times the step's r . (u * k), which a few
+// threads a step sum before the walk.  Inputs come LC steps at a time
+// through cp.async into two shared-memory buffers, the next chunk in flight
+// while the current one is computed.  The initial, saved (every CK = 64th
+// step) and final states are read and written as vectors of a thread's
+// tile.  At the
+// training path's shape (BH 128, T 4096, D 64) it does 4*BH*T*D^2 = 8.6e9
+// float32 operations (0.128 ms at 67 TFLOP/s) on 0.68 GB of inputs and
+// outputs (0.20 ms at 3.35 TB/s): bound by bytes on paper, and by the
+// FMA and shuffle issue rate of the serial walk over T in practice.
 //
 // Gradient: the state is separable.  Row i of S and of G evolves alone
 // (S_t[i,:] = w_ti S_{t-1}[i,:] + k_ti v_t, G likewise), and dr, dk, dw and
@@ -85,117 +97,7 @@
 
 namespace {
 
-constexpr int P = 4;    // forward: threads per state column
-constexpr int C = 16;   // forward: time steps staged in shared memory at once
-constexpr int CK = 64;  // steps between saved states (a multiple of C and LB)
-
-__device__ __forceinline__ float group_sum(float x) {
-  x += __shfl_xor_sync(0xffffffffu, x, 1);
-  x += __shfl_xor_sync(0xffffffffu, x, 2);
-  return x;
-}
-
-// steps [t0, t0 + n) of one (b, h) row block [T, D] into dst [C][D]
-template <int D>
-__device__ __forceinline__ void stage(float* dst, const float* src, int t0, int n) {
-  const float4* s4 = reinterpret_cast<const float4*>(src + (size_t)t0 * D);
-  float4* d4 = reinterpret_cast<float4*>(dst);
-  for (int x = threadIdx.x; x < n * (D / 4); x += D * P) d4[x] = s4[x];
-}
-
-// ---------------------------------------------------------------------------
-// forward
-// ---------------------------------------------------------------------------
-
-template <int D>
-__global__ void __launch_bounds__(D * P)
-    wkv_forward_kernel(const float* __restrict__ r, const float* __restrict__ k,
-                       const float* __restrict__ v, const float* __restrict__ w,
-                       const float* __restrict__ u, const float* s0, float* __restrict__ y,
-                       float* s_out, float* __restrict__ ckpt, int H, int T) {
-  constexpr int R = D / P;
-  __shared__ __align__(16) float sr[C * D];
-  __shared__ __align__(16) float sk[C * D];
-  __shared__ __align__(16) float sv[C * D];
-  __shared__ __align__(16) float sw[C * D];
-  const int bh = blockIdx.x;
-  const int h = bh % H;
-  const int j = threadIdx.x / P, p = threadIdx.x % P;
-  const size_t base = (size_t)bh * T * D;
-  const size_t sbase = (size_t)bh * D * D;
-  const int nck = (T + CK - 1) / CK;
-  float S[R], uu[R];
-#pragma unroll
-  for (int ii = 0; ii < R; ++ii) {
-    const int i = ii * P + p;
-    uu[ii] = u[h * D + i];
-    S[ii] = s0 ? s0[sbase + i * D + j] : 0.f;
-  }
-  for (int t0 = 0; t0 < T; t0 += C) {
-    const int n = min(C, T - t0);
-    __syncthreads();
-    stage<D>(sr, r + base, t0, n);
-    stage<D>(sk, k + base, t0, n);
-    stage<D>(sv, v + base, t0, n);
-    stage<D>(sw, w + base, t0, n);
-    __syncthreads();
-    for (int s = 0; s < n; ++s) {
-      const int t = t0 + s;
-      if (ckpt != nullptr && t % CK == 0) {
-        float* dst = ckpt + ((size_t)bh * nck + t / CK) * D * D;
-#pragma unroll
-        for (int ii = 0; ii < R; ++ii) dst[(ii * P + p) * D + j] = S[ii];
-      }
-      const float* rs = sr + s * D;
-      const float* ks = sk + s * D;
-      const float* ws = sw + s * D;
-      const float vj = sv[s * D + j];
-      float acc = 0.f;
-#pragma unroll
-      for (int ii = 0; ii < R; ++ii) {
-        const int i = ii * P + p;
-        const float kv = ks[i] * vj;
-        acc = fmaf(rs[i], S[ii] + uu[ii] * kv, acc);
-        S[ii] = fmaf(ws[i], S[ii], kv);
-      }
-      acc = group_sum(acc);
-      if (p == 0) y[base + (size_t)t * D + j] = acc;
-    }
-  }
-  if (s_out != nullptr) {
-#pragma unroll
-    for (int ii = 0; ii < R; ++ii) s_out[sbase + (ii * P + p) * D + j] = S[ii];
-  }
-}
-
-
-// ---------------------------------------------------------------------------
-// gradient: the state split over rows (drkw) and over columns (dv)
-// ---------------------------------------------------------------------------
-
-constexpr int GT = 128;  // threads per gradient CTA (fewer at D 16)
-constexpr int GR = 8;    // state entries per thread: one row's, or one column's
-constexpr int LB = 8;    // drkw: steps per sub-segment, whose states sit in registers
-constexpr int LV = 16;   // dv: steps per chunk
-constexpr int NSUB = CK / LB;
-
-// drkw's split: each thread holds GR = 8 columns of one row
-template <int D>
-struct Split {
-  static constexpr int P = D / GR;                        // threads per row
-  static constexpr int NB = GT / P < D ? GT / P : D;      // rows per CTA
-  static constexpr int NT = NB * P;                       // threads per CTA
-  static constexpr int CTAS = D / NB;                     // CTAs per (b, h)
-  // drkw: sub-segment states [NSUB][2][NT][4], then two chunk buffers of
-  // r, k, w [LB][NB], v, dy [LB][D] and v.dy [LB]
-  static constexpr int OFF_R = 0, OFF_K = LB * NB, OFF_W = 2 * LB * NB;
-  static constexpr int OFF_V = 3 * LB * NB, OFF_DY = OFF_V + LB * D;
-  static constexpr int OFF_VDY = OFF_DY + LB * D;
-  static constexpr int STAGE = OFF_VDY + LB;
-  static constexpr int SUBCK = NSUB * GR * NT;
-  static constexpr size_t DRKW_SMEM = (SUBCK + 2 * STAGE) * sizeof(float);
-  static_assert(P >= 2 && P <= 16 && (4 * LB) % P == 0 && STAGE % 4 == 0, "split");
-};
+constexpr int CK = 64;  // steps between saved states (a multiple of LC and LB)
 
 __device__ __forceinline__ void cp16(float* dst, const float* src) {
   const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst));
@@ -237,6 +139,249 @@ __device__ __forceinline__ void reduce_scatter(float (&x)[N], int g) {
     reduce_scatter<N, n / 2, s / 2>(x, g);
   }
 }
+
+// N contiguous floats (N = 1, 2 or 4, aligned to 4N bytes) to and from
+// registers
+template <int N>
+__device__ __forceinline__ void ldv(float (&d)[N], const float* p) {
+  if constexpr (N == 4) {
+    const float4 a = *reinterpret_cast<const float4*>(p);
+    d[0] = a.x; d[1] = a.y; d[2] = a.z; d[3] = a.w;
+  } else if constexpr (N == 2) {
+    const float2 a = *reinterpret_cast<const float2*>(p);
+    d[0] = a.x; d[1] = a.y;
+  } else {
+    d[0] = *p;
+  }
+}
+
+template <int N>
+__device__ __forceinline__ void stv(float* p, const float (&d)[N]) {
+  if constexpr (N == 4) {
+    *reinterpret_cast<float4*>(p) = make_float4(d[0], d[1], d[2], d[3]);
+  } else if constexpr (N == 2) {
+    *reinterpret_cast<float2*>(p) = make_float2(d[0], d[1]);
+  } else {
+    *p = d[0];
+  }
+}
+
+// ---------------------------------------------------------------------------
+// forward: the state split over its columns
+// ---------------------------------------------------------------------------
+
+// Each thread holds FR rows of CQ contiguous columns: rows (e / 4) * 4P +
+// 4g + e % 4, so its row values are FR / 4 float4s of a step's row; the P
+// threads of a column group are neighbouring lanes; a CTA owns W columns and
+// takes LC steps a chunk (16; fewer for short T, where the reduce-scatter's
+// registers would cost occupancy for nothing).  A tile of four rows of four
+// columns (from D 32) loads the fewest row values per FMA, which is what
+// long walks need; short ones (the decode step) take eight rows of two,
+// whose fewer partial sums and registers finish a step sooner (each
+// faster than the other where it is used, timed on an H100).  D 16 takes
+// four rows of two.
+template <int D, int LC_>
+struct FwdSplit {
+  static constexpr bool LONG = LC_ >= 16 && D >= 32;
+  static constexpr int FR = D >= 32 && !LONG ? 8 : 4;  // rows per thread
+  static constexpr int CQ = LONG ? 4 : 2;        // columns per thread
+  static constexpr int P = D / FR;               // threads per column group
+  static constexpr int W = 16;                   // columns per CTA
+  static constexpr int NC = W / CQ;              // column groups per CTA
+  static constexpr int NT = NC * P;              // threads per CTA
+  static constexpr int CTAS = D / W;             // CTAs per (b, h)
+  static constexpr int LC = LC_;                 // steps per chunk
+  static constexpr int PER = LC * CQ / P;        // whole sums per lane after the reduce-scatter
+  static constexpr int NV = PER < CQ ? PER : CQ; // floats per y store
+  static constexpr int TPS = NT / LC;            // threads per step of r . (u * k)
+  static constexpr int EV = D / TPS < 4 ? D / TPS : 4;  // its floats per load
+  static constexpr int NJ = D / TPS / EV;        // its loads per thread
+  // two chunk buffers of r, k, w [LC][D], v [LC][W] and r . (u * k) [LC]
+  static constexpr int OFF_K = LC * D, OFF_W = 2 * LC * D, OFF_V = 3 * LC * D;
+  static constexpr int OFF_RUK = OFF_V + LC * W;
+  static constexpr int STAGE = OFF_RUK + LC;
+  static constexpr size_t SMEM = 2 * STAGE * sizeof(float);
+  static_assert(FR % 4 == 0 && NT % 32 == 0 && P <= 32 && PER >= 1 && PER % NV == 0 &&
+                    NT % LC == 0 && TPS <= 32 && NJ >= 1 && STAGE % 4 == 0 && CK % LC == 0,
+                "forward split");
+};
+
+// steps [t0, t0 + n) of a [T, D] block into dst [n][D], by cp.async (the
+// rows are contiguous, so the pieces need no row/column split)
+template <int D, int NT>
+__device__ __forceinline__ void stage_rows(float* dst, const float* src, int t0, int n) {
+  const float* s = src + (size_t)t0 * D;
+  for (int x = threadIdx.x; x < n * (D / 4); x += NT) cp16(dst + 4 * x, s + 4 * x);
+}
+
+template <int D, int LC_>
+__global__ void __launch_bounds__(FwdSplit<D, LC_>::NT)
+    wkv_fwd_split_kernel(const float* __restrict__ r, const float* __restrict__ k,
+                         const float* __restrict__ v, const float* __restrict__ w,
+                         const float* __restrict__ u, const float* s0, float* __restrict__ y,
+                         float* s_out, float* __restrict__ ckpt, int H, int T) {
+  using FS = FwdSplit<D, LC_>;
+  constexpr int FR = FS::FR, CQ = FS::CQ, PP = FS::P, NT = FS::NT, W = FS::W, LC = FS::LC;
+  constexpr int PER = FS::PER, NV = FS::NV, TPS = FS::TPS, EV = FS::EV, NJ = FS::NJ;
+  extern __shared__ float4 smem4[];
+  float* sm = reinterpret_cast<float*>(smem4);
+  const int bh = blockIdx.x / FS::CTAS, col0 = (blockIdx.x % FS::CTAS) * W;
+  const int h = bh % H;
+  const int g = threadIdx.x % PP, cg = threadIdx.x / PP;
+  const size_t base = (size_t)bh * T * D;
+  const size_t sbase = (size_t)bh * D * D;
+  const int nck = (T + CK - 1) / CK;
+  // this thread's tile in a [D, D] state: row e at tile + row_off(e)
+  const int tile = 4 * g * D + col0 + cg * CQ;
+  auto row_off = [](int e) { return ((e / 4) * 4 * PP + e % 4) * D; };
+  // r . (u * k): the TPS neighbouring threads of step ks each sum NJ pieces
+  // of EV entries, piece j at (((j + ks) % NJ) * TPS + q) * EV (rotated by
+  // the step, so the steps of a warp fall in different banks)
+  const int ks = threadIdx.x / TPS, kq = threadIdx.x % TPS;
+  int koff[NJ];
+  float uq[NJ][EV];
+#pragma unroll
+  for (int j = 0; j < NJ; ++j) {
+    koff[j] = (((j + ks) % NJ) * TPS + kq) * EV;
+#pragma unroll
+    for (int e = 0; e < EV; ++e) uq[j][e] = u[h * D + koff[j] + e];
+  }
+  float S[FR][CQ];
+#pragma unroll
+  for (int e = 0; e < FR; ++e) {
+    if (s0 != nullptr) {
+      ldv<CQ>(S[e], s0 + sbase + tile + row_off(e));
+    } else {
+#pragma unroll
+      for (int c = 0; c < CQ; ++c) S[e][c] = 0.f;
+    }
+  }
+
+  const int nq = (T + LC - 1) / LC;
+  auto prefetch = [&](int q) {
+    if (q < nq) {
+      float* st = sm + (q & 1) * FS::STAGE;
+      const int t0 = q * LC, n = min(LC, T - t0);
+      stage_rows<D, NT>(st, r + base, t0, n);
+      stage_rows<D, NT>(st + FS::OFF_K, k + base, t0, n);
+      stage_rows<D, NT>(st + FS::OFF_W, w + base, t0, n);
+      stage_async<D, NT>(st + FS::OFF_V, v + base, t0, n, col0, W);
+    }
+    cp_commit();
+  };
+  prefetch(0);
+  for (int q = 0; q < nq; ++q) {
+    prefetch(q + 1);
+    cp_wait_prev();
+    __syncthreads();
+    const float* st = sm + (q & 1) * FS::STAGE;
+    const int t0 = q * LC, n = min(LC, T - t0);
+    if (ckpt != nullptr && t0 % CK == 0) {
+      float* dst = ckpt + ((size_t)bh * nck + t0 / CK) * D * D + tile;
+#pragma unroll
+      for (int e = 0; e < FR; ++e) stv<CQ>(dst + row_off(e), S[e]);
+    }
+    {
+      float a = 0.f;
+      if (ks < n) {
+#pragma unroll
+        for (int j = 0; j < NJ; ++j) {
+          float rr[EV], kk[EV];
+          ldv<EV>(rr, st + ks * D + koff[j]);
+          ldv<EV>(kk, st + FS::OFF_K + ks * D + koff[j]);
+#pragma unroll
+          for (int e = 0; e < EV; ++e) a = fmaf(uq[j][e] * rr[e], kk[e], a);
+        }
+      }
+#pragma unroll
+      for (int o = TPS / 2; o > 0; o >>= 1) a += __shfl_xor_sync(0xffffffffu, a, o);
+      if (kq == 0) sm[(q & 1) * FS::STAGE + FS::OFF_RUK + ks] = a;
+    }
+    // per step, partial sums over this thread's rows of r_i S_ij, per column
+    float x[LC * CQ];
+#pragma unroll
+    for (int s = 0; s < LC; ++s) {
+      float acc[CQ];
+#pragma unroll
+      for (int c = 0; c < CQ; ++c) acc[c] = 0.f;
+      if (s < n) {
+        float rr[FR], kk[FR], ww[FR], vv[CQ];
+#pragma unroll
+        for (int b = 0; b < FR / 4; ++b) {
+          const int o = s * D + b * 4 * PP + 4 * g;
+          float t4[4];
+          ldv<4>(t4, st + o);
+#pragma unroll
+          for (int e = 0; e < 4; ++e) rr[4 * b + e] = t4[e];
+          ldv<4>(t4, st + FS::OFF_K + o);
+#pragma unroll
+          for (int e = 0; e < 4; ++e) kk[4 * b + e] = t4[e];
+          ldv<4>(t4, st + FS::OFF_W + o);
+#pragma unroll
+          for (int e = 0; e < 4; ++e) ww[4 * b + e] = t4[e];
+        }
+        ldv<CQ>(vv, st + FS::OFF_V + s * W + cg * CQ);
+#pragma unroll
+        for (int e = 0; e < FR; ++e)
+#pragma unroll
+          for (int c = 0; c < CQ; ++c) {
+            acc[c] = fmaf(rr[e], S[e][c], acc[c]);
+            S[e][c] = fmaf(ww[e], S[e][c], kk[e] * vv[c]);
+          }
+      }
+#pragma unroll
+      for (int c = 0; c < CQ; ++c) x[s * CQ + c] = acc[c];
+    }
+    reduce_scatter<LC * CQ, LC * CQ, PP / 2>(x, g);
+    __syncthreads();   // the chunk's r . (u * k)
+    // this lane's whole sums: entries g*PER .. g*PER + PER - 1 of (step, column)
+#pragma unroll
+    for (int m = 0; m < PER / NV; ++m) {
+      const int idx = g * PER + m * NV, s = idx / CQ, c0 = idx % CQ;
+      if (s < n) {
+        const float ruk = st[FS::OFF_RUK + s];
+        const float* vs = st + FS::OFF_V + s * W + cg * CQ + c0;
+        float o[NV];
+#pragma unroll
+        for (int e = 0; e < NV; ++e) o[e] = fmaf(ruk, vs[e], x[m * NV + e]);
+        stv<NV>(y + base + (size_t)(t0 + s) * D + col0 + cg * CQ + c0, o);
+      }
+    }
+    __syncthreads();   // before the next prefetch refills this buffer
+  }
+  if (s_out != nullptr) {
+#pragma unroll
+    for (int e = 0; e < FR; ++e) stv<CQ>(s_out + sbase + tile + row_off(e), S[e]);
+  }
+}
+
+// ---------------------------------------------------------------------------
+// gradient: the state split over rows (drkw) and over columns (dv)
+// ---------------------------------------------------------------------------
+
+constexpr int GT = 128;  // threads per gradient CTA (fewer at D 16)
+constexpr int GR = 8;    // state entries per thread: one row's, or one column's
+constexpr int LB = 8;    // drkw: steps per sub-segment, whose states sit in registers
+constexpr int LV = 16;   // dv: steps per chunk
+constexpr int NSUB = CK / LB;
+
+// drkw's split: each thread holds GR = 8 columns of one row
+template <int D>
+struct Split {
+  static constexpr int P = D / GR;                        // threads per row
+  static constexpr int NB = GT / P < D ? GT / P : D;      // rows per CTA
+  static constexpr int NT = NB * P;                       // threads per CTA
+  static constexpr int CTAS = D / NB;                     // CTAs per (b, h)
+  // drkw: sub-segment states [NSUB][2][NT][4], then two chunk buffers of
+  // r, k, w [LB][NB], v, dy [LB][D] and v.dy [LB]
+  static constexpr int OFF_R = 0, OFF_K = LB * NB, OFF_W = 2 * LB * NB;
+  static constexpr int OFF_V = 3 * LB * NB, OFF_DY = OFF_V + LB * D;
+  static constexpr int OFF_VDY = OFF_DY + LB * D;
+  static constexpr int STAGE = OFF_VDY + LB;
+  static constexpr int SUBCK = NSUB * GR * NT;
+  static constexpr size_t DRKW_SMEM = (SUBCK + 2 * STAGE) * sizeof(float);
+  static_assert(P >= 2 && P <= 16 && (4 * LB) % P == 0 && STAGE % 4 == 0, "split");
+};
 
 // a thread's 8 entries: e in [0, 8) -> index (e / 4) * 4P + 4g + e % 4
 template <int PP>
@@ -577,12 +722,33 @@ __global__ void __launch_bounds__(Split<D>::NT, 4)
   if (ds0 != nullptr) store8<PP>(ds0 + sbase + (size_t)i * D, G, g);
 }
 
+template <int D, int LC>
+cudaError_t forward_lc(const float* r, const float* k, const float* v, const float* w,
+                       const float* u, const float* s0, float* y, float* s_out, float* ckpt,
+                       int BH, int H, int T, cudaStream_t st) {
+  using FS = FwdSplit<D, LC>;
+  // only a block above the default 48 KB of dynamic shared memory needs the
+  // attribute; the short chunks of the decode step stay under it
+  if constexpr (FS::SMEM > 48 * 1024) {
+    const cudaError_t e = cudaFuncSetAttribute(wkv_fwd_split_kernel<D, LC>,
+                                               cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                               (int)FS::SMEM);
+    if (e != cudaSuccess) return e;
+  }
+  wkv_fwd_split_kernel<D, LC><<<BH * FS::CTAS, FS::NT, FS::SMEM, st>>>(r, k, v, w, u, s0, y,
+                                                                       s_out, ckpt, H, T);
+  return cudaGetLastError();
+}
+
+// chunks of 16 steps; of the fewest that still give each lane a whole sum
+// where T is shorter (the decode step: T = 1)
 template <int D>
 cudaError_t forward(const float* r, const float* k, const float* v, const float* w,
                     const float* u, const float* s0, float* y, float* s_out, float* ckpt,
                     int BH, int H, int T, cudaStream_t st) {
-  wkv_forward_kernel<D><<<BH, D * P, 0, st>>>(r, k, v, w, u, s0, y, s_out, ckpt, H, T);
-  return cudaGetLastError();
+  constexpr int SHORT = D == 128 ? 8 : 4;
+  if (T < 16) return forward_lc<D, SHORT>(r, k, v, w, u, s0, y, s_out, ckpt, BH, H, T, st);
+  return forward_lc<D, 16>(r, k, v, w, u, s0, y, s_out, ckpt, BH, H, T, st);
 }
 
 template <int D>

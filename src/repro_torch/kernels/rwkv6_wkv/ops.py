@@ -12,7 +12,8 @@ forward launches the forward kernel (saving the state entering every
 `CHECKPOINT`-th step when a gradient will be asked for) and whose backward
 launches the gradient kernels.  It raises for tensors that are not on a
 CUDA device.  The kernels take float32, contiguous tensors with D in
-`HEAD_DIMS`.  `launches` counts the kernel calls: "wkv_forward" one per
+`HEAD_DIMS`; `wkv_cuda` runs any other D up to 128 at the next of them,
+zero-padded (`run_padded`), and raises above 128.  `launches` counts the kernel calls: "wkv_forward" one per
 forward, "wkv_backward" one per gradient (a call launches two CUDA kernels:
 dv split over the state's columns, then dr/dk/dw/du and the initial state's
 gradient split over its rows; neither needs scratch in device memory).
@@ -23,6 +24,7 @@ import ctypes
 from typing import Dict, Optional
 
 import torch
+import torch.nn.functional as F
 
 from .. import build
 from .ref import wkv_reference
@@ -79,6 +81,31 @@ def _check(name, r, k, v, w, u, state):
         if t.data_ptr() % 16:
             raise ValueError(f"{name}: {n} storage is not 16-byte aligned")
     return B, H, T, D
+
+
+def head_dim_for(D: int) -> int:
+    """The kernels' head size that runs D: the least of `HEAD_DIMS` >= D."""
+    for d in HEAD_DIMS:
+        if D <= d:
+            return d
+    raise ValueError(f"wkv: D={D} is above {HEAD_DIMS[-1]}, the largest head size "
+                     "the kernels take")
+
+
+def run_padded(fn, r, k, v, w, u, state=None):
+    """fn(r, k, v, w, u, state) -> (y, final state or None) run at D
+    zero-padded to `head_dim_for(D)`, its outputs sliced back to D.  Exact:
+    padded rows of S start at zero and stay there (k_i = 0), and add nothing
+    to y (r_i = 0); padded columns carry v_j = 0 and are sliced away, so
+    they take no gradient either."""
+    D = r.shape[-1]
+    Dp = head_dim_for(D)
+    if Dp == D:
+        return fn(r, k, v, w, u, state)
+    p = (0, Dp - D)
+    y, s = fn(*(F.pad(t, p) for t in (r, k, v, w, u)),
+              None if state is None else F.pad(state, p + p))
+    return y[..., :D], None if s is None else s[..., :D, :D]
 
 
 def _stream(dev):
@@ -171,11 +198,12 @@ class _WKV(torch.autograd.Function):
 
 def wkv_cuda(r, k, v, w, u, state=None, need_state=False):
     """The kernels, forced: r, k, v, w [B, H, T, D], u [H, D], state
-    [B, H, D, D] or None, float32 on a CUDA device -> (y, final state or
-    None), differentiable through the gradient kernels."""
+    [B, H, D, D] or None, float32 on a CUDA device, D at most 128 -> (y,
+    final state or None), differentiable through the gradient kernels."""
     if r.device.type != "cuda":
         raise ValueError(f"wkv_cuda: r is on {r.device}; the kernel needs CUDA tensors")
-    return _WKV.apply(r, k, v, w, u, state, bool(need_state))
+    need = bool(need_state)
+    return run_padded(lambda *a: _WKV.apply(*a, need), r, k, v, w, u, state)
 
 
 def wkv(r, k, v, w, u, state=None, need_state=False):

@@ -125,6 +125,58 @@ def test_kernels_match_plain_versions(cuda, b):
     assert ops.launches["fused_write"] == 2 * ops.WRITE_KERNELS_PER_CALL
 
 
+def _probe_args(kv, keys, lower=None):
+    st, hot, rc = kv.state, kv.state.hot, kv.state.rc
+    b = keys.shape[0]
+    return (keys, st.hot_index, hot.begin.repeat(b) if lower is None else lower,
+            torch.ones(b, dtype=torch.bool, device=keys.device),
+            hybrid_log.head_addr(hot, CFG.hot_mem),
+            hot.key, hot.val, hot.prev, hot.meta, rc.key, rc.val, rc.prev, rc.meta)
+
+
+def _probe_equal(args, kw):
+    """fused_probe bit for bit against its plain version, twice."""
+    want = ref.fused_probe_body(*args, **kw)
+    runs = [ops.fused_probe(*args, **kw), ops.fused_probe(*args, **kw)]
+    torch.cuda.synchronize()
+    for got in runs:
+        for n, (x, y) in enumerate(zip(want, got)):
+            assert x.dtype == y.dtype and x.shape == y.shape and torch.equal(x, y), n
+
+
+@pytest.mark.parametrize("b", [1, 33, 8191])
+def test_fused_probe_batches_match_plain_version(cuda, loaded, b):
+    """Batches of one lane, of a warp and one, and of one lane short of
+    8192 (the last CTA's last warp ragged), in index and heads mode."""
+    rng = np.random.default_rng(b)
+    keys = torch.as_tensor(rng.integers(0, 3500, b).astype(np.int32), device=cuda)
+    args = _probe_args(loaded, keys)
+    for rc_match in (True, False):
+        _probe_equal(args, dict(chain_max=CFG.chain_max, rc_match=rc_match))
+    heads = ref.fused_probe_body(*args, chain_max=CFG.chain_max)[2]
+    _probe_equal((keys, heads) + args[2:], dict(chain_max=CFG.chain_max, probe_index=False))
+
+
+def test_fused_probe_longest_chains_match_plain_version(cuda):
+    """Every key on one index slot: 600 keys chain through one slot, past
+    chain_max, so lanes walk the longest chains, end exhausted or absent,
+    and hit records deep in the chain."""
+    kv = T.KV(CFG, device=cuda, compact_batch=128)
+    E = CFG.hot_index_size
+    keys = _unmix32(np.uint64(5) + np.arange(600, dtype=np.uint64) * np.uint64(E))
+    rng = np.random.default_rng(3)
+    for i in range(0, 400, B):
+        k = keys[i:i + B]
+        kv.apply(k, np.full(len(k), T.OP_UPSERT, np.int32),
+                 rng.integers(0, 100, (len(k), CFG.value_width)).astype(np.int32))
+    q = torch.as_tensor(keys[rng.permutation(600)], device=cuda)
+    args = _probe_args(kv, q)
+    out = ref.fused_probe_body(*args, chain_max=CFG.chain_max)
+    assert int(out[7].sum()) > 0 and int(out[0].sum()) > 0   # exhausted lanes, hits
+    for rc_match in (True, False):
+        _probe_equal(args, dict(chain_max=CFG.chain_max, rc_match=rc_match))
+
+
 def _unmix32(h):
     """Inverse of the store's slot hash: keys whose hash is chosen."""
     x = np.asarray(h, np.uint64) & np.uint64(0xFFFFFFFF)
@@ -437,11 +489,18 @@ def test_flash_attention_wrapper_refuses(cuda):
 # (B, H, T, D, lowest decay, initial state): tests/test_kernels.py's shapes
 # (D 64 and 128), a decode step from a state, ragged T over a checkpoint
 # boundary with decays down to 1e-3, the reduced configs' D 16, D 128 from a
-# state over ragged segments, and D 32 at T 1
+# state over ragged segments, and D 32 at T 1; then the forward's column
+# split at its edges: D 48 (run at 64, zero-padded), D 16 (one CTA a head)
+# at T 1 from a state, D 128 (eight CTAs a head) over a ragged chunk, and T
+# exactly one checkpoint segment
 WKV_SHAPES = [(2, 3, 256, 64, 0.8, False), (1, 2, 128, 64, 0.8, False),
               (2, 1, 64, 128, 0.8, True), (4, 8, 1, 64, 0.5, True),
               (1, 2, 197, 32, 1e-3, True), (2, 4, 70, 16, 1e-3, False),
-              (1, 2, 197, 128, 1e-3, True), (3, 2, 1, 32, 0.5, True)]
+              (1, 2, 197, 128, 1e-3, True), (3, 2, 1, 32, 0.5, True),
+              (2, 3, 33, 48, 1e-3, True), (2, 2, 1, 16, 0.5, True),
+              (1, 1, 17, 128, 0.8, True), (1, 3, 64, 64, 0.8, True)]
+WKV_IDS = ["kernels_a", "kernels_b", "d128", "decode", "small_w", "d16", "d128_t197",
+           "d32_t1", "d48_padded", "d16_t1", "d128_t17", "t64_one_chunk_set"]
 
 
 def _wkv_inputs(shape, dev, seed=0):
@@ -464,9 +523,7 @@ def _wkv_grad_close(got, want, name=""):
     assert err <= 2e-3 * float(want.abs().max()), (name, err)
 
 
-@pytest.mark.parametrize("shape", WKV_SHAPES, ids=["kernels_a", "kernels_b", "d128",
-                                                   "decode", "small_w", "d16",
-                                                   "d128_t197", "d32_t1"])
+@pytest.mark.parametrize("shape", WKV_SHAPES, ids=WKV_IDS)
 def test_wkv_matches_plain_version(cuda, shape):
     r, k, v, w, u, s0, dy, ds = _wkv_inputs(shape, cuda)
     wkv_ops.reset_launches()
@@ -502,13 +559,24 @@ def test_wkv_gradient_is_deterministic(cuda, shape):
     assert all(torch.equal(x, y) for x, y in zip(a, b))
 
 
+@pytest.mark.parametrize("shape", [WKV_SHAPES[0], WKV_SHAPES[3], WKV_SHAPES[5],
+                                   WKV_SHAPES[6]],
+                         ids=["kernels_a", "decode", "d16", "d128_t197"])
+def test_wkv_forward_is_deterministic(cuda, shape):
+    r, k, v, w, u, s0, _, _ = _wkv_inputs(shape, cuda)
+    a = wkv_ops.forward_cuda(r, k, v, w, u, s0, True, checkpoints=True)
+    b = wkv_ops.forward_cuda(r, k, v, w, u, s0, True, checkpoints=True)
+    torch.cuda.synchronize()
+    assert all(torch.equal(x, y) for x, y in zip(a, b))
+
+
 def test_wkv_wrapper_refuses(cuda):
     r, k, v, w, u, s0, _, _ = _wkv_inputs(WKV_SHAPES[3], cuda)
     wkv_ops.reset_launches()
     with pytest.raises(ValueError, match="needs CUDA tensors"):
         wkv_ops.wkv_cuda(r.cpu(), k.cpu(), v.cpu(), w.cpu(), u.cpu())
     with pytest.raises(ValueError, match="D="):
-        wkv_ops.wkv_cuda(*(t[..., :48].contiguous() for t in (r, k, v, w, u)))
+        wkv_ops.wkv_cuda(*(torch.cat([t, t, t[..., :32]], -1) for t in (r, k, v, w, u)))
     with pytest.raises(TypeError, match="float32"):
         wkv_ops.wkv_cuda(r.bfloat16(), k, v, w, u)
     with pytest.raises(ValueError, match="not contiguous"):

@@ -287,3 +287,43 @@ def test_index_heads_retag_the_first_hop(cfgs, jstate):
     for engine in PORT_ENGINES:
         cfg = dataclasses.replace(tcfg, engine=engine)
         assert_same(tpe.index_heads(cfg, st.hot_index, keys), want, engine)
+
+
+def _probe_check_inputs(B=5, C=16, R=8, V=3, E=32):
+    i32 = torch.int32
+    cols = (torch.zeros(C, dtype=i32), torch.zeros((C, V), dtype=i32),
+            torch.zeros(C, dtype=i32), torch.zeros(C, dtype=i32),
+            torch.zeros(R, dtype=i32), torch.zeros((R, V), dtype=i32),
+            torch.zeros(R, dtype=i32), torch.zeros(R, dtype=i32))
+    return dict(keys=torch.zeros(B, dtype=i32), heads_src=torch.zeros(E, dtype=i32),
+                lower=torch.zeros(B, dtype=i32), active=torch.ones(B, dtype=torch.bool),
+                hb=torch.zeros(1, dtype=i32), cols=cols,
+                target=torch.zeros(B, dtype=i32), probe_index=True)
+
+
+@pytest.mark.parametrize("fault,error,match", [
+    ("dtype", TypeError, "dtype"),
+    ("shape", ValueError, "shape"),
+    ("contiguity", ValueError, "not contiguous"),
+    ("pow2", ValueError, "power of two"),
+    ("active", TypeError, "dtype"),
+])
+def test_fused_probe_input_checks_refuse_each_fault(fault, error, match):
+    """The kernel wrapper's input checks (`_check_probe_inputs`) pass good
+    inputs and refuse a wrong dtype, shape, layout, capacity or mask."""
+    kw = _probe_check_inputs()
+    assert tops._check_probe_inputs(**kw) == (5, 32, 16, 8, 3)
+    cols = list(kw["cols"])
+    if fault == "dtype":
+        cols[2] = cols[2].to(torch.int64)
+    elif fault == "shape":
+        cols[5] = torch.zeros((8, 4), dtype=torch.int32)
+    elif fault == "contiguity":
+        cols[1] = torch.zeros((3, 16), dtype=torch.int32).t()
+    elif fault == "pow2":
+        cols[0] = torch.zeros(12, dtype=torch.int32)
+    else:
+        kw["active"] = kw["active"].to(torch.int32)
+    kw["cols"] = tuple(cols)
+    with pytest.raises(error, match=match):
+        tops._check_probe_inputs(**kw)

@@ -171,3 +171,60 @@ def test_plain_gradient_is_separable_over_rows_and_columns(D, T):
         gdv, gds0 = _columns_alone(r, k, w, u, dy, ds, sl)
         torch.testing.assert_close(gdv, dv[..., sl], atol=1e-6, rtol=1e-6)
         torch.testing.assert_close(gds0, ds0[..., sl], atol=1e-6, rtol=1e-6)
+
+
+@pytest.mark.parametrize("T", [1, 70])
+@pytest.mark.parametrize("D", [16, 64])
+def test_plain_forward_is_separable_over_columns(D, T):
+    """What the forward kernel relies on to split the state's columns over
+    CTAs: column j of S evolves alone, and y_j needs only it (with all of
+    r, k and w).  Each block of columns, run alone from its columns of the
+    initial state, equals the full y's and final state's columns within
+    1e-6."""
+    r, k, v, w, u, s0 = _t(*_inputs(2, 3, T, D, seed=3 * D + T, w_lo=1e-3, state=True))
+    y, s = ref.wkv_reference(r, k, v, w, u, s0)
+    blk = D // 4
+    for b0 in range(0, D, blk):
+        sl = slice(b0, b0 + blk)
+        S = s0[..., sl].clone()
+        ys = []
+        for t in range(T):
+            rt, kt, vt, wt = r[:, :, t], k[:, :, t], v[:, :, t, sl], w[:, :, t]
+            kv = kt[..., :, None] * vt[..., None, :]
+            ys.append(torch.einsum("bhi,bhij->bhj", rt, S + u[None, :, :, None] * kv))
+            S = wt[..., :, None] * S + kv
+        torch.testing.assert_close(torch.stack(ys, 2), y[..., sl], atol=1e-6, rtol=1e-6)
+        torch.testing.assert_close(S, s[..., sl], atol=1e-6, rtol=1e-6)
+
+
+@pytest.mark.parametrize("D", [24, 48, 100])
+def test_padding_to_a_kernel_head_size_is_exact(D):
+    """`ops.run_padded` runs a head size the kernels lack at the next one,
+    zero-padded, and slices back: around the plain version it equals the
+    plain version at the native D (y, the final state, and the gradients of
+    r, k, v, w, u and the initial state) within 1e-6.  Both run in float64,
+    so that what is compared is the padding, not the float32 rounding of
+    sums over D and over the padded size, which add in other orders."""
+    assert ops.head_dim_for(D) == min(d for d in ops.HEAD_DIMS if d >= D)
+    r, k, v, w, u, s0 = (x.double() for x in _t(*_inputs(2, 2, 21, D, seed=D, w_lo=1e-3,
+                                                          state=True)))
+    rng = np.random.default_rng(D)
+    dy, ds = _t(rng.standard_normal((2, 2, 21, D)), rng.standard_normal((2, 2, D, D)))
+
+    def run(fn):
+        ins = [x.clone().requires_grad_(True) for x in (r, k, v, w, u, s0)]
+        y, s = fn(*ins)
+        assert y.shape == (2, 2, 21, D) and s.shape == (2, 2, D, D)
+        grads = torch.autograd.grad((y * dy).sum() + (s * ds).sum(), ins)
+        return (y.detach(), s.detach()) + grads
+
+    want = run(ref.wkv_reference)
+    got = run(lambda *a: ops.run_padded(ref.wkv_reference, *a))
+    for a, b in zip(got, want):
+        torch.testing.assert_close(a, b, atol=1e-6, rtol=1e-6)
+
+
+def test_head_sizes_above_the_largest_kernel_raise():
+    assert ops.head_dim_for(128) == 128
+    with pytest.raises(ValueError, match="D=160"):
+        ops.head_dim_for(160)

@@ -9,9 +9,14 @@ ported).  The script builds that tree's store kernels and runs its
 `main_path` at 2**K keys (default 24, as `chip_smoke.py` runs it): the load
 with its compactions, the two-phase read, the read-back and YCSB-A, -B and
 -F of about 2**N ops each, every read checked.  Then it runs that tree's
-`profile_window` over 8 YCSB-A batches.  It prints one JSON line: the card,
-load and read-back ops/s, YCSB ops/s per mix, the window's device-busy ms
-per batch and idle share, and the store kernels' device ms per batch.  To
+`profile_window` over 8 YCSB-A batches, times that tree's `fused_probe`
+kernel on each of its `probe_cases` (device ms per call, from the
+profiler), and times the wrapper on the first case (B 8192 reads through
+the hot index): ms per call by CUDA events, and host us per call (200
+calls issued back to back, no synchronisation inside the window).  It
+prints one JSON line: the card, load and read-back ops/s, YCSB ops/s per
+mix, the window's device-busy ms per batch and idle share, the store
+kernels' device ms per batch, and the probe's times.  To
 compare two trees, run it in turns on one card (A, B, B, A): each run is
 its own process, so the two trees' modules never meet.  Needs a CUDA
 device.
@@ -23,6 +28,7 @@ import json
 import os
 import subprocess
 import sys
+import time
 
 
 def main(argv=None):
@@ -49,6 +55,25 @@ def main(argv=None):
     kv, rec = cs.main_path(cfg, "cuda", n_keys, 1 << a.log2_ops, cs.SEED)
     records = []
     cs.profile_window(kv, n_keys, cs.SEED, records)
+    import numpy as np
+    from repro_torch.kernels.f2_probe import ops as probe_ops
+    cases = cs.probe_cases(kv, np.random.default_rng(cs.SEED + 1), n_keys)
+    probe_device_ms = {
+        name: cs._device_ms(lambda: probe_ops.fused_probe(*args, **kw), 20,
+                            cs.KERNEL_FUNCTIONS["fused_probe"])
+        for name, args, kw in cases}
+    _, args, kw = cases[0]
+
+    def call():
+        probe_ops.fused_probe(*args, **kw)
+
+    wrapper_ms = cs._time_ms(call, 200)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(200):
+        call()
+    host_us = (time.perf_counter() - t0) / 200 * 1e6
+    torch.cuda.synchronize()
     prof = records[-1]
     batches = prof["batches"]
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
@@ -62,7 +87,9 @@ def main(argv=None):
                device_busy_ms_per_batch=prof["device_busy_s"] / batches * 1e3,
                device_idle_share=prof["device_idle_share"],
                store_kernels_ms_per_batch={
-                   r["name"]: r["s"] / batches * 1e3 for r in prof["f2_kernels"]})
+                   r["name"]: r["s"] / batches * 1e3 for r in prof["f2_kernels"]},
+               fused_probe_wrapper_ms=wrapper_ms, fused_probe_host_us=host_us,
+               fused_probe_device_ms=probe_device_ms)
     line = json.dumps(out)
     print(line)
     if a.out:
