@@ -1,7 +1,8 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch port on one CUDA GPU: the F2 store, the F2-paged
-serving engine with Granite-3-8B at full width, Granite-3-8B's training at
-full width, then RWKV-6-7B's serving, prefill and training at full width.
+"""Drive the PyTorch port on one CUDA GPU: the F2 store, single-shard and
+sharded over four stores, the F2-paged serving engine with Granite-3-8B at
+full width, Granite-3-8B's training at full width, then RWKV-6-7B's
+serving, prefill and training at full width.
 
     python3 chip_smoke.py            # the full run: 2**24 keys, 40 layers
 
@@ -57,6 +58,28 @@ Phases, each printing one JSON line:
   7. twins    — the same op stream at 2**20 keys through engine="fused" and
                 engine="fused_ref" on the card, every F2State leaf equal
                 after each phase;
+  7a. sharded — `ShardedKV(make_f2_config(2**22), S=4, lanes=4096)` over
+                the same 2**24 keys (the paper's S8.1 split per shard):
+                load with masked compactions firing, a two-phase read of
+                BATCH routed keys across a masked cold->cold pass (one
+                first-hop probe launch for all shards), read every key back,
+                YCSB-A, -B and -F (2**20 ops each by default) with every
+                read checked; ops/s beside the main phase's, deferral rounds,
+                compactions per shard, peak memory, and wrapper calls and
+                host syncs per routed round with the scheduler off, which
+                must equal a KV batch's (the kernels take all shards in one
+                launch); then sharded_profile (8 YCSB-A batches);
+  7b. kernels_sharded — fused_probe, fused_write and the first-hop probe
+                over the loaded sharded store's shard axis (routed batches,
+                compaction frontiers, one hot key in every lane of every
+                shard, odd widths, S x 8192 and S x 2**18 = 2**20 probe
+                lanes): bit for bit against the plain version, a second
+                call, and S single-shard calls on the shards' slices; timed
+                (CUDA events, profiler, L2 flushed) beside the single-shard
+                bound summed over the shards;
+  7c. sharded_twins — the sharded store at 2**20 keys through "fused" and
+                "fused_ref": every leaf equal after each phase, a forced
+                migrate() of an edited bucket map, every key read back;
   8. serve    — Granite-3-8B (20 of its 40 layers, d_model 4096, bf16
                 weights from `init_params` with SEED) through
                 Engine(backend="paged"):
@@ -119,8 +142,9 @@ Phases, each printing one JSON line:
                 gradient leaves within RWKV_TWIN_GRAD_TOL);
  20. the kernels line, the nvidia-smi line, and the final ok line.
 
-Any mismatch, failed build or failed launch raises, and the script exits
-non-zero.  It needs a CUDA device and the repository's `src/` next to it.
+The kernels line has one entry for each kernel of the main paths and one
+for each store kernel over the shard axis (`*_sharded`).  Any mismatch,
+failed build or failed launch raises, and the script exits non-zero.  It needs a CUDA device and the repository's `src/` next to it.
 `--out PATH` also writes every phase's record to a JSON file.
 """
 from __future__ import annotations
@@ -140,6 +164,8 @@ import numpy as np
 ROOT = os.path.dirname(os.path.abspath(__file__))
 BATCH = 8192
 SEED = 0
+SHARDS = 4                                # the sharded phase: S stores ...
+SHARD_LANES = 4096                        # ... with slabs of this many lanes
 TWIN_LOG2_KEYS = 20
 # serving: Granite-3-8B at full width, random weights from SEED
 SERVE_ARCH = "granite-3-8b"
@@ -439,24 +465,28 @@ def _device_ms(fn, reps, names, parts=None):
     records the profiler kept, summed over the functions (and, where
     `parts` is a dict, each function's mean put in it).  Late in a long
     process, after large profiler windows, the profiler can drop kernel
-    records, so a total over `reps` would undercount; "not measured" where a
-    function kept no record."""
+    records, so a total over `reps` would undercount; a window that kept
+    no record of a function is run again, up to three windows, and then
+    the result is "not measured"."""
     import torch
     from torch.profiler import ProfilerActivity, profile
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(reps):
-            fn()
-        torch.cuda.synchronize()
-    per_name = {n: [0.0, 0] for n in names}
-    for e in prof.key_averages():
-        if str(getattr(e, "device_type", "")).endswith("CUDA"):
-            for n in names:
-                if n in e.key:
-                    per_name[n][0] += e.self_device_time_total
-                    per_name[n][1] += e.count
-    if any(c == 0 for _, c in per_name.values()):
+    for _ in range(3):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+        per_name = {n: [0.0, 0] for n in names}
+        for e in prof.key_averages():
+            if str(getattr(e, "device_type", "")).endswith("CUDA"):
+                for n in names:
+                    if n in e.key:
+                        per_name[n][0] += e.self_device_time_total
+                        per_name[n][1] += e.count
+        if all(c > 0 for _, c in per_name.values()):
+            break
+    else:
         return "not measured"
     if parts is not None:
         parts.update({n: us / c / 1e3 for n, (us, c) in per_name.items()})
@@ -956,6 +986,428 @@ def twin_parity(cfg, device, n_keys, n_ops, seed, records):
                        leaves=len(interop.state_leaves(twins["fused"].state)),
                        compactions=twins["fused"].compaction_counts,
                        bit_exact=True))
+
+
+# ---------------------------------------------------------------------------
+# the sharded store: ShardedKV(S = 4) over the same keyspace
+# ---------------------------------------------------------------------------
+
+def routed(skv, keys, ops=None):
+    """(skeys [S, W], sops [S, W], route) of one batch under skv's map."""
+    import torch
+    from repro_torch import OP_READ
+    from repro_torch.core import shard_router
+    dev = skv.device
+    keys = torch.as_tensor(np.asarray(keys, np.int32), device=dev)
+    ops = (torch.full(keys.shape, OP_READ, dtype=torch.int32, device=dev)
+           if ops is None else torch.as_tensor(np.asarray(ops, np.int32), device=dev))
+    vals = torch.zeros((keys.shape[0], skv.cfg.value_width), dtype=torch.int32,
+                       device=dev)
+    sk, so, _, rt = shard_router.route(keys, ops, vals, skv.S, skv.lanes,
+                                       bucket_map=torch.as_tensor(skv.bucket_map,
+                                                                  device=dev))
+    return sk, so, rt
+
+
+def sharded_two_phase(skv, n_keys, seed):
+    """The paper's two-phase read (S5.4) over all shards at once: BATCH
+    loaded keys routed to their shards, `store.read_begin` on the stacked
+    state (the first-hop probe kernel, one launch for every shard), a
+    masked cold->cold pass over every shard in between, `read_finish`:
+    every key must read back its loaded value.  Returns the truncations
+    under the snapshot."""
+    from repro_torch import OP_READ, ST_OK
+    from repro_torch.core import shard_router, store
+    keys = np.random.default_rng(seed + 7).choice(n_keys, BATCH, replace=False)
+    sk, so, rt = routed(skv, keys)
+    if bool(rt.deferred.any()):
+        raise AssertionError("the two-phase batch did not fit one routed round")
+    skv.state, snap = store.read_begin(skv.cfg, skv.state, sk, so == OP_READ)
+    truncs = int(skv.state.cold_truncs.sum())
+    skv.compact_cold_cold(n_records=max(n_keys // skv.S // 64, skv.compact_batch))
+    truncs = int(skv.state.cold_truncs.sum()) - truncs
+    skv.state, st, vals = store.read_finish(skv.cfg, skv.state, snap)
+    st, vals = shard_router.unroute(rt, st, vals)
+    if not (np.all(st.cpu().numpy() == ST_OK) and np.array_equal(
+            vals.cpu().numpy(), val_of(keys, skv.cfg.value_width))):
+        raise AssertionError("sharded two-phase read across cold->cold: a key read wrong")
+    return truncs
+
+
+def calls_per_round(kv, seed, n_batches=8):
+    """Wrapper calls per routed round (a KV batch is one round) of YCSB-A
+    batches with the scheduler off (trigger 2.0: no compaction), and the
+    host sync calls per round from a profiler window over the same kind of
+    batches.  Counters and trigger are restored."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.kernels.f2_probe import ops
+    from repro_torch.workload import Zipf, make_ops
+    rng = np.random.default_rng(seed + 11)
+    zipf = Zipf(1 << 20, 0.99)
+    batches = [make_ops(rng, "A", zipf, BATCH, kv.cfg.value_width)[:3]
+               for _ in range(2 * n_batches)]
+    trigger, kv.trigger = kv.trigger, 2.0
+    saved = dict(ops.launches)
+    rounds0 = getattr(kv, "rounds", None)
+    ops.reset_launches()
+    for b in batches[:n_batches]:
+        kv.apply(*b)
+    torch.cuda.synchronize()
+    rounds = n_batches if rounds0 is None else kv.rounds - rounds0
+    calls = {k: v / rounds for k, v in ops.launches.items()}
+    calls["fused_write"] /= ops.WRITE_KERNELS_PER_CALL
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        r0 = getattr(kv, "rounds", 0)
+        for b in batches[n_batches:]:
+            kv.apply(*b)
+        torch.cuda.synchronize()
+    rounds = n_batches if rounds0 is None else kv.rounds - r0
+    counts = {e.key: e.count for e in prof.key_averages()}
+    syncs = {k: counts.get(k, 0) / rounds for k in (
+        "aten::nonzero", "aten::_local_scalar_dense", "aten::item",
+        "cudaStreamSynchronize", "cudaMemcpyAsync")}
+    kv.trigger = trigger
+    for k, v in saved.items():
+        ops.launches[k] = v + ops.launches[k]
+    return calls, syncs
+
+
+def sharded_main(cfg, device, n_keys, n_ops, seed, records, main_rates):
+    """ShardedKV(cfg, S=SHARDS, lanes=SHARD_LANES): load n_keys unique keys
+    in batches of BATCH with masked compactions firing, the two-phase read
+    across a masked cold->cold pass, every key read back, YCSB-A, -B and -F
+    at Zipf 0.99 with every read checked.  Returns the store and its record."""
+    import torch
+    from repro_torch import ShardedKV
+    from repro_torch.kernels.f2_probe import ops
+    from repro_torch.workload import Zipf
+    V = cfg.value_width
+    rng = np.random.default_rng(seed)
+    torch.cuda.reset_peak_memory_stats()
+    skv = ShardedKV(cfg, SHARDS, lanes=SHARD_LANES, device=device)
+    launches, rounds, batches = {}, {}, {}
+
+    def mark(phase, n_batches):
+        launches[phase] = {k: v - sum(d[k] for d in launches.values())
+                           for k, v in ops.launches.items()}
+        rounds[phase] = skv.rounds - sum(rounds.values())
+        batches[phase] = n_batches
+
+    ops.reset_launches()
+    t0 = time.perf_counter()
+    load_keys(skv, rng.permutation(n_keys).astype(np.int32), V)
+    truncs = sharded_two_phase(skv, n_keys, seed)
+    skv.check_invariants()
+    torch.cuda.synchronize()
+    t_load = time.perf_counter() - t0
+    mark("load", -(-n_keys // BATCH))
+    t0 = time.perf_counter()
+    read_back(skv, n_keys, V)
+    t_read = time.perf_counter() - t0
+    mark("readback", -(-n_keys // BATCH))
+    expect = val_of(np.arange(n_keys), V)
+    zipf = Zipf(n_keys, 0.99)
+    rates = {}
+    for wl in "ABF":
+        rates[wl], _ = ycsb(skv, expect, wl, n_ops, zipf, rng)
+        mark(f"ycsb_{wl}", n_ops // BATCH)
+    skv.check_invariants()
+    torch.cuda.synchronize()
+    total = dict(ops.launches)
+    rec = dict(phase="sharded", shards=SHARDS, lanes=SHARD_LANES, n_keys=n_keys,
+               keys_per_shard=n_keys // SHARDS, config_per_shard=dataclasses.asdict(cfg),
+               load_s=t_load, load_ops_per_s=n_keys / t_load,
+               truncations_under_snapshot=truncs,
+               readback_s=t_read, readback_ops_per_s=n_keys / t_read,
+               ycsb_ops_per_mix=n_ops, ycsb_ops_per_s=rates,
+               main_s1_ycsb_ops_per_s=main_rates,
+               rounds_by_phase=rounds, batches_by_phase=batches,
+               deferral_rounds={p: rounds[p] - batches[p] for p in rounds},
+               launches=total, launches_by_phase=launches,
+               compactions_per_shard=skv.compactions.tolist(),
+               compactions_by_kind={k: v.tolist() for k, v in
+                                    skv.compaction_counts.items()},
+               io=skv.io_stats(), peak_mem_bytes=torch.cuda.max_memory_allocated())
+    return skv, rec
+
+
+def sharded_profile(skv, n_keys, seed, records, n_batches=8):
+    """Device busy time and idle share over YCSB-A batches of the loaded
+    sharded store (as `profile_window`)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.workload import Zipf, make_ops
+    rng = np.random.default_rng(seed + 3)
+    zipf = Zipf(n_keys, 0.99)
+    batches = [make_ops(rng, "A", zipf, BATCH, skv.cfg.value_width)[:3]
+               for _ in range(n_batches)]
+    skv.apply(*batches[0])
+    torch.cuda.synchronize()
+    r0 = skv.rounds
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for keys, ops_, vals in batches:
+            st, rv = skv.apply(keys, ops_, vals)
+            st.cpu(), rv.cpu()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    dev, host = _device_rows(prof)
+    busy = sum(d for _, d, _ in dev)
+    emit(records, dict(
+        phase="sharded_profile", workload="A", batches=n_batches, batch=BATCH,
+        rounds=skv.rounds - r0, wall_s=wall,
+        device_busy_s=busy if dev else "not measured",
+        device_idle_share=(1 - busy / wall) if dev else "not measured",
+        f2_kernels=[dict(name=k[:80], s=d, calls=c) for k, d, c in dev
+                    if any(n in k for f in KERNEL_FUNCTIONS.values() for n in f)],
+        top_device=[dict(name=k[:80], s=d, calls=c) for k, d, c in dev[:10]],
+        top_host=[dict(name=k[:80], self_s=d, calls=c) for k, d, c in host[:10]]))
+
+
+def _shard_slices(args, kw, s):
+    """Shard s's single-store arguments of a stacked kernel call."""
+    import torch
+    return (tuple(a[s] if torch.is_tensor(a) else a for a in args),
+            {k: (v[s] if torch.is_tensor(v) else v) for k, v in kw.items()})
+
+
+def sharded_probe_cases(skv, rng, n_keys):
+    """(name, args, kwargs) of fused_probe at the sharded path's shapes:
+    a routed YCSB batch ([S, W] lanes, padding inactive), the compaction
+    frontiers ([S, compact_batch]) and an odd width."""
+    import torch
+    from repro_torch.core import cold_index, hybrid_log, probe_engine
+    from repro_torch.core.types import IoStats
+    from repro_torch.workload import Zipf
+    st, cfg, dev, S = skv.state, skv.cfg, skv.device, skv.S
+    q = np.concatenate([Zipf(n_keys, 0.99).sample(rng, BATCH - 512),
+                        n_keys + rng.integers(0, 1 << 20, 512)]).astype(np.int32)
+    keys, sops, _ = routed(skv, q)
+    act = sops != 0
+    W = keys.shape[1]
+    hot, rc, cold = st.hot, st.rc, st.cold
+    hot_cols = (hot.key, hot.val, hot.prev, hot.meta)
+    rc_cols = (rc.key, rc.val, rc.prev, rc.meta)
+    hb = hybrid_log.head_addr(hot, cfg.hot_mem)
+    lower = hot.begin[:, None].expand(S, W).contiguous()
+    base = (keys, st.hot_index, lower, act, hb, *hot_cols, *rc_cols)
+    kw = dict(chain_max=cfg.chain_max, rc_match=True, has_rc=True, probe_index=True)
+    cases = [("read_index", base, kw),
+             ("liveness_rc_match_false", base, dict(kw, rc_match=False))]
+    entries, _ = cold_index.find_entries(st.cold_idx, cfg, keys, act,
+                                         IoStats.zeros(dev, (S,)))
+    drc = probe_engine.dummy_rc(cfg.value_width, dev, S)
+    chb = hybrid_log.head_addr(cold, cfg.cold_mem)
+    cases.append(("cold_heads", (keys, entries, cold.begin[:, None].expand(S, W).contiguous(),
+                                 act, chb, cold.key, cold.val, cold.prev, cold.meta,
+                                 drc.key, drc.val, drc.prev, drc.meta),
+                  dict(kw, has_rc=False, probe_index=False)))
+    Bc = skv.compact_batch
+    addrs = hot.begin[:, None] + torch.arange(Bc, dtype=torch.int32, device=dev)
+    k, _, _, meta = hybrid_log.gather(hot, addrs)
+    m = (addrs < hot.tail[:, None]) & ((meta & 2) == 0)
+    cases.append(("hot_cold_target", (k, st.hot_index, addrs, m, hb, *hot_cols, *rc_cols),
+                  dict(kw, rc_match=False, target=addrs)))
+    cases.append(("odd_W77", (keys[:, :77].contiguous(), st.hot_index,
+                              lower[:, :77].contiguous(), act[:, :77].contiguous(), hb,
+                              *hot_cols, *rc_cols), kw))
+    return cases
+
+
+def sharded_write_cases(skv, rng, n_keys):
+    """(name, args, kwargs) of fused_write at the sharded path's shapes:
+    YCSB-A's routed keys with mixed ops, a routed mixed batch, one hot key
+    in every lane of every shard (values near +-2^31, so the RMW sums wrap),
+    and an odd width."""
+    import torch
+    from repro_torch import OP_DELETE, OP_READ, OP_RMW, OP_UPSERT
+    from repro_torch.core import hybrid_log
+    from repro_torch.workload import Zipf
+    st, cfg, dev, S = skv.state, skv.cfg, skv.device, skv.S
+    V = cfg.value_width
+    mix = [OP_READ, OP_UPSERT, OP_RMW, OP_DELETE]
+
+    def mk(keys, ops_):
+        sk, so, _ = routed(skv, keys, ops_)
+        vals = rng.integers(-2**31, 2**31, tuple(sk.shape) + (V,),
+                            dtype=np.int64).astype(np.int32)
+        return sk, so, torch.as_tensor(vals, device=dev)
+
+    zipf = mk(Zipf(n_keys, 0.99).sample(rng, BATCH),
+              rng.choice(mix, BATCH, p=[.25, .35, .25, .15]))
+    mixed = mk(rng.integers(0, n_keys + n_keys // 8, BATCH),
+               rng.choice(mix, BATCH, p=[.25, .35, .25, .15]))
+    W = skv.lanes
+    hot_ops = rng.choice([OP_UPSERT, OP_RMW, OP_RMW, OP_DELETE], (S, W))
+    hot_ops[:, -9:] = OP_RMW
+    near = rng.integers(0, 97, (S, W, V))
+    one_hot = (torch.as_tensor(np.repeat(rng.integers(0, n_keys, (S, 1)), W, 1)
+                               .astype(np.int32), device=dev),
+               torch.as_tensor(hot_ops.astype(np.int32), device=dev),
+               torch.as_tensor(np.where(near < 12, -2**31 + near, 2**31 - 1 - near)
+                               .astype(np.int32), device=dev))
+    hot, rc = st.hot, st.rc
+    tail = (hot.key, hot.val, hot.prev, hot.meta, rc.key, rc.val, rc.prev, rc.meta)
+    bounds = (st.hot_index, hot.begin, hybrid_log.head_addr(hot, cfg.hot_mem),
+              hybrid_log.read_only_addr(hot, cfg.hot_mem, cfg.hot_mutable_frac),
+              hot.tail)
+    kw = dict(chain_max=cfg.chain_max)
+    cases = [(name, (k, o, v, *bounds, *tail), kw)
+             for name, (k, o, v) in (("zipf_099", zipf), ("mixed", mixed),
+                                     ("one_hot_key", one_hot))]
+    k, o, v = mixed
+    cases.append(("odd_W77", (k[:, :77].contiguous(), o[:, :77].contiguous(),
+                              v[:, :77].contiguous(), *bounds, *tail), kw))
+    return cases
+
+
+def sharded_first_hop_cases(skv, rng, n_keys):
+    """The first-hop probe over every shard's index: S x BATCH lanes (the
+    sharded shape), S x 2^18 = 2^20 lanes, and an odd width."""
+    import torch
+    S, dev = skv.S, skv.device
+    cases = []
+    for name, w in (("s4x8192", BATCH), ("s4x262144", (1 << 20) // S), ("odd_W77", 77)):
+        q = np.concatenate([rng.integers(0, n_keys, (S, w - w // 16)),
+                            n_keys + rng.integers(0, 1 << 20, (S, w // 16))], 1)
+        cases.append((name, (torch.as_tensor(q.astype(np.int32), device=dev),
+                             skv.state.hot_index), {}))
+    return cases
+
+
+def check_sharded_kernels(skv, n_keys, seed, records):
+    """Each store kernel over the loaded sharded store's shard axis: one
+    stacked call bit for bit against its plain version, a second call, and
+    S single-shard calls on the shards' slices; timed by CUDA events and the
+    profiler (L2 flushed too) beside its bound, the single-shard bound
+    summed over the shards.  Returns {kernel: summary of its main case}."""
+    import torch
+    from repro_torch.kernels.f2_probe import ops, ref
+    rng = np.random.default_rng(seed + 21)
+    l2_flush = torch.empty(L2_FLUSH_BYTES, dtype=torch.uint8, device=skv.device)
+    summary = {}
+    for kname, cases, kern, plain in (
+            ("fused_probe", sharded_probe_cases(skv, rng, n_keys), ops.fused_probe,
+             lambda *a, **k: ref.fused_probe_body(*a, early_exit=True, **k)),
+            ("fused_write", sharded_write_cases(skv, rng, n_keys), ops.fused_write,
+             lambda *a, **k: ref.fused_write_body(*a, early_exit=True, **k)),
+            ("probe", sharded_first_hop_cases(skv, rng, n_keys), ops.probe,
+             ref.probe_reference)):
+        per_case = []
+        for name, args, kw in cases:
+            got = kern(*args, **kw)
+            want = plain(*args, **kw)
+            torch.cuda.synchronize()
+            err = _max_abs_err(got, want)
+            if err != 0:
+                raise AssertionError(f"{kname}[S]/{name}: max |kernel - plain| = {err}")
+            if _max_abs_err(got, kern(*args, **kw)) != 0:
+                raise AssertionError(f"{kname}[S]/{name}: two calls differ")
+            S = args[0].shape[0]
+            singles = [kern(*a, **k) for a, k in (_shard_slices(args, kw, s)
+                                                  for s in range(S))]
+            if any(_max_abs_err(tuple(x[s] for x in got), one) != 0
+                   for s, one in enumerate(singles)):
+                raise AssertionError(f"{kname}[S]/{name}: differs from single-shard calls")
+            rec = dict(case=name, S=S, W=int(args[0].shape[1]), max_abs_err=err,
+                       bit_equal_twice=True, equal_to_single_shard_calls=True)
+            rec["ms"] = _time_ms(lambda: kern(*args, **kw), 20)
+            parts = {}
+            rec["device_ms"] = _device_ms(lambda: kern(*args, **kw), 20,
+                                          KERNEL_FUNCTIONS[kname], parts)
+            rec["device_ms_by_kernel"] = parts
+            rec["device_ms_l2_flushed"] = _device_ms(
+                lambda: (l2_flush.zero_(), kern(*args, **kw)), 20, KERNEL_FUNCTIONS[kname])
+            # per single-shard call (S of them do the stacked call's work)
+            rec["single_shard_call_device_ms"] = _device_ms(
+                lambda: [kern(*a, **k) for a, k in (_shard_slices(args, kw, s)
+                                                    for s in range(S))],
+                10, KERNEL_FUNCTIONS[kname])
+            rec["plain_ms"] = _time_ms(lambda: plain(*args, **kw), 3)
+            bounds = []
+            for s in range(S):
+                a, k = _shard_slices(args, kw, s)
+                out = tuple(x[s] for x in got)
+                if kname == "fused_probe":
+                    bounds.append(probe_bound(a, k, out))
+                elif kname == "fused_write":
+                    bounds.append(write_bound(a, out))
+                else:
+                    nb = a[0].shape[0] * (4 + SECTOR + 4 + 4)
+                    bounds.append((nb / PEAK_BYTES_PER_S * 1e3, "bytes", nb, 0))
+            rec.update(bound_ms=sum(b[0] for b in bounds),
+                       bound_by=max(bounds)[1],
+                       bound_bytes=sum(b[2] for b in bounds),
+                       bound_ops=sum(b[3] for b in bounds))
+            per_case.append(rec)
+        emit(records, dict(phase="kernels_sharded", kernel=kname, cases=per_case))
+        summary[kname] = per_case[0]
+    return summary
+
+
+def sharded_twins(cfg, device, n_keys, n_ops, seed, records):
+    """The same op stream through ShardedKV(S=SHARDS) with engine="fused"
+    and engine="fused_ref" on the card: every leaf equal after each phase,
+    statuses and values equal per batch, then a forced migrate() of an
+    edited bucket map (a bucket of shard 0 to shard 1) and a read-back."""
+    import torch
+    from repro_torch import RebalanceConfig, ShardedKV, interop
+    from repro_torch.workload import Zipf
+    V = cfg.value_width
+    twins = {e: ShardedKV(dataclasses.replace(cfg, engine=e), SHARDS,
+                          lanes=SHARD_LANES, device=device,
+                          rebalance_cfg=RebalanceConfig(enabled=False,
+                                                        migrate_batch=SHARD_LANES))
+             for e in ("fused", "fused_ref")}
+
+    def same_state(ctx):
+        la, lb = (interop.state_leaves(kv.state) for kv in twins.values())
+        if not all(torch.equal(x, y) for x, y in zip(la, lb)):
+            raise AssertionError(f"sharded twins diverged after {ctx}")
+        a, b = twins.values()
+        if not (np.array_equal(a.compactions, b.compactions) and a.rounds == b.rounds
+                and np.array_equal(a.bucket_map, b.bucket_map)):
+            raise AssertionError(f"sharded twin counters differ after {ctx}")
+
+    perm = np.random.default_rng(seed).permutation(n_keys).astype(np.int32)
+    for kv in twins.values():
+        load_keys(kv, perm, V)
+        kv.compact_cold_cold(n_records=max(n_keys // SHARDS // 64, kv.compact_batch))
+    same_state("load")
+    for kv in twins.values():
+        read_back(kv, n_keys, V)
+    same_state("read-back")
+    zipf = Zipf(n_keys, 0.99)
+    expect = val_of(np.arange(n_keys), V)     # checked on the kernels' twin
+    for wl in "ABF":
+        outs = {e: ycsb(kv, expect if e == "fused" else None, wl, n_ops, zipf,
+                        np.random.default_rng(seed + ord(wl)))[1]
+                for e, kv in twins.items()}
+        for (s1, v1), (s2, v2) in zip(outs["fused"], outs["fused_ref"]):
+            if not (np.array_equal(s1, s2) and np.array_equal(v1, v2)):
+                raise AssertionError(f"sharded twin statuses/values differ in YCSB-{wl}")
+        same_state(f"YCSB-{wl}")
+    new_map = twins["fused"].bucket_map.copy()
+    new_map[np.flatnonzero(new_map == 0)[0]] = 1
+    moved = {e: kv.migrate(new_map) for e, kv in twins.items()}
+    if len(set(moved.values())) != 1 or moved["fused"] <= 0:
+        raise AssertionError(f"sharded twins migrated {moved}")
+    same_state("migrate")
+    # read-back after the migration: every key holds the value YCSB left
+    for lo in range(0, n_keys, BATCH):
+        k = np.arange(lo, min(lo + BATCH, n_keys), dtype=np.int32)
+        for kv in twins.values():
+            st, v = kv.read(k)
+            if not (bool((st == 1).all()) and np.array_equal(v.cpu().numpy(), expect[k])):
+                raise AssertionError("a key reads wrong after the migration")
+    same_state("read-back after migrate")
+    for kv in twins.values():
+        kv.check_invariants()
+    emit(records, dict(phase="sharded_twins", shards=SHARDS, lanes=SHARD_LANES,
+                       n_keys=n_keys, ops_per_mix=n_ops, migrated_records=moved["fused"],
+                       compactions_per_shard=twins["fused"].compactions.tolist(),
+                       rounds=twins["fused"].rounds, bit_exact=True))
 
 
 # ---------------------------------------------------------------------------
@@ -2160,7 +2612,8 @@ def main(argv=None):
     p = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     p.add_argument("--log2-keys", type=int, default=24)
     p.add_argument("--log2-ops", type=int, default=21,
-                   help="YCSB ops per mix on the main path")
+                   help="YCSB ops per mix on the main path (the sharded "
+                        "path runs half as many)")
     p.add_argument("--out", default=None)
     a = p.parse_args(argv)
 
@@ -2208,6 +2661,7 @@ def run_all(a, records):
     n_keys = 1 << a.log2_keys
     cfg = make_f2_config(n_keys, engine="fused")
     ops.reset_launches()
+    torch.cuda.reset_peak_memory_stats()       # the store's peak, not the checks'
     kv, main_rec = main_path(cfg, "cuda", n_keys, 1 << a.log2_ops, SEED)
     torch.cuda.synchronize()
     launches = dict(ops.launches)
@@ -2223,10 +2677,34 @@ def run_all(a, records):
     summary = check_kernels(kv, n_keys, SEED, records)
     summary["probe"] = check_probe_kernel(kv, n_keys, SEED, records)
     profile_window(kv, n_keys, SEED, records)
+    main_calls, main_syncs = calls_per_round(kv, SEED)
     del kv
     torch.cuda.empty_cache()
     twin_parity(make_f2_config(1 << TWIN_LOG2_KEYS), "cuda",
                 1 << TWIN_LOG2_KEYS, 1 << (a.log2_ops - 4), SEED, records)
+    torch.cuda.empty_cache()
+
+    # the sharded store over the same keyspace, S = 4 on one card
+    scfg_store = make_f2_config(n_keys // SHARDS, engine="fused")
+    skv, srec = sharded_main(scfg_store, "cuda", n_keys, 1 << (a.log2_ops - 1), SEED,
+                             records, main_rec["ycsb_ops_per_s"])
+    s_calls, s_syncs = calls_per_round(skv, SEED)
+    srec.update(calls_per_round=s_calls, main_s1_calls_per_batch=main_calls,
+                host_syncs_per_round=s_syncs, main_s1_host_syncs_per_batch=main_syncs)
+    emit(records, srec)
+    for k, n in srec["launches"].items():
+        if n <= 0:
+            raise AssertionError(f"the sharded path never launched {k}")
+    if s_calls != main_calls:
+        raise AssertionError(f"a sharded round made {s_calls} wrapper calls, a KV batch "
+                             f"{main_calls}: the kernels did not take all shards at once")
+    sharded_profile(skv, n_keys, SEED, records)
+    s_summary = check_sharded_kernels(skv, n_keys, SEED, records)
+    del skv
+    torch.cuda.empty_cache()
+    sharded_twins(make_f2_config((1 << TWIN_LOG2_KEYS) // SHARDS), "cuda",
+                  1 << TWIN_LOG2_KEYS, 1 << (a.log2_ops - 4), SEED, records)
+    torch.cuda.empty_cache()
 
     scfg = dataclasses.replace(get_config(SERVE_ARCH), n_layers=SERVE_LAYERS)
     eng, serve_rec, live = serve_main(scfg, "cuda", SEED, records)
@@ -2301,6 +2779,14 @@ def run_all(a, records):
                     plain_ms=s["plain_ms"], bound_ms=s["bound_ms"],
                     bound_by=s["bound_by"], library_ms=s.get("library_ms"))
                for k, s in summary.items()]
+    # the same three kernels over the sharded phase's shard axis (S = 4 in
+    # one launch); launches are the sharded phase's wrapper counters
+    kernels += [dict(name=f"{k}_sharded", route="cuda", source=src[k],
+                     replaces=replaces[k], launches=srec["launches"][k],
+                     max_abs_err=s["max_abs_err"], ms=s["ms"], device_ms=s["device_ms"],
+                     plain_ms=s["plain_ms"], bound_ms=s["bound_ms"],
+                     bound_by=s["bound_by"], library_ms=None)
+                for k, s in s_summary.items()]
     for e in kernels:
         if not e["launches"] > 0:
             raise AssertionError(f"the main paths never launched {e['name']}")

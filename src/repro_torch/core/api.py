@@ -12,7 +12,10 @@ Two modes:
                    baselines).
 
 The store runs on the CUDA device unless the caller passes another
-`device`; its state is updated in place batch by batch (see `store`).
+`device`; its state is updated in place batch by batch (see `store`).  It
+holds its state as a stack of one store (leaves [1, ...], see `types`), so
+the store's functions take it as it is; `KV.state` is that store's leaves
+without the shard axis (views, so in-place updates show through).
 """
 from __future__ import annotations
 
@@ -22,7 +25,7 @@ import numpy as np
 import torch
 
 from . import cold_index, compaction, store
-from .types import BLOCK_BYTES, OP_DELETE, OP_RMW, OP_UPSERT, F2Config
+from .types import BLOCK_BYTES, OP_DELETE, OP_RMW, OP_UPSERT, F2Config, tree_map
 
 COMPACTION_KINDS = ("hot_cold", "cold_cold", "single_log", "chunk_gc")
 
@@ -55,13 +58,22 @@ class KV:
         self.compact_frac = compact_frac
         self.compact_batch = compact_batch
         self.faster_compaction = faster_compaction
-        self.state = store.create(cfg, self.device)
+        self._st = store.create(cfg, self.device, n_shards=1)
         self.compactions = 0
         # per-kind counts (the reference keeps these in its metrics registry)
         self.compaction_counts = dict.fromkeys(COMPACTION_KINDS, 0)
         self.temp_table_peak_bytes = 0   # scan-based memory overhead (Fig 7)
         self.frontier_bytes = compact_batch * cfg.record_bytes  # lookup-based
         self._admit = mode == "f2" and cfg.rc_capacity > 1
+
+    @property
+    def state(self):
+        """The store's leaves without the shard axis."""
+        return tree_map(lambda t: t.squeeze(0), self._st)
+
+    @state.setter
+    def state(self, st):
+        self._st = tree_map(lambda t: t.unsqueeze(0), st)
 
     def _i32(self, x) -> torch.Tensor:
         return torch.as_tensor(x, dtype=torch.int32, device=self.device)
@@ -76,11 +88,11 @@ class KV:
                                dtype=torch.int32, device=self.device)
         else:
             vals = self._i32(vals)
-        self.state, status, rvals = store.apply(self.cfg, self.state, keys,
-                                                ops, vals,
-                                                admit_rc=self._admit)
+        self._st, status, rvals = store.apply(self.cfg, self._st, keys[None],
+                                              ops[None], vals[None],
+                                              admit_rc=self._admit)
         self.maybe_compact()
-        return status, rvals
+        return status[0], rvals[0]
 
     def upsert(self, keys, vals):
         return self.apply(keys, np.full(len(keys), OP_UPSERT, np.int32), vals)
@@ -89,10 +101,10 @@ class KV:
         keys = self._i32(keys)
         active = torch.ones((keys.shape[0],), dtype=torch.bool,
                             device=self.device)
-        self.state, status, vals = store.read_batch(self.cfg, self.state, keys,
-                                                    active,
-                                                    admit_rc=self._admit)
-        return status, vals
+        self._st, status, vals = store.read_batch(self.cfg, self._st,
+                                                  keys[None], active[None],
+                                                  admit_rc=self._admit)
+        return status[0], vals[0]
 
     def rmw(self, keys, deltas):
         return self.apply(keys, np.full(len(keys), OP_RMW, np.int32), deltas)
@@ -102,15 +114,15 @@ class KV:
 
     # -- compaction policy (paper S5.2 Configuration) ------------------------
     def hot_fill(self) -> float:
-        s = self.state.hot
+        s = self._st.hot
         return int(s.tail - s.begin) / self.cfg.hot_capacity
 
     def cold_fill(self) -> float:
-        s = self.state.cold
+        s = self._st.cold
         return int(s.tail - s.begin) / self.cfg.cold_capacity
 
     def chunklog_fill(self) -> float:
-        ci = self.state.cold_idx
+        ci = self._st.cold_idx
         return int(ci.tail - ci.begin) / self.cfg.chunklog_capacity
 
     def maybe_compact(self):
@@ -127,9 +139,9 @@ class KV:
 
     def compact_chunklog(self):
         """Chunk-log GC: relocate live chunks out of the oldest half."""
-        ci, stats = cold_index.compact_chunklog(self.state.cold_idx, self.cfg,
-                                                self.state.stats)
-        self.state = self.state._replace(cold_idx=ci, stats=stats)
+        ci, stats = cold_index.compact_chunklog(self._st.cold_idx, self.cfg,
+                                                self._st.stats)
+        self._st = self._st._replace(cold_idx=ci, stats=stats)
         self.compaction_counts["chunk_gc"] += 1
 
     def _region(self, log_tail, log_begin):
@@ -143,50 +155,50 @@ class KV:
 
     def compact_hot_cold(self, n_records: Optional[int] = None):
         """Copying phase over the oldest records, then truncation."""
-        begin, n = self._span(self.state.hot, n_records)
-        until = self._i32(begin + n)
+        begin, n = self._span(self._st.hot, n_records)
+        until = self._i32([begin + n])
         for start in range(begin, begin + n, self.compact_batch):
-            self.state, _ = compaction.hot_cold_step(
-                self.cfg, self.state, self._i32(start), until,
+            self._st, _ = compaction.hot_cold_step(
+                self.cfg, self._st, self._i32([start]), until,
                 self.compact_batch)
-        self.state = compaction.hot_truncate(self.cfg, self.state, until)
+        self._st = compaction.hot_truncate(self.cfg, self._st, until)
         self.compactions += 1
         self.compaction_counts["hot_cold"] += 1
 
     def compact_cold_cold(self, n_records: Optional[int] = None):
-        begin, n = self._span(self.state.cold, n_records)
-        until = self._i32(begin + n)
+        begin, n = self._span(self._st.cold, n_records)
+        until = self._i32([begin + n])
         for start in range(begin, begin + n, self.compact_batch):
-            self.state, _ = compaction.cold_cold_step(
-                self.cfg, self.state, self._i32(start), until,
+            self._st, _ = compaction.cold_cold_step(
+                self.cfg, self._st, self._i32([start]), until,
                 self.compact_batch)
-        self.state = compaction.cold_truncate(self.cfg, self.state, until)
+        self._st = compaction.cold_truncate(self.cfg, self._st, until)
         self.compactions += 1
         self.compaction_counts["cold_cold"] += 1
 
     def compact_single_log(self, n_records: Optional[int] = None):
-        begin, n = self._span(self.state.hot, n_records)
-        until = self._i32(begin + n)
+        begin, n = self._span(self._st.hot, n_records)
+        until = self._i32([begin + n])
         live_total = 0
         for start in range(begin, begin + n, self.compact_batch):
-            self.state, n_live = compaction.single_log_lookup_step(
-                self.cfg, self.state, self._i32(start), until,
+            self._st, n_live = compaction.single_log_lookup_step(
+                self.cfg, self._st, self._i32([start]), until,
                 self.compact_batch,
                 charge_walk_io=self.faster_compaction == "lookup")
             live_total += int(n_live)
         if self.faster_compaction == "scan":
             # full-log sequential liveness scan + temp hash table memory
-            self.state = compaction.charge_full_scan(self.cfg, self.state)
+            self._st = compaction.charge_full_scan(self.cfg, self._st)
             self.temp_table_peak_bytes = max(
                 self.temp_table_peak_bytes,
                 live_total * (self.cfg.record_bytes + 16))
-        self.state = compaction.hot_truncate(self.cfg, self.state, until)
+        self._st = compaction.hot_truncate(self.cfg, self._st, until)
         self.compactions += 1
         self.compaction_counts["single_log"] += 1
 
     # -- reporting ------------------------------------------------------------
     def io_stats(self) -> dict:
-        s = self.state.stats
+        s = self._st.stats
         return dict(read_bytes=int(s.read_blocks) * BLOCK_BYTES,
                     write_bytes=int(s.write_blocks) * BLOCK_BYTES,
                     read_ops=int(s.read_ops),
@@ -200,8 +212,8 @@ class KV:
     def chain_hops(self, keys) -> np.ndarray:
         """Per-lane hash-chain record touches for a probe of `keys` (pure:
         no state change, no modeled I/O charged)."""
-        hops = store.probe_hops(self.cfg, self.state, self._i32(keys))
-        return hops.cpu().numpy()
+        hops = store.probe_hops(self.cfg, self._st, self._i32(keys)[None])
+        return hops[0].cpu().numpy()
 
     def memory_model_bytes(self) -> dict:
         """In-memory footprint of each component under the paper's geometry
@@ -221,7 +233,7 @@ class KV:
         return out
 
     def check_invariants(self):
-        st = self.state
+        st = self._st
         if bool(st.hot.overflowed):
             raise AssertionError("hot log ring overflow")
         if bool(st.cold.overflowed):

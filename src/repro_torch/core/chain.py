@@ -9,7 +9,8 @@ compaction only consider *log* records).
 Every hop that lands on a stable-tier log address (addr < head) is charged
 one 4 KiB block read.  The walk runs a fixed `chain_max` steps with per-lane
 active masks, like the reference's fori_loop; it is the `"unfused"` engine
-and the oracle the fused engines are tested against.
+and the oracle the fused engines are tested against.  Lanes are [S, B]
+(see `types`), the I/O counters [S].
 """
 from __future__ import annotations
 
@@ -18,15 +19,15 @@ from typing import NamedTuple, Optional
 import torch
 
 from . import hybrid_log, read_cache
-from .types import META_INVALID, NULL_ADDR, count, is_rc, rc_untag
+from .types import META_INVALID, NULL_ADDR, count, is_rc, rc_untag, shard_entry
 
 
 class WalkResult(NamedTuple):
     found: torch.Tensor      # bool [B] a matching, valid record was found
     addr: torch.Tensor       # int32 [B] its address (RC-tagged if in the RC)
-    io_blocks: torch.Tensor  # int32 scalar: stable-tier blocks read
-    io_ops: torch.Tensor     # int32 scalar: random read ops issued
-    mem_hits: torch.Tensor   # int32 scalar: in-memory record touches
+    io_blocks: torch.Tensor  # int32 [S]: stable-tier blocks read
+    io_ops: torch.Tensor     # int32 [S]: random read ops issued
+    mem_hits: torch.Tensor   # int32 [S]: in-memory record touches
     truncated: torch.Tensor  # bool [B] walk ended by hitting addr < lower bound
     exhausted: torch.Tensor  # bool [B] chain_max hops without resolution
     hops: torch.Tensor       # int32 [B] per-lane record touches
@@ -37,20 +38,22 @@ def _in_range(cur, cur_is_rc, lower):
                        (cur != NULL_ADDR) & (cur >= lower))
 
 
+@shard_entry(lambda keys, *a, **k: keys.ndim == 1)
 def walk(keys: torch.Tensor, heads: torch.Tensor, log: hybrid_log.LogState,
          lower: torch.Tensor, head_boundary: torch.Tensor,
          active: torch.Tensor, chain_max: int,
          rc: Optional[read_cache.RCState] = None,
          rc_match: bool = True) -> WalkResult:
-    B = keys.shape[0]
+    S, B = keys.shape
     dev = keys.device
     cur = heads.clone()
-    done = torch.zeros((B,), dtype=torch.bool, device=dev)
-    faddr = torch.full((B,), NULL_ADDR, dtype=torch.int32, device=dev)
-    io_b = torch.zeros((), dtype=torch.int32, device=dev)
-    mem_h = torch.zeros((), dtype=torch.int32, device=dev)
-    trunc = torch.zeros((B,), dtype=torch.bool, device=dev)
-    hops = torch.zeros((B,), dtype=torch.int32, device=dev)
+    done = torch.zeros((S, B), dtype=torch.bool, device=dev)
+    faddr = torch.full((S, B), NULL_ADDR, dtype=torch.int32, device=dev)
+    io_b = torch.zeros((S,), dtype=torch.int32, device=dev)
+    mem_h = torch.zeros((S,), dtype=torch.int32, device=dev)
+    trunc = torch.zeros((S, B), dtype=torch.bool, device=dev)
+    hops = torch.zeros((S, B), dtype=torch.int32, device=dev)
+    head_boundary = head_boundary[:, None]
     for _ in range(chain_max):
         cur_is_rc = is_rc(cur)
         log_addr = torch.where(cur_is_rc, NULL_ADDR, cur)

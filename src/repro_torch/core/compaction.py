@@ -12,6 +12,13 @@ Compaction = copying phase (ConditionalInsert every record of the frontier)
 + truncation phase (advance BEGIN, then invalidate index entries below it).
 The frontier is a fixed-width batch, so the memory overhead is O(B), not
 O(live set).  Host-tier variants (resumable cold-cold walks) are not ported.
+
+Every step takes a stacked state (see `store`): `start`/`until` are [S], one
+frontier a shard.  A shard whose frontier is empty (`until <= start`) is left
+with its arrays untouched and its counters charged nothing, which is how the
+sharded scheduler masks a step to some shards; the truncations take a `do`
+mask of their own.  `conditional_insert_hot` and the three steps also
+take one store's state without the shard axis (`store.entry`).
 """
 from __future__ import annotations
 
@@ -20,7 +27,7 @@ from typing import Tuple
 import torch
 
 from . import cold_index, groups, hybrid_log, probe_engine, read_cache
-from .store import F2State, cold_probe, hot_slots, merge_walk_io
+from .store import F2State, cold_probe, entry, hot_slots, merge_walk_io
 from .types import (META_INVALID, META_TOMBSTONE, NULL_ADDR, RC_FLAG,
                     F2Config, IoStats, count, excl_cumsum, is_rc, rc_untag,
                     records_to_blocks)
@@ -28,9 +35,12 @@ from .types import (META_INVALID, META_TOMBSTONE, NULL_ADDR, RC_FLAG,
 
 def _frontier(log: hybrid_log.LogState, start: torch.Tensor,
               until: torch.Tensor, B: int):
-    """Gather B records at [start, start+B), masked to < until and valid."""
-    addrs = start + torch.arange(B, dtype=torch.int32, device=log.key.device)
-    m = (addrs < until) & (addrs < log.tail) & (addrs >= log.begin)
+    """Gather B records a shard at [start, start+B), masked to < until and
+    valid."""
+    addrs = start[:, None] + torch.arange(B, dtype=torch.int32,
+                                          device=log.key.device)
+    m = ((addrs < until[:, None]) & (addrs < log.tail[:, None])
+         & (addrs >= log.begin[:, None]))
     k, v, _, meta = hybrid_log.gather(log, addrs)
     m = m & ((meta & META_INVALID) == 0)
     return addrs, m, k, v, meta
@@ -51,7 +61,7 @@ def _chain_append(log: hybrid_log.LogState, live, gid, k, v,
     group id (hash slot) in batch order; the first of a group continues
     `first_prev`.  Returns (log, new_addrs, is_last-of-group)."""
     ginfo = groups.group_info(live, gid)
-    new_addrs = torch.where(live, log.tail + excl_cumsum(live),
+    new_addrs = torch.where(live, log.tail[:, None] + excl_cumsum(live),
                             NULL_ADDR).to(torch.int32)
     pred_addr = groups.select_at_pos(new_addrs, ginfo.pred)
     prevs = torch.where(ginfo.pred >= 0, pred_addr, first_prev).to(torch.int32)
@@ -70,8 +80,8 @@ def _detach_rc_head(state: F2State, mask, heads):
 
 
 def _publish(index: torch.Tensor, mask, slots, new_addrs):
-    sel = mask.nonzero().squeeze(1)
-    index[slots[sel]] = new_addrs[sel]
+    s, w = mask.nonzero(as_tuple=True)
+    index[s, slots[s, w]] = new_addrs[s, w]
     return index
 
 
@@ -79,6 +89,7 @@ def _publish(index: torch.Tensor, mask, slots, new_addrs):
 # ConditionalInsert as a standalone primitive (paper S5.1)
 # ---------------------------------------------------------------------------
 
+@entry
 def conditional_insert_hot(cfg: F2Config, state: F2State, mask: torch.Tensor,
                            keys: torch.Tensor, vals: torch.Tensor,
                            start_addrs: torch.Tensor
@@ -101,7 +112,7 @@ def conditional_insert_hot(cfg: F2Config, state: F2State, mask: torch.Tensor,
                                          cfg.record_bytes)
     state = state._replace(
         hot=hot, hot_index=hot_index, rc=rc, stats=stats,
-        walk_exhausted=state.walk_exhausted | torch.any(res.exhausted))
+        walk_exhausted=state.walk_exhausted | torch.any(res.exhausted, -1))
     return state, ok
 
 
@@ -109,6 +120,7 @@ def conditional_insert_hot(cfg: F2Config, state: F2State, mask: torch.Tensor,
 # Hot -> Cold compaction (paper S5.2 "Hot-Cold Compaction")
 # ---------------------------------------------------------------------------
 
+@entry
 def hot_cold_step(cfg: F2Config, state: F2State, start: torch.Tensor,
                   until: torch.Tensor, B: int) -> Tuple[F2State, torch.Tensor]:
     """Process one frontier of the hot log; live records (including live
@@ -138,16 +150,21 @@ def hot_cold_step(cfg: F2Config, state: F2State, start: torch.Tensor,
                                           cfg.record_bytes)
     state = state._replace(
         cold=cold, cold_idx=ci, stats=stats,
-        walk_exhausted=state.walk_exhausted | torch.any(res.exhausted))
+        walk_exhausted=state.walk_exhausted | torch.any(res.exhausted, -1))
     return state, count(live)
 
 
-def hot_truncate(cfg: F2Config, state: F2State, until: torch.Tensor) -> F2State:
+def hot_truncate(cfg: F2Config, state: F2State, until: torch.Tensor,
+                 do=None) -> F2State:
     """Truncation phase: advance BEGIN and invalidate hot-index entries that
-    point below it (RC-tagged heads survive — replicas remain readable)."""
+    point below it (RC-tagged heads survive — replicas remain readable).
+    `do` (bool [S]) leaves the index of the other shards untouched (the
+    caller keeps their scalars)."""
     hot = hybrid_log.truncate(state.hot, until)
     a = state.hot_index
-    dangling = (a >= 0) & ((a & RC_FLAG) == 0) & (a < hot.begin)
+    dangling = (a >= 0) & ((a & RC_FLAG) == 0) & (a < hot.begin[:, None])
+    if do is not None:
+        dangling = dangling & do[:, None]
     a.masked_fill_(dangling, NULL_ADDR)
     hot = hot._replace(flushed_upto=torch.maximum(hot.flushed_upto, hot.begin))
     return state._replace(hot=hot, hot_truncs=state.hot_truncs + 1)
@@ -157,6 +174,7 @@ def hot_truncate(cfg: F2Config, state: F2State, until: torch.Tensor) -> F2State:
 # Cold -> Cold compaction (paper S5.2 "Cold-Cold Compaction")
 # ---------------------------------------------------------------------------
 
+@entry
 def cold_cold_step(cfg: F2Config, state: F2State, start: torch.Tensor,
                    until: torch.Tensor, B: int) -> Tuple[F2State, torch.Tensor]:
     """ConditionalInsert live cold records to the cold tail.  Live tombstones
@@ -179,7 +197,7 @@ def cold_cold_step(cfg: F2Config, state: F2State, start: torch.Tensor,
                                           cfg.record_bytes)
     state = state._replace(
         cold=cold, cold_idx=ci, stats=stats,
-        walk_exhausted=state.walk_exhausted | torch.any(res.exhausted))
+        walk_exhausted=state.walk_exhausted | torch.any(res.exhausted, -1))
     return state, count(live)
 
 
@@ -197,6 +215,7 @@ def cold_truncate(cfg: F2Config, state: F2State, until: torch.Tensor) -> F2State
 # Single-log compaction primitives (FASTER baseline + Fig 7 comparison)
 # ---------------------------------------------------------------------------
 
+@entry
 def single_log_lookup_step(cfg: F2Config, state: F2State, start: torch.Tensor,
                            until: torch.Tensor, B: int,
                            charge_walk_io: bool = True
@@ -224,7 +243,7 @@ def single_log_lookup_step(cfg: F2Config, state: F2State, start: torch.Tensor,
                                          cfg.record_bytes)
     state = state._replace(
         hot=hot, hot_index=hot_index, rc=rc, stats=stats,
-        walk_exhausted=state.walk_exhausted | torch.any(res.exhausted))
+        walk_exhausted=state.walk_exhausted | torch.any(res.exhausted, -1))
     return state, count(live)
 
 

@@ -10,8 +10,11 @@ Flushing is implicit: records that leave the in-memory window when `tail`
 advances are charged as sequential stable-tier writes by the I/O model.
 
 Scatters update the record columns in place.  A masked-out lane writes
-nothing: the index tensors are filtered with the mask (`idx[mask]`), which
-is what the reference's out-of-range "drop" scatters express.
+nothing: the (shard, lane) pairs of the set lanes are selected with
+`nonzero`, which is what the reference's out-of-range "drop" scatters
+express.  Every function takes the shard axis (see `types`); the
+scatters and `gather` also take one shard's log without it
+(`shard_entry`).
 """
 from __future__ import annotations
 
@@ -20,39 +23,44 @@ from typing import NamedTuple, Tuple
 import torch
 
 from .types import (META_INVALID, META_TOMBSTONE, NULL_ADDR, IoStats, count,
-                    excl_cumsum, i32, records_to_blocks)
+                    excl_cumsum, i32, records_to_blocks, shard_entry, take)
 
+# one shard's log (scalar `tail`) is lifted to the shard axis
+_entry = shard_entry(lambda log, *a, **k: log.tail.ndim == 0)
 
 class LogState(NamedTuple):
-    key: torch.Tensor           # int32 [capacity]
-    val: torch.Tensor           # int32 [capacity, value_width]
-    prev: torch.Tensor          # int32 [capacity] logical addr of previous chain rec
-    meta: torch.Tensor          # int32 [capacity] bitfield
-    begin: torch.Tensor         # int32 scalar
-    tail: torch.Tensor          # int32 scalar
-    flushed_upto: torch.Tensor  # int32 scalar: stable-tier write accounting mark
-    overflowed: torch.Tensor    # bool scalar: live region exceeded capacity
-    floor: torch.Tensor         # int32 scalar: host-tier frontier, always 0 here
+    key: torch.Tensor           # int32 [S, capacity]
+    val: torch.Tensor           # int32 [S, capacity, value_width]
+    prev: torch.Tensor          # int32 [S, capacity] logical addr of previous chain rec
+    meta: torch.Tensor          # int32 [S, capacity] bitfield
+    begin: torch.Tensor         # int32 [S]
+    tail: torch.Tensor          # int32 [S]
+    flushed_upto: torch.Tensor  # int32 [S]: stable-tier write accounting mark
+    overflowed: torch.Tensor    # bool [S]: live region exceeded capacity
+    floor: torch.Tensor         # int32 [S]: host-tier frontier, always 0 here
 
 
-def create(capacity: int, value_width: int, device) -> LogState:
+def create(capacity: int, value_width: int, device, lead=()) -> LogState:
+    """An empty log; `lead` is () for one shard, (S,) for a stacked one."""
+    lead = tuple(lead)
+
+    def full(shape, v):
+        return torch.full(lead + shape, v, dtype=torch.int32, device=device)
     return LogState(
-        key=torch.full((capacity,), -1, dtype=torch.int32, device=device),
-        val=torch.zeros((capacity, value_width), dtype=torch.int32,
-                        device=device),
-        prev=torch.full((capacity,), NULL_ADDR, dtype=torch.int32,
-                        device=device),
-        meta=torch.zeros((capacity,), dtype=torch.int32, device=device),
-        begin=i32(0, device),
-        tail=i32(0, device),
-        flushed_upto=i32(0, device),
-        overflowed=torch.tensor(False, device=device),
-        floor=i32(0, device),
+        key=full((capacity,), -1),
+        val=full((capacity, value_width), 0),
+        prev=full((capacity,), NULL_ADDR),
+        meta=full((capacity,), 0),
+        begin=i32(0, device, lead),
+        tail=i32(0, device, lead),
+        flushed_upto=i32(0, device, lead),
+        overflowed=torch.zeros(lead, dtype=torch.bool, device=device),
+        floor=i32(0, device, lead),
     )
 
 
 def capacity_of(log: LogState) -> int:
-    return log.key.shape[0]
+    return log.key.shape[-1]
 
 
 def head_addr(log: LogState, mem: int) -> torch.Tensor:
@@ -69,14 +77,17 @@ def slot_of(log: LogState, addr: torch.Tensor) -> torch.Tensor:
     return addr & (capacity_of(log) - 1)
 
 
+@_entry
 def gather(log: LogState, addr: torch.Tensor):
-    """Gather (key, val, prev, meta) at logical addresses.  Callers mask
-    lanes whose addr is invalid; the physical index is clamped so the
+    """Gather (key, val, prev, meta) at logical addresses [S, W].  Callers
+    mask lanes whose addr is invalid; the physical index is clamped so the
     gather itself is always in bounds."""
     slot = slot_of(log, addr.clamp_min(0))
-    return log.key[slot], log.val[slot], log.prev[slot], log.meta[slot]
+    return (take(log.key, slot), take(log.val, slot), take(log.prev, slot),
+            take(log.meta, slot))
 
 
+@_entry
 def append(log: LogState, mask: torch.Tensor, keys: torch.Tensor,
            vals: torch.Tensor, prevs: torch.Tensor, metas: torch.Tensor
            ) -> Tuple[LogState, torch.Tensor]:
@@ -88,13 +99,13 @@ def append(log: LogState, mask: torch.Tensor, keys: torch.Tensor,
     what callers check, not the ring content."""
     cap = capacity_of(log)
     offs = excl_cumsum(mask)
-    new_addrs = torch.where(mask, log.tail + offs, NULL_ADDR)
-    sel = mask.nonzero().squeeze(1)
-    slot = new_addrs[sel] & (cap - 1)
-    log.key[slot] = keys[sel]
-    log.val[slot] = vals[sel]
-    log.prev[slot] = prevs[sel]
-    log.meta[slot] = metas[sel]
+    new_addrs = torch.where(mask, log.tail[:, None] + offs, NULL_ADDR)
+    s, w = mask.nonzero(as_tuple=True)
+    slot = new_addrs[s, w] & (cap - 1)
+    log.key[s, slot] = keys[s, w]
+    log.val[s, slot] = vals[s, w]
+    log.prev[s, slot] = prevs[s, w]
+    log.meta[s, slot] = metas[s, w]
     log = log._replace(tail=log.tail + count(mask))
     ring_base = torch.maximum(log.begin, log.floor)
     log = log._replace(
@@ -112,27 +123,30 @@ def charge_flush(log: LogState, stats: IoStats, mem: int, record_bytes: int
     return log._replace(flushed_upto=torch.maximum(log.flushed_upto, h)), stats
 
 
+@_entry
 def update_in_place(log: LogState, mask: torch.Tensor, addrs: torch.Tensor,
                     vals: torch.Tensor, metas: torch.Tensor) -> LogState:
-    sel = mask.nonzero().squeeze(1)
-    slot = slot_of(log, addrs[sel].clamp_min(0))
-    log.val[slot] = vals[sel]
-    log.meta[slot] = metas[sel]
+    s, w = mask.nonzero(as_tuple=True)
+    slot = slot_of(log, addrs[s, w].clamp_min(0))
+    log.val[s, slot] = vals[s, w]
+    log.meta[s, slot] = metas[s, w]
     return log
 
 
 def _set_meta_bit(log: LogState, mask, addrs, bit: int) -> LogState:
-    sel = mask.nonzero().squeeze(1)
-    slot = slot_of(log, addrs[sel].clamp_min(0))
-    log.meta[slot] = log.meta[slot] | bit
+    s, w = mask.nonzero(as_tuple=True)
+    slot = slot_of(log, addrs[s, w].clamp_min(0))
+    log.meta[s, slot] = log.meta[s, slot] | bit
     return log
 
 
+@_entry
 def invalidate(log: LogState, mask: torch.Tensor, addrs: torch.Tensor) -> LogState:
     """Set the INVALID bit on masked records (e.g. failed CAS cleanup)."""
     return _set_meta_bit(log, mask, addrs, META_INVALID)
 
 
+@_entry
 def set_tombstone_in_place(log: LogState, mask: torch.Tensor,
                            addrs: torch.Tensor) -> LogState:
     return _set_meta_bit(log, mask, addrs, META_TOMBSTONE)

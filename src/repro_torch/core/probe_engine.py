@@ -21,6 +21,9 @@ The columns stay in device memory at any store size: the reference's VMEM
 budget has no counterpart here.  `target=` is the liveness mode of
 lookup-based compaction: a lane whose chain head equals its target address
 is found at the target with zero hops and zero modeled I/O.
+
+Lanes are [S, B] over a stacked store (see `types`): one backend call, and
+with the kernel one launch, serves every shard.
 """
 from __future__ import annotations
 
@@ -34,7 +37,7 @@ from ..kernels.f2_probe import ref as _ref
 from . import chain, hybrid_log, read_cache
 from .types import (META_INVALID, META_TOMBSTONE, NULL_ADDR, OP_DELETE,
                     OP_RMW, OP_UPSERT, RC_FLAG, F2Config, hash32, is_rc,
-                    rc_untag, slot_of_keys)
+                    rc_untag, shard_entry, slot_of_keys, take)
 
 # the kernel package re-declares the address/meta/op constants and the slot
 # hash (it is import-standalone); fail loudly if they drift
@@ -48,16 +51,16 @@ assert torch.equal(hash32(_drift_keys), _ref._mix(_drift_keys)), \
 
 
 class ProbeResult(NamedTuple):
-    found: torch.Tensor      # bool  [B] matching, valid record found
-    addr: torch.Tensor       # int32 [B] its address (RC-tagged for replicas)
-    heads: torch.Tensor      # int32 [B] resolved chain heads (index entries)
-    value: torch.Tensor      # int32 [B, V] record value (0 when not found)
-    meta: torch.Tensor       # int32 [B] record meta bitfield (0 when not found)
-    hops: torch.Tensor       # int32 [B] per-lane record touches
-    io_blocks: torch.Tensor  # int32 scalar: stable-tier blocks read
-    io_ops: torch.Tensor     # int32 scalar: random read ops issued
-    mem_hits: torch.Tensor   # int32 scalar: in-memory record touches
-    exhausted: torch.Tensor  # bool  [B] chain_max hops without resolution
+    found: torch.Tensor      # bool  [S, B] matching, valid record found
+    addr: torch.Tensor       # int32 [S, B] its address (RC-tagged for replicas)
+    heads: torch.Tensor      # int32 [S, B] resolved chain heads (index entries)
+    value: torch.Tensor      # int32 [S, B, V] record value (0 when not found)
+    meta: torch.Tensor       # int32 [S, B] record meta bitfield (0 when not found)
+    hops: torch.Tensor       # int32 [S, B] per-lane record touches
+    io_blocks: torch.Tensor  # int32 [S]: stable-tier blocks read
+    io_ops: torch.Tensor     # int32 [S]: random read ops issued
+    mem_hits: torch.Tensor   # int32 [S]: in-memory record touches
+    exhausted: torch.Tensor  # bool  [S, B] chain_max hops without resolution
 
 
 def resolve(engine: str, device: torch.device) -> str:
@@ -72,14 +75,17 @@ def resolve(engine: str, device: torch.device) -> str:
     return engine
 
 
-@functools.lru_cache(maxsize=8)
-def dummy_rc(value_width: int, device: torch.device) -> read_cache.RCState:
-    """1-record read-cache columns for walks without an RC, built once per
-    width and device (never written, and never dereferenced: without an RC
-    no address carries the RC tag)."""
-    return read_cache.create(1, value_width, device)
+@functools.lru_cache(maxsize=16)
+def dummy_rc(value_width: int, device: torch.device,
+             n_shards=None) -> read_cache.RCState:
+    """1-record read-cache columns for walks without an RC ([S, 1] with
+    `n_shards`), built once per width, device and S (never written, and
+    never dereferenced: without an RC no address carries the RC tag)."""
+    lead = () if n_shards is None else (n_shards,)
+    return read_cache.create(1, value_width, device, lead)
 
 
+@shard_entry(lambda cfg, keys, *a, **k: keys.ndim == 1)
 def probe(cfg: F2Config, keys: torch.Tensor, log: hybrid_log.LogState,
           lower: torch.Tensor, head_boundary: torch.Tensor,
           active: torch.Tensor, *, index: Optional[torch.Tensor] = None,
@@ -98,7 +104,8 @@ def probe(cfg: F2Config, keys: torch.Tensor, log: hybrid_log.LogState,
                               index=index, heads=heads, rc=rc,
                               rc_match=rc_match, target=target)
     has_rc = rc is not None
-    rcs = rc if has_rc else dummy_rc(log.val.shape[1], keys.device)
+    rcs = rc if has_rc else dummy_rc(log.val.shape[-1], keys.device,
+                                     keys.shape[0])
     probe_index = index is not None
     # lane bounds are often one scalar expanded over the batch
     args = (keys, index if probe_index else heads, lower.contiguous(), active,
@@ -111,21 +118,22 @@ def probe(cfg: F2Config, keys: torch.Tensor, log: hybrid_log.LogState,
     else:
         out = _ref.fused_probe_body(*args, early_exit=True, **kw)
     found, addr, heads_out, value, meta, hops, ios, exhausted = out
-    n_io = ios.sum(dtype=torch.int32)
+    n_io = ios.sum(dim=-1, dtype=torch.int32)
     return ProbeResult(found=found, addr=addr, heads=heads_out, value=value,
                        meta=meta, hops=hops, io_blocks=n_io, io_ops=n_io,
-                       mem_hits=hops.sum(dtype=torch.int32) - n_io,
+                       mem_hits=hops.sum(dim=-1, dtype=torch.int32) - n_io,
                        exhausted=exhausted)
 
 
+@shard_entry(lambda cfg, index, keys: keys.ndim == 1)
 def index_heads(cfg: F2Config, index: torch.Tensor, keys: torch.Tensor) -> torch.Tensor:
-    """The (RC-tagged) index entries of the keys' slots.  The kernel returns
-    each head untagged with its RC flag; tagging it again gives the entry
-    back bit for bit."""
+    """The (RC-tagged) index entries [S, B] of the keys' slots.  The kernel
+    returns each head untagged with its RC flag; tagging it again gives the
+    entry back bit for bit."""
     if resolve(cfg.engine, keys.device) == "fused_cuda":
         addr, rc = probe_ops.probe_cuda(keys.contiguous(), index)
         return torch.where(rc != 0, addr | RC_FLAG, addr)
-    return index[slot_of_keys(keys, index.shape[0])]
+    return take(index, slot_of_keys(keys, index.shape[-1]))
 
 
 def _probe_unfused(cfg, keys, log, lower, head_boundary, active, *, index,
@@ -134,7 +142,7 @@ def _probe_unfused(cfg, keys, log, lower, head_boundary, active, *, index,
     The `target` fast path pre-filters the walk: fast lanes never walk, so
     they charge no hops and no I/O."""
     if heads is None:
-        heads = index[slot_of_keys(keys, index.shape[0])]
+        heads = take(index, slot_of_keys(keys, index.shape[-1]))
     if target is not None:
         fast = active & (heads == target)
         walk_active = active & ~fast
@@ -148,11 +156,11 @@ def _probe_unfused(cfg, keys, log, lower, head_boundary, active, *, index,
     hit_rc = found & is_rc(addr)
     hit_log = found & ~hit_rc
     _, v_log, _, m_log = hybrid_log.gather(log, torch.where(hit_log, addr, 0))
-    value = torch.where(hit_log[:, None], v_log, 0)
+    value = torch.where(hit_log[..., None], v_log, 0)
     meta = torch.where(hit_log, m_log, 0)
     if rc is not None:
         _, v_rc, _, m_rc = read_cache.gather(rc, rc_untag(addr))
-        value = torch.where(hit_rc[:, None], v_rc, value)
+        value = torch.where(hit_rc[..., None], v_rc, value)
         meta = torch.where(hit_rc, m_rc, meta)
     return ProbeResult(found=found, addr=addr, heads=heads, value=value,
                        meta=meta, hops=res.hops, io_blocks=res.io_blocks,

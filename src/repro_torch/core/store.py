@@ -17,6 +17,13 @@ the pre-update tensors before its first write, in the reference's order.
 The host tier is not ported: `F2State.host` is the inert 1 x 1 chunk-cache
 leaf that the reference builds when the tier is off, so that the leaves
 still zip one to one.
+
+The shard axis (see `types`): every function takes a stacked state of S
+stores (`create(cfg, device, n_shards=S)`; leaves [S, ...], lane batches
+[S, W]) and runs all S in one pass (`api.KV` holds a stack of one).  The
+two-phase read (`read_begin`, `read_finish`) also takes one store's state
+and [B] lanes, which `shard_entry` lifts.  The rows of a stacked state are
+independent stores: every scatter, count and comparison stays in its row.
 """
 from __future__ import annotations
 
@@ -27,61 +34,70 @@ import torch
 from . import cold_index, hybrid_log, probe_engine, read_cache, write_engine
 from .types import (META_TOMBSTONE, NULL_ADDR, OP_DELETE, OP_READ, OP_RMW,
                     OP_UPSERT, ST_CREATED, ST_NONE, ST_NOT_FOUND, ST_OK,
-                    F2Config, IoStats, i32, is_rc, rc_untag, slot_of_keys)
+                    F2Config, IoStats, i32, is_rc, lanes, rc_untag,
+                    shard_entry, slot_of_keys, take)
+
+# one store's state (scalar hot tail) is lifted to the shard axis
+entry = shard_entry(lambda cfg, state, *a, **k: state.hot.tail.ndim == 0)
 
 
 class HostCacheState(NamedTuple):
     """The host tier's device chunk cache, inert (1 row of 1 record) while
     the tier is off; mirrors the reference's leaves."""
-    chunk: torch.Tensor           # int32 [1]
-    key: torch.Tensor             # int32 [1]
-    val: torch.Tensor             # int32 [1, V]
-    prev: torch.Tensor            # int32 [1]
-    meta: torch.Tensor            # int32 [1]
-    tick: torch.Tensor            # int32 [1]
-    hits: torch.Tensor            # int32 [1]
-    clock: torch.Tensor           # int32 scalar
-    missed_in_step: torch.Tensor  # bool scalar
+    chunk: torch.Tensor           # int32 [S, 1]
+    key: torch.Tensor             # int32 [S, 1]
+    val: torch.Tensor             # int32 [S, 1, V]
+    prev: torch.Tensor            # int32 [S, 1]
+    meta: torch.Tensor            # int32 [S, 1]
+    tick: torch.Tensor            # int32 [S, 1]
+    hits: torch.Tensor            # int32 [S, 1]
+    clock: torch.Tensor           # int32 [S]
+    missed_in_step: torch.Tensor  # bool [S]
 
 
-def _inert_host(cfg: F2Config, device) -> HostCacheState:
+def _inert_host(cfg: F2Config, device, lead) -> HostCacheState:
     def full(shape, v):
-        return torch.full(shape, v, dtype=torch.int32, device=device)
+        return torch.full(lead + shape, v, dtype=torch.int32, device=device)
     return HostCacheState(chunk=full((1,), -1), key=full((1,), -1),
                           val=full((1, cfg.value_width), 0),
                           prev=full((1,), NULL_ADDR), meta=full((1,), 0),
                           tick=full((1,), 0), hits=full((1,), 0),
-                          clock=i32(0, device),
-                          missed_in_step=torch.tensor(False, device=device))
+                          clock=i32(0, device, lead),
+                          missed_in_step=torch.zeros(lead, dtype=torch.bool,
+                                                     device=device))
 
 
 class F2State(NamedTuple):
     hot: hybrid_log.LogState
-    hot_index: torch.Tensor        # int32 [E] chain heads (maybe RC-tagged)
+    hot_index: torch.Tensor        # int32 [S, E] chain heads (maybe RC-tagged)
     rc: read_cache.RCState
     cold: hybrid_log.LogState
     cold_idx: cold_index.ColdIndexState
     stats: IoStats
-    hot_truncs: torch.Tensor       # int32: hot-log truncation counter
-    cold_truncs: torch.Tensor      # int32: num_truncs of paper S5.4
-    walk_exhausted: torch.Tensor   # bool: some chain walk hit chain_max (guard)
+    hot_truncs: torch.Tensor       # int32 [S]: hot-log truncation counter
+    cold_truncs: torch.Tensor      # int32 [S]: num_truncs of paper S5.4
+    walk_exhausted: torch.Tensor   # bool [S]: some chain walk hit chain_max (guard)
     host: HostCacheState           # inert while the host tier is off
 
 
-def create(cfg: F2Config, device) -> F2State:
+def create(cfg: F2Config, device, n_shards=None) -> F2State:
+    """An empty store: one store's leaves (no shard axis) by default, S
+    stacked stores with `n_shards=S`."""
     device = torch.device(device)
+    lead = () if n_shards is None else (n_shards,)
     return F2State(
-        hot=hybrid_log.create(cfg.hot_capacity, cfg.value_width, device),
-        hot_index=torch.full((cfg.hot_index_size,), NULL_ADDR,
+        hot=hybrid_log.create(cfg.hot_capacity, cfg.value_width, device, lead),
+        hot_index=torch.full(lead + (cfg.hot_index_size,), NULL_ADDR,
                              dtype=torch.int32, device=device),
-        rc=read_cache.create(cfg.rc_capacity, cfg.value_width, device),
-        cold=hybrid_log.create(cfg.cold_capacity, cfg.value_width, device),
-        cold_idx=cold_index.create(cfg, device),
-        stats=IoStats.zeros(device),
-        hot_truncs=i32(0, device),
-        cold_truncs=i32(0, device),
-        walk_exhausted=torch.tensor(False, device=device),
-        host=_inert_host(cfg, device),
+        rc=read_cache.create(cfg.rc_capacity, cfg.value_width, device, lead),
+        cold=hybrid_log.create(cfg.cold_capacity, cfg.value_width, device,
+                               lead),
+        cold_idx=cold_index.create(cfg, device, lead),
+        stats=IoStats.zeros(device, lead),
+        hot_truncs=i32(0, device, lead),
+        cold_truncs=i32(0, device, lead),
+        walk_exhausted=torch.zeros(lead, dtype=torch.bool, device=device),
+        host=_inert_host(cfg, device, lead),
     )
 
 
@@ -104,7 +120,7 @@ def cold_probe(cfg: F2Config, state: F2State, keys, lower_c, cold_head,
 def _exhausted(state: F2State, *results) -> torch.Tensor:
     out = state.walk_exhausted
     for r in results:
-        out = out | torch.any(r.exhausted)
+        out = out | torch.any(r.exhausted, dim=-1)
     return out
 
 
@@ -115,10 +131,9 @@ def _exhausted(state: F2State, *results) -> torch.Tensor:
 def read_batch(cfg: F2Config, state: F2State, keys: torch.Tensor,
                active: torch.Tensor, admit_rc: bool = True
                ) -> Tuple[F2State, torch.Tensor, torch.Tensor]:
-    """Returns (state, status[B], values[B, V])."""
-    B = keys.shape[0]
+    """Returns (state, status[S, B], values[S, B, V])."""
     hot_head = hybrid_log.head_addr(state.hot, cfg.hot_mem)
-    lower = state.hot.begin.expand(B)
+    lower = lanes(state.hot.begin, keys)
     res_h = probe_engine.probe(cfg, keys, state.hot, lower, hot_head, active,
                                index=state.hot_index, rc=state.rc,
                                rc_match=True)
@@ -135,15 +150,15 @@ def read_batch(cfg: F2Config, state: F2State, keys: torch.Tensor,
     entries, stats = cold_index.find_entries(state.cold_idx, cfg, keys,
                                              cold_active, stats)
     cold_head = hybrid_log.head_addr(state.cold, cfg.cold_mem)
-    lower_c = state.cold.begin.expand(B)
+    lower_c = lanes(state.cold.begin, keys)
     res_c = cold_probe(cfg, state, keys, lower_c, cold_head, cold_active,
                        entries)
     stats = merge_walk_io(stats, res_c)
     tomb_cold = res_c.found & ((res_c.meta & META_TOMBSTONE) != 0)
     ok_cold = res_c.found & ~tomb_cold
 
-    vals = torch.where(ok_hot[:, None], res_h.value,
-                       torch.where(ok_cold[:, None], res_c.value, 0))
+    vals = torch.where(ok_hot[..., None], res_h.value,
+                       torch.where(ok_cold[..., None], res_c.value, 0))
     found = ok_hot | ok_cold
     status = torch.where(found, ST_OK,
                          torch.where(active, ST_NOT_FOUND, ST_NONE)
@@ -152,12 +167,12 @@ def read_batch(cfg: F2Config, state: F2State, keys: torch.Tensor,
     rc, hot_index = state.rc, state.hot_index
     if cfg.rc_capacity and admit_rc:
         # --- read-cache admission: stable-tier hits get replicated ----------
-        admit = ((hit_log & ~tomb_hot & (res_h.addr < hot_head))
-                 | (ok_cold & (res_c.addr < cold_head)))
+        admit = ((hit_log & ~tomb_hot & (res_h.addr < hot_head[:, None]))
+                 | (ok_cold & (res_c.addr < cold_head[:, None])))
         admit = admit & ~is_rc(heads)            # one RC record per chain
         # --- second chance: RC hits in the read-only region re-insert -------
         _, _, p_rc, _ = read_cache.gather(rc, rc_untag(res_h.addr))
-        rc_ro = read_cache.read_only_addr(rc, cfg.rc_mutable_frac)
+        rc_ro = read_cache.read_only_addr(rc, cfg.rc_mutable_frac)[:, None]
         sc = hit_rc & (rc_untag(res_h.addr) < rc_ro)
         rc = read_cache.invalidate(rc, sc, rc_untag(res_h.addr))
         ins = admit | sc
@@ -174,17 +189,16 @@ def probe_hops(cfg: F2Config, state: F2State, keys: torch.Tensor) -> torch.Tenso
     """Per-lane chain-walk record touches for a read probe of `keys` (hot
     walk plus the cold continuation for hot misses).  Pure telemetry: no
     state change, no admission, no modeled I/O charged."""
-    B = keys.shape[0]
-    active = torch.ones((B,), dtype=torch.bool, device=keys.device)
+    active = torch.ones(keys.shape, dtype=torch.bool, device=keys.device)
     hot_head = hybrid_log.head_addr(state.hot, cfg.hot_mem)
-    res_h = probe_engine.probe(cfg, keys, state.hot, state.hot.begin.expand(B),
+    res_h = probe_engine.probe(cfg, keys, state.hot, lanes(state.hot.begin, keys),
                                hot_head, active, index=state.hot_index,
                                rc=state.rc, rc_match=True)
     cold_active = active & ~res_h.found
     entries, _ = cold_index.find_entries(state.cold_idx, cfg, keys,
                                          cold_active, state.stats)
     cold_head = hybrid_log.head_addr(state.cold, cfg.cold_mem)
-    res_c = cold_probe(cfg, state, keys, state.cold.begin.expand(B),
+    res_c = cold_probe(cfg, state, keys, lanes(state.cold.begin, keys),
                        cold_head, cold_active, entries)
     return res_h.hops + res_c.hops
 
@@ -202,7 +216,6 @@ def write_batch(cfg: F2Config, state: F2State, keys: torch.Tensor,
 
     The mutate pipeline runs as one write-engine pass; this function
     resolves cold base values for pure-RMW misses and applies the plan."""
-    B = keys.shape[0]
     wmask = (ops == OP_UPSERT) | (ops == OP_RMW) | (ops == OP_DELETE)
     plan = write_engine.plan(cfg, keys, ops, vals, state.hot,
                              state.hot_index, state.rc)
@@ -212,12 +225,12 @@ def write_batch(cfg: F2Config, state: F2State, keys: torch.Tensor,
     entries, stats = cold_index.find_entries(state.cold_idx, cfg, keys,
                                              plan.need_cold, stats)
     cold_head = hybrid_log.head_addr(state.cold, cfg.cold_mem)
-    res_c = cold_probe(cfg, state, keys, state.cold.begin.expand(B),
+    res_c = cold_probe(cfg, state, keys, lanes(state.cold.begin, keys),
                        cold_head, plan.need_cold, entries)
     stats = merge_walk_io(stats, res_c)
     cold_ok = res_c.found & ((res_c.meta & META_TOMBSTONE) == 0)
     use_cold = plan.need_cold & cold_ok
-    final_val = plan.val_nocold + torch.where(use_cold[:, None], res_c.value, 0)
+    final_val = plan.val_nocold + torch.where(use_cold[..., None], res_c.value, 0)
     created = plan.created_nocold & ~use_cold
 
     # --- apply the plan: in-place scatter, RC detach, append, publish -------
@@ -230,13 +243,13 @@ def write_batch(cfg: F2Config, state: F2State, keys: torch.Tensor,
     hot, _ = hybrid_log.append(hot, plan.append, keys, final_val, plan.prevs,
                                new_meta)
     # publish: the last lane of each slot run swings the index entry
-    psel = plan.publish.nonzero().squeeze(1)
-    state.hot_index[plan.slots[psel]] = plan.new_addrs[psel]
+    s, w = plan.publish.nonzero(as_tuple=True)
+    state.hot_index[s, plan.slots[s, w]] = plan.new_addrs[s, w]
     hot, stats = hybrid_log.charge_flush(hot, stats, cfg.hot_mem,
                                          cfg.record_bytes)
 
     # --- statuses broadcast back to every lane of the group -----------------
-    grp_created = (plan.rep_pos >= 0) & created[plan.rep_pos.clamp_min(0)]
+    grp_created = (plan.rep_pos >= 0) & take(created, plan.rep_pos.clamp_min(0))
     status = torch.where(wmask, torch.where((ops == OP_RMW) & grp_created,
                                             ST_CREATED, ST_OK),
                          ST_NONE).to(torch.int32)
@@ -253,7 +266,8 @@ def apply(cfg: F2Config, state: F2State, keys: torch.Tensor,
           ops: torch.Tensor, vals: torch.Tensor, admit_rc: bool = True
           ) -> Tuple[F2State, torch.Tensor, torch.Tensor]:
     """Mixed op batch: Reads observe the pre-batch snapshot, then writes
-    apply in batch order.  Returns (state, status[B], read_vals[B, V])."""
+    apply in batch order.  Returns (state, status[S, B],
+    read_vals[S, B, V])."""
     state, rstatus, rvals = read_batch(cfg, state, keys, active=(ops == OP_READ),
                                        admit_rc=admit_rc)
     state, wstatus = write_batch(cfg, state, keys, ops, vals)
@@ -273,6 +287,7 @@ class ReadSnapshot(NamedTuple):
     num_truncs: torch.Tensor
 
 
+@entry
 def read_begin(cfg: F2Config, state: F2State, keys: torch.Tensor,
                active: torch.Tensor) -> Tuple[F2State, ReadSnapshot]:
     """Phase 1: snapshot chain heads + (TAIL, num_truncs) per paper S5.4."""
@@ -286,6 +301,7 @@ def read_begin(cfg: F2Config, state: F2State, keys: torch.Tensor,
     return state._replace(stats=stats), snap
 
 
+@entry
 def read_finish(cfg: F2Config, state: F2State, snap: ReadSnapshot
                 ) -> Tuple[F2State, torch.Tensor, torch.Tensor]:
     """Phase 2: walk from the snapshot.  If a lane misses and truncation(s)
@@ -293,10 +309,9 @@ def read_finish(cfg: F2Config, state: F2State, snap: ReadSnapshot
     segment (snap.cold_tail, TAIL] from the *current* index — the paper's
     num_truncs fix for the false-absence anomaly.  All three walks run on
     the probe engine in heads mode."""
-    B = snap.keys.shape[0]
     keys, active = snap.keys, snap.active
     hot_head = hybrid_log.head_addr(state.hot, cfg.hot_mem)
-    res_h = probe_engine.probe(cfg, keys, state.hot, state.hot.begin.expand(B),
+    res_h = probe_engine.probe(cfg, keys, state.hot, lanes(state.hot.begin, keys),
                                hot_head, active, heads=snap.hot_heads,
                                rc=state.rc, rc_match=True)
     stats = merge_walk_io(state.stats, res_h)
@@ -307,25 +322,25 @@ def read_finish(cfg: F2Config, state: F2State, snap: ReadSnapshot
 
     cold_active = active & ~res_h.found
     cold_head = hybrid_log.head_addr(state.cold, cfg.cold_mem)
-    res_c = cold_probe(cfg, state, keys, state.cold.begin.expand(B),
+    res_c = cold_probe(cfg, state, keys, lanes(state.cold.begin, keys),
                        cold_head, cold_active, snap.cold_entries)
     stats = merge_walk_io(stats, res_c)
 
     # --- the anomaly fix: recheck the new tail segment on miss ---------------
     truncated_since = state.cold_truncs != snap.num_truncs
-    retry = cold_active & ~res_c.found & truncated_since
+    retry = cold_active & ~res_c.found & truncated_since[:, None]
     entries2, stats = cold_index.find_entries(state.cold_idx, cfg, keys,
                                               retry, stats)
-    res_r = cold_probe(cfg, state, keys, snap.cold_tail.expand(B), cold_head,
+    res_r = cold_probe(cfg, state, keys, lanes(snap.cold_tail, keys), cold_head,
                        retry, entries2)
     stats = merge_walk_io(stats, res_r)
 
     cold_found = res_c.found | res_r.found
-    v_cold = torch.where(res_c.found[:, None], res_c.value, res_r.value)
+    v_cold = torch.where(res_c.found[..., None], res_c.value, res_r.value)
     m_cold = torch.where(res_c.found, res_c.meta, res_r.meta)
     ok_cold = cold_found & ((m_cold & META_TOMBSTONE) == 0)
-    vals = torch.where(ok_hot[:, None], res_h.value,
-                       torch.where(ok_cold[:, None], v_cold, 0))
+    vals = torch.where(ok_hot[..., None], res_h.value,
+                       torch.where(ok_cold[..., None], v_cold, 0))
     found = ok_hot | ok_cold
     status = torch.where(found, ST_OK,
                          torch.where(active, ST_NOT_FOUND, ST_NONE)

@@ -17,10 +17,21 @@ spliced hash chains, paper S7.1).
 
 Every tensor of the store is int32 (or bool); constants are plain Python
 ints so that `tensor op constant` keeps the tensor's dtype.
+
+**The shard axis.** The store's functions are written for a state whose
+leaves carry a leading shard axis: per-shard scalars (`tail`, `begin`,
+counters, `IoStats`) are `[S]`, columns `[S, capacity, ...]`, lane batches
+`[S, W]`.  S independent stores then run in one pass, each torch op (and
+each kernel launch) serving every shard; `api.KV` holds a stack of one.
+`shard_entry` lets the few functions that are also called on one store's
+tensors without the axis (`KV.state`) take them: it adds the axis as a
+view on the way in and drops it on the way out, so in-place scatters still
+land in the caller's tensors.
 """
 from __future__ import annotations
 
 import dataclasses
+import functools
 from typing import NamedTuple
 
 import torch
@@ -93,28 +104,89 @@ def rc_tag(addr: torch.Tensor) -> torch.Tensor:
     return addr | RC_FLAG
 
 
-def i32(x, device) -> torch.Tensor:
-    """0-d int32 tensor (a scalar state leaf)."""
-    return torch.tensor(x, dtype=torch.int32, device=device)
+def i32(x, device, lead=()) -> torch.Tensor:
+    """A scalar state leaf: int32 of shape `lead` (() for one shard, (S,)
+    for a stacked state)."""
+    return torch.full(tuple(lead), x, dtype=torch.int32, device=device)
 
 
 def count(mask: torch.Tensor) -> torch.Tensor:
-    """Number of set lanes as a 0-d int32 tensor (torch.sum defaults to
-    int64 for integer inputs)."""
-    return mask.sum(dtype=torch.int32)
+    """Number of set lanes along the last axis, int32 (torch.sum defaults
+    to int64 for integer inputs): [S] for a [S, W] mask."""
+    return mask.sum(dim=-1, dtype=torch.int32)
 
 
 def excl_cumsum(mask: torch.Tensor) -> torch.Tensor:
-    """Exclusive prefix sum of a bool mask, int32."""
+    """Exclusive prefix sum of a bool mask along the last axis, int32."""
     m32 = mask.to(torch.int32)
-    return (torch.cumsum(m32, 0) - m32).to(torch.int32)
+    return (torch.cumsum(m32, -1) - m32).to(torch.int32)
+
+
+@functools.lru_cache(maxsize=64)
+def _rows(n: int, device: torch.device) -> torch.Tensor:
+    return torch.arange(n, device=device)[:, None]
+
+
+def rows(x: torch.Tensor) -> torch.Tensor:
+    """The shard index [S, 1] that pairs with a [S, W] lane index."""
+    return _rows(x.shape[0], x.device)
+
+
+def take(col: torch.Tensor, idx: torch.Tensor, *more: torch.Tensor) -> torch.Tensor:
+    """Per-shard gather: col [S, N, ...] at idx [S, W] (and at the further
+    [S, W] indices `more` into the next axes; every index in range) ->
+    [S, W, ...].  One shard takes a one-store gather: a broadcast row index
+    would cost CUDA's advanced indexing a copy of it to match the lane
+    index's strides, and `index_select` is the cheapest call on the host."""
+    if idx.shape[0] == 1:
+        if not more:
+            return torch.index_select(col, 1, idx[0])
+        return col[0][(idx[0],) + tuple(m[0] for m in more)].unsqueeze(0)
+    return col[(rows(idx), idx) + more]
+
+
+def lanes(x: torch.Tensor, like: torch.Tensor) -> torch.Tensor:
+    """A per-shard scalar [S] broadcast over a [S, W] lane batch."""
+    return x[:, None].expand(like.shape[0], like.shape[1])
+
+
+def tree_map(fn, x):
+    """`fn` on every tensor of a nest of (named) tuples and lists."""
+    if isinstance(x, torch.Tensor):
+        return fn(x)
+    if isinstance(x, tuple):
+        vals = [tree_map(fn, y) for y in x]
+        return type(x)(*vals) if hasattr(x, "_fields") else tuple(vals)
+    if isinstance(x, list):
+        return [tree_map(fn, y) for y in x]
+    return x
+
+
+def shard_entry(single):
+    """Decorator of a function written for the shard axis: when
+    `single(*args, **kwargs)` says the call carries one shard's tensors
+    without the axis, every tensor argument gets a leading axis of 1 (a
+    view) and every tensor of the result loses it again."""
+    def deco(fn):
+        @functools.wraps(fn)
+        def inner(*args, **kwargs):
+            if not single(*args, **kwargs):
+                return fn(*args, **kwargs)
+
+            def up(t):
+                return t.unsqueeze(0)
+            out = fn(*tree_map(up, args),
+                     **{k: tree_map(up, v) for k, v in kwargs.items()})
+            return tree_map(lambda t: t.squeeze(0), out)
+        return inner
+    return deco
 
 
 class IoStats(NamedTuple):
     """Modeled device<->stable-tier I/O, in 4 KiB blocks / ops (the paper's
     /proc/io methodology): random record and chunk reads from the stable
     tier are one block each; log flushes are sequential bytes at block
-    granularity.  Every field is a 0-d int32 tensor."""
+    granularity.  Every field is an int32 per-shard scalar."""
 
     read_blocks: torch.Tensor
     write_blocks: torch.Tensor
@@ -122,9 +194,8 @@ class IoStats(NamedTuple):
     mem_hits: torch.Tensor
 
     @staticmethod
-    def zeros(device) -> "IoStats":
-        return IoStats(i32(0, device), i32(0, device), i32(0, device),
-                       i32(0, device))
+    def zeros(device, lead=()) -> "IoStats":
+        return IoStats(*(i32(0, device, lead) for _ in range(4)))
 
     def add_reads(self, n_blocks, n_ops) -> "IoStats":
         return self._replace(read_blocks=self.read_blocks + n_blocks,

@@ -15,7 +15,8 @@ same `F2Config.engine` knob as `probe_engine`:
 The engine emits a plan rather than mutating state, so the log/RC/index
 updates stay in `store.write_batch`, and the cold-log base lookup for
 pure-RMW groups composes outside the pass.  All backends return the same
-plan bit for bit.
+plan bit for bit.  Lanes are [S, B] over a stacked store (see `types`);
+the fields below are commented per shard.
 """
 from __future__ import annotations
 
@@ -27,7 +28,8 @@ from ..kernels.f2_probe import ops as probe_ops
 from ..kernels.f2_probe import ref as _ref
 from . import chain, groups, hybrid_log, probe_engine, read_cache
 from .types import (META_TOMBSTONE, NULL_ADDR, OP_DELETE, OP_RMW, OP_UPSERT,
-                    F2Config, excl_cumsum, is_rc, rc_untag, slot_of_keys)
+                    F2Config, excl_cumsum, is_rc, lanes, rc_untag, shard_entry,
+                    slot_of_keys, take)
 
 _BIG = 2**30
 
@@ -58,6 +60,7 @@ class WritePlan(NamedTuple):
     exhausted: torch.Tensor       # bool  [B] chain_max hops without resolution
 
 
+@shard_entry(lambda cfg, keys, *a, **k: keys.ndim == 1)
 def plan(cfg: F2Config, keys: torch.Tensor, ops: torch.Tensor,
          vals: torch.Tensor, log: hybrid_log.LogState, index: torch.Tensor,
          rc: read_cache.RCState, *, engine: Optional[str] = None) -> WritePlan:
@@ -79,21 +82,22 @@ def plan(cfg: F2Config, keys: torch.Tensor, ops: torch.Tensor,
     (rep, rep_pos, val_nocold, final_tomb, need_cold, created_nocold,
      found, addr, in_place, append, new_addrs, prevs, slots, publish,
      heads, rc_inval, hops, ios, exhausted) = out
-    n_io = ios.sum(dtype=torch.int32)
+    n_io = ios.sum(dim=-1, dtype=torch.int32)
     return WritePlan(rep=rep, rep_pos=rep_pos, val_nocold=val_nocold,
                      final_tomb=final_tomb, need_cold=need_cold,
                      created_nocold=created_nocold, found=found, addr=addr,
                      in_place=in_place, append=append, new_addrs=new_addrs,
                      prevs=prevs, slots=slots, publish=publish, heads=heads,
                      rc_inval=rc_inval, hops=hops, io_blocks=n_io,
-                     io_ops=n_io, mem_hits=hops.sum(dtype=torch.int32) - n_io,
+                     io_ops=n_io,
+                     mem_hits=hops.sum(dim=-1, dtype=torch.int32) - n_io,
                      exhausted=exhausted)
 
 
 def _plan_unfused(cfg, keys, ops, vals, log, index, rc) -> WritePlan:
     """The seed write path's computation as a plan: argsort linearization +
     `chain.walk` + separate gathers.  Kept bit-exact as the oracle."""
-    B = keys.shape[0]
+    B = keys.shape[-1]
     wmask = (ops == OP_UPSERT) | (ops == OP_RMW) | (ops == OP_DELETE)
     is_set = (ops == OP_UPSERT) | (ops == OP_DELETE)
     pos = torch.arange(B, dtype=torch.int32, device=keys.device)
@@ -111,14 +115,15 @@ def _plan_unfused(cfg, keys, ops, vals, log, index, rc) -> WritePlan:
     rep = wmask & info.is_first
     first_pos = groups.segment_min(torch.where(wmask, pos, _BIG), info.run_id, B)
     seg = torch.where(info.run_id >= 0, info.run_id, B - 1).to(torch.int64)
-    rep_pos = torch.where(wmask, first_pos[seg], -1).to(torch.int32)
+    rep_pos = torch.where(wmask, take(first_pos, seg), -1).to(torch.int32)
 
     # --- locate the most recent *log* record (skip RC replicas) -------------
     slots = slot_of_keys(keys, cfg.hot_index_size)
-    heads = index[slots]
+    heads = take(index, slots)
     hot_head = hybrid_log.head_addr(log, cfg.hot_mem)
-    ro_addr = hybrid_log.read_only_addr(log, cfg.hot_mem, cfg.hot_mutable_frac)
-    lower = log.begin.expand(B)
+    ro_addr = hybrid_log.read_only_addr(log, cfg.hot_mem,
+                                        cfg.hot_mutable_frac)[:, None]
+    lower = lanes(log.begin, keys)
     res = chain.walk(keys, heads, log, lower, hot_head, rep, cfg.chain_max,
                      rc=rc, rc_match=False)
     found = res.found
@@ -132,12 +137,12 @@ def _plan_unfused(cfg, keys, ops, vals, log, index, rc) -> WritePlan:
     need_cold = pure_rmw & ~found
     created_nocold = pure_rmw & ~base_hot
 
-    base = torch.where(base_hot[:, None], fval, 0)
+    base = torch.where(base_hot[..., None], fval, 0)
     val_nocold = torch.where(
-        (has_set & ~set_is_del)[:, None], set_val + rmw_sum,
-        torch.where((has_set & set_is_del & (rmw_cnt > 0))[:, None],
+        (has_set & ~set_is_del)[..., None], set_val + rmw_sum,
+        torch.where((has_set & set_is_del & (rmw_cnt > 0))[..., None],
                     rmw_sum, base + rmw_sum))
-    val_nocold = torch.where(rep[:, None], val_nocold, 0).to(torch.int32)
+    val_nocold = torch.where(rep[..., None], val_nocold, 0).to(torch.int32)
     final_tomb = rep & has_set & set_is_del & (rmw_cnt == 0)
 
     # --- in-place (mutable region) vs RCU append ----------------------------
@@ -150,7 +155,7 @@ def _plan_unfused(cfg, keys, ops, vals, log, index, rc) -> WritePlan:
 
     # --- intra-batch chaining by hash slot ----------------------------------
     ginfo = groups.group_info(append, slots)
-    new_addrs = torch.where(append, log.tail + excl_cumsum(append),
+    new_addrs = torch.where(append, log.tail[:, None] + excl_cumsum(append),
                             NULL_ADDR).to(torch.int32)
     pred_addr = groups.select_at_pos(new_addrs, ginfo.pred)
     prevs = torch.where(append, torch.where(ginfo.pred >= 0, pred_addr,

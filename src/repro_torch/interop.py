@@ -6,6 +6,9 @@ and the JAX reference package, through plain dicts and numpy arrays.
   * `state_to_numpy(state)` / `state_from_numpy(leaves, device)` map an
     `F2State` to and from its flat list of leaves, in the order the JAX
     package's pytree flattening gives them (`leaf_names()` names each one).
+    A stacked state (the reference's `ShardedKV.state`: every leaf with a
+    leading shard axis) maps the same way, `n_shards=S` checking the axis;
+    `shard_state(state, s)` is shard s's slice as one store's state.
   * `model_config_to_dict(cfg)` / `model_config_from_dict(d)` map
     `ModelConfig` fields one to one.
   * `params_from_numpy(tree, cfg, device)` / `params_to_numpy(model)` map
@@ -86,8 +89,9 @@ def state_to_numpy(state: store.F2State) -> List[np.ndarray]:
     return [t.detach().to("cpu", copy=True).numpy() for t in state_leaves(state)]
 
 
-def state_from_numpy(leaves: Sequence, device) -> store.F2State:
-    """An F2State on `device` from the reference's flat list of leaves."""
+def state_from_numpy(leaves: Sequence, device, n_shards=None) -> store.F2State:
+    """An F2State on `device` from the reference's flat list of leaves; with
+    `n_shards`, a stacked state whose every leaf leads with that axis."""
     leaves = list(leaves)
     if len(leaves) != len(leaf_names()):
         raise ValueError(f"{len(leaves)} leaves, expected {len(leaf_names())}")
@@ -97,12 +101,25 @@ def state_from_numpy(leaves: Sequence, device) -> store.F2State:
         a = np.asarray(next(it))
         if a.dtype not in (np.int32, np.bool_):
             raise TypeError(f"leaf dtype {a.dtype}: the store is int32/bool")
+        if n_shards is not None and (a.ndim == 0 or a.shape[0] != n_shards):
+            raise ValueError(f"leaf of shape {a.shape}: expected a leading "
+                             f"shard axis of {n_shards}")
         return torch.from_numpy(np.array(a, copy=True)).to(device)
 
     fields = {}
     for f in store.F2State._fields:
         sub = _SUBTREES.get(f)
         fields[f] = sub(*(take() for _ in sub._fields)) if sub else take()
+    return store.F2State(**fields)
+
+
+def shard_state(state: store.F2State, s: int) -> store.F2State:
+    """Shard s of a stacked state as one store's state (views)."""
+    fields = {}
+    for f in store.F2State._fields:
+        node = getattr(state, f)
+        fields[f] = (type(node)(*(x[s] for x in node)) if f in _SUBTREES
+                     else node[s])
     return store.F2State(**fields)
 
 

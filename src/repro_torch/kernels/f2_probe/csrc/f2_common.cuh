@@ -58,6 +58,15 @@ struct Columns {
   const int* rc_prev;
   const int* rc_meta;
   int C, R, V;
+
+  // the columns of shard s of a stacked store: each column is [S, C] (the
+  // values [S, C, V]), each read-cache column [S, R] ([S, R, V])
+  __device__ __forceinline__ Columns shard(int s) const {
+    const int64_t c = static_cast<int64_t>(s) * C, r = static_cast<int64_t>(s) * R;
+    return Columns{log_key + c, log_val + c * V, log_prev + c, log_meta + c,
+                   rc_key + r,  rc_val + r * V,  rc_prev + r, rc_meta + r,
+                   C, R, V};
+  }
 };
 
 struct WalkOut {

@@ -30,6 +30,14 @@
 //     all 32 rows' loads in flight at once.
 // The ragged edge of the batch is masked in the kernel, so there is no
 // padding.
+//
+// The shard axis: a stacked store of S shards ([S, B] lanes, [S, C] columns,
+// one head boundary a shard) resolves in one launch, grid.y = S, each CTA
+// offsetting its pointers to its shard's slices.  Lanes of one warp always
+// belong to one shard, so the value copy stays within a shard's rows.  The
+// CTA size is chosen from all S * B lanes, so the grid fills the card as one
+// batch of that size would (the reference runs one vmapped Pallas call over
+// the shard axis).
 #include <cuda_runtime.h>
 
 #include "f2_common.cuh"
@@ -42,15 +50,34 @@ __global__ void __launch_bounds__(kMaxThreads) fused_probe_walk_kernel(
     const int* __restrict__ keys, const int* __restrict__ heads_src,
     const int* __restrict__ lower, const unsigned char* __restrict__ active,
     const int* __restrict__ target, const int* __restrict__ head_boundary,
-    f2::Columns c, int B, int E, int chain_max, int rc_match, int has_rc,
+    f2::Columns cs, int B, int E, int chain_max, int rc_match, int has_rc,
     int probe_index, int has_target, unsigned char* __restrict__ found_out,
     int* __restrict__ addr_out, int* __restrict__ heads_out,
     int* __restrict__ val_out, int* __restrict__ meta_out,
     int* __restrict__ hops_out, int* __restrict__ ios_out,
     unsigned char* __restrict__ exh_out) {
   __shared__ const int* hit_row[kMaxThreads];
+  // this CTA's shard: every lane input and output is [S, B], the index
+  // [S, E], the caller's chain heads [S, B]
+  const int s = blockIdx.y;
+  const int64_t sb = static_cast<int64_t>(s) * B;
+  keys += sb;
+  heads_src += probe_index ? static_cast<int64_t>(s) * E : sb;
+  lower += sb;
+  active += sb;
+  if (has_target) target += sb;
+  head_boundary += s;
+  const f2::Columns c = cs.shard(s);
+  found_out += sb;
+  addr_out += sb;
+  heads_out += sb;
+  val_out += sb * c.V;
+  meta_out += sb;
+  hops_out += sb;
+  ios_out += sb;
+  exh_out += sb;
   const int lane = threadIdx.x & 31;
-  const int i = blockIdx.x * blockDim.x + threadIdx.x;
+  const int i = blockIdx.x * blockDim.x + threadIdx.x;   // lane within the shard
   const int* row = nullptr;
   if (i < B) {
     const int key = keys[i];
@@ -122,15 +149,16 @@ extern "C" int f2_fused_probe(
     const unsigned char* active, const int* target, const int* head_boundary,
     const int* log_key, const int* log_val, const int* log_prev,
     const int* log_meta, const int* rc_key, const int* rc_val,
-    const int* rc_prev, const int* rc_meta, int B, int E, int C, int R, int V,
-    int chain_max, int rc_match, int has_rc, int probe_index, int has_target,
-    unsigned char* found, int* addr, int* heads, int* value, int* meta,
-    int* hops, int* ios, unsigned char* exhausted, void* stream) {
-  if (B <= 0) return 0;
+    const int* rc_prev, const int* rc_meta, int S, int B, int E, int C, int R,
+    int V, int chain_max, int rc_match, int has_rc, int probe_index,
+    int has_target, unsigned char* found, int* addr, int* heads, int* value,
+    int* meta, int* hops, int* ios, unsigned char* exhausted, void* stream) {
+  if (B <= 0 || S <= 0) return 0;
+  if (S > 65535) return static_cast<int>(cudaErrorInvalidValue);
   f2::Columns c{log_key, log_val, log_prev, log_meta,
                 rc_key, rc_val, rc_prev, rc_meta, C, R, V};
-  const int threads = threads_for(B);
-  const int blocks = (B + threads - 1) / threads;
+  const int threads = threads_for(S * B);
+  const dim3 blocks((B + threads - 1) / threads, S);
   fused_probe_walk_kernel<<<blocks, threads, 0, static_cast<cudaStream_t>(stream)>>>(
       keys, heads_src, lower, active, target, head_boundary, c, B, E,
       chain_max, rc_match, has_rc, probe_index, has_target, found, addr,

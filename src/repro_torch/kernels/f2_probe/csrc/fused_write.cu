@@ -50,6 +50,13 @@
 //      is short; keys chosen to collide cost a sort of those keys.
 // B is not capped.  RMW sums are uint32 so they wrap like the reference's
 // int32 sums (signed overflow is undefined in C++).
+//
+// The shard axis: a stacked store of S shards (lanes [S, B], columns
+// [S, C], index [S, E], bounds [S, 4]) is planned by the same five launches,
+// each with grid.y = S: every CTA offsets its pointers to its shard's slices
+// and its shard's scratch (tables and lane scratch, `layout(B).words` int32
+// words a shard), and the chain kernel runs one CTA per shard.  Shards never
+// share a table, so each shard's plan is the one-store plan of its slices.
 #include <cuda_runtime.h>
 
 #include "f2_common.cuh"
@@ -76,6 +83,11 @@ struct Table {
   int* set;
   int* rmw;
   int mask;
+
+  // the table of the shard whose scratch starts w int32 words in (w even)
+  __device__ __forceinline__ Table at(int64_t w) const {
+    return Table{key + w / 2, rep + w, set + w, rmw + w, mask};
+  }
 };
 
 // The appends per index slot: key[h] holds slot + 1 once taken, 0 when
@@ -85,6 +97,10 @@ struct SlotTable {
   int* cnt;
   int* first;
   int mask;
+
+  __device__ __forceinline__ SlotTable at(int64_t w) const {
+    return SlotTable{key + w, cnt + w, first + w, mask};
+  }
 };
 
 struct Plan {
@@ -114,6 +130,17 @@ struct Plan {
   int* local_off; // scratch [B]: an append's offset within its plan block
   int* block_cnt; // scratch [plan blocks]: appends per plan block
   int* block_off; // scratch [plan blocks]: offset of a plan block's first
+
+  // the plan of the shard whose lanes start at sb (its value rows at sb * V)
+  // and whose scratch starts w int32 words in
+  __device__ __forceinline__ Plan at(int64_t sb, int V, int64_t w) const {
+    return Plan{rep + sb, rep_pos + sb, val_nocold + sb * V, final_tomb + sb,
+                need_cold + sb, created_nocold + sb, found + sb, addr + sb,
+                in_place + sb, append + sb, new_addrs + sb, prevs + sb, slots + sb,
+                publish + sb, heads + sb, rc_inval + sb, hops + sb, ios + sb,
+                exhausted + sb, gid + w, gid2 + w, eff_prev + w, lane_of + w,
+                local_off + w, block_cnt + w, block_off + w};
+  }
 };
 
 // a second mixer, independent of f2::mix32 (the index slot hash)
@@ -158,9 +185,12 @@ __device__ __forceinline__ int slot_insert(const SlotTable& st, int slot) {
   }
 }
 
-// 1. zero the tables and the value rows (the RMW sums accumulate there)
-__global__ void write_clear_kernel(int* __restrict__ tab, int n_tab,
+// 1. zero the tables and the value rows (the RMW sums accumulate there);
+//    a shard's tables start `words` into the scratch after the previous one's
+__global__ void write_clear_kernel(int* __restrict__ tab, int n_tab, int64_t words,
                                    int* __restrict__ val_nocold, int n_val) {
+  tab += blockIdx.y * words;
+  val_nocold += static_cast<int64_t>(blockIdx.y) * n_val;
   const int stride = gridDim.x * blockDim.x;
   for (int x = blockIdx.x * blockDim.x + threadIdx.x; x < n_tab; x += stride) tab[x] = 0;
   for (int x = blockIdx.x * blockDim.x + threadIdx.x; x < n_val; x += stride)
@@ -169,8 +199,13 @@ __global__ void write_clear_kernel(int* __restrict__ tab, int n_tab,
 
 // 2. group the write lanes by key
 __global__ void write_group_kernel(const int* __restrict__ keys,
-                                   const int* __restrict__ ops, int B, Table tb,
-                                   int* __restrict__ gid) {
+                                   const int* __restrict__ ops, int B, int64_t words,
+                                   Table tb, int* __restrict__ gid) {
+  const int64_t sb = static_cast<int64_t>(blockIdx.y) * B;
+  keys += sb;
+  ops += sb;
+  tb = tb.at(blockIdx.y * words);
+  gid += blockIdx.y * words;
   const int i = blockIdx.x * blockDim.x + threadIdx.x;
   const int lane = threadIdx.x & 31;
   const int op = i < B ? ops[i] : 0;
@@ -196,8 +231,15 @@ __global__ void write_group_kernel(const int* __restrict__ keys,
 // 3. RMW sums: the RMW lanes after their group's last set, into the
 //    representative's row
 __global__ void write_sum_kernel(const int* __restrict__ ops,
-                                 const int* __restrict__ vals, int B, int V, Table tb,
-                                 const int* __restrict__ gid, uint32_t* __restrict__ acc) {
+                                 const int* __restrict__ vals, int B, int V,
+                                 int64_t words, Table tb, const int* __restrict__ gid,
+                                 uint32_t* __restrict__ acc) {
+  const int64_t sb = static_cast<int64_t>(blockIdx.y) * B;
+  ops += sb;
+  vals += sb * V;
+  acc += sb * V;
+  tb = tb.at(blockIdx.y * words);
+  gid += blockIdx.y * words;
   const int i = blockIdx.x * blockDim.x + threadIdx.x;
   const int lane = threadIdx.x & 31;
   bool contrib = false;
@@ -235,9 +277,22 @@ __global__ void write_sum_kernel(const int* __restrict__ ops,
 __global__ void __launch_bounds__(kPlanThreads)
     write_plan_kernel(const int* __restrict__ keys, const int* __restrict__ ops,
                       const int* __restrict__ vals, const int* __restrict__ index,
-                      const int* __restrict__ bounds, f2::Columns c, int B, int E,
-                      int chain_max, Table tb, SlotTable st, Plan p) {
+                      const int* __restrict__ bounds, f2::Columns cs, int B, int E,
+                      int chain_max, int64_t words, Table tb, SlotTable st, Plan p) {
   __shared__ int s_cnt[kPlanThreads / 32];
+  // this CTA's shard: lanes [S, B], index [S, E], bounds [S, 4], columns
+  // [S, C], and its own tables and scratch
+  const int64_t sb = static_cast<int64_t>(blockIdx.y) * B;
+  const int64_t w = blockIdx.y * words;
+  const f2::Columns c = cs.shard(blockIdx.y);
+  keys += sb;
+  ops += sb;
+  vals += sb * c.V;
+  index += static_cast<int64_t>(blockIdx.y) * E;
+  bounds += 4 * blockIdx.y;
+  tb = tb.at(w);
+  st = st.at(w);
+  p = p.at(sb, c.V, w);
   const int i = blockIdx.x * blockDim.x + threadIdx.x;
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
   bool append = false;
@@ -406,12 +461,19 @@ __device__ __forceinline__ void bitonic_sort(unsigned long long* keys, int N) {
 }
 
 // 5. append offsets, then chain the appends that share a slot (one block)
+//    (one CTA per shard)
 __global__ void __launch_bounds__(kChainThreads)
-    write_chain_kernel(const int* __restrict__ bounds, int B, int nblk, Plan p,
-                       SlotTable st, unsigned long long* gkeys) {
+    write_chain_kernel(const int* __restrict__ bounds, int B, int V, int nblk,
+                       int64_t words, Plan p, SlotTable st,
+                       unsigned long long* gkeys) {
   extern __shared__ unsigned long long s_keys[];
   __shared__ int s_warp[kChainThreads / 32];
   __shared__ int s_nsort;
+  const int64_t w = blockIdx.y * words;
+  bounds += 4 * blockIdx.y;
+  p = p.at(static_cast<int64_t>(blockIdx.y) * B, V, w);
+  st = st.at(w);
+  if (gkeys != nullptr) gkeys += w / 2;
   const int t = threadIdx.x;
   const uint32_t tail = static_cast<uint32_t>(bounds[3]);
   // the plan blocks' first offsets
@@ -536,12 +598,13 @@ Layout layout(int B) {
   const int np = pow2_at_least(B);
   l.sort_in_global = np > kSortShared;
   l.words = l.gkeys + (l.sort_in_global ? 2ll * np : 0);
+  l.words = (l.words + 1) & ~1ll;   // even: the next shard's 64-bit table aligns
   return l;
 }
 
 }  // namespace
 
-// int32 words of scratch that f2_fused_write needs at batch size B
+// int32 words of scratch that f2_fused_write needs per shard at batch size B
 extern "C" long long f2_fused_write_scratch_words(int B) {
   return B <= 0 ? 0 : layout(B).words;
 }
@@ -550,15 +613,16 @@ extern "C" int f2_fused_write(
     const int* keys, const int* ops, const int* vals, const int* index,
     const int* bounds, const int* log_key, const int* log_val,
     const int* log_prev, const int* log_meta, const int* rc_key,
-    const int* rc_val, const int* rc_prev, const int* rc_meta, int B, int E,
-    int C, int R, int V, int chain_max, unsigned char* rep, int* rep_pos,
+    const int* rc_val, const int* rc_prev, const int* rc_meta, int S, int B,
+    int E, int C, int R, int V, int chain_max, unsigned char* rep, int* rep_pos,
     int* val_nocold, unsigned char* final_tomb, unsigned char* need_cold,
     unsigned char* created_nocold, unsigned char* found, int* addr,
     unsigned char* in_place, unsigned char* append, int* new_addrs,
     int* prevs, int* slots, unsigned char* publish, int* heads,
     unsigned char* rc_inval, int* hops, int* ios, unsigned char* exhausted,
     int* scratch, void* stream) {
-  if (B <= 0) return 0;
+  if (B <= 0 || S <= 0) return 0;
+  if (S > 65535) return static_cast<int>(cudaErrorInvalidValue);
   cudaError_t err = cudaFuncSetAttribute(
       write_chain_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
       kSortShared * static_cast<int>(sizeof(unsigned long long)));
@@ -579,27 +643,28 @@ extern "C" int f2_fused_write(
   const int n_val = B * V;
   const int n_clear = static_cast<int>(l.tab_words > n_val ? l.tab_words : n_val);
   const int clear_blocks = n_clear / kLaneThreads < 1024 ? n_clear / kLaneThreads + 1 : 1024;
-  const int lane_blocks = (B + kLaneThreads - 1) / kLaneThreads;
-  write_clear_kernel<<<clear_blocks, kLaneThreads, 0, s>>>(
-      scratch, static_cast<int>(l.tab_words), val_nocold, n_val);
+  const dim3 lane_blocks((B + kLaneThreads - 1) / kLaneThreads, S);
+  write_clear_kernel<<<dim3(clear_blocks, S), kLaneThreads, 0, s>>>(
+      scratch, static_cast<int>(l.tab_words), l.words, val_nocold, n_val);
   err = cudaGetLastError();
   if (err != cudaSuccess) return static_cast<int>(err);
-  write_group_kernel<<<lane_blocks, kLaneThreads, 0, s>>>(keys, ops, B, tb, p.gid);
+  write_group_kernel<<<lane_blocks, kLaneThreads, 0, s>>>(keys, ops, B, l.words, tb,
+                                                          p.gid);
   err = cudaGetLastError();
   if (err != cudaSuccess) return static_cast<int>(err);
   write_sum_kernel<<<lane_blocks, kLaneThreads, 0, s>>>(
-      ops, vals, B, V, tb, p.gid, reinterpret_cast<uint32_t*>(val_nocold));
+      ops, vals, B, V, l.words, tb, p.gid, reinterpret_cast<uint32_t*>(val_nocold));
   err = cudaGetLastError();
   if (err != cudaSuccess) return static_cast<int>(err);
-  write_plan_kernel<<<l.nblk, kPlanThreads, 0, s>>>(
-      keys, ops, vals, index, bounds, c, B, E, chain_max, tb, st, p);
+  write_plan_kernel<<<dim3(l.nblk, S), kPlanThreads, 0, s>>>(
+      keys, ops, vals, index, bounds, c, B, E, chain_max, l.words, tb, st, p);
   err = cudaGetLastError();
   if (err != cudaSuccess) return static_cast<int>(err);
   const size_t smem = l.sort_in_global
                           ? 0
                           : static_cast<size_t>(pow2_at_least(B)) * sizeof(unsigned long long);
-  write_chain_kernel<<<1, kChainThreads, smem, s>>>(
-      bounds, B, l.nblk, p, st,
+  write_chain_kernel<<<dim3(1, S), kChainThreads, smem, s>>>(
+      bounds, B, V, l.nblk, l.words, p, st,
       l.sort_in_global ? reinterpret_cast<unsigned long long*>(scratch + l.gkeys) : nullptr);
   return static_cast<int>(cudaGetLastError());
 }

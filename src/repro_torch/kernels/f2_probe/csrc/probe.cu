@@ -15,6 +15,10 @@
 // VMEM (a (B tile, E tile) grid with a per-tile hit mask), which the card
 // does not need: the index stays in HBM and each lane reads its one entry.
 // The ragged edge of the batch is masked in the kernel.
+//
+// The shard axis: keys [S, B] against the indexes [S, E] of a stacked store
+// resolve in one launch, grid.y = S (the reference vmaps the Pallas call over
+// the shard axis).
 #include <cuda_runtime.h>
 
 #include "f2_common.cuh"
@@ -26,22 +30,24 @@ __global__ void first_hop_probe_kernel(const int* __restrict__ keys,
                                        int* __restrict__ addr, int* __restrict__ is_rc) {
   const int b = blockIdx.x * blockDim.x + threadIdx.x;
   if (b >= B) return;
-  const uint32_t slot = f2::mix32(keys[b]) & static_cast<uint32_t>(E - 1);
-  const int e = index[slot];
-  is_rc[b] = f2::is_rc(e) ? 1 : 0;
-  addr[b] = e >= 0 ? (e & ~f2::kRcFlag) : e;
+  const int64_t sb = static_cast<int64_t>(blockIdx.y) * B + b;
+  const uint32_t slot = f2::mix32(keys[sb]) & static_cast<uint32_t>(E - 1);
+  const int e = index[static_cast<int64_t>(blockIdx.y) * E + slot];
+  is_rc[sb] = f2::is_rc(e) ? 1 : 0;
+  addr[sb] = e >= 0 ? (e & ~f2::kRcFlag) : e;
 }
 
 }  // namespace
 
-// keys [B], index [E] (E a power of two) int32 in; addr, is_rc [B] int32
-// out.  Returns 0 or a cudaError_t.
-extern "C" int f2_probe(const int* keys, const int* index, int B, int E, int* addr,
-                        int* is_rc, void* stream) {
-  if (B <= 0) return 0;
-  if (E <= 0 || (E & (E - 1)) != 0) return (int)cudaErrorInvalidValue;
+// keys [S, B], index [S, E] (E a power of two) int32 in; addr, is_rc [S, B]
+// int32 out.  Returns 0 or a cudaError_t.
+extern "C" int f2_probe(const int* keys, const int* index, int S, int B, int E,
+                        int* addr, int* is_rc, void* stream) {
+  if (B <= 0 || S <= 0) return 0;
+  if (E <= 0 || (E & (E - 1)) != 0 || S > 65535) return (int)cudaErrorInvalidValue;
   constexpr int kThreads = 256;
-  first_hop_probe_kernel<<<(B + kThreads - 1) / kThreads, kThreads, 0,
-                 static_cast<cudaStream_t>(stream)>>>(keys, index, B, E, addr, is_rc);
+  const dim3 grid((B + kThreads - 1) / kThreads, S);
+  first_hop_probe_kernel<<<grid, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
+      keys, index, B, E, addr, is_rc);
   return (int)cudaGetLastError();
 }

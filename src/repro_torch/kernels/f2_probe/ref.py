@@ -16,6 +16,11 @@
 These are what the CUDA kernels (`csrc/`) are held against, bit for bit, and
 what `ops.py` runs for tensors on the CPU.  The module is standalone: it
 re-declares the address/meta/op constants (probe_engine checks them).
+
+Each takes a leading shard axis: lanes [S, B], columns [S, N, ...],
+per-shard scalars [S] (S stores resolved in one call, as the kernels do in
+one launch), or one store's tensors without it.  `fused_write_body` runs
+its one-store pass per shard.
 """
 from __future__ import annotations
 
@@ -54,11 +59,23 @@ def _is_rc(a):
     return (a >= 0) & ((a & RC_FLAG) != 0)
 
 
+def _lift(single, fn, *args, **kw):
+    """fn on one store's tensors given without the shard axis: each tensor
+    argument gains a leading axis of 1, each tensor result loses it."""
+    if not single:
+        return fn(*args, **kw)
+
+    def up(x):
+        return x.unsqueeze(0) if isinstance(x, torch.Tensor) else x
+    out = fn(*map(up, args), **{k: up(v) for k, v in kw.items()})
+    return tuple(o.squeeze(0) for o in out)
+
+
 def probe_reference(keys, index_addr):
-    """keys [B], index_addr [E] (E a power of two) int32 -> (addr [B] int32
-    untagged chain heads, is_rc [B] int32)."""
-    slot = _mix(keys) & (index_addr.shape[0] - 1)
-    entry = index_addr[slot]
+    """keys [S, B], index_addr [S, E] (E a power of two) int32 -> (addr
+    [S, B] int32 untagged chain heads, is_rc [S, B] int32); or [B], [E]."""
+    slot = _mix(keys) & (index_addr.shape[-1] - 1)
+    entry = torch.gather(index_addr, -1, slot)
     is_rc = _is_rc(entry).to(torch.int32)
     untagged = torch.where(entry >= 0, entry & ~RC_FLAG, entry)
     return untagged, is_rc
@@ -77,33 +94,47 @@ def fused_probe_body(keys, heads_src, lower, active, head_boundary,
                      target=None, early_exit: bool = False):
     """Returns (found, addr, heads, value, meta, hops, ios, exhausted).
 
-    keys/lower/target int32 [B], active bool [B]; heads_src is the int32
-    [E] hot index (probe_index) or int32 [B] chain heads; head_boundary a
-    0-d int32 tensor.  found/exhausted are bool [B]; addr is RC-tagged for a
-    replica hit; value [B, V] / meta [B] are 0 where not found; hops/ios are
-    per-lane record touches / stable-tier touches.
+    keys/lower/target int32 [S, B], active bool [S, B]; heads_src is the
+    int32 [S, E] hot index (probe_index) or int32 [S, B] chain heads;
+    head_boundary int32 [S].  found/exhausted are bool [S, B]; addr is
+    RC-tagged for a replica hit; value [S, B, V] / meta [S, B] are 0 where
+    not found; hops/ios are per-lane record touches / stable-tier touches.
+    One store's tensors without the shard axis give results without it.
 
     `early_exit` stops the loop once no lane can still progress: bit-exact,
     since every skipped iteration is a no-op for every lane."""
-    B = keys.shape[0]
-    C = log_key.shape[0]
-    R = rc_key.shape[0]
+    return _lift(keys.ndim == 1, _fused_probe, keys, heads_src, lower, active,
+                 head_boundary, log_key, log_val, log_prev, log_meta, rc_key,
+                 rc_val, rc_prev, rc_meta, chain_max=chain_max,
+                 rc_match=rc_match, has_rc=has_rc, probe_index=probe_index,
+                 target=target, early_exit=early_exit)
+
+
+def _fused_probe(keys, heads_src, lower, active, head_boundary,
+                 log_key, log_val, log_prev, log_meta,
+                 rc_key, rc_val, rc_prev, rc_meta, *,
+                 chain_max, rc_match, has_rc, probe_index, target, early_exit):
+    S, B = keys.shape
+    C = log_key.shape[-1]
+    R = rc_key.shape[-1]
     dev = keys.device
+    rows = torch.arange(S, device=dev)[:, None]
+    head_boundary = head_boundary.reshape(S, 1)
     if probe_index:
-        slot = (_mix(keys) & (heads_src.shape[0] - 1)).to(torch.int32)
-        heads = heads_src[slot]
+        slot = (_mix(keys) & (heads_src.shape[-1] - 1)).to(torch.int32)
+        heads = heads_src[rows, slot]
     else:
         heads = heads_src.clone()
     if target is not None:
         fast = active & (heads == target)
     else:
-        fast = torch.zeros((B,), dtype=torch.bool, device=dev)
+        fast = torch.zeros((S, B), dtype=torch.bool, device=dev)
 
     cur = heads.clone()
     done = fast
     faddr = torch.where(fast, heads, NULL_ADDR).to(torch.int32)
-    hops = torch.zeros((B,), dtype=torch.int32, device=dev)
-    ios = torch.zeros((B,), dtype=torch.int32, device=dev)
+    hops = torch.zeros((S, B), dtype=torch.int32, device=dev)
+    ios = torch.zeros((S, B), dtype=torch.int32, device=dev)
     for _ in range(chain_max):
         cur_is_rc = _is_rc(cur)
         live = active & ~done & _in_range(cur, lower)
@@ -111,12 +142,14 @@ def fused_probe_body(keys, heads_src, lower, active, head_boundary,
             break
         log_addr = torch.where(cur_is_rc, NULL_ADDR, cur)
         log_idx = log_addr.clamp_min(0) & (C - 1)
-        k, p, m = log_key[log_idx], log_prev[log_idx], log_meta[log_idx]
+        k = log_key[rows, log_idx]
+        p = log_prev[rows, log_idx]
+        m = log_meta[rows, log_idx]
         if has_rc:
             rc_idx = (cur & ~RC_FLAG).clamp_min(0) & (R - 1)
-            k = torch.where(cur_is_rc, rc_key[rc_idx], k)
-            p = torch.where(cur_is_rc, rc_prev[rc_idx], p)
-            m = torch.where(cur_is_rc, rc_meta[rc_idx], m)
+            k = torch.where(cur_is_rc, rc_key[rows, rc_idx], k)
+            p = torch.where(cur_is_rc, rc_prev[rows, rc_idx], p)
+            m = torch.where(cur_is_rc, rc_meta[rows, rc_idx], m)
         valid = (m & META_INVALID) == 0
         key_match = live & valid & (k == keys)
         if not rc_match:
@@ -135,13 +168,13 @@ def fused_probe_body(keys, heads_src, lower, active, head_boundary,
     # --- value/meta resolution at the hit address ---------------------------
     f_is_rc = _is_rc(faddr)
     log_idx = torch.where(f_is_rc, NULL_ADDR, faddr).clamp_min(0) & (C - 1)
-    value = log_val[log_idx]
-    meta = log_meta[log_idx]
+    value = log_val[rows, log_idx]
+    meta = log_meta[rows, log_idx]
     if has_rc:
         rc_idx = (faddr & ~RC_FLAG).clamp_min(0) & (R - 1)
-        value = torch.where(f_is_rc[:, None], rc_val[rc_idx], value)
-        meta = torch.where(f_is_rc, rc_meta[rc_idx], meta)
-    value = torch.where(found[:, None], value, 0)
+        value = torch.where(f_is_rc[..., None], rc_val[rows, rc_idx], value)
+        meta = torch.where(f_is_rc, rc_meta[rows, rc_idx], meta)
+    value = torch.where(found[..., None], value, 0)
     meta = torch.where(found, meta, 0)
     return found, faddr, heads, value, meta, hops, ios, exhausted
 
@@ -157,10 +190,29 @@ def fused_write_body(keys, ops, vals, index, begin, head_boundary, ro_addr,
          heads, rc_inval, hops, ios, exhausted)
 
     aligned with `core.write_engine.WritePlan` (masks bool, the rest
-    int32).  begin/head_boundary/ro_addr/tail are 0-d int32 tensors.
-    `val_nocold` is the final value assuming the cold log contributes
-    nothing; `need_cold` lanes add their cold base outside this pass.
-    RMW sums are taken in int64 and wrap to int32 like the reference's."""
+    int32).  Lanes [S, B], columns [S, N, ...], begin/head_boundary/
+    ro_addr/tail int32 [S]; or one store's tensors without the shard axis
+    (0-d bounds).  `val_nocold` is the final value assuming the cold log
+    contributes nothing; `need_cold` lanes add their cold base outside this
+    pass.  RMW sums are taken in int64 and wrap to int32 like the
+    reference's.  Each shard runs the one-store pass on its slices."""
+    args = (keys, ops, vals, index, begin, head_boundary, ro_addr, tail,
+            log_key, log_val, log_prev, log_meta, rc_key, rc_val, rc_prev,
+            rc_meta)
+    if keys.ndim == 1:
+        return _fused_write_one(*args, chain_max=chain_max,
+                                early_exit=early_exit)
+    per_shard = [_fused_write_one(*(a[s] for a in args), chain_max=chain_max,
+                                  early_exit=early_exit)
+                 for s in range(keys.shape[0])]
+    return tuple(torch.stack(x) for x in zip(*per_shard))
+
+
+def _fused_write_one(keys, ops, vals, index, begin, head_boundary, ro_addr,
+                     tail, log_key, log_val, log_prev, log_meta,
+                     rc_key, rc_val, rc_prev, rc_meta, *,
+                     chain_max: int, early_exit: bool):
+    """fused_write_body on one store's tensors (no shard axis)."""
     B = keys.shape[0]
     V = vals.shape[1]
     E = index.shape[0]

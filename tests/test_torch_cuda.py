@@ -15,7 +15,10 @@ plain recurrence and autograd through it (the forward 2e-3 absolute and
 relative, the JAX package's tolerance; each gradient within 2e-3 of its
 largest magnitude, since dw sums D products of two accumulated states and
 its float32 rounding scales with them; two gradient calls bit for bit
-equal), and the legacy first-hop probe bit for bit.
+equal), and the legacy first-hop probe bit for bit; the three store kernels
+over a stacked store's shard axis (S of 1, 2 and 4 in one launch, equal to
+their plain versions and to S single-shard calls), and the kernel-backed
+ShardedKV against the plain-engine one.
 
 These tests need a CUDA device and nvcc and skip without them.  They import
 neither JAX nor the JAX package, so they also run where only PyTorch is
@@ -601,3 +604,148 @@ def test_first_hop_probe_matches_plain_version(cuda, E, b):
         assert x.dtype == y.dtype == torch.int32 and torch.equal(x, y)
     with pytest.raises(ValueError, match="needs CUDA tensors"):
         ops.probe_cuda(keys.cpu(), index.cpu())
+
+
+# ---------------------------------------------------------------------------
+# the shard axis: one launch for a stacked store's S shards
+# ---------------------------------------------------------------------------
+
+@pytest.fixture(scope="module")
+def sharded(cuda):
+    """A 4-shard store on the card after a routed mixed stream (hot, cold
+    and read-cache records, masked compactions)."""
+    skv = T.ShardedKV(CFG, 4, device=cuda, compact_batch=128, trigger=0.5)
+    for k, o, v in _stream(2, 100, n_keys=6000):
+        skv.apply(k, o, v)
+    assert skv.compactions.sum() > 0
+    return skv
+
+
+def _first(state, S):
+    """The first S shards of a stacked state (contiguous views)."""
+    return interop.state_from_numpy(
+        [x[:S] for x in interop.state_to_numpy(state)], state.hot.key.device,
+        n_shards=S)
+
+
+def _shard_calls_equal(fn, plain, args, kw, S, launches):
+    """fn on the stacked inputs equals the plain version, a second call, and
+    S single-shard (no shard axis) calls on the shards' slices; the stacked
+    call is `launches` launches of its counter."""
+    name = {ops.fused_probe: "fused_probe", ops.fused_write: "fused_write",
+            ops.probe: "probe"}[fn]
+    ops.reset_launches()
+    got = fn(*args, **kw)
+    torch.cuda.synchronize()
+    assert ops.launches[name] == launches
+    want = plain(*args, **kw)
+    again = fn(*args, **kw)
+    per_shard = [fn(*(a[s] for a in args), **{k: (v[s] if torch.is_tensor(v) else v)
+                                               for k, v in kw.items()})
+                 for s in range(S)]
+    torch.cuda.synchronize()
+    for n, (x, y, z) in enumerate(zip(got, want, again)):
+        assert x.dtype == y.dtype and x.shape == y.shape and torch.equal(x, y), n
+        assert torch.equal(x, z), n
+        assert all(torch.equal(x[s], p[n]) for s, p in enumerate(per_shard)), n
+
+
+@pytest.mark.parametrize("S", [1, 2, 4])
+@pytest.mark.parametrize("b", [77, 96, 8191])
+def test_shard_axis_fused_probe(cuda, sharded, S, b):
+    """fused_probe over S shards: index mode (read and liveness), heads
+    mode and target mode, each one launch, equal to the plain version and
+    to S single-shard calls (at S = 1, today's call)."""
+    st = _first(sharded.state, S)
+    hot, rc = st.hot, st.rc
+    rng = np.random.default_rng(S * b)
+    keys = torch.as_tensor(rng.integers(0, 7000, (S, b)).astype(np.int32), device=cuda)
+    cols = (hot.key, hot.val, hot.prev, hot.meta, rc.key, rc.val, rc.prev, rc.meta)
+    lower = hot.begin[:, None].expand(S, b).contiguous()
+    act = torch.as_tensor(rng.random((S, b)) < 0.9, device=cuda)
+    hb = hybrid_log.head_addr(hot, CFG.hot_mem)
+    args = (keys, st.hot_index, lower, act, hb, *cols)
+    plain = ref.fused_probe_body
+    for rc_match in (True, False):
+        _shard_calls_equal(ops.fused_probe, plain, args,
+                           dict(chain_max=CFG.chain_max, rc_match=rc_match), S, 1)
+    heads = plain(*args, chain_max=CFG.chain_max)[2]
+    _shard_calls_equal(ops.fused_probe, plain, (keys, heads) + args[2:],
+                       dict(chain_max=CFG.chain_max, probe_index=False), S, 1)
+    addrs = hot.begin[:, None] + torch.arange(b, dtype=torch.int32, device=cuda)
+    k, _, _, _ = hybrid_log.gather(hot, addrs)
+    targs = (k, st.hot_index, addrs, addrs < hot.tail[:, None], hb, *cols)
+    _shard_calls_equal(ops.fused_probe, plain, targs,
+                       dict(chain_max=CFG.chain_max, rc_match=False, target=addrs), S, 1)
+
+
+@pytest.mark.parametrize("S", [1, 2, 4])
+@pytest.mark.parametrize("case", ["b77", "one_hot_key", "zipf_099", "b16384"])
+def test_shard_axis_fused_write(cuda, sharded, S, case):
+    """fused_write over S shards (its five launches), equal to the plain
+    version and to S single-shard calls; with one hot key in every lane of
+    every shard, the RMW sums wrap."""
+    st = _first(sharded.state, S)
+    hot, rc = st.hot, st.rc
+    rng = np.random.default_rng(S + WRITE_CASES.index(case))
+    batches = [_write_batch(case, rng) for _ in range(S)]
+    keys = np.stack([k for k, _ in batches]).astype(np.int32)
+    if case == "one_hot_key":
+        keys += np.arange(S, dtype=np.int32)[:, None]     # a key of its own a shard
+    opsv = np.stack([o for _, o in batches]).astype(np.int32)
+    near = rng.integers(0, 97, keys.shape + (CFG.value_width,))
+    vals = np.where(near < 12, -2**31 + near, 2**31 - 1 - near).astype(np.int32)
+    args = (torch.as_tensor(keys, device=cuda), torch.as_tensor(opsv, device=cuda),
+            torch.as_tensor(vals, device=cuda), st.hot_index, hot.begin,
+            hybrid_log.head_addr(hot, CFG.hot_mem),
+            hybrid_log.read_only_addr(hot, CFG.hot_mem, CFG.hot_mutable_frac),
+            hot.tail, hot.key, hot.val, hot.prev, hot.meta,
+            rc.key, rc.val, rc.prev, rc.meta)
+    _shard_calls_equal(ops.fused_write, ref.fused_write_body, args,
+                       dict(chain_max=CFG.chain_max), S, ops.WRITE_KERNELS_PER_CALL)
+    if case == "one_hot_key":
+        got = ops.fused_write(*args, chain_max=CFG.chain_max)
+        assert got[0].sum(1).tolist() == [1] * S          # one representative a shard
+        after = np.flatnonzero(opsv[0] != T.OP_RMW).max(initial=-1) + 1
+        assert int(vals[0, after:, 0].astype(np.int64).sum()) > 2**31
+
+
+@pytest.mark.parametrize("S", [1, 2, 4])
+@pytest.mark.parametrize("b", [77, 2048])
+def test_shard_axis_first_hop_probe(cuda, sharded, S, b):
+    st = _first(sharded.state, S)
+    rng = np.random.default_rng(S * b + 1)
+    keys = torch.as_tensor(rng.integers(0, 1 << 30, (S, b)).astype(np.int32), device=cuda)
+    _shard_calls_equal(ops.probe, ref.probe_reference, (keys, st.hot_index), {}, S, 1)
+
+
+def test_sharded_kernel_store_matches_plain_store(cuda):
+    """ShardedKV(S=4) with the kernels and with the plain engine on one op
+    stream with deferral (lanes 48), masked compactions and a migration:
+    every leaf equal after every batch; a routed round is one launch of
+    each probe call, not S."""
+    twins = {e: T.ShardedKV(dataclasses.replace(CFG, engine=e), 4, device=cuda,
+                            compact_batch=128, lanes=48, trigger=0.4)
+             for e in ("fused", "fused_ref")}
+    for i, (k, o, v) in enumerate(_stream(4, 60)):
+        out = {e: kv.apply(k, o, v) for e, kv in twins.items()}
+        for a, b in zip(out["fused"], out["fused_ref"]):
+            assert torch.equal(a, b), i
+        if i == 30:
+            nm = twins["fused"].bucket_map.copy()
+            nm[np.flatnonzero(nm == 1)[:3]] = 3
+            assert len({kv.migrate(nm) for kv in twins.values()}) == 1
+        la = interop.state_leaves(twins["fused"].state)
+        lb = interop.state_leaves(twins["fused_ref"].state)
+        assert all(torch.equal(x, y) for x, y in zip(la, lb)), i
+    assert twins["fused"].compactions.sum() > 0 and twins["fused"].migrations == 1
+    kv = twins["fused"]
+    kv.trigger = 2.0
+    ops.reset_launches()
+    k, o, v = next(_stream(5, 1))
+    kv.apply_round(k, o, v)
+    torch.cuda.synchronize()
+    assert ops.launches["fused_probe"] == 3                # hot, cold reads; cold RMW base
+    assert ops.launches["fused_write"] == ops.WRITE_KERNELS_PER_CALL
+    for kv in twins.values():
+        kv.check_invariants()

@@ -1,4 +1,5 @@
-"""The port stands alone: it imports and runs (the store, reduced serving
+"""The port stands alone: it imports and runs (the store, single-shard and
+sharded with a live migration, reduced serving
 engines and reduced training runs of the dense and RWKV-6 families) with
 the JAX package, JAX and the benchmarks blocked; its entry points default to the CUDA device and
 refuse to quietly run without it; the forced-kernel engine refuses CPU
@@ -63,6 +64,18 @@ def test_port_runs_with_the_reference_blocked():
         assert (v.numpy() == np.stack([keys] * 2, 1)).all()
         assert kv.compactions > 0
         kv.check_invariants()
+        skv = T.ShardedKV(cfg, 4, device="cpu", compact_batch=128, lanes=64,
+                          trigger=0.3)
+        for i in range(0, 3000, 100):
+            skv.upsert(keys[i:i + 100], np.stack([keys[i:i + 100]] * 2, 1))
+        nm = skv.bucket_map.copy()
+        nm[:2] = 3
+        assert skv.migrate(nm) > 0
+        st, v = skv.read(keys)
+        assert (st.numpy() == T.ST_OK).all()
+        assert (v.numpy() == np.stack([keys] * 2, 1)).all()
+        assert skv.compactions.sum() > 0 and skv.rounds > 30
+        skv.check_invariants()
         import torch
         from repro_torch.models import transformer
         from repro_torch.models.registry import get_config
@@ -107,13 +120,26 @@ def test_port_runs_with_the_reference_blocked():
     assert "isolated-ok" in out.stdout
 
 
-def test_kv_defaults_to_the_cuda_device():
+@pytest.mark.parametrize("make", [lambda cfg: T.KV(cfg),
+                                  lambda cfg: T.ShardedKV(cfg, 4)],
+                         ids=["KV", "ShardedKV"])
+def test_kv_defaults_to_the_cuda_device(make):
     cfg = T.F2Config(**small_dict())
     if torch.cuda.is_available():
-        assert T.KV(cfg).device.type == "cuda"
+        assert make(cfg).device.type == "cuda"
     else:
         with pytest.raises(RuntimeError, match="CUDA is not available"):
-            T.KV(cfg)
+            make(cfg)
+
+
+def test_sharded_kv_refuses_what_is_not_ported():
+    cfg = T.F2Config(**small_dict())
+    with pytest.raises(NotImplementedError, match="ROADMAP item 15"):
+        T.ShardedKV(cfg, 4, dispatch="shard_map", device="cpu")
+    with pytest.raises(NotImplementedError, match="host_tier"):
+        T.F2Config(**small_dict(host_tier=True))
+    with pytest.raises(ValueError, match="power of 2"):
+        T.ShardedKV(cfg, 3, device="cpu")
 
 
 def test_serving_entry_points_default_to_the_cuda_device():
@@ -203,6 +229,15 @@ def test_port_sources_include_the_training_slice():
         assert mod in names, mod
 
 
+def test_port_sources_include_the_sharded_slice():
+    """The AST scan above walks every module of the sharded slice."""
+    names = _port_module_names()
+    for mod in ("core/shard_router.py", "core/rebalance.py", "core/sharded.py",
+                "core/store.py", "kernels/f2_probe/ops.py",
+                "kernels/f2_probe/ref.py"):
+        assert mod in names, mod
+
+
 def test_port_sources_include_the_ssm_slice():
     """The AST scan above walks every module of the RWKV-6 slice."""
     names = _port_module_names()
@@ -243,6 +278,11 @@ def test_kernel_wrappers_count_only_launches():
                     *cols, chain_max=8)
     addr, _ = ops.probe(keys, st.hot_index)
     assert addr.dtype == torch.int32 and addr.shape == (16,)
+    # a stacked store's [S, B] lanes run the plain versions on the CPU too
+    skv = T.ShardedKV(T.F2Config(**small_dict()), 2, device="cpu")
+    skv.upsert(np.arange(64, dtype=np.int32), np.ones((64, 2), np.int32))
+    addr, _ = ops.probe(torch.stack([keys, keys]), skv.state.hot_index)
+    assert addr.shape == (2, 16)
     assert ops.launches == {"fused_probe": 0, "fused_write": 0, "probe": 0}
     with pytest.raises(ValueError, match="needs CUDA tensors"):
         ops.probe_cuda(keys, st.hot_index)
