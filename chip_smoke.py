@@ -1,10 +1,11 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch port on one CUDA GPU: the F2 store, single-shard and
-sharded over four stores, the F2-paged serving engine with Granite-3-8B at
+"""Drive the PyTorch port on one CUDA GPU: the F2 store, single-shard,
+sharded over four stores and replicated twice over them with the session
+service on top, the F2-paged serving engine with Granite-3-8B at
 full width, Granite-3-8B's training at full width, then RWKV-6-7B's
 serving, prefill and training at full width.
 
-    python3 chip_smoke.py            # the full run: 2**24 keys, 40 layers
+    python3 chip_smoke.py            # the full run: 2**24 keys, models at full width
 
 Phases, each printing one JSON line:
 
@@ -80,6 +81,41 @@ Phases, each printing one JSON line:
   7c. sharded_twins — the sharded store at 2**20 keys through "fused" and
                 "fused_ref": every leaf equal after each phase, a forced
                 migrate() of an edited bucket map, every key read back;
+  7d. replicated — `make_session_service(cfg, ServiceConfig(n_shards=4,
+                n_replicas=2, lanes=4096, max_sessions=8,
+                session_depth=1024))` over the same 2**24 keys (R*S = 8
+                stores in one row axis, ~9.4 GB): fan-in load in batches of
+                BATCH with a two-phase read across a masked cold->cold pass,
+                fan-out read-back of every key (FANOUT_BATCH), YCSB-A, -B,
+                -F by fan-in and YCSB-C by fan-out (2**19 ops each by
+                default), every read checked, the replicas leaf-equal after
+                the load and after YCSB; then drop_replica(1),
+                RESYNC_WRITES fan-in writes, resync(1) and every key read
+                back pinned to replica 1 (the resync replays every shard's
+                slabs side by side); wrapper calls per fan-in and per
+                fan-out round (scheduler off) must equal a KV batch's and
+                a ShardedKV read round's, and host syncs per round;
+  7e. sessions — 8 sessions over that store enqueue 1,024 Zipf-0.99 ops
+                each (reads, upserts, RMWs) a wave and drain, 16 waves:
+                every completion equals its traced round's result, every
+                read the expectation folded round by round, no shard takes
+                more than the pack width; rounds, slab occupancy, host
+                syncs per step();
+  7f. replicated_profile_fan_in / _fan_out — profiler windows over 8
+                YCSB-A fan-in rounds and 8 YCSB-C fan-out rounds: launches,
+                device-busy ms and host syncs per round;
+  7g. kernels_replicated — as kernels_sharded over the replicated
+                store's 8 rows ([8, 4096] fan-out and fan-in slabs, probe
+                at [8, 8192]): plain version, second call, 8 single-row
+                calls, timed;
+  7h. replicated_twins — 2**20 keys loaded into a "fused" ReplicatedKV
+                and a fused ShardedKV (replica 0 leaf-equal to it), a
+                "fused_ref" twin copied from the loaded one; the twins
+                leaf-equal (replica 0 to the ShardedKV) after YCSB-A/B/F, a
+                forced migrate(), a drop, writes and a resync, the
+                resynced replica read back pinned; a session wave on the
+                twins, its recorded schedule replayed on the ShardedKV
+                with equal statuses and values;
   8. serve    — Granite-3-8B (20 of its 40 layers, d_model 4096, bf16
                 weights from `init_params` with SEED) through
                 Engine(backend="paged"):
@@ -143,7 +179,8 @@ Phases, each printing one JSON line:
  20. the kernels line, the nvidia-smi line, and the final ok line.
 
 The kernels line has one entry for each kernel of the main paths and one
-for each store kernel over the shard axis (`*_sharded`).  Any mismatch,
+for each store kernel over the shard axis (`*_sharded`) and over the
+replicated rows (`*_replicated`).  Any mismatch,
 failed build or failed launch raises, and the script exits non-zero.  It needs a CUDA device and the repository's `src/` next to it.
 `--out PATH` also writes every phase's record to a JSON file.
 """
@@ -166,6 +203,14 @@ BATCH = 8192
 SEED = 0
 SHARDS = 4                                # the sharded phase: S stores ...
 SHARD_LANES = 4096                        # ... with slabs of this many lanes
+REPLICAS = 2                              # the replicated phases: R copies
+FANOUT_BATCH = 3 * BATCH                  # fan-out read-back: ~3,072 lanes a row
+PINNED_BATCH = 3 * SHARD_LANES            # a read pinned to one replica: ~3,072 a row
+RESYNC_WRITES = 1 << 17                   # fan-in writes while a replica is down
+MIGRATE_BATCH = 3 * SHARD_LANES           # resync's drain frontier and replay batch
+SESSIONS = 8                              # the sessions phase: 8 sessions ...
+SESSION_DEPTH = 1024                      # ... of 1,024 ring slots ...
+SESSION_WAVES = 16                        # ... each enqueueing a full ring a wave
 TWIN_LOG2_KEYS = 20
 # serving: Granite-3-8B at full width, random weights from SEED
 SERVE_ARCH = "granite-3-8b"
@@ -268,21 +313,25 @@ def load_keys(kv, keys_perm, V):
             raise AssertionError(f"upsert batch {b // BATCH}: status != OK")
 
 
-def read_back(kv, n_keys, V):
+def read_back(kv, n_keys, V, batch=BATCH, expect=None, **read_kw):
+    """Every key read back (`kv.read(keys, **read_kw)`) in batches, each
+    checked against its loaded value or `expect`."""
     from repro_torch import ST_OK
-    for b in range(0, n_keys, BATCH):
-        k = np.arange(b, min(b + BATCH, n_keys), dtype=np.int32)
-        st, v = kv.read(k)
+    for b in range(0, n_keys, batch):
+        k = np.arange(b, min(b + batch, n_keys), dtype=np.int32)
+        want = val_of(k, V) if expect is None else expect[k]
+        st, v = kv.read(k, **read_kw)
         st, v = st.cpu().numpy(), v.cpu().numpy()
-        if not (np.all(st == ST_OK) and np.array_equal(v, val_of(k, V))):
-            bad = np.flatnonzero((st != ST_OK) | np.any(v != val_of(k, V), 1))
+        if not (np.all(st == ST_OK) and np.array_equal(v, want)):
+            bad = np.flatnonzero((st != ST_OK) | np.any(v != want, 1))
             raise AssertionError(f"read-back: {bad.size} keys wrong, e.g. {k[bad[:8]]}")
 
 
-def ycsb(kv, expect, workload, n_ops, zipf, rng):
-    """One YCSB mix through kv.apply.  With an `expect` array every read is
-    checked against it (the pre-batch values) and it is then updated.
-    Returns (ops/s over apply + result transfer, the per-batch outputs)."""
+def ycsb(kv, expect, workload, n_ops, zipf, rng, via_read=False):
+    """One YCSB mix through kv.apply (through kv.read with `via_read`, for
+    YCSB-C).  With an `expect` array every read is checked against it (the
+    pre-batch values) and it is then updated.  Returns (ops/s over apply +
+    result transfer, the per-batch outputs)."""
     from repro_torch import OP_READ, OP_RMW, OP_UPSERT, ST_OK
     from repro_torch.workload import make_ops
     import torch
@@ -292,7 +341,7 @@ def ycsb(kv, expect, workload, n_ops, zipf, rng):
     for _ in range(0, n_ops, BATCH):
         keys, ops, vals, _ = make_ops(rng, workload, zipf, BATCH, V)
         t0 = time.perf_counter()
-        st, rv = kv.apply(keys, ops, vals)
+        st, rv = kv.read(keys) if via_read else kv.apply(keys, ops, vals)
         st, rv = st.cpu().numpy(), rv.cpu().numpy()
         if kv.device.type == "cuda":
             torch.cuda.synchronize()
@@ -992,8 +1041,12 @@ def twin_parity(cfg, device, n_keys, n_ops, seed, records):
 # the sharded store: ShardedKV(S = 4) over the same keyspace
 # ---------------------------------------------------------------------------
 
-def routed(skv, keys, ops=None):
-    """(skeys [S, W], sops [S, W], route) of one batch under skv's map."""
+def routed(skv, keys, ops=None, fan_in=False):
+    """(skeys [rows, W], sops [rows, W], route) of one batch under skv's
+    map: S rows for a ShardedKV; R*S for a ReplicatedKV, the lanes spread
+    over the replicas round robin as a fan-out read spreads them, or
+    (`fan_in`) the S slabs repeated over the replicas as a fan-in round
+    writes them."""
     import torch
     from repro_torch import OP_READ
     from repro_torch.core import shard_router
@@ -1003,23 +1056,29 @@ def routed(skv, keys, ops=None):
            if ops is None else torch.as_tensor(np.asarray(ops, np.int32), device=dev))
     vals = torch.zeros((keys.shape[0], skv.cfg.value_width), dtype=torch.int32,
                        device=dev)
+    R = getattr(skv, "R", 1)
+    bmap = torch.as_tensor(skv.bucket_map, device=dev)
+    if R == 1 or fan_in:
+        sk, so, _, rt = shard_router.route(keys, ops, vals, skv.S, skv.lanes,
+                                           bucket_map=bmap)
+        return sk.repeat(R, 1), so.repeat(R, 1), rt
+    rep = torch.arange(keys.shape[0], dtype=torch.int32, device=dev) % R
     sk, so, _, rt = shard_router.route(keys, ops, vals, skv.S, skv.lanes,
-                                       bucket_map=torch.as_tensor(skv.bucket_map,
-                                                                  device=dev))
+                                       bucket_map=bmap, replica=rep, n_replicas=R)
     return sk, so, rt
 
 
 def sharded_two_phase(skv, n_keys, seed):
     """The paper's two-phase read (S5.4) over all shards at once: BATCH
-    loaded keys routed to their shards, `store.read_begin` on the stacked
-    state (the first-hop probe kernel, one launch for every shard), a
-    masked cold->cold pass over every shard in between, `read_finish`:
-    every key must read back its loaded value.  Returns the truncations
-    under the snapshot."""
+    loaded keys routed to their shards (under replication, the same slabs
+    on every replica), `store.read_begin` on the stacked state (the
+    first-hop probe kernel, one launch for every row), a masked cold->cold
+    pass over every shard in between, `read_finish`: every key must read
+    back its loaded value.  Returns the truncations under the snapshot."""
     from repro_torch import OP_READ, ST_OK
     from repro_torch.core import shard_router, store
     keys = np.random.default_rng(seed + 7).choice(n_keys, BATCH, replace=False)
-    sk, so, rt = routed(skv, keys)
+    sk, so, rt = routed(skv, keys, fan_in=True)
     if bool(rt.deferred.any()):
         raise AssertionError("the two-phase batch did not fit one routed round")
     skv.state, snap = store.read_begin(skv.cfg, skv.state, sk, so == OP_READ)
@@ -1027,32 +1086,34 @@ def sharded_two_phase(skv, n_keys, seed):
     skv.compact_cold_cold(n_records=max(n_keys // skv.S // 64, skv.compact_batch))
     truncs = int(skv.state.cold_truncs.sum()) - truncs
     skv.state, st, vals = store.read_finish(skv.cfg, skv.state, snap)
-    st, vals = shard_router.unroute(rt, st, vals)
+    st, vals = shard_router.unroute(rt, st[:skv.S], vals[:skv.S])
     if not (np.all(st.cpu().numpy() == ST_OK) and np.array_equal(
             vals.cpu().numpy(), val_of(keys, skv.cfg.value_width))):
         raise AssertionError("sharded two-phase read across cold->cold: a key read wrong")
     return truncs
 
 
-def calls_per_round(kv, seed, n_batches=8):
+def calls_per_round(kv, seed, n_batches=8, read=False):
     """Wrapper calls per routed round (a KV batch is one round) of YCSB-A
-    batches with the scheduler off (trigger 2.0: no compaction), and the
-    host sync calls per round from a profiler window over the same kind of
-    batches.  Counters and trigger are restored."""
+    batches with the scheduler off (trigger 2.0: no compaction), or with
+    `read` of YCSB-C batches through kv.read, and the host sync calls per
+    round from a profiler window over the same kind of batches.  Counters
+    and trigger are restored."""
     import torch
     from torch.profiler import ProfilerActivity, profile
     from repro_torch.kernels.f2_probe import ops
     from repro_torch.workload import Zipf, make_ops
     rng = np.random.default_rng(seed + 11)
     zipf = Zipf(1 << 20, 0.99)
-    batches = [make_ops(rng, "A", zipf, BATCH, kv.cfg.value_width)[:3]
-               for _ in range(2 * n_batches)]
+    batches = [make_ops(rng, "C" if read else "A", zipf, BATCH,
+                        kv.cfg.value_width)[:3] for _ in range(2 * n_batches)]
+    run = (lambda b: kv.read(b[0])) if read else (lambda b: kv.apply(*b))
     trigger, kv.trigger = kv.trigger, 2.0
     saved = dict(ops.launches)
     rounds0 = getattr(kv, "rounds", None)
     ops.reset_launches()
     for b in batches[:n_batches]:
-        kv.apply(*b)
+        run(b)
     torch.cuda.synchronize()
     rounds = n_batches if rounds0 is None else kv.rounds - rounds0
     calls = {k: v / rounds for k, v in ops.launches.items()}
@@ -1060,13 +1121,11 @@ def calls_per_round(kv, seed, n_batches=8):
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         r0 = getattr(kv, "rounds", 0)
         for b in batches[n_batches:]:
-            kv.apply(*b)
+            run(b)
         torch.cuda.synchronize()
     rounds = n_batches if rounds0 is None else kv.rounds - r0
     counts = {e.key: e.count for e in prof.key_averages()}
-    syncs = {k: counts.get(k, 0) / rounds for k in (
-        "aten::nonzero", "aten::_local_scalar_dense", "aten::item",
-        "cudaStreamSynchronize", "cudaMemcpyAsync")}
+    syncs = {k: counts.get(k, 0) / rounds for k in SYNC_CALLS}
     kv.trigger = trigger
     for k, v in saved.items():
         ops.launches[k] = v + ops.launches[k]
@@ -1132,33 +1191,49 @@ def sharded_main(cfg, device, n_keys, n_ops, seed, records, main_rates):
     return skv, rec
 
 
-def sharded_profile(skv, n_keys, seed, records, n_batches=8):
+SYNC_CALLS = ("aten::nonzero", "aten::_local_scalar_dense", "aten::item",
+              "cudaStreamSynchronize", "cudaMemcpyAsync")
+
+
+def sharded_profile(skv, n_keys, seed, records, n_batches=8, read=False,
+                    phase="sharded_profile"):
     """Device busy time and idle share over YCSB-A batches of the loaded
-    sharded store (as `profile_window`)."""
+    sharded (or replicated: fan-in) store, or with `read` YCSB-C batches
+    through `read` (fan-out), as `profile_window`; per routed round, the
+    kernels launched (device records), the device-busy ms and the host
+    sync calls."""
     import torch
     from torch.profiler import ProfilerActivity, profile
     from repro_torch.workload import Zipf, make_ops
     rng = np.random.default_rng(seed + 3)
     zipf = Zipf(n_keys, 0.99)
-    batches = [make_ops(rng, "A", zipf, BATCH, skv.cfg.value_width)[:3]
+    batches = [make_ops(rng, "C" if read else "A", zipf, BATCH, skv.cfg.value_width)[:3]
                for _ in range(n_batches)]
-    skv.apply(*batches[0])
+
+    def run(b):
+        return skv.read(b[0]) if read else skv.apply(*b)
+    run(batches[0])
     torch.cuda.synchronize()
     r0 = skv.rounds
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        for keys, ops_, vals in batches:
-            st, rv = skv.apply(keys, ops_, vals)
+        for b in batches:
+            st, rv = run(b)
             st.cpu(), rv.cpu()
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
     dev, host = _device_rows(prof)
     busy = sum(d for _, d, _ in dev)
+    rounds = skv.rounds - r0
+    counts = {e.key: e.count for e in prof.key_averages()}
     emit(records, dict(
-        phase="sharded_profile", workload="A", batches=n_batches, batch=BATCH,
-        rounds=skv.rounds - r0, wall_s=wall,
+        phase=phase, workload="C" if read else "A", batches=n_batches, batch=BATCH,
+        rounds=rounds, wall_s=wall,
         device_busy_s=busy if dev else "not measured",
         device_idle_share=(1 - busy / wall) if dev else "not measured",
+        launches_per_round=sum(c for _, _, c in dev) / rounds if dev else "not measured",
+        device_busy_ms_per_round=busy / rounds * 1e3 if dev else "not measured",
+        host_syncs_per_round={k: counts.get(k, 0) / rounds for k in SYNC_CALLS},
         f2_kernels=[dict(name=k[:80], s=d, calls=c) for k, d, c in dev
                     if any(n in k for f in KERNEL_FUNCTIONS.values() for n in f)],
         top_device=[dict(name=k[:80], s=d, calls=c) for k, d, c in dev[:10]],
@@ -1180,7 +1255,8 @@ def sharded_probe_cases(skv, rng, n_keys):
     from repro_torch.core import cold_index, hybrid_log, probe_engine
     from repro_torch.core.types import IoStats
     from repro_torch.workload import Zipf
-    st, cfg, dev, S = skv.state, skv.cfg, skv.device, skv.S
+    st, cfg, dev = skv.state, skv.cfg, skv.device
+    S = st.hot.tail.shape[0]                 # rows: R*S under replication
     q = np.concatenate([Zipf(n_keys, 0.99).sample(rng, BATCH - 512),
                         n_keys + rng.integers(0, 1 << 20, 512)]).astype(np.int32)
     keys, sops, _ = routed(skv, q)
@@ -1224,12 +1300,13 @@ def sharded_write_cases(skv, rng, n_keys):
     from repro_torch import OP_DELETE, OP_READ, OP_RMW, OP_UPSERT
     from repro_torch.core import hybrid_log
     from repro_torch.workload import Zipf
-    st, cfg, dev, S = skv.state, skv.cfg, skv.device, skv.S
+    st, cfg, dev = skv.state, skv.cfg, skv.device
+    S = st.hot.tail.shape[0]                 # rows: R*S under replication
     V = cfg.value_width
     mix = [OP_READ, OP_UPSERT, OP_RMW, OP_DELETE]
 
     def mk(keys, ops_):
-        sk, so, _ = routed(skv, keys, ops_)
+        sk, so, _ = routed(skv, keys, ops_, fan_in=True)
         vals = rng.integers(-2**31, 2**31, tuple(sk.shape) + (V,),
                             dtype=np.int64).astype(np.int32)
         return sk, so, torch.as_tensor(vals, device=dev)
@@ -1263,12 +1340,14 @@ def sharded_write_cases(skv, rng, n_keys):
 
 
 def sharded_first_hop_cases(skv, rng, n_keys):
-    """The first-hop probe over every shard's index: S x BATCH lanes (the
-    sharded shape), S x 2^18 = 2^20 lanes, and an odd width."""
+    """The first-hop probe over every row's index: rows x BATCH lanes (the
+    sharded shape), rows x 2^20 / rows lanes, and an odd width."""
     import torch
-    S, dev = skv.S, skv.device
+    dev = skv.device
+    S = skv.state.hot.tail.shape[0]          # rows: R*S under replication
     cases = []
-    for name, w in (("s4x8192", BATCH), ("s4x262144", (1 << 20) // S), ("odd_W77", 77)):
+    for name, w in ((f"s{S}x8192", BATCH), (f"s{S}x{(1 << 20) // S}", (1 << 20) // S),
+                    ("odd_W77", 77)):
         q = np.concatenate([rng.integers(0, n_keys, (S, w - w // 16)),
                             n_keys + rng.integers(0, 1 << 20, (S, w // 16))], 1)
         cases.append((name, (torch.as_tensor(q.astype(np.int32), device=dev),
@@ -1276,12 +1355,13 @@ def sharded_first_hop_cases(skv, rng, n_keys):
     return cases
 
 
-def check_sharded_kernels(skv, n_keys, seed, records):
-    """Each store kernel over the loaded sharded store's shard axis: one
-    stacked call bit for bit against its plain version, a second call, and
-    S single-shard calls on the shards' slices; timed by CUDA events and the
-    profiler (L2 flushed too) beside its bound, the single-shard bound
-    summed over the shards.  Returns {kernel: summary of its main case}."""
+def check_sharded_kernels(skv, n_keys, seed, records, phase="kernels_sharded"):
+    """Each store kernel over the loaded sharded store's shard axis (a
+    replicated store's R*S rows): one stacked call bit for bit against its
+    plain version, a second call, and single-row calls on the rows' slices;
+    timed by CUDA events and the profiler (L2 flushed too) beside its bound,
+    the single-row bound summed over the rows.  Returns {kernel: summary of
+    its main case}."""
     import torch
     from repro_torch.kernels.f2_probe import ops, ref
     rng = np.random.default_rng(seed + 21)
@@ -1341,7 +1421,7 @@ def check_sharded_kernels(skv, n_keys, seed, records):
                        bound_bytes=sum(b[2] for b in bounds),
                        bound_ops=sum(b[3] for b in bounds))
             per_case.append(rec)
-        emit(records, dict(phase="kernels_sharded", kernel=kname, cases=per_case))
+        emit(records, dict(phase=phase, kernel=kname, cases=per_case))
         summary[kname] = per_case[0]
     return summary
 
@@ -1408,6 +1488,323 @@ def sharded_twins(cfg, device, n_keys, n_ops, seed, records):
                        n_keys=n_keys, ops_per_mix=n_ops, migrated_records=moved["fused"],
                        compactions_per_shard=twins["fused"].compactions.tolist(),
                        rounds=twins["fused"].rounds, bit_exact=True))
+
+
+# ---------------------------------------------------------------------------
+# replication and the session service: R = 2 copies of the S = 4 shards
+# ---------------------------------------------------------------------------
+
+def upsert_checked(kv, keys, vals, expect, **kw):
+    """kv.apply of upserts, every status OK; `expect` takes the last value
+    of each key."""
+    from repro_torch import OP_UPSERT
+    st, _ = kv.apply(keys, np.full(len(keys), OP_UPSERT, np.int32), vals, **kw)
+    if not bool((st == 1).all()):
+        raise AssertionError("an upsert's status is not OK")
+    _, first_rev = np.unique(keys[::-1], return_index=True)
+    last = len(keys) - 1 - first_rev
+    expect[keys[last]] = vals[last]
+
+
+def replicated_main(cfg, device, n_keys, n_ops, seed, records, sharded_rec):
+    """ReplicatedKV(cfg, S=SHARDS, R=REPLICAS, lanes=SHARD_LANES), built by
+    make_session_service: load n_keys unique keys by fan-in in batches of
+    BATCH, read every key back by fan-out, YCSB-A, -B and -F through apply
+    and YCSB-C through read, every read checked; replicas leaf-equal after
+    the load and after the YCSB mixes; then replica 1 dropped,
+    RESYNC_WRITES fan-in writes, resync(1), and every key read back pinned
+    to replica 1.  Returns (the session service, its record)."""
+    import torch
+    from repro_torch import RebalanceConfig
+    from repro_torch.core import replication
+    from repro_torch.kernels.f2_probe import ops
+    from repro_torch.serve import serve_step
+    from repro_torch.workload import Zipf
+    V = cfg.value_width
+    rng = np.random.default_rng(seed)
+    torch.cuda.reset_peak_memory_stats()
+    # resync drains and replays MIGRATE_BATCH records a step
+    svc = serve_step.make_session_service(cfg, serve_step.ServiceConfig(
+        n_shards=SHARDS, n_replicas=REPLICAS, lanes=SHARD_LANES,
+        rebalance_cfg=RebalanceConfig(enabled=False, migrate_batch=MIGRATE_BATCH),
+        max_sessions=SESSIONS, session_depth=SESSION_DEPTH,
+        store_kwargs=dict(device=device)))
+    rkv = svc.kv
+    launches, rounds, seconds = {}, {}, {}
+    t_mark = [time.perf_counter()]
+
+    def mark(phase):
+        torch.cuda.synchronize()
+        launches[phase] = {k: v - sum(d[k] for d in launches.values())
+                           for k, v in ops.launches.items()}
+        rounds[phase] = rkv.rounds - sum(rounds.values())
+        now = time.perf_counter()
+        seconds[phase], t_mark[0] = now - t_mark[0], now
+
+    def identical(ctx):
+        if not replication.replicas_byte_identical(rkv):
+            raise AssertionError(f"replicas differ after {ctx}")
+
+    ops.reset_launches()
+    t_mark[0] = time.perf_counter()
+    load_keys(rkv, rng.permutation(n_keys).astype(np.int32), V)
+    truncs = sharded_two_phase(rkv, n_keys, seed)
+    rkv.check_invariants()
+    mark("load")
+    identical("the load")
+    t_mark[0] = time.perf_counter()
+    read_back(rkv, n_keys, V, batch=FANOUT_BATCH)
+    mark("fanout_readback")
+    expect = val_of(np.arange(n_keys), V)
+    zipf = Zipf(n_keys, 0.99)
+    rates = {}
+    t_mark[0] = time.perf_counter()
+    for wl in "ABFC":
+        rates[wl], _ = ycsb(rkv, expect, wl, n_ops, zipf, rng, via_read=wl == "C")
+        mark(f"ycsb_{wl}")
+    identical("YCSB")
+    rkv.drop_replica(1)
+    t_mark[0] = time.perf_counter()
+    for _ in range(0, RESYNC_WRITES, BATCH):
+        keys = rng.integers(0, n_keys, BATCH).astype(np.int32)
+        upsert_checked(rkv, keys, rng.integers(0, 127, (BATCH, V)).astype(np.int32),
+                       expect)
+    mark("dropped_writes")
+    n_resync = rkv.resync(1)
+    mark("resync")
+    read_back(rkv, n_keys, V, batch=PINNED_BATCH, expect=expect, replica=1)
+    mark("pinned_readback")
+    rkv.check_invariants()
+    rec = dict(
+        phase="replicated", shards=SHARDS, replicas=REPLICAS, lanes=SHARD_LANES,
+        n_keys=n_keys, config_per_shard=dataclasses.asdict(cfg),
+        load_ops_per_s=n_keys / seconds["load"],
+        fanout_readback_ops_per_s=n_keys / seconds["fanout_readback"],
+        fanout_batch=FANOUT_BATCH, truncations_under_snapshot=truncs,
+        ycsb_ops_per_mix=n_ops, ycsb_ops_per_s=rates,
+        sharded_load_ops_per_s=sharded_rec["load_ops_per_s"],
+        sharded_readback_ops_per_s=sharded_rec["readback_ops_per_s"],
+        sharded_ycsb_ops_per_s=sharded_rec["ycsb_ops_per_s"],
+        dropped_writes=RESYNC_WRITES, resync_records=n_resync,
+        resync_s=seconds["resync"], migrate_batch=MIGRATE_BATCH,
+        resync_rounds_run=rkv.resync_rounds,
+        pinned_readback_ops_per_s=n_keys / seconds["pinned_readback"],
+        pinned_batch=PINNED_BATCH, seconds_by_phase=seconds,
+        rounds_by_phase=rounds, launches=dict(ops.launches),
+        launches_by_phase=launches,
+        compactions_per_store=rkv.compactions.tolist(),
+        replica_stats=rkv.replica_stats(), io=rkv.io_stats(),
+        replicas_leaf_equal_after=["load", "YCSB"],
+        peak_mem_bytes=torch.cuda.max_memory_allocated())
+    return svc, rec, expect
+
+
+def sessions_main(svc, n_keys, seed, records, expect):
+    """The session service over the loaded replicated store: SESSIONS
+    sessions each enqueue SESSION_DEPTH Zipf-0.99 ops (reads, upserts and
+    RMWs) a wave and drain, SESSION_WAVES waves.  Every completion equals
+    its round's result, and every round's reads equal `expect` folded round
+    by round in lane order (the traced schedule); no shard ever takes more
+    than the pack width.  Then a profiler window counts host syncs per
+    step()."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch import OP_READ, OP_RMW, OP_UPSERT, ST_OK
+    from repro_torch.workload import Zipf
+    rng = np.random.default_rng(seed + 31)
+    V = svc.V
+    zipf = Zipf(n_keys, 0.99)
+    sessions = [svc.open_session() for _ in range(SESSIONS)]
+
+    def wave():
+        out = []
+        for _ in sessions:
+            keys = zipf.sample(rng, SESSION_DEPTH).astype(np.int32)
+            ops_ = rng.choice([OP_READ, OP_UPSERT, OP_RMW], SESSION_DEPTH,
+                              p=[.5, .25, .25]).astype(np.int32)
+            out.append((keys, ops_, rng.integers(0, 127, (SESSION_DEPTH, V))
+                        .astype(np.int32)))
+        return out
+
+    svc.trace_schedule = True
+    r0, t_run = svc.pack_rounds, 0.0
+    tickets, statuses, values = [], [], []
+    for _ in range(SESSION_WAVES):
+        batches = wave()
+        t0 = time.perf_counter()
+        for s, b in zip(sessions, batches):
+            if not (s.enqueue(*b) >= 0).all():
+                raise AssertionError("a session's ring refused an op")
+        for s in sessions:
+            tk, st, v = s.drain()
+            tickets.append(tk), statuses.append(st), values.append(v)
+        torch.cuda.synchronize()
+        t_run += time.perf_counter() - t0
+    rounds = svc.pack_rounds - r0
+    schedule, svc.schedule, svc.trace_schedule = svc.schedule, [], False
+    n_ops = SESSIONS * SESSION_DEPTH * SESSION_WAVES
+    tk = np.concatenate(tickets)
+    res_st = np.full(n_ops, -1, np.int32)
+    res_v = np.zeros((n_ops, V), np.int32)
+    res_st[tk], res_v[tk] = np.concatenate(statuses), np.concatenate(values)
+    if not (np.sort(tk) == np.arange(n_ops)).all() or not (res_st == ST_OK).all():
+        raise AssertionError("a session op was lost or failed")
+    checked = 0
+    for sess, valid, bkeys, bops, bvals, st, rv, tkt in schedule:
+        valid = valid.cpu().numpy()
+        k, o, v = (x.cpu().numpy()[valid] for x in (bkeys, bops, bvals))
+        st, rv, tkt = (x.cpu().numpy()[valid] for x in (st, rv, tkt))
+        if not (np.array_equal(res_st[tkt], st) and np.array_equal(res_v[tkt], rv)):
+            raise AssertionError("a completion differs from its round's result")
+        r = o == OP_READ
+        if not np.array_equal(rv[r], expect[k[r]]):
+            raise AssertionError("a session read returned a wrong value")
+        checked += int(r.sum())
+        for i in np.flatnonzero(~r):          # writes, in lane order
+            expect[k[i]] = v[i] if o[i] == OP_UPSERT else expect[k[i]] + v[i]
+    if svc.max_fill > svc.W:
+        raise AssertionError(f"a shard took {svc.max_fill} lanes of {svc.W}")
+    # host syncs per step(), scheduler off (as calls_per_round): one
+    # profiled step after each of 4 more waves
+    steps, counts = 4, dict.fromkeys(SYNC_CALLS, 0)
+    trigger, svc.kv.trigger = svc.kv.trigger, 2.0
+    for _ in range(steps):
+        for s, b in zip(sessions, wave()):
+            s.enqueue(*b)
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            svc.step()
+            torch.cuda.synchronize()
+        for e in prof.key_averages():
+            if e.key in counts:
+                counts[e.key] += e.count
+        for s in sessions:
+            s.drain()
+    svc.kv.trigger = trigger
+    for s in sessions:
+        s.close()
+    rec = dict(phase="sessions", sessions=SESSIONS, session_depth=SESSION_DEPTH,
+               waves=SESSION_WAVES, ops=n_ops, ops_per_s=n_ops / t_run, seconds=t_run,
+               rounds=rounds, rounds_per_wave=rounds / SESSION_WAVES,
+               slab_occupancy=svc.slab_occupancy(), max_fill=svc.max_fill,
+               pack_lanes=svc.W, reads_checked=checked,
+               profiled_steps=steps,
+               host_syncs_per_step={k: c / steps for k, c in counts.items()},
+               stats=svc.stats()["sessions"])
+    emit(records, rec)
+    return rec
+
+
+def replicated_twins(cfg, device, n_keys, n_ops, seed, records):
+    """ReplicatedKV(S=SHARDS, R=REPLICAS) with engine="fused" and
+    "fused_ref" on the card, and a fused ShardedKV fed the same fan-in
+    stream: replica 0 leaf-equal to the ShardedKV after the load; the
+    "fused_ref" twin starts as a copy of the loaded "fused" one (the
+    kernels against their plain versions over the 8 rows are
+    kernels_replicated's), and the twins stay leaf-equal after every later
+    phase (YCSB A/B/F, a forced migrate(), a drop, writes and resync, a
+    session wave), replica 0 equal to the ShardedKV until the session
+    wave; every key read back pinned to the resynced replica; then the
+    session schedule recorded on the kernels' twin (trace_schedule)
+    replayed on the ShardedKV round by round, statuses and values equal."""
+    import copy
+    import torch
+    from repro_torch import RebalanceConfig, ReplicatedKV, ShardedKV, interop
+    from repro_torch.core import replication
+    from repro_torch.serve.sessions import KVSessionService
+    from repro_torch.workload import Zipf
+    V = cfg.value_width
+    rb = RebalanceConfig(enabled=False, migrate_batch=MIGRATE_BATCH)
+    fused = ReplicatedKV(dataclasses.replace(cfg, engine="fused"), SHARDS,
+                         n_replicas=REPLICAS, lanes=SHARD_LANES, device=device,
+                         rebalance_cfg=rb)
+    flat = ShardedKV(cfg, SHARDS, lanes=SHARD_LANES, device=device, rebalance_cfg=rb)
+
+    def same(ctx, with_flat=True):
+        a, b = twins.values()
+        la, lb = interop.state_leaves(a.state), interop.state_leaves(b.state)
+        if not all(torch.equal(x, y) for x, y in zip(la, lb)):
+            raise AssertionError(f"replicated twins diverged after {ctx}")
+        if not (np.array_equal(a.compactions, b.compactions) and a.rounds == b.rounds):
+            raise AssertionError(f"replicated twin counters differ after {ctx}")
+        if with_flat:
+            rep0 = interop.state_leaves(replication.replicated_view(a.state, REPLICAS))
+            if not all(torch.equal(x[0], y) for x, y in
+                       zip(rep0, interop.state_leaves(flat.state))):
+                raise AssertionError(f"replica 0 differs from the ShardedKV after {ctx}")
+
+    rng = np.random.default_rng(seed + 41)
+    perm = rng.permutation(n_keys).astype(np.int32)
+    for kv in (fused, flat):
+        load_keys(kv, perm, V)
+    plain = copy.deepcopy(fused)
+    plain.cfg = dataclasses.replace(cfg, engine="fused_ref")
+    twins = {"fused": fused, "fused_ref": plain}
+    stores = [fused, plain, flat]
+    same("load")
+    zipf = Zipf(n_keys, 0.99)
+    expect = val_of(np.arange(n_keys), V)
+    for wl in "ABF":
+        outs = [ycsb(kv, expect if kv is twins["fused"] else None, wl, n_ops, zipf,
+                     np.random.default_rng(seed + ord(wl)))[1] for kv in stores]
+        for per_store in zip(*outs):
+            if not all(np.array_equal(x[0], per_store[0][0]) and
+                       np.array_equal(x[1], per_store[0][1]) for x in per_store):
+                raise AssertionError(f"replicated twin statuses/values differ in YCSB-{wl}")
+        same(f"YCSB-{wl}")
+    new_map = flat.bucket_map.copy()
+    new_map[np.flatnonzero(new_map == 0)[0]] = 1
+    moved = [kv.migrate(new_map) for kv in stores]
+    if len(set(moved)) != 1 or moved[0] <= 0:
+        raise AssertionError(f"replicated twins migrated {moved}")
+    same("migrate")
+    for kv in twins.values():
+        kv.drop_replica(1)
+    for _ in range(0, n_keys // 16, BATCH):
+        keys = rng.integers(0, n_keys, BATCH).astype(np.int32)
+        vals = rng.integers(0, 127, (BATCH, V)).astype(np.int32)
+        upsert_checked(twins["fused"], keys, vals, expect)
+        for kv in stores[1:]:
+            kv.apply(keys, np.full(BATCH, 2, np.int32), vals)
+    same("dropped writes")
+    resynced = {e: kv.resync(1) for e, kv in twins.items()}
+    if len(set(resynced.values())) != 1:
+        raise AssertionError(f"replicated twins resynced {resynced}")
+    same("resync")
+    for kv in twins.values():
+        read_back(kv, n_keys, V, batch=PINNED_BATCH, expect=expect, replica=1)
+    same("pinned read-back")
+    svcs = {e: KVSessionService(kv, max_sessions=SESSIONS, session_depth=256)
+            for e, kv in twins.items()}
+    svcs["fused"].trace_schedule = True
+    sess = {e: [svc.open_session() for _ in range(SESSIONS)] for e, svc in svcs.items()}
+    for i in range(SESSIONS):
+        keys = zipf.sample(rng, 256).astype(np.int32)
+        ops_ = rng.choice([1, 2, 3], 256).astype(np.int32)
+        vals = rng.integers(0, 127, (256, V)).astype(np.int32)
+        for e in svcs:
+            sess[e][i].enqueue(keys, ops_, vals)
+    for e in svcs:
+        for s in sess[e]:
+            s.drain()
+    same("sessions", with_flat=False)
+    replayed = 0
+    for _, valid, bkeys, bops, bvals, st, rv, _ in svcs["fused"].schedule:
+        fst, frv, _, deferred = flat.apply_round(bkeys, bops, bvals)
+        flat.maybe_rebalance()
+        if bool(deferred.any()) or not (torch.equal(fst, st) and torch.equal(frv, rv)):
+            raise AssertionError("the ShardedKV replay of the session schedule differs")
+        replayed += 1
+    same("the session replay")
+    for kv in stores:
+        kv.check_invariants()
+    emit(records, dict(phase="replicated_twins", shards=SHARDS, replicas=REPLICAS,
+                       lanes=SHARD_LANES, n_keys=n_keys, ops_per_mix=n_ops,
+                       migrated_records=moved[0], resync_records=resynced["fused"],
+                       resync_rounds_run=twins["fused"].resync_rounds,
+                       session_rounds_replayed=replayed,
+                       compactions_per_store=twins["fused"].compactions.tolist(),
+                       bit_exact=True))
 
 
 # ---------------------------------------------------------------------------
@@ -2613,7 +3010,9 @@ def main(argv=None):
     p.add_argument("--log2-keys", type=int, default=24)
     p.add_argument("--log2-ops", type=int, default=21,
                    help="YCSB ops per mix on the main path (the sharded "
-                        "path runs half as many)")
+                        "path runs half as many, the replicated path a "
+                        "quarter, the twins 1/16 and the replicated twins "
+                        "1/64)")
     p.add_argument("--out", default=None)
     a = p.parse_args(argv)
 
@@ -2689,8 +3088,10 @@ def run_all(a, records):
     skv, srec = sharded_main(scfg_store, "cuda", n_keys, 1 << (a.log2_ops - 1), SEED,
                              records, main_rec["ycsb_ops_per_s"])
     s_calls, s_syncs = calls_per_round(skv, SEED)
+    s_read_calls, s_read_syncs = calls_per_round(skv, SEED, read=True)
     srec.update(calls_per_round=s_calls, main_s1_calls_per_batch=main_calls,
-                host_syncs_per_round=s_syncs, main_s1_host_syncs_per_batch=main_syncs)
+                host_syncs_per_round=s_syncs, main_s1_host_syncs_per_batch=main_syncs,
+                calls_per_read_round=s_read_calls, host_syncs_per_read_round=s_read_syncs)
     emit(records, srec)
     for k, n in srec["launches"].items():
         if n <= 0:
@@ -2704,6 +3105,52 @@ def run_all(a, records):
     torch.cuda.empty_cache()
     sharded_twins(make_f2_config((1 << TWIN_LOG2_KEYS) // SHARDS), "cuda",
                   1 << TWIN_LOG2_KEYS, 1 << (a.log2_ops - 4), SEED, records)
+    torch.cuda.empty_cache()
+
+    # replication and the session service over the same keyspace: R x S
+    # stores in one row axis, built by make_session_service
+    t_new = {"replicated": time.perf_counter()}
+    svc, rrec, expect = replicated_main(scfg_store, "cuda", n_keys, 1 << (a.log2_ops - 2),
+                                        SEED, records, srec)
+    t_new["replicated"] = time.perf_counter() - t_new["replicated"]
+    t0 = time.perf_counter()
+    sessions_main(svc, n_keys, SEED, records, expect)
+    t_new["sessions"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    rkv = svc.kv
+    r_calls, r_syncs = calls_per_round(rkv, SEED)
+    r_read_calls, r_read_syncs = calls_per_round(rkv, SEED, read=True)
+    rrec.update(calls_per_fan_in_round=r_calls, host_syncs_per_fan_in_round=r_syncs,
+                calls_per_fan_out_round=r_read_calls,
+                host_syncs_per_fan_out_round=r_read_syncs,
+                fanout_padding=dict(rows=REPLICAS * SHARDS, lanes_per_row=SHARD_LANES,
+                                    slab_lanes=REPLICAS * SHARDS * SHARD_LANES,
+                                    batch_lanes=BATCH))
+    emit(records, rrec)
+    if r_calls != main_calls:
+        raise AssertionError(f"a fan-in round made {r_calls} wrapper calls, a KV batch "
+                             f"{main_calls}: the kernels did not take all R*S rows at once")
+    if r_read_calls != s_read_calls:
+        raise AssertionError(f"a fan-out round made {r_read_calls} wrapper calls, a "
+                             f"ShardedKV read round {s_read_calls}")
+    for k, n in rrec["launches"].items():
+        if n <= 0:
+            raise AssertionError(f"the replicated path never launched {k}")
+    t_new["replicated_calls"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    sharded_profile(rkv, n_keys, SEED, records, phase="replicated_profile_fan_in")
+    sharded_profile(rkv, n_keys, SEED, records, read=True,
+                    phase="replicated_profile_fan_out")
+    r_summary = check_sharded_kernels(rkv, n_keys, SEED, records,
+                                      phase="kernels_replicated")
+    t_new["profiles_and_kernels_replicated"] = time.perf_counter() - t0
+    del svc, rkv, expect
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    replicated_twins(make_f2_config((1 << TWIN_LOG2_KEYS) // SHARDS), "cuda",
+                     1 << TWIN_LOG2_KEYS, 1 << (a.log2_ops - 6), SEED, records)
+    t_new["replicated_twins"] = time.perf_counter() - t0
+    emit(records, dict(phase="replication_seconds", total=sum(t_new.values()), **t_new))
     torch.cuda.empty_cache()
 
     scfg = dataclasses.replace(get_config(SERVE_ARCH), n_layers=SERVE_LAYERS)
@@ -2781,12 +3228,14 @@ def run_all(a, records):
                for k, s in summary.items()]
     # the same three kernels over the sharded phase's shard axis (S = 4 in
     # one launch); launches are the sharded phase's wrapper counters
-    kernels += [dict(name=f"{k}_sharded", route="cuda", source=src[k],
-                     replaces=replaces[k], launches=srec["launches"][k],
+    kernels += [dict(name=f"{k}_{axis}", route="cuda", source=src[k],
+                     replaces=replaces[k], launches=rec["launches"][k],
                      max_abs_err=s["max_abs_err"], ms=s["ms"], device_ms=s["device_ms"],
                      plain_ms=s["plain_ms"], bound_ms=s["bound_ms"],
                      bound_by=s["bound_by"], library_ms=None)
-                for k, s in s_summary.items()]
+                for axis, rec, summ in (("sharded", srec, s_summary),
+                                        ("replicated", rrec, r_summary))
+                for k, s in summ.items()]
     for e in kernels:
         if not e["launches"] > 0:
             raise AssertionError(f"the main paths never launched {e['name']}")

@@ -5,16 +5,21 @@ The JAX package `repro` is the reference; this package mirrors its layout
 
     F2Config, KV (the facade; runs on the CUDA device unless given another
     `device`), ShardedKV (S hash-partitioned stores behind one router, with
-    live rebalancing; same device rule), the op / status codes, and the
-    functional layers
+    live rebalancing; same device rule), ReplicatedKV (R replicas of them:
+    fan-in writes, fan-out reads, drop and resync; same rule), KVProtocol
+    (the surface they share; `serve.serve_step.make_kv_service` and
+    `make_session_service` build deployments), the op / status codes, and
+    the functional layers
     `core.store` / `core.compaction` / `core.probe_engine` /
     `core.write_engine`.  `interop` carries configs and states to and from
     the reference's numpy leaves; `workload` generates YCSB op streams.
 """
 from .core import (KV, BLOCK_BYTES, OP_DELETE, OP_NOOP, OP_READ, OP_RMW,
                    OP_UPSERT, ST_CREATED, ST_NONE, ST_NOT_FOUND, ST_OK,
-                   F2Config, IoStats, RebalanceConfig, ShardedKV)
+                   F2Config, IoStats, KVProtocol, RebalanceConfig,
+                   ReplicatedKV, ShardedKV)
 
-__all__ = ["KV", "ShardedKV", "RebalanceConfig", "F2Config", "IoStats", "BLOCK_BYTES", "OP_NOOP", "OP_READ",
+__all__ = ["KV", "ShardedKV", "ReplicatedKV", "KVProtocol", "RebalanceConfig",
+           "F2Config", "IoStats", "BLOCK_BYTES", "OP_NOOP", "OP_READ",
            "OP_UPSERT", "OP_RMW", "OP_DELETE", "ST_NONE", "ST_OK",
            "ST_NOT_FOUND", "ST_CREATED"]

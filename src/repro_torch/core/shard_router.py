@@ -25,9 +25,15 @@ router, lane for lane).
   4. `unroute` gathers the per-shard results back into batch order; lanes
      not placed this round read ST_NONE and zeros.
 
-Everything runs on the batch's device with no host synchronisation.
-`pack_from_pool` (sessions) and `assign_replicas` (replication) are not
-ported yet.
+Replication (`core.replication`) folds its replica axis into the row axis:
+`route(..., replica=rep, n_replicas=R)` sends each lane to row
+`rep * S + shard` of R*S slabs, its position the rank among the lanes of
+that (replica, shard), which is the slab a per-replica route gives it.
+`assign_replicas` picks each fan-out read lane's replica (numpy), and
+`pack_from_pool` packs the session layer's rings into one routed round.
+
+Everything but `assign_replicas` runs on the batch's device with no host
+synchronisation.
 """
 from __future__ import annotations
 
@@ -98,26 +104,42 @@ class Route(NamedTuple):
     mask: torch.Tensor       # bool  [S, W] slab occupancy masks
 
 
+def shards_of(keys: torch.Tensor, n_shards: int,
+              bucket_map: Optional[torch.Tensor] = None
+              ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(bucket, shard) of each key as `route` assigns them: under a bucket
+    map, shard = bucket_map[bucket]; without one, the bucket is the shard."""
+    if bucket_map is None:
+        return bucket_of(keys, n_shards), shard_of(keys, n_shards)
+    bucket = bucket_of(keys, bucket_map.shape[0])
+    return bucket, bucket_map[bucket].to(torch.int32)
+
+
 def route(keys: torch.Tensor, ops: torch.Tensor, vals: torch.Tensor,
           n_shards: int, lanes: int,
           bucket_map: Optional[torch.Tensor] = None,
+          replica: Optional[torch.Tensor] = None, n_replicas: int = 1,
           ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor, Route]:
     """keys, ops int32 [B], vals int32 [B, V] -> (skeys [S, W], sops [S, W],
     svals [S, W, V], route), bit-exact with the reference's `route`.
 
     Lanes whose op is OP_NOOP never occupy capacity.  With `bucket_map=None`
-    the shard is `shard_of` and `Route.bucket` is at shard granularity."""
+    the shard is `shard_of` and `Route.bucket` is at shard granularity.
+    With `replica` (int32 [B], each lane's replica in [0, n_replicas)) the
+    slabs are R*S rows, lane i going to row replica[i] * S + its shard: the
+    Route's `shard`, `counts`, `occupancy` and `mask` are then per row, and
+    row r*S + s holds what the reference's route of replica r's lanes alone
+    (the others NOOP) puts in shard s."""
     B = keys.shape[0]
-    S, W = n_shards, lanes
+    W = lanes
     dev = keys.device
     i32 = torch.int32
     active = ops != OP_NOOP
-    if bucket_map is None:
-        bucket = bucket_of(keys, S)
-        sid_act = shard_of(keys, S)
-    else:
-        bucket = bucket_of(keys, bucket_map.shape[0])
-        sid_act = bucket_map[bucket].to(i32)
+    bucket, sid_act = shards_of(keys, n_shards, bucket_map)
+    S = n_shards
+    if replica is not None:
+        sid_act = replica.to(i32) * n_shards + sid_act
+        S = n_shards * n_replicas
     sid = torch.where(active, sid_act, S).to(i32)
 
     # a lane's slab position is its rank among its shard's lanes, in lane
@@ -159,3 +181,114 @@ def unroute(rt: Route, sstatus: torch.Tensor, svals: torch.Tensor
     status = torch.where(rt.placed, flat_st[idx], ST_NONE).to(torch.int32)
     vals = torch.where(rt.placed[:, None], flat_v[idx], 0).to(torch.int32)
     return status, vals
+
+
+def pack_from_pool(keys: torch.Tensor, ops: torch.Tensor, vals: torch.Tensor,
+                   ticket: torch.Tensor, pending: torch.Tensor, n_shards: int,
+                   lanes: int, bucket_map: torch.Tensor):
+    """Cross-session batch packing (the session layer's scheduler): from N
+    session rings of C slots (keys, ops, ticket int32 [N, C], vals [N, C, V],
+    pending bool [N, C]) select at most `lanes` pending ops per shard for one
+    routed round, lane for lane as the reference's `pack_from_pool`.
+
+    Selection is oldest-ticket-first per shard (two stable argsorts: by
+    ticket, then by shard), closed under per-session prefixes (an op is
+    packed only if every older pending op of its session is), and the
+    batch lists the accepted ops in ascending ticket order, padded with
+    OP_NOOP lanes.  The oldest pending op is always packed (global FIFO:
+    nothing starves), and a session's ops take ascending lanes, which the
+    router's per-shard rank keeps in order inside each slab.
+
+    Returns (bkeys [S*W], bops [S*W], bvals [S*W, V], sess [S*W],
+    slot [S*W], valid [S*W], fill [S]): `sess`/`slot` locate each lane's
+    ring slot (-1 on padding), `valid` marks real lanes, `fill` counts
+    packed lanes per shard.  No host synchronisation."""
+    N, C = keys.shape
+    S, W = n_shards, lanes
+    B, NC = S * W, N * C
+    dev = keys.device
+    i32 = torch.int32
+    imax = int(np.iinfo(np.int32).max)
+    k_f = keys.reshape(NC)
+    o_f = ops.reshape(NC)
+    v_f = vals.reshape(NC, vals.shape[-1])
+    t_f = ticket.reshape(NC)
+    p_f = pending.reshape(NC)
+    bucket = bucket_of(k_f, bucket_map.shape[0])
+    sid = torch.where(p_f, bucket_map[bucket].to(i32), S).to(i32)
+    tkt = torch.where(p_f, t_f, imax).to(i32)
+
+    # rank every pending op within its shard by ticket: the W lowest
+    # tickets of each shard fit this round
+    o1 = torch.argsort(tkt, stable=True)
+    order = o1[torch.argsort(sid[o1], stable=True)]
+    sid_sorted = sid[order]
+    counts_full = torch.zeros((S + 1,), dtype=i32, device=dev).index_add_(
+        0, sid, torch.ones_like(sid))
+    offsets = torch.cumsum(counts_full, 0, dtype=i32) - counts_full
+    pos_sorted = torch.arange(NC, dtype=i32, device=dev) - offsets[sid_sorted]
+    fits_sorted = (sid_sorted < S) & (pos_sorted < W)
+    fits = torch.zeros((NC,), dtype=torch.bool, device=dev)
+    fits[order] = fits_sorted
+
+    # per-session FIFO prefix closure: a slot is packed only if every older
+    # pending slot of its session fits (a running AND in ticket order along
+    # each ring; non-pending slots sort last)
+    ordc = torch.argsort(tkt.view(N, C), dim=1, stable=True)
+    fits_c = torch.gather(fits.view(N, C), 1, ordc)
+    closed = torch.cumsum((~fits_c).to(i32), 1) == 0
+    accepted = torch.zeros((N, C), dtype=torch.bool, device=dev).scatter_(
+        1, ordc, closed).view(NC) & p_f
+
+    # emit: accepted lanes in ascending ticket order, then NOOP padding
+    tkt_acc = torch.where(accepted, t_f, imax).to(i32)
+    sel = torch.argsort(tkt_acc, stable=True)[:min(B, NC)].to(i32)
+    valid = accepted[sel]
+    pad = B - sel.shape[0]
+    if pad:
+        sel = torch.cat([sel, torch.zeros((pad,), dtype=i32, device=dev)])
+        valid = torch.cat([valid, torch.zeros((pad,), dtype=torch.bool,
+                                              device=dev)])
+    bkeys = torch.where(valid, k_f[sel], 0).to(i32)
+    bops = torch.where(valid, o_f[sel], OP_NOOP).to(i32)
+    bvals = torch.where(valid[:, None], v_f[sel], 0).to(i32)
+    sess = torch.where(valid, sel // C, -1).to(i32)
+    slot = torch.where(valid, sel % C, -1).to(i32)
+    fidx = torch.where(accepted, sid, S).to(i32)
+    fill = torch.zeros((S + 1,), dtype=i32, device=dev).index_add_(
+        0, fidx, torch.ones_like(fidx))[:S]
+    return bkeys, bops, bvals, sess, slot, valid, fill
+
+
+REPLICA_POLICIES = ("round_robin", "least_loaded")
+
+
+def assign_replicas(n_lanes: int, alive: np.ndarray, counter: int = 0,
+                    policy: str = "round_robin",
+                    loads: Optional[np.ndarray] = None) -> np.ndarray:
+    """Each fan-out read lane's replica, int32 [n_lanes]: always an alive
+    one, a pure function of the inputs (numpy, as the reference's).
+
+    `round_robin` stripes lanes over the alive replicas, rotated by the
+    batch counter; `least_loaded` is weighted round robin on the inverse of
+    the per-replica load EWMA: quotas by largest remainder, interleaved by
+    virtual finish time."""
+    if policy not in REPLICA_POLICIES:
+        raise ValueError(f"unknown replica policy {policy!r}")
+    alive_ids = np.flatnonzero(np.asarray(alive, bool))
+    if alive_ids.size < 1:
+        raise ValueError("no alive replica to serve reads")
+    n = alive_ids.size
+    lane = np.arange(n_lanes)
+    if policy == "round_robin" or loads is None or n == 1:
+        return alive_ids[(lane + counter) % n].astype(np.int32)
+    w = 1.0 / (np.maximum(np.asarray(loads, np.float64)[alive_ids], 0) + 1.0)
+    share = w / w.sum()
+    quota = np.floor(share * n_lanes).astype(np.int64)
+    frac = share * n_lanes - quota
+    order = np.argsort(-frac, kind="stable")       # ties -> lowest id first
+    quota[order[:n_lanes - int(quota.sum())]] += 1
+    reps = np.repeat(alive_ids, quota)
+    vt = (np.concatenate([(np.arange(q) + 1) / q for q in quota if q > 0])
+          if n_lanes else np.zeros(0))
+    return reps[np.argsort(vt, kind="stable")].astype(np.int32)

@@ -36,6 +36,15 @@ lanes per bucket on the device; `maybe_rebalance` folds them into an EWMA,
 plans bucket moves past the imbalance threshold and migrates them
 (`core.rebalance`).
 
+Subclass hooks
+--------------
+`core.replication.ReplicatedKV` keeps R copies of the S shards in the same
+row axis: `_lead_shape` is (R, S) there and row r * S + s is replica r's
+shard s.  The host arrays of the scheduler (bounds, masks, `compactions`)
+take `_lead_shape`; `_sched_mask` restricts a pass's rows, `_rep_shard`
+and `_rep_move` lift a migration's per-shard masks to the rows, and
+`_host_view` / `_client_rows` give the rows a client sees (one replica's).
+
 Not ported here: `dispatch="shard_map"` (ROADMAP item 15), the host tier's
 routed planner and read loop (item 12; `F2Config` refuses `host_tier=True`),
 the WAL hooks (`wal` and `map_version` are kept, inert, for item 11) and the
@@ -93,7 +102,7 @@ class ShardedKV:
             raise NotImplementedError(
                 "dispatch='shard_map' (the shard axis over a device mesh) is "
                 "ROADMAP item 15; 'auto'/'vmap' run every shard on one device")
-        self.device = resolve_device(device, "repro_torch.ShardedKV")
+        self.device = resolve_device(device, f"repro_torch.{type(self).__name__}")
         self.cfg = cfg
         self.S = n_shards
         self.mode = mode
@@ -103,11 +112,12 @@ class ShardedKV:
         self.faster_compaction = faster_compaction
         self.lanes = lanes
         self.dispatch = "vmap"
-        self.state = store.create(cfg, self.device, n_shards=n_shards)
-        self.compactions = np.zeros(n_shards, np.int64)
-        self.compaction_counts = {k: np.zeros(n_shards, np.int64)
+        lead = self._lead_shape
+        self.state = store.create(cfg, self.device, n_shards=self._n_rows)
+        self.compactions = np.zeros(lead, np.int64)
+        self.compaction_counts = {k: np.zeros(lead, np.int64)
                                   for k in COMPACTION_KINDS}
-        self.temp_table_peak_bytes = np.zeros(n_shards, np.int64)
+        self.temp_table_peak_bytes = np.zeros(lead, np.int64)
         self.frontier_bytes = compact_batch * cfg.record_bytes
         self.rounds = 0                 # routed rounds executed
         self.last_occupancy = torch.zeros(n_shards, dtype=torch.int32,
@@ -144,8 +154,47 @@ class ShardedKV:
             return x.to(device=self.device, dtype=torch.int32)
         return torch.as_tensor(np.asarray(x, np.int32), device=self.device)
 
+    def _dev_rows(self, x) -> torch.Tensor:
+        """A host array of `_lead_shape` as int32 [rows] on the device."""
+        return self._dev(np.asarray(x).reshape(-1))
+
     def _dev_bool(self, x) -> torch.Tensor:
-        return torch.as_tensor(np.asarray(x, bool), device=self.device)
+        """A host mask of `_lead_shape` as bool [rows] on the device."""
+        return torch.as_tensor(np.asarray(x, bool).reshape(-1),
+                               device=self.device)
+
+    # -- subclass hooks (the replica axis lives in core.replication) ---------
+    @property
+    def _lead_shape(self) -> tuple:
+        """The leading axes of the per-store host arrays: (S,) here, (R, S)
+        under replication; the state folds them into one row axis."""
+        return (self.S,)
+
+    @property
+    def _n_rows(self) -> int:
+        return int(np.prod(self._lead_shape))
+
+    def _sched_mask(self, rows: np.ndarray) -> np.ndarray:
+        """The rows a scheduler pass may touch (replication masks out dead
+        or, mid-resync, healthy replicas); all of them here."""
+        return rows
+
+    def _rep_shard(self, m: np.ndarray) -> np.ndarray:
+        """A per-shard mask [S] as a mask of `_lead_shape`."""
+        return m
+
+    def _rep_move(self, move: np.ndarray) -> torch.Tensor:
+        """A migration's bucket-move mask [S, n_buckets] as bool [rows,
+        n_buckets] on the device."""
+        return torch.as_tensor(np.asarray(move, bool), device=self.device)
+
+    def _host_view(self, x) -> np.ndarray:
+        """A host array of `_lead_shape` as the client's [S] view."""
+        return np.asarray(x)
+
+    def _client_rows(self, x: torch.Tensor) -> torch.Tensor:
+        """A device tensor [rows, ...] as the client's [S, ...] rows."""
+        return x
 
     # -- routed steps --------------------------------------------------------
     def _lanes_of(self, B: int) -> int:
@@ -286,11 +335,12 @@ class ShardedKV:
     # -- vectorized pressure scheduler ---------------------------------------
     def _bounds(self):
         """(hot begin, hot tail, cold begin, cold tail, chunk-log begin,
-        chunk-log tail) of every shard, int64 [S] each, in one transfer."""
+        chunk-log tail) of every store, int64 of `_lead_shape` each, in one
+        transfer."""
         s = self.state
         b = torch.stack([s.hot.begin, s.hot.tail, s.cold.begin, s.cold.tail,
                          s.cold_idx.begin, s.cold_idx.tail]).cpu().numpy()
-        return list(b.astype(np.int64))
+        return list(b.astype(np.int64).reshape((6,) + self._lead_shape))
 
     def hot_fills(self) -> np.ndarray:
         hb, ht, *_ = self._bounds()
@@ -330,15 +380,16 @@ class ShardedKV:
         if cold_over.any():
             self.compact_cold_cold(shards=cold_over)
             *_, ib, it = self._bounds()
-        chunk_over = (it - ib) / self.cfg.chunklog_capacity > self.trigger
+        chunk_over = self._sched_mask(
+            (it - ib) / self.cfg.chunklog_capacity > self.trigger)
         if chunk_over.any():
             self.compact_chunklog(shards=chunk_over)
 
     def compact_chunklog(self, shards: Optional[np.ndarray] = None):
         """Masked chunk-log GC: relocate the selected shards' live chunks out
         of the oldest half of their chunk logs."""
-        shards = np.ones(self.S, bool) if shards is None else np.asarray(
-            shards, bool)
+        shards = self._sched_mask(np.ones(self._lead_shape, bool)
+                                  if shards is None else np.asarray(shards, bool))
         do = self._dev_bool(shards)
         old = self.state
         ci, stats = cold_index.compact_chunklog(old.cold_idx, self.cfg,
@@ -364,20 +415,20 @@ class ShardedKV:
         shard j runs in call i iff begins[j] + i*cb is inside its region.
         Returns (until [S] on the device, per-shard live totals)."""
         until_np = begins + n
-        until = self._dev(until_np)
+        until = self._dev_rows(until_np)
         cb = self.compact_batch
         n_steps = int(-(-int(n.max()) // cb)) if n.max() > 0 else 0
-        live = torch.zeros(self.S, dtype=torch.int64, device=self.device)
+        live = torch.zeros(self._n_rows, dtype=torch.int64, device=self.device)
         for i in range(n_steps):
             starts_np = begins + i * cb
             do = self._dev_bool(shards & (starts_np < until_np))
-            starts = self._dev(starts_np)
+            starts = self._dev_rows(starts_np)
             old = self.state
             new, n_live = step(self.cfg, old, starts,
                                torch.where(do, until, starts), cb)
             self.state = select_shards(do, new, old)
             live += torch.where(do, n_live, 0)
-        return until, live.cpu().numpy()
+        return until, live.cpu().numpy().reshape(self._lead_shape)
 
     def _truncate(self, tier, until, shards):
         """The truncation phase on the selected shards (the hot one masks
@@ -394,8 +445,8 @@ class ShardedKV:
         """(begins [S], region sizes [S], shard mask) of one log tier."""
         b = self._bounds()
         begins, tails = (b[0], b[1]) if tier == "hot" else (b[2], b[3])
-        shards = (np.ones(self.S, bool) if shards is None
-                  else np.asarray(shards, bool))
+        shards = self._sched_mask(np.ones(self._lead_shape, bool)
+                                  if shards is None else np.asarray(shards, bool))
         return begins, self._regions(begins, tails, n_records, shards), shards
 
     def compact_hot_cold(self, n_records: Optional[int] = None,
@@ -444,11 +495,12 @@ class ShardedKV:
         hb, ht, cb, ct, ib, it = self._bounds()
         load = rebalance.shard_loads(self.traffic_ewma, self.bucket_map,
                                      self.S)
+        view = self._host_view
         return rebalance.ShardStats(
-            hot_fill=(ht - hb) / self.cfg.hot_capacity,
-            cold_fill=(ct - cb) / self.cfg.cold_capacity,
-            chunklog_fill=(it - ib) / self.cfg.chunklog_capacity,
-            records=(ht - hb) + (ct - cb),
+            hot_fill=view((ht - hb) / self.cfg.hot_capacity),
+            cold_fill=view((ct - cb) / self.cfg.cold_capacity),
+            chunklog_fill=view((it - ib) / self.cfg.chunklog_capacity),
+            records=view((ht - hb) + (ct - cb)),
             occupancy=self.last_occupancy.cpu().numpy().astype(np.int64),
             routed_lanes=self.routed_lanes,
             traffic_ewma=self.traffic_ewma,
@@ -458,8 +510,9 @@ class ShardedKV:
         )
 
     def stats(self) -> dict:
-        """The nested telemetry tree: `io` (KV.io_stats totals) and
-        `shards`."""
+        """The nested telemetry tree (`core.protocol`): `io` (KV.io_stats
+        totals) and `shards` (`replicas` under replication, `sessions`
+        through the session service)."""
         return dict(
             io=self.io_stats(),
             shards=dict(
@@ -493,7 +546,7 @@ class ShardedKV:
 
     def _fill_signal(self) -> np.ndarray:
         hb, ht, cb, ct, *_ = self._bounds()
-        return ((ht - hb) + (ct - cb)).astype(np.float64)
+        return self._host_view((ht - hb) + (ct - cb)).astype(np.float64)
 
     def rebalance(self, new_map: Optional[np.ndarray] = None,
                   threshold: Optional[float] = None) -> int:
@@ -528,8 +581,8 @@ class ShardedKV:
         if changed.size == 0:
             return 0
         move_np = shard_router.bucket_moves(self.bucket_map, new_map, self.S)
-        do = move_np.any(axis=1)
-        move = self._dev_bool(move_np)
+        do = self._rep_shard(move_np.any(axis=1))
+        move = self._rep_move(move_np)
         Bm = self._mig_batch
         V = self.cfg.value_width
         cfg, nb = self.cfg, self.n_buckets
@@ -541,12 +594,12 @@ class ShardedKV:
             parts = []
             for tier, begins, tails in (("cold", cb, ct), ("hot", hb, ht)):
                 n = np.where(do, tails - begins, 0)
-                until = self._dev(tails)
+                until = self._dev_rows(tails)
                 n_steps = int(-(-int(n.max()) // Bm)) if n.max() > 0 else 0
                 for i in range(n_steps):
                     starts = begins + i * Bm
                     sdo = self._dev_bool(do & (starts < begins + n))
-                    sj = self._dev(starts)
+                    sj = self._dev_rows(starts)
                     if tier == "cold":
                         self.state, k, v, took = rebalance.drain_cold_step(
                             cfg, Bm, nb, self.state, sj, until, move, sdo)
@@ -554,18 +607,7 @@ class ShardedKV:
                     else:
                         self.state, k, v, tomb, took = rebalance.drain_hot_step(
                             cfg, Bm, nb, self.state, sj, until, move, sdo)
-                    s, w = took.nonzero(as_tuple=True)
-                    if s.numel() == 0:
-                        continue
-                    # the reference takes the lanes in flat [S, B] order
-                    k_np = k[s, w].cpu().numpy()
-                    v_np = v[s, w].cpu().numpy()
-                    if tomb is None:
-                        ops_np = np.full(len(k_np), OP_UPSERT, np.int32)
-                    else:
-                        ops_np = np.where(tomb[s, w].cpu().numpy(), OP_DELETE,
-                                          OP_UPSERT).astype(np.int32)
-                    parts.append((k_np, v_np, ops_np))
+                    parts += self._collect(k, v, tomb, took)
             # a pending pressure pass may interleave: the drained snapshot
             # stays valid (compaction copies live records and truncates), and
             # the purge below sweeps whole arrays by bucket
@@ -601,6 +643,23 @@ class ShardedKV:
         self.migrated_records += n_moved
         return n_moved
 
+    def _collect(self, k, v, tomb, took) -> list:
+        """The drained lanes of one drain step as [(keys, vals, ops)] numpy
+        parts (none when nothing was taken), from the client's rows, in flat
+        [S, B] order as the reference takes them."""
+        took = self._client_rows(took)
+        s, w = took.nonzero(as_tuple=True)
+        if s.numel() == 0:
+            return []
+        k_np = self._client_rows(k)[s, w].cpu().numpy()
+        v_np = self._client_rows(v)[s, w].cpu().numpy()
+        if tomb is None:
+            ops_np = np.full(len(k_np), OP_UPSERT, np.int32)
+        else:
+            ops_np = np.where(self._client_rows(tomb)[s, w].cpu().numpy(),
+                              OP_DELETE, OP_UPSERT).astype(np.int32)
+        return [(k_np, v_np, ops_np)]
+
     # -- reporting ------------------------------------------------------------
     def _io(self) -> np.ndarray:
         s = self.state.stats
@@ -615,7 +674,8 @@ class ShardedKV:
                     read_ops=int(ro.sum()), mem_hits=int(mh.sum()))
 
     def io_stats_per_shard(self) -> dict:
-        rb, wb, ro, mh = self._io()
+        """Per store, nested as `_lead_shape`."""
+        rb, wb, ro, mh = (x.reshape(self._lead_shape) for x in self._io())
         return dict(read_bytes=(rb * BLOCK_BYTES).tolist(),
                     write_bytes=(wb * BLOCK_BYTES).tolist(),
                     read_ops=ro.tolist(), mem_hits=mh.tolist())

@@ -8,7 +8,13 @@ and the JAX reference package, through plain dicts and numpy arrays.
     package's pytree flattening gives them (`leaf_names()` names each one).
     A stacked state (the reference's `ShardedKV.state`: every leaf with a
     leading shard axis) maps the same way, `n_shards=S` checking the axis;
-    `shard_state(state, s)` is shard s's slice as one store's state.
+    `shard_state(state, s)` is shard s's slice as one store's state.  The
+    reference's replicated state (`ReplicatedKV.state`: leaves [R, S, ...])
+    maps with `n_replicas=R` both ways: the port folds the two axes into
+    its R*S rows (row r * S + s), `state_to_numpy(state, n_replicas=R)`
+    unfolds them.
+  * `pool_to_numpy(pool)` / `pool_from_numpy(leaves, device)` map the
+    session layer's `SessionPool` to and from the reference's leaves.
   * `model_config_to_dict(cfg)` / `model_config_from_dict(d)` map
     `ModelConfig` fields one to one.
   * `params_from_numpy(tree, cfg, device)` / `params_to_numpy(model)` map
@@ -36,6 +42,7 @@ from .core import cold_index, hybrid_log, read_cache, store
 from .core.types import IoStats, F2Config
 from .models import layers, rwkv6, transformer
 from .optim import adamw
+from .serve.sessions import SessionPool
 from .train import train_step
 
 # port engine name -> the reference's name for the same backend
@@ -84,26 +91,38 @@ def state_leaves(state: store.F2State) -> List[torch.Tensor]:
     return out
 
 
-def state_to_numpy(state: store.F2State) -> List[np.ndarray]:
-    """Copies of the state's leaves, in the reference's flattening order."""
-    return [t.detach().to("cpu", copy=True).numpy() for t in state_leaves(state)]
+def state_to_numpy(state: store.F2State, n_replicas=None) -> List[np.ndarray]:
+    """Copies of the state's leaves, in the reference's flattening order;
+    with `n_replicas=R`, a replicated state's rows unfolded to [R, S, ...]."""
+    out = [t.detach().to("cpu", copy=True).numpy() for t in state_leaves(state)]
+    if n_replicas is not None:
+        out = [a.reshape((n_replicas, a.shape[0] // n_replicas) + a.shape[1:])
+               for a in out]
+    return out
 
 
-def state_from_numpy(leaves: Sequence, device, n_shards=None) -> store.F2State:
+def state_from_numpy(leaves: Sequence, device, n_shards=None,
+                     n_replicas=None) -> store.F2State:
     """An F2State on `device` from the reference's flat list of leaves; with
-    `n_shards`, a stacked state whose every leaf leads with that axis."""
+    `n_shards`, a stacked state whose every leaf leads with that axis; with
+    `n_replicas` too, the reference's replicated leaves [R, S, ...] folded
+    into R*S rows."""
     leaves = list(leaves)
     if len(leaves) != len(leaf_names()):
         raise ValueError(f"{len(leaves)} leaves, expected {len(leaf_names())}")
     it = iter(leaves)
+    lead = (() if n_shards is None else (n_shards,) if n_replicas is None
+            else (n_replicas, n_shards))
 
     def take():
         a = np.asarray(next(it))
         if a.dtype not in (np.int32, np.bool_):
             raise TypeError(f"leaf dtype {a.dtype}: the store is int32/bool")
-        if n_shards is not None and (a.ndim == 0 or a.shape[0] != n_shards):
-            raise ValueError(f"leaf of shape {a.shape}: expected a leading "
-                             f"shard axis of {n_shards}")
+        if a.shape[:len(lead)] != lead:
+            raise ValueError(f"leaf of shape {a.shape}: expected leading "
+                             f"replica/shard axes {lead}")
+        if n_replicas is not None:
+            a = a.reshape((n_replicas * n_shards,) + a.shape[2:])
         return torch.from_numpy(np.array(a, copy=True)).to(device)
 
     fields = {}
@@ -121,6 +140,20 @@ def shard_state(state: store.F2State, s: int) -> store.F2State:
         fields[f] = (type(node)(*(x[s] for x in node)) if f in _SUBTREES
                      else node[s])
     return store.F2State(**fields)
+
+
+def pool_to_numpy(pool: SessionPool) -> List[np.ndarray]:
+    """Copies of a `SessionPool`'s leaves, in the reference's order."""
+    return [t.detach().to("cpu", copy=True).numpy() for t in pool]
+
+
+def pool_from_numpy(leaves: Sequence, device) -> SessionPool:
+    """A `SessionPool` on `device` from the reference's leaves."""
+    leaves = list(leaves)
+    if len(leaves) != len(SessionPool._fields):
+        raise ValueError(f"{len(leaves)} leaves, expected {len(SessionPool._fields)}")
+    return SessionPool(*(torch.from_numpy(np.array(np.asarray(a, np.int32), copy=True)
+                                          ).to(device) for a in leaves))
 
 
 # ---------------------------------------------------------------------------

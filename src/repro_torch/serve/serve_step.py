@@ -1,11 +1,24 @@
-"""Serving steps (the JAX package's `serve/serve_step.py`, its model half):
-prefill (a full-sequence forward that keeps only the last position's
-logits) and decode (one token against the model's cache).  The KV-service
-half of the reference's module (the sharded F2 store behind the model) is
-not ported yet (ROADMAP queue 1, items 8-10)."""
+"""Serving steps (the JAX package's `serve/serve_step.py`): prefill (a
+full-sequence forward that keeps only the last position's logits) and
+decode (one token against the model's cache), and the F2 KV service served
+beside the model.
+
+KV service: `ServiceConfig` is a deployment's shape (shards, replicas,
+slab width, rebalancer, session pool); `make_kv_service` builds the
+backing store from it (`ShardedKV`, or `ReplicatedKV` when `n_replicas >
+1`), `make_session_service` wraps that store in the ticketed session layer
+(`serve.sessions.KVSessionService`), and `kv_service_step` /
+`kv_service_read` / `kv_service_stats` are the request paths and the
+telemetry an operator polls.  The store runs on the CUDA device unless
+`store_kwargs` names another `device`.  Durability (`durability`, ROADMAP
+item 11) and observability (`obs_enabled`, `obs_port`, item 13) are not
+ported: setting them raises.
+"""
 from __future__ import annotations
 
-from typing import Any, Dict, Tuple
+import dataclasses
+import warnings
+from typing import Any, Dict, Optional, Tuple
 
 import torch
 
@@ -26,3 +39,110 @@ def decode_step(cfg: ModelConfig, model: transformer.Transformer,
                 cache: Dict[str, Any], tokens: torch.Tensor
                 ) -> Tuple[torch.Tensor, Dict[str, Any]]:
     return transformer.decode_step(cfg, model, cache, tokens)
+
+
+# ---------------------------------------------------------------------------
+# F2 KV service (key-value traffic served beside the model)
+# ---------------------------------------------------------------------------
+
+@dataclasses.dataclass
+class ServiceConfig:
+    """The deployment shape of the KV service, apart from the store's
+    geometry (`F2Config`): shards and replicas, the slab width, the
+    rebalancer, and the session pool of `make_session_service`."""
+
+    n_shards: int = 1               # hash-routed F2 shards (power of 2)
+    lanes: Optional[int] = None     # per-shard slab width (None: 1 round)
+    dispatch: str = "auto"          # "auto" | "vmap" ("shard_map": item 15)
+    rebalance_cfg: Any = None       # core.rebalance.RebalanceConfig
+    n_replicas: int = 1             # replica copies of every shard
+    read_selector: str = "round_robin"   # fan-out read policy
+    # -- the session layer (make_session_service) --
+    max_sessions: int = 8           # concurrent Session handles
+    session_depth: int = 64         # ring slots per session
+    pack_lanes: Optional[int] = None    # per-shard pack width (None: lanes)
+    # -- not ported: durability (item 11) and observability (item 13) --
+    durability: Any = None
+    obs_enabled: bool = False
+    obs_port: Optional[int] = None
+    # -- pass-through store knobs (mode, trigger, compact_batch, device...) --
+    store_kwargs: Dict[str, Any] = dataclasses.field(default_factory=dict)
+
+
+_LEGACY_KEYS = ("n_shards", "lanes", "dispatch", "rebalance_cfg",
+                "n_replicas", "read_selector", "max_sessions",
+                "session_depth", "pack_lanes")
+
+
+def _coerce_service_cfg(service, kw: dict) -> ServiceConfig:
+    """The deprecation shim: the older keyword-splat call
+    (`make_kv_service(cfg, n_shards=8, lanes=64, mode=...)`) folds into a
+    ServiceConfig, store knobs into `store_kwargs`, with a warning."""
+    if service is not None:
+        if kw:
+            raise TypeError(f"pass store knobs in store_kwargs, got {sorted(kw)}")
+        return service
+    if kw:
+        warnings.warn(
+            "make_kv_service(**kwargs) is deprecated: pass a ServiceConfig "
+            "(store knobs go in store_kwargs)", DeprecationWarning, stacklevel=3)
+    fields = {k: kw.pop(k) for k in _LEGACY_KEYS if k in kw}
+    return ServiceConfig(store_kwargs=kw, **fields)
+
+
+def make_kv_service(kv_cfg, service: Optional[ServiceConfig] = None, **kw):
+    """The backing store of a KV deployment: `service.n_shards` hash-routed
+    shards behind one router (`core.sharded.ShardedKV`), or R replicas of
+    them with fan-in writes and fan-out reads (`core.replication.
+    ReplicatedKV`) when `service.n_replicas > 1`; the live rebalancer armed
+    by `service.rebalance_cfg`."""
+    sc = _coerce_service_cfg(service, dict(kw))
+    if sc.durability is not None:
+        raise NotImplementedError(
+            "ServiceConfig.durability (DurableKV) is ROADMAP item 11, not "
+            "ported yet")
+    if sc.obs_enabled or sc.obs_port is not None:
+        raise NotImplementedError(
+            "ServiceConfig.obs_enabled / obs_port (observability) is ROADMAP "
+            "item 13, not ported yet")
+    if sc.n_replicas > 1:
+        from ..core.replication import ReplicatedKV
+        return ReplicatedKV(kv_cfg, sc.n_shards, n_replicas=sc.n_replicas,
+                            read_selector=sc.read_selector, lanes=sc.lanes,
+                            dispatch=sc.dispatch, rebalance_cfg=sc.rebalance_cfg,
+                            **sc.store_kwargs)
+    from ..core.sharded import ShardedKV
+    return ShardedKV(kv_cfg, sc.n_shards, lanes=sc.lanes, dispatch=sc.dispatch,
+                     rebalance_cfg=sc.rebalance_cfg, **sc.store_kwargs)
+
+
+def make_session_service(kv_cfg, service: Optional[ServiceConfig] = None,
+                         **kw):
+    """The async serving stack in one call: `make_kv_service`'s store in
+    the ticketed session layer (which also satisfies `KVProtocol`)."""
+    from .sessions import KVSessionService
+    sc = _coerce_service_cfg(service, dict(kw))
+    return KVSessionService(make_kv_service(kv_cfg, sc),
+                            max_sessions=sc.max_sessions,
+                            session_depth=sc.session_depth,
+                            pack_lanes=sc.pack_lanes)
+
+
+def kv_service_step(kv, keys, ops, vals=None):
+    """One KV service step: route the request batch, execute (under
+    replication: fan in to every alive replica), restore request order;
+    the pressure scheduler and the rebalance check run after it.  Returns
+    (status [B], values [B, V])."""
+    return kv.apply(keys, ops, vals)
+
+
+def kv_service_read(kv, keys):
+    """The read path: routed, no write pass; under replication the fan-out
+    read (each lane served by one alive replica)."""
+    return kv.read(keys)
+
+
+def kv_service_stats(kv) -> dict:
+    """The nested `KVProtocol.stats()` tree: `io`, plus `shards` /
+    `replicas` / `sessions` as the deployment has them."""
+    return kv.stats()

@@ -17,8 +17,10 @@ largest magnitude, since dw sums D products of two accumulated states and
 its float32 rounding scales with them; two gradient calls bit for bit
 equal), and the legacy first-hop probe bit for bit; the three store kernels
 over a stacked store's shard axis (S of 1, 2 and 4 in one launch, equal to
-their plain versions and to S single-shard calls), and the kernel-backed
-ShardedKV against the plain-engine one.
+their plain versions and to S single-shard calls) and over a replicated
+state's R*S = 8 rows, the kernel-backed ShardedKV and ReplicatedKV (through
+a drop and resync) against the plain-engine ones, and the session service
+over ReplicatedKV against a dict model.
 
 These tests need a CUDA device and nvcc and skip without them.  They import
 neither JAX nor the JAX package, so they also run where only PyTorch is
@@ -749,3 +751,155 @@ def test_sharded_kernel_store_matches_plain_store(cuda):
     assert ops.launches["fused_write"] == ops.WRITE_KERNELS_PER_CALL
     for kv in twins.values():
         kv.check_invariants()
+
+
+# ---------------------------------------------------------------------------
+# replication: R x S rows in one launch; the session service on the card
+# ---------------------------------------------------------------------------
+
+@pytest.fixture(scope="module")
+def replicated(cuda):
+    """ReplicatedKV(S=4, R=2) on the card after a mixed fan-in stream."""
+    rkv = T.ReplicatedKV(CFG, 4, n_replicas=2, device=cuda, compact_batch=128,
+                         trigger=0.5)
+    for k, o, v in _stream(6, 100, n_keys=6000):
+        rkv.apply(k, o, v)
+    assert rkv.compactions.sum() > 0
+    return rkv
+
+
+@pytest.mark.parametrize("kernel", ["fused_probe", "fused_write", "probe"])
+def test_replicated_rows_kernels(cuda, replicated, kernel):
+    """Each store kernel over the R*S = 8 rows of a replicated state: one
+    launch, equal to its plain version, a second call and 8 single-row
+    calls, on a fan-out read's slabs (probes) or a fan-in round's (write)."""
+    from repro_torch.core import shard_router
+    st, R, S = replicated.state, replicated.R, replicated.S
+    hot, rc = st.hot, st.rc
+    rng = np.random.default_rng(8)
+    n = 2048
+    keys = torch.as_tensor(rng.integers(0, 7000, n).astype(np.int32), device=cuda)
+    opsv = torch.as_tensor(rng.choice([1, 2, 3, 4], n).astype(np.int32), device=cuda)
+    vals = torch.as_tensor(rng.integers(-2**31, 2**31, (n, CFG.value_width),
+                                        dtype=np.int64).astype(np.int32), device=cuda)
+    bmap = replicated._bucket_map_dev
+    rep = torch.as_tensor(np.arange(n, dtype=np.int32) % R, device=cuda)
+    rk, ro, _, _ = shard_router.route(keys, opsv, vals, S, 512, bucket_map=bmap,
+                                      replica=rep, n_replicas=R)
+    cols = (hot.key, hot.val, hot.prev, hot.meta, rc.key, rc.val, rc.prev, rc.meta)
+    W = rk.shape[1]
+    if kernel == "fused_probe":
+        args = (rk, st.hot_index, hot.begin[:, None].expand(R * S, W).contiguous(),
+                ro != 0, hybrid_log.head_addr(hot, CFG.hot_mem), *cols)
+        _shard_calls_equal(ops.fused_probe, ref.fused_probe_body, args,
+                           dict(chain_max=CFG.chain_max), R * S, 1)
+    elif kernel == "fused_write":
+        sk, so, sv, _ = shard_router.route(keys, opsv, vals, S, 512, bucket_map=bmap)
+        args = (sk.repeat(R, 1), so.repeat(R, 1), sv.repeat(R, 1, 1), st.hot_index,
+                hot.begin, hybrid_log.head_addr(hot, CFG.hot_mem),
+                hybrid_log.read_only_addr(hot, CFG.hot_mem, CFG.hot_mutable_frac),
+                hot.tail, *cols)
+        _shard_calls_equal(ops.fused_write, ref.fused_write_body, args,
+                           dict(chain_max=CFG.chain_max), R * S,
+                           ops.WRITE_KERNELS_PER_CALL)
+    else:
+        _shard_calls_equal(ops.probe, ref.probe_reference, (rk, st.hot_index), {},
+                           R * S, 1)
+
+
+def test_replicated_kernel_store_matches_plain_store(cuda):
+    """ReplicatedKV(S=4, R=2) with the kernels and with the plain engine on
+    one op stream through a migration, a dropped replica and a resync:
+    every leaf equal after every step; a fan-in round calls fused_probe 3
+    times and fused_write once, a fan-out read round fused_probe twice, as
+    a KV batch and a ShardedKV read round do."""
+    twins = {e: T.ReplicatedKV(dataclasses.replace(CFG, engine=e), 4, n_replicas=2,
+                               device=cuda, compact_batch=128, lanes=48, trigger=0.4)
+             for e in ("fused", "fused_ref")}
+
+    def same(ctx):
+        la, lb = (interop.state_leaves(kv.state) for kv in twins.values())
+        assert all(torch.equal(x, y) for x, y in zip(la, lb)), ctx
+    for i, (k, o, v) in enumerate(_stream(7, 60)):
+        out = {e: kv.apply(k, o, v) for e, kv in twins.items()}
+        for a, b in zip(out["fused"], out["fused_ref"]):
+            assert torch.equal(a, b), i
+        if i == 20:
+            nm = twins["fused"].bucket_map.copy()
+            nm[np.flatnonzero(nm == 1)[:3]] = 3
+            assert len({kv.migrate(nm) for kv in twins.values()}) == 1
+        if i == 30:
+            for kv in twins.values():
+                kv.drop_replica(0)
+        if i == 45:
+            assert len({kv.resync(0) for kv in twins.values()}) == 1
+        same(i)
+        if i % 10 == 0:
+            keys = np.arange(0, 3000, 7, dtype=np.int32)
+            r1, r2 = (kv.read(keys) for kv in twins.values())
+            assert all(torch.equal(a, b) for a, b in zip(r1, r2)), i
+    kv = twins["fused"]
+    keys = np.arange(3000, dtype=np.int32)
+    r0, r1 = kv.read(keys, replica=0), kv.read(keys, replica=1)
+    assert kv.resyncs == 1 and all(torch.equal(a, b) for a, b in zip(r0, r1))
+    kv.trigger = 2.0
+    k, o, v = next(_stream(8, 1))
+    ops.reset_launches()
+    kv.apply_round(k, o, v)
+    torch.cuda.synchronize()
+    assert ops.launches["fused_probe"] == 3 and ops.launches["probe"] == 0
+    assert ops.launches["fused_write"] == ops.WRITE_KERNELS_PER_CALL
+    ops.reset_launches()
+    kv.read(k[:40])
+    torch.cuda.synchronize()
+    assert ops.launches == {"fused_probe": 2, "fused_write": 0, "probe": 0}
+    for kv in twins.values():
+        kv.check_invariants()
+
+
+def test_session_service_over_replicated_store(cuda):
+    """make_session_service over ReplicatedKV on the card: four sessions
+    enqueue mixed ops in waves and drain; every result equals a dict model
+    folded round by round (reads see the round's entry snapshot), no shard
+    takes more than the pack width, replicas stay byte-identical."""
+    from repro_torch.core import replication
+    from repro_torch.serve import serve_step
+    svc = serve_step.make_session_service(CFG, serve_step.ServiceConfig(
+        n_shards=4, n_replicas=2, lanes=64, max_sessions=4, session_depth=128,
+        store_kwargs=dict(device=cuda, compact_batch=128, trigger=0.5)))
+    svc.trace_schedule = True
+    sessions = [svc.open_session() for _ in range(4)]
+    rng = np.random.default_rng(9)
+    results = {}
+    for _ in range(6):
+        for s in sessions:
+            keys, ops_, vals = next(_stream(int(rng.integers(1 << 20)), 1, n_keys=500))
+            s.enqueue(keys, ops_, vals)
+        for s in sessions:
+            tk, st, v = s.drain()
+            results.update({int(t): (int(a), b) for t, a, b in zip(tk, st, v)})
+    ref = {}
+    for sess, valid, bkeys, bops, bvals, status, rvals, tkt in svc.schedule:
+        valid, bkeys, bops, bvals = (x.cpu().numpy() for x in (valid, bkeys, bops, bvals))
+        status, rvals, tkt = status.cpu().numpy(), rvals.cpu().numpy(), tkt.cpu().numpy()
+        for i in np.flatnonzero(valid):
+            k, o = int(bkeys[i]), int(bops[i])
+            if o == T.OP_READ:
+                want = ref.get(k)
+                assert status[i] == (T.ST_OK if want is not None else T.ST_NOT_FOUND)
+                if want is not None:
+                    assert np.array_equal(rvals[i], want)
+            got_st, got_v = results[int(tkt[i])]
+            assert got_st == status[i] and np.array_equal(got_v, rvals[i])
+        for i in np.flatnonzero(valid):
+            k, o, v = int(bkeys[i]), int(bops[i]), bvals[i]
+            if o == T.OP_UPSERT:
+                ref[k] = v.copy()
+            elif o == T.OP_DELETE:
+                ref.pop(k, None)
+            elif o == T.OP_RMW:
+                ref[k] = (ref.get(k, np.zeros_like(v)).astype(np.int64) + v).astype(np.int32)
+    assert len(results) == svc.collected == 6 * 4 * B
+    assert svc.max_fill <= 64
+    assert replication.replicas_byte_identical(svc.kv)
+    svc.check_invariants()

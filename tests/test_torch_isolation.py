@@ -1,5 +1,6 @@
-"""The port stands alone: it imports and runs (the store, single-shard and
-sharded with a live migration, reduced serving
+"""The port stands alone: it imports and runs (the store, single-shard,
+sharded with a live migration and replicated with a drop and resync, the
+session service over it, reduced serving
 engines and reduced training runs of the dense and RWKV-6 families) with
 the JAX package, JAX and the benchmarks blocked; its entry points default to the CUDA device and
 refuse to quietly run without it; the forced-kernel engine refuses CPU
@@ -76,6 +77,29 @@ def test_port_runs_with_the_reference_blocked():
         assert (v.numpy() == np.stack([keys] * 2, 1)).all()
         assert skv.compactions.sum() > 0 and skv.rounds > 30
         skv.check_invariants()
+        rkv = T.ReplicatedKV(cfg, 2, n_replicas=2, device="cpu",
+                             compact_batch=128, lanes=64, trigger=0.3)
+        for i in range(0, 3000, 100):
+            rkv.upsert(keys[i:i + 100], np.stack([keys[i:i + 100]] * 2, 1))
+        rkv.drop_replica(1)
+        rkv.upsert(keys[:100], np.stack([keys[:100] + 1] * 2, 1))
+        assert rkv.resync(1) > 0
+        st, v = rkv.read(keys, replica=1)
+        assert (st.numpy() == T.ST_OK).all()
+        assert (v.numpy()[:100] == np.stack([keys[:100] + 1] * 2, 1)).all()
+        rkv.check_invariants()
+        from repro_torch.serve import serve_step
+        svc = serve_step.make_session_service(cfg, serve_step.ServiceConfig(
+            n_shards=2, n_replicas=2, lanes=32, max_sessions=2, session_depth=64,
+            store_kwargs=dict(device="cpu", compact_batch=128)))
+        s = svc.open_session()
+        s.enqueue(keys[:50], np.full(50, T.OP_UPSERT, np.int32),
+                  np.stack([keys[:50] + 7] * 2, 1))
+        s.drain()
+        s.enqueue(keys[:50], np.full(50, T.OP_READ, np.int32))
+        _, st, v = s.drain()
+        assert (st == T.ST_OK).all() and (v == np.stack([keys[:50] + 7] * 2, 1)).all()
+        svc.check_invariants()
         import torch
         from repro_torch.models import transformer
         from repro_torch.models.registry import get_config
@@ -120,9 +144,19 @@ def test_port_runs_with_the_reference_blocked():
     assert "isolated-ok" in out.stdout
 
 
+def _service(cfg, session):
+    from repro_torch.serve import serve_step
+    make = serve_step.make_session_service if session else serve_step.make_kv_service
+    return make(cfg, serve_step.ServiceConfig(n_shards=2, n_replicas=2, lanes=16))
+
+
 @pytest.mark.parametrize("make", [lambda cfg: T.KV(cfg),
-                                  lambda cfg: T.ShardedKV(cfg, 4)],
-                         ids=["KV", "ShardedKV"])
+                                  lambda cfg: T.ShardedKV(cfg, 4),
+                                  lambda cfg: T.ReplicatedKV(cfg, 4),
+                                  lambda cfg: _service(cfg, False),
+                                  lambda cfg: _service(cfg, True)],
+                         ids=["KV", "ShardedKV", "ReplicatedKV", "make_kv_service",
+                              "make_session_service"])
 def test_kv_defaults_to_the_cuda_device(make):
     cfg = T.F2Config(**small_dict())
     if torch.cuda.is_available():
@@ -235,6 +269,15 @@ def test_port_sources_include_the_sharded_slice():
     for mod in ("core/shard_router.py", "core/rebalance.py", "core/sharded.py",
                 "core/store.py", "kernels/f2_probe/ops.py",
                 "kernels/f2_probe/ref.py"):
+        assert mod in names, mod
+
+
+def test_port_sources_include_the_replication_and_service_slice():
+    """The AST scan above walks every module of the replication and
+    session-service slice."""
+    names = _port_module_names()
+    for mod in ("core/replication.py", "core/protocol.py", "serve/sessions.py",
+                "serve/serve_step.py", "core/shard_router.py", "interop.py"):
         assert mod in names, mod
 
 
