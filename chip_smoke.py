@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Drive the PyTorch port on one CUDA GPU: the F2 store, single-shard,
-sharded over four stores and replicated twice over them with the session
-service on top, the F2-paged serving engine with Granite-3-8B at
+sharded over four stores (made durable, killed and recovered) and
+replicated twice over them with the session service on top, the F2-paged serving engine with Granite-3-8B at
 full width, Granite-3-8B's training at full width, then RWKV-6-7B's
 serving, prefill and training at full width.
 
@@ -78,6 +78,33 @@ Phases, each printing one JSON line:
                 call, and S single-shard calls on the shards' slices; timed
                 (CUDA events, profiler, L2 flushed) beside the single-shard
                 bound summed over the shards;
+  7b'. durable — that store wrapped in DurableKV (fsync "batch"; the
+                free disk checked first, the phase fails without room):
+                wrapper calls per durable round (scheduler off) asserted
+                equal to a plain round's; YCSB-A, 2**18 ops durable and
+                2**18 plain (the WAL detached) in four turns each, every
+                read checked: ops/s of each, fsync ms per batch (median,
+                max), WAL bytes per batch, device-to-host copies per logged
+                batch (0 for host arrays; 1 a CUDA-tensor record, asserted);
+                a blocking snapshot (capture stall, save s, bytes); 2**17
+                ops, a migrate() of the first 4 of 256 buckets one shard
+                on (1/64 of the keys, one MAP record), 2**16 ops; the
+                wrapper abandoned (a kill);
+                recover() into a fresh ShardedKV on the card (restore and
+                replay s, records, peak memory); every key read back
+                against the expectation; 2**17 ops into the recovered and
+                the live store, statuses and values bit-equal; invariants;
+  7b''. durable_twins — make_session_service(ServiceConfig(n_shards=4,
+                n_replicas=2, durability=DurabilityConfig(dir,
+                snapshot_every_rounds=16))) and a twin without durability
+                at 2**20 keys, loaded through sessions (the cadence
+                snapshots); a drop, 2**15 ops, a migration;
+                rebuild_replica(1) against the twin's resync(1) (seconds,
+                records; no drained record from the healthy replica, its
+                rows untouched; replicas 0 and 1 read back equal); then
+                `migrate.after_flip` armed, a crashed migration, recover():
+                replicas byte-identical, 2**15 more ops bit-equal to the
+                twin;
   7c. sharded_twins — the sharded store at 2**20 keys through "fused" and
                 "fused_ref": every leaf equal after each phase, a forced
                 migrate() of an edited bucket map, every key read back;
@@ -208,6 +235,11 @@ FANOUT_BATCH = 3 * BATCH                  # fan-out read-back: ~3,072 lanes a ro
 PINNED_BATCH = 3 * SHARD_LANES            # a read pinned to one replica: ~3,072 a row
 RESYNC_WRITES = 1 << 17                   # fan-in writes while a replica is down
 MIGRATE_BATCH = 3 * SHARD_LANES           # resync's drain frontier and replay batch
+DURABLE_OPS = 1 << 18                     # the durable phase: YCSB-A durable and plain ...
+DURABLE_TURNS = 4                         # ... in this many turns each
+DURABLE_AFTER_SNAP = 1 << 17              # ops after the snapshot (and on the twins)
+DURABLE_AFTER_MIGRATE = 1 << 16           # ops after the migration, before the kill
+DURABLE_READ_BATCH = 15 * 1024            # the recovered store's read-back: ~3,840 a shard
 SESSIONS = 8                              # the sessions phase: 8 sessions ...
 SESSION_DEPTH = 1024                      # ... of 1,024 ring slots ...
 SESSION_WAVES = 16                        # ... each enqueueing a full ring a wave
@@ -327,12 +359,27 @@ def read_back(kv, n_keys, V, batch=BATCH, expect=None, **read_kw):
             raise AssertionError(f"read-back: {bad.size} keys wrong, e.g. {k[bad[:8]]}")
 
 
-def ycsb(kv, expect, workload, n_ops, zipf, rng, via_read=False):
+def fold(expect, keys, ops, vals):
+    """`expect` after one batch of reads, upserts and RMWs (YCSB's ops):
+    the last upsert of each key wins, RMWs add."""
+    from repro_torch import OP_RMW, OP_UPSERT
+    u = np.flatnonzero(ops == OP_UPSERT)
+    if u.size:
+        _, first_rev = np.unique(keys[u][::-1], return_index=True)
+        last = u[::-1][first_rev]
+        expect[keys[last]] = vals[last]
+    m = ops == OP_RMW
+    np.add.at(expect, keys[m], vals[m])
+
+
+def ycsb(kv, expect, workload, n_ops, zipf, rng, via_read=False,
+         device_inputs=False):
     """One YCSB mix through kv.apply (through kv.read with `via_read`, for
-    YCSB-C).  With an `expect` array every read is checked against it (the
-    pre-batch values) and it is then updated.  Returns (ops/s over apply +
-    result transfer, the per-batch outputs)."""
-    from repro_torch import OP_READ, OP_RMW, OP_UPSERT, ST_OK
+    YCSB-C), its batches as host arrays (or, with `device_inputs`, as
+    tensors on kv's device).  With an `expect` array every read is checked
+    against it (the pre-batch values) and it is then updated.  Returns
+    (ops/s over apply + result transfer, the per-batch outputs)."""
+    from repro_torch import OP_READ, ST_OK
     from repro_torch.workload import make_ops
     import torch
     V = kv.cfg.value_width
@@ -340,8 +387,10 @@ def ycsb(kv, expect, workload, n_ops, zipf, rng, via_read=False):
     outs = []
     for _ in range(0, n_ops, BATCH):
         keys, ops, vals, _ = make_ops(rng, workload, zipf, BATCH, V)
+        args = ((keys, ops, vals) if not device_inputs else
+                tuple(torch.as_tensor(x, device=kv.device) for x in (keys, ops, vals)))
         t0 = time.perf_counter()
-        st, rv = kv.read(keys) if via_read else kv.apply(keys, ops, vals)
+        st, rv = kv.read(args[0]) if via_read else kv.apply(*args)
         st, rv = st.cpu().numpy(), rv.cpu().numpy()
         if kv.device.type == "cuda":
             torch.cuda.synchronize()
@@ -354,13 +403,7 @@ def ycsb(kv, expect, workload, n_ops, zipf, rng, via_read=False):
         r = ops == OP_READ
         if not np.array_equal(rv[r], expect[keys[r]]):
             raise AssertionError(f"YCSB-{workload}: a read returned a wrong value")
-        u = np.flatnonzero(ops == OP_UPSERT)
-        if u.size:   # the last upsert of each key wins
-            _, first_rev = np.unique(keys[u][::-1], return_index=True)
-            last = u[::-1][first_rev]
-            expect[keys[last]] = vals[last]
-        m = ops == OP_RMW
-        np.add.at(expect, keys[m], vals[m])
+        fold(expect, keys, ops, vals)
     return n_ops / t_apply, outs
 
 
@@ -1093,21 +1136,26 @@ def sharded_two_phase(skv, n_keys, seed):
     return truncs
 
 
-def calls_per_round(kv, seed, n_batches=8, read=False):
+def calls_per_round(kv, seed, n_batches=8, read=False, via=None, expect=None):
     """Wrapper calls per routed round (a KV batch is one round) of YCSB-A
     batches with the scheduler off (trigger 2.0: no compaction), or with
     `read` of YCSB-C batches through kv.read, and the host sync calls per
-    round from a profiler window over the same kind of batches.  Counters
-    and trigger are restored."""
+    round from a profiler window over the same kind of batches.  `via` is a
+    wrapper of kv (a DurableKV) the batches go through; `expect`, if given,
+    takes their writes.  Counters and trigger are restored."""
     import torch
     from torch.profiler import ProfilerActivity, profile
     from repro_torch.kernels.f2_probe import ops
     from repro_torch.workload import Zipf, make_ops
     rng = np.random.default_rng(seed + 11)
-    zipf = Zipf(1 << 20, 0.99)
+    zipf = Zipf(1 << 20 if expect is None else min(1 << 20, len(expect)), 0.99)
     batches = [make_ops(rng, "C" if read else "A", zipf, BATCH,
                         kv.cfg.value_width)[:3] for _ in range(2 * n_batches)]
-    run = (lambda b: kv.read(b[0])) if read else (lambda b: kv.apply(*b))
+    if expect is not None and not read:
+        for b in batches:
+            fold(expect, *b)
+    front = via if via is not None else kv
+    run = (lambda b: front.read(b[0])) if read else (lambda b: front.apply(*b))
     trigger, kv.trigger = kv.trigger, 2.0
     saved = dict(ops.launches)
     rounds0 = getattr(kv, "rounds", None)
@@ -1136,15 +1184,22 @@ def sharded_main(cfg, device, n_keys, n_ops, seed, records, main_rates):
     """ShardedKV(cfg, S=SHARDS, lanes=SHARD_LANES): load n_keys unique keys
     in batches of BATCH with masked compactions firing, the two-phase read
     across a masked cold->cold pass, every key read back, YCSB-A, -B and -F
-    at Zipf 0.99 with every read checked.  Returns the store and its record."""
+    at Zipf 0.99 with every read checked.  Returns the store, its record
+    and the expected value of every key."""
     import torch
-    from repro_torch import ShardedKV
+    from repro_torch import RebalanceConfig, ShardedKV
     from repro_torch.kernels.f2_probe import ops
     from repro_torch.workload import Zipf
     V = cfg.value_width
     rng = np.random.default_rng(seed)
     torch.cuda.reset_peak_memory_stats()
-    skv = ShardedKV(cfg, SHARDS, lanes=SHARD_LANES, device=device)
+    # the durable phase migrates on this store: MIGRATE_BATCH records a
+    # drain step and a replay batch, and 64 buckets a shard, so that its
+    # first 4 buckets are 1/64 of the keys (routing is the hash's top bits
+    # for any bucket count)
+    skv = ShardedKV(cfg, SHARDS, lanes=SHARD_LANES, device=device,
+                    rebalance_cfg=RebalanceConfig(enabled=False, buckets_per_shard=64,
+                                                  migrate_batch=MIGRATE_BATCH))
     launches, rounds, batches = {}, {}, {}
 
     def mark(phase, n_batches):
@@ -1188,7 +1243,7 @@ def sharded_main(cfg, device, n_keys, n_ops, seed, records, main_rates):
                compactions_by_kind={k: v.tolist() for k, v in
                                     skv.compaction_counts.items()},
                io=skv.io_stats(), peak_mem_bytes=torch.cuda.max_memory_allocated())
-    return skv, rec
+    return skv, rec, expect
 
 
 SYNC_CALLS = ("aten::nonzero", "aten::_local_scalar_dense", "aten::item",
@@ -1196,12 +1251,12 @@ SYNC_CALLS = ("aten::nonzero", "aten::_local_scalar_dense", "aten::item",
 
 
 def sharded_profile(skv, n_keys, seed, records, n_batches=8, read=False,
-                    phase="sharded_profile"):
+                    phase="sharded_profile", expect=None):
     """Device busy time and idle share over YCSB-A batches of the loaded
     sharded (or replicated: fan-in) store, or with `read` YCSB-C batches
     through `read` (fan-out), as `profile_window`; per routed round, the
     kernels launched (device records), the device-busy ms and the host
-    sync calls."""
+    sync calls.  `expect`, if given, takes the batches' writes."""
     import torch
     from torch.profiler import ProfilerActivity, profile
     from repro_torch.workload import Zipf, make_ops
@@ -1209,6 +1264,9 @@ def sharded_profile(skv, n_keys, seed, records, n_batches=8, read=False,
     zipf = Zipf(n_keys, 0.99)
     batches = [make_ops(rng, "C" if read else "A", zipf, BATCH, skv.cfg.value_width)[:3]
                for _ in range(n_batches)]
+    if expect is not None and not read:     # batches[0] runs twice: idempotent
+        for b in batches:
+            fold(expect, *b)
 
     def run(b):
         return skv.read(b[0]) if read else skv.apply(*b)
@@ -1488,6 +1546,302 @@ def sharded_twins(cfg, device, n_keys, n_ops, seed, records):
                        n_keys=n_keys, ops_per_mix=n_ops, migrated_records=moved["fused"],
                        compactions_per_shard=twins["fused"].compactions.tolist(),
                        rounds=twins["fused"].rounds, bit_exact=True))
+
+
+# ---------------------------------------------------------------------------
+# durability: the WAL, snapshots, recover() and rebuild_replica() on the card
+# ---------------------------------------------------------------------------
+
+def _disk_record(d, need):
+    """shutil.disk_usage of `d` as a record; fails when fewer than `need`
+    bytes are free (the phase does not shrink to fit)."""
+    du = shutil.disk_usage(d)
+    if du.free < need:
+        raise AssertionError(f"{d}: {du.free} bytes free, the durable phase needs {need}")
+    return dict(dir=d, total_bytes=du.total, used_bytes=du.used, free_bytes=du.free,
+                needed_bytes=need)
+
+
+def _dir_bytes(d):
+    return sum(os.path.getsize(os.path.join(r, f)) for r, _, fs in os.walk(d) for f in fs)
+
+
+def _state_bytes(kv):
+    from repro_torch import interop
+    return sum(t.numel() * t.element_size() for t in interop.state_leaves(kv.state))
+
+
+def durable_main(skv, n_keys, seed, records, expect, plain_calls):
+    """DurableKV over the sharded phase's loaded store (fsync "batch"):
+    wrapper calls per durable round (scheduler off) asserted equal to a
+    plain round's; YCSB-A, DURABLE_OPS ops durable and as many plain (the
+    WAL detached), in DURABLE_TURNS turns each, every read checked; fsync ms
+    per batch, WAL bytes per batch, device-to-host copies per logged batch;
+    a blocking snapshot (capture stall, save seconds, bytes on disk); then
+    2**17 ops (the first 8 batches as CUDA tensors: one copy a record), a
+    migrate() of the first 4 of the store's 256 buckets one shard on (one
+    MAP record), 2**16 ops, and the wrapper abandoned (a kill at a batch
+    boundary).  recover()
+    into a fresh ShardedKV on the card (restore and replay seconds, records,
+    peak memory); every key read back against the expectation; 2**17 more
+    ops into the recovered store and the live one (the uninterrupted twin),
+    statuses and values bit-equal; invariants on both."""
+    import tempfile
+    import torch
+    from repro_torch import DurabilityConfig, DurableKV, ShardedKV, recover
+    from repro_torch.workload import Zipf, make_ops
+    V = skv.cfg.value_width
+    rng = np.random.default_rng(seed + 51)
+    zipf = Zipf(n_keys, 0.99)
+    d = tempfile.mkdtemp(prefix="f2_durable_")
+    state_bytes = _state_bytes(skv)
+    # a snapshot, the WAL (a MAP record of the moved buckets' records) and
+    # the fresh epoch's segment
+    disk = _disk_record(d, state_bytes + (1 << 30))
+    emit(records, dict(phase="durable_disk", state_bytes=state_bytes, **disk))
+    t_phase = time.perf_counter()
+    try:
+        dkv = DurableKV(skv, DurabilityConfig(dir=d, fsync="batch"))
+        wal = dkv._wal
+        calls, syncs = calls_per_round(skv, seed, via=dkv, expect=expect)
+        if calls != plain_calls:
+            raise AssertionError(f"a durable round made {calls} wrapper calls, a plain "
+                                 f"round {plain_calls}")
+        fsync_s = []
+        sync = wal.sync
+
+        def timed_sync():
+            t0 = time.perf_counter()
+            sync()
+            fsync_s.append(time.perf_counter() - t0)
+        wal.sync = timed_sync
+        per_turn = DURABLE_OPS // DURABLE_TURNS
+        durable_s = plain_s = 0.0
+        wal_bytes = 0
+        copies0, seq0 = wal.d2h_copies, wal.seq
+        for _ in range(DURABLE_TURNS):
+            pos = wal._f.tell()
+            r, _ = ycsb(dkv, expect, "A", per_turn, zipf, rng)
+            durable_s += per_turn / r
+            wal_bytes += wal._f.tell() - pos
+            skv.wal = None
+            r, _ = ycsb(skv, expect, "A", per_turn, zipf, rng)
+            skv.wal = wal
+            plain_s += per_turn / r
+        logged = wal.seq - seq0
+        host_copies = wal.d2h_copies - copies0
+        fsync_ms = np.array(fsync_s) * 1e3      # one group commit a durable batch
+        wal.sync = sync
+        t0 = time.perf_counter()
+        dkv.snapshot(blocking=True)
+        save_s = time.perf_counter() - t0
+        capture_s = dkv.ckpt.capture_s
+        snap_bytes = _dir_bytes(os.path.join(d, "snap"))
+        # after the snapshot: CUDA-tensor batches, YCSB-A, a migration, YCSB-A
+        copies0, seq0 = wal.d2h_copies, wal.seq
+        ycsb(dkv, expect, "A", 8 * BATCH, zipf, rng, device_inputs=True)
+        tensor_copies = (wal.d2h_copies - copies0) / (wal.seq - seq0)
+        if tensor_copies != (skv.device.type != "cpu"):
+            raise AssertionError(f"{tensor_copies} device-to-host copies a device-tensor record")
+        ycsb(dkv, expect, "A", DURABLE_AFTER_SNAP - 8 * BATCH, zipf, rng)
+        new_map = skv.bucket_map.copy()
+        new_map[:4] = (new_map[:4] + 1) % skv.S
+        pos = wal._f.tell()
+        t0 = time.perf_counter()
+        moved = dkv.migrate(new_map)
+        migrate_s = time.perf_counter() - t0
+        map_record_bytes = wal._f.tell() - pos
+        ycsb(dkv, expect, "A", DURABLE_AFTER_MIGRATE, zipf, rng)
+        wal_records = wal.seq
+        # the kill: the wrapper is abandoned at a batch boundary (every
+        # acked batch is fsync'd); skv goes on as the uninterrupted twin
+        skv.wal = None
+        del dkv, wal, sync
+        torch.cuda.synchronize()
+        mem0 = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        rec = recover(d, lambda: ShardedKV(skv.cfg, skv.S, lanes=skv.lanes,
+                                           rebalance_cfg=skv.rb, device=skv.device))
+        recover_s = time.perf_counter() - t0
+        peak = torch.cuda.max_memory_allocated() - mem0
+        if rec.kv.device != skv.device or not np.array_equal(rec.kv.bucket_map, new_map):
+            raise AssertionError("the recovered store is not the crashed one's shape")
+        t0 = time.perf_counter()
+        read_back(rec, n_keys, V, batch=DURABLE_READ_BATCH, expect=expect)
+        readback_s = time.perf_counter() - t0
+        twin_rng = np.random.default_rng(seed + 52)
+        for _ in range(0, DURABLE_AFTER_SNAP, BATCH):
+            keys, ops_, vals, _ = make_ops(twin_rng, "A", zipf, BATCH, V)
+            a, b = rec.apply(keys, ops_, vals), skv.apply(keys, ops_, vals)
+            if not (torch.equal(a[0], b[0]) and torch.equal(a[1], b[1])):
+                raise AssertionError("the recovered store and its twin differ")
+        rec.check_invariants()
+        skv.check_invariants()
+        rec.close()
+        info = rec.recovery
+        del rec
+        torch.cuda.empty_cache()
+        out = dict(
+            phase="durable", n_keys=n_keys, shards=skv.S, lanes=skv.lanes, fsync="batch",
+            state_bytes=state_bytes, calls_per_durable_round=calls,
+            calls_per_plain_round=plain_calls, host_syncs_per_durable_round=syncs,
+            ycsb_ops_each=DURABLE_OPS, turns=DURABLE_TURNS,
+            durable_ops_per_s=DURABLE_OPS / durable_s, plain_ops_per_s=DURABLE_OPS / plain_s,
+            durable_over_plain=plain_s / durable_s,
+            logged_batches=logged,
+            fsync_ms_median=float(np.median(fsync_ms)), fsync_ms_max=float(fsync_ms.max()),
+            wal_bytes_per_batch=wal_bytes / logged,
+            host_copies_per_logged_batch=host_copies / logged,
+            host_copies_per_cuda_tensor_record=tensor_copies,
+            snapshot_capture_s=capture_s, snapshot_save_s=save_s,
+            snapshot_bytes=snap_bytes, migrated_records=moved, migrate_s=migrate_s,
+            map_record_bytes=map_record_bytes, wal_records=wal_records,
+            recover_s=recover_s, restore_s=info["restore_s"], replay_s=info["replay_s"],
+            records_replayed=info["records"], wal_records_replayed=info["wal_records"],
+            snapshot_epoch=info["snapshot_epoch"], recover_peak_mem_bytes=peak,
+            readback_s=readback_s, readback_ops_per_s=n_keys / readback_s,
+            twin_ops=DURABLE_AFTER_SNAP, bit_equal=True,
+            seconds=time.perf_counter() - t_phase)
+        emit(records, out)
+        return out
+    finally:
+        skv.wal = None
+        shutil.rmtree(d, ignore_errors=True)
+
+
+def durable_twins(cfg, device, n_keys, seed, records):
+    """make_session_service(cfg, ServiceConfig(n_shards=SHARDS,
+    n_replicas=REPLICAS, durability=DurabilityConfig(dir,
+    snapshot_every_rounds=16))) and an uninterrupted twin without
+    durability, loaded through sessions with the same history (the cadence
+    hook firing); replica 1 dropped, 2**15 ops written, a migration; then
+    rebuild_replica(1) on the durable store and resync(1) on the twin
+    (seconds and records of each; the healthy replica serves no drained
+    record, replicas 0 and 1 read back equal pinned); then
+    `migrate.after_flip` armed, a migration that crashes, recover(): the
+    alive replicas byte-identical, the remaining batches bit-equal against
+    the twin, which ran the migration."""
+    import tempfile
+    import torch
+    from repro_torch import OP_UPSERT, DurabilityConfig, RebalanceConfig, recover
+    from repro_torch.core import replication
+    from repro_torch.serve import serve_step
+    from repro_torch.testing import faults
+    from repro_torch.workload import Zipf, make_ops
+    V = cfg.value_width
+    d = tempfile.mkdtemp(prefix="f2_durable_twins_")
+    t_phase = time.perf_counter()
+    try:
+        sc = serve_step.ServiceConfig(
+            n_shards=SHARDS, n_replicas=REPLICAS, lanes=SHARD_LANES,
+            rebalance_cfg=RebalanceConfig(enabled=False, migrate_batch=MIGRATE_BATCH),
+            max_sessions=SESSIONS, session_depth=SESSION_DEPTH,
+            store_kwargs=dict(device=device))
+        svcs = [serve_step.make_session_service(cfg, dataclasses.replace(
+            sc, durability=DurabilityConfig(dir=d, snapshot_every_rounds=16))),
+                serve_step.make_session_service(cfg, sc)]
+        dkv, twin = svcs[0].kv, svcs[1].kv
+        # a snapshot and the WAL's records
+        emit(records, dict(phase="durable_twins_disk", **_disk_record(d, 4 * _state_bytes(twin))))
+        perm = np.random.default_rng(seed + 61).permutation(n_keys).astype(np.int32)
+        sessions = [[svc.open_session() for _ in range(SESSIONS)] for svc in svcs]
+        wave = SESSIONS * SESSION_DEPTH
+        for lo in range(0, n_keys, wave):
+            keys = perm[lo:lo + wave]
+            for svc, ss in zip(svcs, sessions):
+                for i, s in enumerate(ss):
+                    k = keys[i * SESSION_DEPTH:(i + 1) * SESSION_DEPTH]
+                    if len(k) and not (s.enqueue(k, np.full(len(k), OP_UPSERT, np.int32),
+                                                 val_of(k, V)) >= 0).all():
+                        raise AssertionError("a session's ring refused an op")
+                for s in ss:
+                    s.drain()
+        if dkv.snapshots < 1:
+            raise AssertionError("the cadence hook never snapshotted")
+        dkv.wait()
+        stores = (dkv, twin)
+        for kv in stores:
+            kv.drop_replica(1)
+        rng = np.random.default_rng(seed + 62)
+        zipf = Zipf(n_keys, 0.99)
+        for _ in range(0, 1 << 15, BATCH):
+            keys, ops_, vals, _ = make_ops(rng, "A", zipf, BATCH, V)
+            a, b = (kv.apply(keys, ops_, vals) for kv in stores)
+            if not (torch.equal(a[0], b[0]) and torch.equal(a[1], b[1])):
+                raise AssertionError("the durable store and its twin differ")
+        new_map = twin.bucket_map.copy()
+        new_map[np.flatnonzero(new_map == 0)[0]] = 1
+        if len({kv.migrate(new_map) for kv in stores}) != 1:
+            raise AssertionError("the twins migrated different record counts")
+        drained = dkv.kv.resynced_records
+        healthy = [t[:SHARDS].clone() for t in replication._leaves(dkv.kv.state)]
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        rebuilt = dkv.rebuild_replica(1)
+        torch.cuda.synchronize()
+        rebuild_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        resynced = twin.resync(1)
+        torch.cuda.synchronize()
+        resync_s = time.perf_counter() - t0
+        if dkv.kv.resynced_records != drained:
+            raise AssertionError("the rebuild drained records from the healthy replica")
+        if not all(torch.equal(a, t[:SHARDS]) for a, t in
+                   zip(healthy, replication._leaves(dkv.kv.state))):
+            raise AssertionError("the rebuild touched the healthy replica's rows")
+        del healthy
+        for lo in range(0, n_keys, PINNED_BATCH):
+            k = np.arange(lo, min(lo + PINNED_BATCH, n_keys), dtype=np.int32)
+            r0, r1 = dkv.kv.read(k, replica=0), dkv.kv.read(k, replica=1)
+            if not (torch.equal(r0[0], r1[0]) and torch.equal(r0[1], r1[1])):
+                raise AssertionError("the rebuilt replica reads differently from replica 0")
+        # the crash between a migration's flip and its replay
+        new_map = twin.bucket_map.copy()
+        new_map[np.flatnonzero(new_map == 2)[0]] = 3
+        faults.arm("migrate.after_flip")
+        try:
+            dkv.migrate(new_map)
+            raise AssertionError("migrate.after_flip did not fire")
+        except faults.InjectedCrash:
+            pass
+        finally:
+            faults.reset()
+        twin.migrate(new_map)
+        dkv.wait()              # a snapshot in flight lands before the kill
+        dkv.kv.wal = None
+        kv_shape = dict(lanes=SHARD_LANES, n_replicas=REPLICAS,
+                        rebalance_cfg=sc.rebalance_cfg, device=device)
+        del svcs, sessions
+        t0 = time.perf_counter()
+        rec = recover(d, lambda: replication.ReplicatedKV(cfg, SHARDS, **kv_shape))
+        recover_s = time.perf_counter() - t0
+        if not (rec.kv.alive.all() and replication.replicas_byte_identical(rec.kv)):
+            raise AssertionError("the recovered replicas are not byte-identical")
+        if not np.array_equal(rec.kv.bucket_map, new_map):
+            raise AssertionError("recovery did not replay the crashed migration")
+        for _ in range(0, 1 << 15, BATCH):
+            keys, ops_, vals, _ = make_ops(rng, "A", zipf, BATCH, V)
+            a, b = rec.apply(keys, ops_, vals), twin.apply(keys, ops_, vals)
+            if not (torch.equal(a[0], b[0]) and torch.equal(a[1], b[1])):
+                raise AssertionError("the recovered store and its twin differ")
+        rec.check_invariants()
+        twin.check_invariants()
+        info = rec.recovery
+        rec.close()
+        out = dict(phase="durable_twins", n_keys=n_keys, shards=SHARDS, replicas=REPLICAS,
+                   snapshot_every_rounds=16, snapshots=dkv.snapshots,
+                   rebuild_s=rebuild_s, rebuild_records=rebuilt,
+                   resync_s=resync_s, resync_records=resynced,
+                   healthy_drained_records=dkv.kv.resynced_records - drained,
+                   recover_s=recover_s, restore_s=info["restore_s"],
+                   replay_s=info["replay_s"], records_replayed=info["records"],
+                   snapshot_epoch=info["snapshot_epoch"], bit_equal=True,
+                   seconds=time.perf_counter() - t_phase)
+        emit(records, out)
+        return out
+    finally:
+        shutil.rmtree(d, ignore_errors=True)
 
 
 # ---------------------------------------------------------------------------
@@ -3085,9 +3439,9 @@ def run_all(a, records):
 
     # the sharded store over the same keyspace, S = 4 on one card
     scfg_store = make_f2_config(n_keys // SHARDS, engine="fused")
-    skv, srec = sharded_main(scfg_store, "cuda", n_keys, 1 << (a.log2_ops - 1), SEED,
-                             records, main_rec["ycsb_ops_per_s"])
-    s_calls, s_syncs = calls_per_round(skv, SEED)
+    skv, srec, sexpect = sharded_main(scfg_store, "cuda", n_keys, 1 << (a.log2_ops - 1),
+                                      SEED, records, main_rec["ycsb_ops_per_s"])
+    s_calls, s_syncs = calls_per_round(skv, SEED, expect=sexpect)
     s_read_calls, s_read_syncs = calls_per_round(skv, SEED, read=True)
     srec.update(calls_per_round=s_calls, main_s1_calls_per_batch=main_calls,
                 host_syncs_per_round=s_syncs, main_s1_host_syncs_per_batch=main_syncs,
@@ -3099,9 +3453,19 @@ def run_all(a, records):
     if s_calls != main_calls:
         raise AssertionError(f"a sharded round made {s_calls} wrapper calls, a KV batch "
                              f"{main_calls}: the kernels did not take all shards at once")
-    sharded_profile(skv, n_keys, SEED, records)
+    sharded_profile(skv, n_keys, SEED, records, expect=sexpect)
     s_summary = check_sharded_kernels(skv, n_keys, SEED, records)
-    del skv
+    # durability on the loaded store, then on replicated twins
+    t_dur = {"durable": time.perf_counter()}
+    durable_main(skv, n_keys, SEED, records, sexpect, s_calls)
+    t_dur["durable"] = time.perf_counter() - t_dur["durable"]
+    del skv, sexpect
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    durable_twins(make_f2_config((1 << TWIN_LOG2_KEYS) // SHARDS), "cuda",
+                  1 << TWIN_LOG2_KEYS, SEED, records)
+    t_dur["durable_twins"] = time.perf_counter() - t0
+    emit(records, dict(phase="durability_seconds", total=sum(t_dur.values()), **t_dur))
     torch.cuda.empty_cache()
     sharded_twins(make_f2_config((1 << TWIN_LOG2_KEYS) // SHARDS), "cuda",
                   1 << TWIN_LOG2_KEYS, 1 << (a.log2_ops - 4), SEED, records)

@@ -6,7 +6,9 @@ The JAX package `repro` is the reference; this package mirrors its layout
     F2Config, KV (the facade; runs on the CUDA device unless given another
     `device`), ShardedKV (S hash-partitioned stores behind one router, with
     live rebalancing; same device rule), ReplicatedKV (R replicas of them:
-    fan-in writes, fan-out reads, drop and resync; same rule), KVProtocol
+    fan-in writes, fan-out reads, drop and resync; same rule), DurableKV
+    and DurabilityConfig (either of them made durable: a write-ahead slab
+    log and snapshots; `recover` brings one back), KVProtocol
     (the surface they share; `serve.serve_step.make_kv_service` and
     `make_session_service` build deployments), the op / status codes, and
     the functional layers
@@ -16,10 +18,12 @@ The JAX package `repro` is the reference; this package mirrors its layout
 """
 from .core import (KV, BLOCK_BYTES, OP_DELETE, OP_NOOP, OP_READ, OP_RMW,
                    OP_UPSERT, ST_CREATED, ST_NONE, ST_NOT_FOUND, ST_OK,
-                   F2Config, IoStats, KVProtocol, RebalanceConfig,
-                   ReplicatedKV, ShardedKV)
+                   DurabilityConfig, DurableKV, F2Config, IoStats,
+                   KVProtocol, RebalanceConfig, ReplicatedKV, ShardedKV,
+                   recover)
 
-__all__ = ["KV", "ShardedKV", "ReplicatedKV", "KVProtocol", "RebalanceConfig",
+__all__ = ["KV", "ShardedKV", "ReplicatedKV", "DurableKV", "DurabilityConfig",
+           "recover", "KVProtocol", "RebalanceConfig",
            "F2Config", "IoStats", "BLOCK_BYTES", "OP_NOOP", "OP_READ",
            "OP_UPSERT", "OP_RMW", "OP_DELETE", "ST_NONE", "ST_OK",
            "ST_NOT_FOUND", "ST_CREATED"]

@@ -30,7 +30,8 @@ import os
 import re
 import shutil
 import threading
-from typing import Any, List, Optional, Tuple
+import time
+from typing import Any, Callable, List, Optional, Tuple
 
 import numpy as np
 import torch
@@ -92,6 +93,7 @@ class Checkpointer:
         os.makedirs(directory, exist_ok=True)
         self._thread: Optional[threading.Thread] = None
         self._error: Optional[BaseException] = None
+        self.capture_s = 0.0    # the last save's host copy (its stall)
         self._repair()
 
     # -- crash repair ----------------------------------------------------------
@@ -121,10 +123,17 @@ class Checkpointer:
             err, self._error = self._error, None
             raise err
 
-    def save(self, step: int, state: Any, blocking: bool = False):
+    def save(self, step: int, state: Any, blocking: bool = False,
+             on_commit: Optional[Callable[[], None]] = None):
+        """Write `state` as step `step` on the worker thread.  `on_commit`
+        runs there after the manifest commits (housekeeping that must wait
+        until the checkpoint is durable, such as WAL segment GC); its errors
+        surface like the save's."""
         # a host copy BEFORE going async: the step path updates the state
         # in place
+        t0 = time.perf_counter()
         host = [(p, str(t.dtype), _to_numpy(t)) for p, t in leaves(state)]
+        self.capture_s = time.perf_counter() - t0
         if self._thread is not None:
             self._thread.join()
         self._raise_pending()
@@ -153,6 +162,8 @@ class Checkpointer:
                 os.rename(tmp, final)
                 shutil.rmtree(old, ignore_errors=True)
                 self._gc()
+                if on_commit is not None:
+                    on_commit()
             except BaseException as e:   # surfaced on next save()/wait()
                 self._error = e
 

@@ -49,9 +49,16 @@ byte-identical throughout; the resynced one is logically equal (its log
 layout is compacted).  Rebalancing flips the one shared bucket map; drain,
 purge and replay run on the alive replicas.
 
+Durability
+----------
+`apply_round(..., _rep_do=onehot)` and `apply(..., _rep_do=onehot)` run a
+round on the selected replicas only and log nothing:
+`durability.DurableKV.rebuild_replica` replays the WAL into one replica
+through them, with `_sched_rows` restricting the scheduler to its rows.
+
 Not ported: `dispatch="shard_map"` (ROADMAP item 15; `resolve_mesh_2d`),
-the host tier (`F2Config` refuses it), the WAL (item 11) and the
-reference's observability calls (item 13).
+the host tier (`F2Config` refuses it) and the reference's observability
+calls (item 13).
 """
 from __future__ import annotations
 
@@ -203,26 +210,28 @@ class ReplicatedKV(ShardedKV):
         return m
 
     # -- routed rounds (ShardedKV's apply, apply_round and read drive them) --
-    def _routed_apply(self, keys, ops, vals):
+    def _routed_apply(self, keys, ops, vals, rep_do=None):
         """Fan-in: route once, repeat the slabs over the replicas (NOOP for
-        dropped ones), one `store.apply` over every row; statuses and values
-        from the primary."""
+        the unselected ones: dropped replicas, or all but the one a masked
+        rebuild replays into, `rep_do`), one `store.apply` over every row;
+        statuses and values from the primary."""
         R, S = self.R, self.S
+        sel = self.alive if rep_do is None else np.asarray(rep_do, bool)
         skeys, sops, svals, rt = shard_router.route(
             keys, ops, vals, S, self._lanes_of(keys.shape[0]),
             bucket_map=self._bucket_map_dev)
         W = skeys.shape[1]
-        all_rows = bool(self.alive.all())
+        all_rows = bool(sel.all())
         rops = sops.repeat(R, 1)
         if not all_rows:
-            rows = self._rows_of(self.alive)
+            rows = self._rows_of(sel)
             rops = torch.where(rows[:, None], rops, OP_NOOP).to(torch.int32)
         old = self.state
         new, sst, srv = store.apply(self.cfg, old, skeys.repeat(R, 1), rops,
                                     svals.repeat(R, 1, 1),
                                     admit_rc=self._admit)
         self.state = new if all_rows else select_shards(rows, new, old)
-        h = self._primary(self.alive)
+        h = self._primary(sel)
         status, rvals = shard_router.unroute(
             rt, sst.view(R, S, W)[h], srv.view(R, S, W, -1)[h])
         self._note_round(rt.occupancy, bucket_counts(rt, self.n_buckets))

@@ -45,10 +45,20 @@ take `_lead_shape`; `_sched_mask` restricts a pass's rows, `_rep_shard`
 and `_rep_move` lift a migration's per-shard masks to the rows, and
 `_host_view` / `_client_rows` give the rows a client sees (one replica's).
 
+Durability hooks
+----------------
+`core.durability.DurableKV` installs a write-ahead log as `self.wal`.  A
+client batch is logged once, before its first routed round (`apply` logs
+the whole batch and runs its deferral rounds with `_wal_defer` set, since
+replay derives them from the batch); nothing is logged while `_migrating`
+(migration and resync replay rebuild data the log already holds) or for a
+round masked to some replicas (`_rep_do`, replication's rebuild).
+`migrate` logs one MAP record (the new map and the drained records) before
+its purge, and `map_version` counts the flips.
+
 Not ported here: `dispatch="shard_map"` (ROADMAP item 15), the host tier's
-routed planner and read loop (item 12; `F2Config` refuses `host_tier=True`),
-the WAL hooks (`wal` and `map_version` are kept, inert, for item 11) and the
-reference's observability calls.
+routed planner and read loop (item 12; `F2Config` refuses `host_tier=True`)
+and the reference's observability calls.
 """
 from __future__ import annotations
 
@@ -58,6 +68,7 @@ import numpy as np
 import torch
 
 from . import cold_index, compaction, rebalance, shard_router, store
+from ..testing import faults
 from .api import resolve_device
 from .rebalance import RebalanceConfig, select_shards
 from .types import (BLOCK_BYTES, OP_DELETE, OP_NOOP, OP_READ, OP_RMW,
@@ -145,9 +156,11 @@ class ShardedKV:
         self._decay = rebalance_cfg.decay if rebalance_cfg else 0.9
         self._mig_batch = (rebalance_cfg.migrate_batch if rebalance_cfg
                            else min(compact_batch, 256))
-        # durability hooks of the reference (ROADMAP item 11), inert here
+        # durability hooks (core.durability): the write-ahead log, the map
+        # flips it has seen, and "inside apply's deferral rounds"
         self.wal = None
         self.map_version = 0
+        self._wal_defer = False
 
     def _dev(self, x) -> torch.Tensor:
         if isinstance(x, torch.Tensor):
@@ -244,7 +257,23 @@ class ShardedKV:
             vals = self._dev(vals)
         return keys, ops, vals
 
-    def _routed_apply(self, keys, ops, vals):
+    def _logs(self, rep_do) -> bool:
+        """Whether a client batch goes to the write-ahead log: a WAL is
+        installed, no migration or resync replays, no replica mask."""
+        return self.wal is not None and not self._migrating and rep_do is None
+
+    def _log_slab(self, keys, ops, vals):
+        """One client batch's input to the WAL, as the caller gave it (host
+        arrays are encoded as they are; device tensors in one copy)."""
+        if vals is None:
+            vals = np.zeros((len(keys), self.cfg.value_width), np.int32)
+        self.wal.log_slab(keys, ops, vals, self.map_version)
+
+    def _routed_apply(self, keys, ops, vals, rep_do=None):
+        """One routed round over every shard (`rep_do` is replication's
+        replica mask; a ShardedKV has none)."""
+        if rep_do is not None:
+            raise ValueError("_rep_do needs a ReplicatedKV")
         skeys, sops, svals, rt = shard_router.route(
             keys, ops, vals, self.S, self._lanes_of(keys.shape[0]),
             bucket_map=self._bucket_map_dev)
@@ -268,12 +297,17 @@ class ShardedKV:
         return status, rvals, rt
 
     # -- batched operations --------------------------------------------------
-    def apply_round(self, keys, ops, vals=None):
+    def apply_round(self, keys, ops, vals=None, _rep_do=None):
         """Exactly one routed round, then a scheduler pass.  Returns
         (status [B], vals [B, V], placed [B], deferred [B]) on the device,
-        with no host sync of its own: deferred lanes did not run."""
+        with no host sync of its own: deferred lanes did not run.  With a
+        WAL, the round's input is logged first (write-ahead) unless `apply`
+        logged its batch already.  `_rep_do` (bool [R]) is replication's
+        replica mask."""
+        if self._logs(_rep_do) and not self._wal_defer:
+            self._log_slab(keys, ops, vals)
         keys, ops, vals = self._coerce(keys, ops, vals)
-        status, rvals, rt = self._routed_apply(keys, ops, vals)
+        status, rvals, rt = self._routed_apply(keys, ops, vals, _rep_do)
         self.maybe_compact()
         return status, rvals, rt.placed, rt.deferred
 
@@ -293,18 +327,27 @@ class ShardedKV:
             rvals = torch.where(placed[:, None], rv_r, rvals)
         return status, rvals
 
-    def apply(self, keys, ops, vals=None):
+    def apply(self, keys, ops, vals=None, _rep_do=None):
         """Route, execute, gather back.  With lanes=None this is one round
         (bit-exact with one `store.apply` per shard); with a narrower slab,
         deferred lanes run in follow-up rounds, each followed by a scheduler
-        pass.  The rebalance check runs once, after the batch."""
-        keys, ops, vals = self._coerce(keys, ops, vals)
-        B = keys.shape[0]
+        pass.  With a WAL the batch is logged once, before its first round:
+        the map holds still until the rebalance check, which runs once,
+        after the batch, so replay derives the deferral rounds from it."""
+        B = len(keys)
         if self.lanes is None or self.lanes >= B:
-            status, rvals, _, _ = self.apply_round(keys, ops, vals)
+            status, rvals, _, _ = self.apply_round(keys, ops, vals, _rep_do)
         else:
-            status, rvals = self._rounds(
-                keys, ops, lambda o: self.apply_round(keys, o, vals), ops)
+            if self._logs(_rep_do):
+                self._log_slab(keys, ops, vals)
+            keys, ops, vals = self._coerce(keys, ops, vals)
+            self._wal_defer = True
+            try:
+                status, rvals = self._rounds(
+                    keys, ops,
+                    lambda o: self.apply_round(keys, o, vals, _rep_do), ops)
+            finally:
+                self._wal_defer = False
         self.maybe_rebalance()
         return status, rvals
 
@@ -621,12 +664,19 @@ class ShardedKV:
                 vals_all = np.zeros((0, V), np.int32)
                 ops_all = np.zeros(0, np.int32)
             n_moved = len(keys_all)
+            # one MAP record (new map and drained records under one CRC) is
+            # durable before the destructive purge: recovery replays all of
+            # the migration or, from a torn record, none of it
+            if self.wal is not None:
+                self.wal.log_map(new_map, self.map_version + 1, keys_all,
+                                 ops_all, vals_all)
             # purge the source copies, then flip the indirection
             self.state = rebalance.purge_step(cfg, nb, self.state, move,
                                               self._dev_bool(do))
             self.bucket_map = new_map.copy()
             self._bucket_map_dev = self._dev(self.bucket_map)
             self.map_version += 1
+            faults.maybe_crash("migrate.after_flip")
             # replay as ordinary routed writes, which now land on the
             # destination shards
             for off in range(0, n_moved, Bm):

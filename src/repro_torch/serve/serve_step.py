@@ -10,9 +10,12 @@ backing store from it (`ShardedKV`, or `ReplicatedKV` when `n_replicas >
 (`serve.sessions.KVSessionService`), and `kv_service_step` /
 `kv_service_read` / `kv_service_stats` are the request paths and the
 telemetry an operator polls.  The store runs on the CUDA device unless
-`store_kwargs` names another `device`.  Durability (`durability`, ROADMAP
-item 11) and observability (`obs_enabled`, `obs_port`, item 13) are not
-ported: setting them raises.
+`store_kwargs` names another `device`.  `durability` (a
+`core.durability.DurabilityConfig`) wraps the store in `DurableKV`:
+snapshots and a write-ahead slab log, from which
+`core.durability.recover(dir, make_kv)` brings the deployment back.
+Observability (`obs_enabled`, `obs_port`, ROADMAP item 13) is not ported:
+setting it raises.
 """
 from __future__ import annotations
 
@@ -61,8 +64,8 @@ class ServiceConfig:
     max_sessions: int = 8           # concurrent Session handles
     session_depth: int = 64         # ring slots per session
     pack_lanes: Optional[int] = None    # per-shard pack width (None: lanes)
-    # -- not ported: durability (item 11) and observability (item 13) --
-    durability: Any = None
+    durability: Any = None          # core.durability.DurabilityConfig
+    # -- not ported: observability (item 13) --
     obs_enabled: bool = False
     obs_port: Optional[int] = None
     # -- pass-through store knobs (mode, trigger, compact_batch, device...) --
@@ -95,25 +98,27 @@ def make_kv_service(kv_cfg, service: Optional[ServiceConfig] = None, **kw):
     shards behind one router (`core.sharded.ShardedKV`), or R replicas of
     them with fan-in writes and fan-out reads (`core.replication.
     ReplicatedKV`) when `service.n_replicas > 1`; the live rebalancer armed
-    by `service.rebalance_cfg`."""
+    by `service.rebalance_cfg`; wrapped in `core.durability.DurableKV` when
+    `service.durability` is set."""
     sc = _coerce_service_cfg(service, dict(kw))
-    if sc.durability is not None:
-        raise NotImplementedError(
-            "ServiceConfig.durability (DurableKV) is ROADMAP item 11, not "
-            "ported yet")
     if sc.obs_enabled or sc.obs_port is not None:
         raise NotImplementedError(
             "ServiceConfig.obs_enabled / obs_port (observability) is ROADMAP "
             "item 13, not ported yet")
     if sc.n_replicas > 1:
         from ..core.replication import ReplicatedKV
-        return ReplicatedKV(kv_cfg, sc.n_shards, n_replicas=sc.n_replicas,
-                            read_selector=sc.read_selector, lanes=sc.lanes,
-                            dispatch=sc.dispatch, rebalance_cfg=sc.rebalance_cfg,
-                            **sc.store_kwargs)
-    from ..core.sharded import ShardedKV
-    return ShardedKV(kv_cfg, sc.n_shards, lanes=sc.lanes, dispatch=sc.dispatch,
-                     rebalance_cfg=sc.rebalance_cfg, **sc.store_kwargs)
+        kv = ReplicatedKV(kv_cfg, sc.n_shards, n_replicas=sc.n_replicas,
+                          read_selector=sc.read_selector, lanes=sc.lanes,
+                          dispatch=sc.dispatch, rebalance_cfg=sc.rebalance_cfg,
+                          **sc.store_kwargs)
+    else:
+        from ..core.sharded import ShardedKV
+        kv = ShardedKV(kv_cfg, sc.n_shards, lanes=sc.lanes, dispatch=sc.dispatch,
+                       rebalance_cfg=sc.rebalance_cfg, **sc.store_kwargs)
+    if sc.durability is not None:
+        from ..core.durability import DurableKV
+        kv = DurableKV(kv, sc.durability)
+    return kv
 
 
 def make_session_service(kv_cfg, service: Optional[ServiceConfig] = None,

@@ -25,7 +25,8 @@ Scheduler
 session's FIFO prefix, in a batch that routes with no deferral; the store's
 `apply_round` runs it (the pressure scheduler runs as for a synchronous
 batch) and the completions scatter back into the pool, then the rebalance
-check runs.  Nothing of that reads the device from the host beyond what
+check runs, and a durable store (`core.durability.DurableKV`) may take its
+snapshot.  Nothing of that reads the device from the host beyond what
 `apply_round` itself reads.
 
 Tickets and ordering
@@ -293,6 +294,11 @@ class KVSessionService:
         # `placed` still gates the commit
         commit(pool, sess, slot, valid & placed, status, rvals)
         kv.maybe_rebalance()
+        # a DurableKV snapshots on its cadence at packed-round boundaries
+        # (between rounds the rings hold every un-acked op)
+        snap = getattr(kv, "maybe_snapshot", None)
+        if snap is not None:
+            snap()
         self.pack_rounds += 1
         self._pending_fill.append(fill)
         if self.trace_schedule:

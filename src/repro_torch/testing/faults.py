@@ -18,7 +18,8 @@ from __future__ import annotations
 import threading
 
 # Every crash point of the reference, so that tests written against it arm
-# the same names.  The port's code reaches "checkpoint.before_manifest".
+# the same names.  The port's code reaches the first four; the host tier's
+# two wait for it (ROADMAP item 12).
 CRASH_POINTS = (
     "checkpoint.before_manifest",  # snapshot leaves written, manifest not yet
     "wal.mid_append",              # WAL record half-written (torn tail)

@@ -19,8 +19,9 @@ equal), and the legacy first-hop probe bit for bit; the three store kernels
 over a stacked store's shard axis (S of 1, 2 and 4 in one launch, equal to
 their plain versions and to S single-shard calls) and over a replicated
 state's R*S = 8 rows, the kernel-backed ShardedKV and ReplicatedKV (through
-a drop and resync) against the plain-engine ones, and the session service
-over ReplicatedKV against a dict model.
+a drop and resync) against the plain-engine ones, the session service
+over ReplicatedKV against a dict model, and a DurableKV over the
+kernel-backed ShardedKV recovering bit-exact against its twin.
 
 These tests need a CUDA device and nvcc and skip without them.  They import
 neither JAX nor the JAX package, so they also run where only PyTorch is
@@ -903,3 +904,59 @@ def test_session_service_over_replicated_store(cuda):
     assert svc.max_fill <= 64
     assert replication.replicas_byte_identical(svc.kv)
     svc.check_invariants()
+
+
+# ---------------------------------------------------------------------------
+# durability: the WAL and recovery over the kernel-backed store
+# ---------------------------------------------------------------------------
+
+def test_durable_sharded_store_recovers_on_the_card(cuda, tmp_path):
+    """DurableKV over a kernel-backed ShardedKV(S=2) on the card: a
+    snapshot, mixed batches (host arrays, and CUDA tensors encoded in one
+    device-to-host copy a record), a migration, a kill at a batch boundary;
+    recover() into a fresh CUDA store, which then answers every later batch
+    and every key bit-equal to an uninterrupted twin.  A durable round calls
+    fused_probe 3 times and fused_write once, as a plain round does."""
+    def make():
+        return T.ShardedKV(CFG, 2, device=cuda, compact_batch=128, lanes=64, trigger=0.5)
+    dkv = T.DurableKV(make(), T.DurabilityConfig(dir=str(tmp_path)))
+    twin = make()
+    stream = list(_stream(10, 50))
+    for i, (k, o, v) in enumerate(stream[:40]):
+        if i == 10:
+            dkv.snapshot(blocking=True)
+        if i == 20:
+            nm = twin.bucket_map.copy()
+            nm[:2] = 1 - nm[:2]
+            assert dkv.migrate(nm) == twin.migrate(nm) > 0
+        on_card = i % 2 == 0
+        args = tuple(torch.as_tensor(x, device=cuda) for x in (k, o, v)) if on_card else (k, o, v)
+        c0 = dkv._wal.d2h_copies
+        a, b = dkv.apply(*args), twin.apply(k, o, v)
+        assert dkv._wal.d2h_copies - c0 == int(on_card)
+        assert torch.equal(a[0], b[0]) and torch.equal(a[1], b[1]), i
+    assert dkv.kv.compactions.sum() > 0
+    calls = []
+    for kv in (dkv.kv, twin):
+        kv.trigger = 2.0
+    k, o, v = (x[:40] for x in stream[40])      # fits one round: nothing defers
+    for kv in (dkv, twin):
+        ops.reset_launches()
+        kv.apply_round(k, o, v)
+        torch.cuda.synchronize()
+        calls.append(dict(ops.launches))
+    for kv in (dkv.kv, twin):
+        kv.trigger = 0.5
+    assert calls[0] == calls[1] == {"fused_probe": 3, "probe": 0,
+                                    "fused_write": ops.WRITE_KERNELS_PER_CALL}
+    dkv.kv.wal = None                                # the kill
+    rec = T.recover(str(tmp_path), make)
+    assert rec.kv.device.type == "cuda" and rec.recovery["snapshot_epoch"] == 1
+    for i, (k, o, v) in enumerate(stream[41:]):
+        a, b = rec.apply(k, o, v), twin.apply(k, o, v)
+        assert torch.equal(a[0], b[0]) and torch.equal(a[1], b[1]), i
+    keys = np.arange(3000, dtype=np.int32)
+    a, b = rec.read(keys), twin.read(keys)
+    assert torch.equal(a[0], b[0]) and torch.equal(a[1], b[1])
+    rec.check_invariants()
+    rec.close()

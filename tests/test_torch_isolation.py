@@ -1,6 +1,7 @@
 """The port stands alone: it imports and runs (the store, single-shard,
 sharded with a live migration and replicated with a drop and resync, the
-session service over it, reduced serving
+session service over it, a durable store through a snapshot, a replica
+rebuild and a recovery, reduced serving
 engines and reduced training runs of the dense and RWKV-6 families) with
 the JAX package, JAX and the benchmarks blocked; its entry points default to the CUDA device and
 refuse to quietly run without it; the forced-kernel engine refuses CPU
@@ -100,6 +101,20 @@ def test_port_runs_with_the_reference_blocked():
         _, st, v = s.drain()
         assert (st == T.ST_OK).all() and (v == np.stack([keys[:50] + 7] * 2, 1)).all()
         svc.check_invariants()
+        import tempfile
+        with tempfile.TemporaryDirectory() as d:
+            mk = lambda: T.ReplicatedKV(cfg, 2, n_replicas=2, device="cpu",
+                                        compact_batch=128, lanes=32)
+            dkv = T.DurableKV(mk(), T.DurabilityConfig(dir=d))
+            dkv.upsert(keys[:64], np.stack([keys[:64]] * 2, 1))
+            dkv.snapshot(blocking=True)
+            dkv.kv.drop_replica(1)
+            dkv.upsert(keys[64:128], np.stack([keys[64:128]] * 2, 1))
+            assert dkv.rebuild_replica(1) > 0
+            rec = T.recover(d, mk)
+            st, v = rec.read(keys[:128])
+            assert (st.numpy() == T.ST_OK).all()
+            assert (v.numpy() == np.stack([keys[:128]] * 2, 1)).all()
         import torch
         from repro_torch.models import transformer
         from repro_torch.models.registry import get_config
@@ -154,9 +169,10 @@ def _service(cfg, session):
                                   lambda cfg: T.ShardedKV(cfg, 4),
                                   lambda cfg: T.ReplicatedKV(cfg, 4),
                                   lambda cfg: _service(cfg, False),
-                                  lambda cfg: _service(cfg, True)],
+                                  lambda cfg: _service(cfg, True),
+                                  lambda cfg: T.recover("unused", lambda: T.ShardedKV(cfg, 2))],
                          ids=["KV", "ShardedKV", "ReplicatedKV", "make_kv_service",
-                              "make_session_service"])
+                              "make_session_service", "recover"])
 def test_kv_defaults_to_the_cuda_device(make):
     cfg = T.F2Config(**small_dict())
     if torch.cuda.is_available():
@@ -278,6 +294,15 @@ def test_port_sources_include_the_replication_and_service_slice():
     names = _port_module_names()
     for mod in ("core/replication.py", "core/protocol.py", "serve/sessions.py",
                 "serve/serve_step.py", "core/shard_router.py", "interop.py"):
+        assert mod in names, mod
+
+
+def test_port_sources_include_the_durability_slice():
+    """The AST scan above walks every module of the durability slice."""
+    names = _port_module_names()
+    for mod in ("core/durability.py", "checkpoint/checkpointer.py",
+                "testing/faults.py", "core/sharded.py", "core/replication.py",
+                "serve/sessions.py", "serve/serve_step.py"):
         assert mod in names, mod
 
 

@@ -9,8 +9,9 @@ replayed on a port ShardedKV twin.  Port-only contracts, after
 tests/test_sessions.py and tests/test_protocol.py: ring capacity and
 rejection, out-of-order collection, the NOOP refusal, the session
 lifecycle, no starvation under a hot-shard flood, structural and
-behavioural KVProtocol conformance of every facade, and make_kv_service
-refusing what is not ported."""
+behavioural KVProtocol conformance of every facade (the durable one
+included), make_kv_service refusing what is not ported, and its durable
+deployments recovering what they acked."""
 import dataclasses
 
 import numpy as np
@@ -352,25 +353,29 @@ def _store_kw():
 
 
 FACADES = {
-    "kv": lambda cfg: T.KV(cfg, trigger=0.6, compact_batch=64, device="cpu"),
-    "sharded": lambda cfg: T.ShardedKV(cfg, 4, **_store_kw()),
-    "replicated": lambda cfg: T.ReplicatedKV(cfg, 2, n_replicas=2, **_store_kw()),
-    "sessions": lambda cfg: serve_step.make_session_service(cfg, serve_step.ServiceConfig(
+    "kv": lambda cfg, tmp: T.KV(cfg, trigger=0.6, compact_batch=64, device="cpu"),
+    "sharded": lambda cfg, tmp: T.ShardedKV(cfg, 4, **_store_kw()),
+    "replicated": lambda cfg, tmp: T.ReplicatedKV(cfg, 2, n_replicas=2, **_store_kw()),
+    "sessions": lambda cfg, tmp: serve_step.make_session_service(cfg, serve_step.ServiceConfig(
         n_shards=2, lanes=32, max_sessions=2, session_depth=32,
         store_kwargs=_store_kw())),
+    "durable": lambda cfg, tmp: T.DurableKV(T.ReplicatedKV(cfg, 2, n_replicas=2, **_store_kw()),
+                                            T.DurabilityConfig(dir=str(tmp),
+                                                               snapshot_every_rounds=4)),
 }
 SUBDICTS = {"kv": {"io"}, "sharded": {"io", "shards"},
             "replicated": {"io", "shards", "replicas"},
-            "sessions": {"io", "shards", "sessions"}}
+            "sessions": {"io", "shards", "sessions"},
+            "durable": {"io", "shards", "replicas", "durability"}}
 
 
 @pytest.mark.parametrize("name", list(FACADES))
-def test_kv_protocol_conformance(name):
+def test_kv_protocol_conformance(name, tmp_path):
     """tests/test_protocol.py's suite on the port's facades: isinstance of
     KVProtocol; upsert/delete/rmw/read and conflict-free mixed batches
     through protocol calls only, against a dict oracle; the nested stats
     shape; invariants."""
-    store = FACADES[name](tiny_configs()[1])
+    store = FACADES[name](tiny_configs()[1], tmp_path)
     assert isinstance(store, T.KVProtocol)
     rng = np.random.default_rng(71)
     ref = {}
@@ -450,8 +455,7 @@ def test_make_kv_service_builds_the_deployment():
         serve_step.make_kv_service(cfg, serve_step.ServiceConfig(), mode="f2")
 
 
-@pytest.mark.parametrize("field,value,item", [("durability", object(), "item 11"),
-                                              ("obs_enabled", True, "item 13"),
+@pytest.mark.parametrize("field,value,item", [("obs_enabled", True, "item 13"),
                                               ("obs_port", 0, "item 13")])
 def test_make_kv_service_refuses_what_is_not_ported(field, value, item):
     sc = dataclasses.replace(serve_step.ServiceConfig(n_shards=2, store_kwargs=_store_kw()),
@@ -459,3 +463,32 @@ def test_make_kv_service_refuses_what_is_not_ported(field, value, item):
     for make in (serve_step.make_kv_service, serve_step.make_session_service):
         with pytest.raises(NotImplementedError, match=item):
             make(tiny_configs()[1], sc)
+
+
+@pytest.mark.parametrize("replicas", [1, 2])
+def test_make_kv_service_with_durability_recovers(tmp_path, replicas):
+    """ServiceConfig.durability wraps the store in DurableKV, in both
+    factories; what the service acked comes back from `recover`."""
+    cfg = tiny_configs()[1]
+    sc = serve_step.ServiceConfig(
+        n_shards=2, n_replicas=replicas, lanes=16, store_kwargs=_store_kw(),
+        durability=T.DurabilityConfig(dir=str(tmp_path / "kv"), snapshot_every_rounds=3))
+    kv = serve_step.make_kv_service(cfg, sc)
+    svc = serve_step.make_session_service(cfg, dataclasses.replace(
+        sc, durability=T.DurabilityConfig(dir=str(tmp_path / "svc"))))
+    assert isinstance(kv, T.DurableKV) and isinstance(svc.kv, T.DurableKV)
+    assert isinstance(kv.kv, T.ReplicatedKV if replicas > 1 else T.ShardedKV)
+    rng = np.random.default_rng(5)
+    for store in (kv, svc):
+        keys = rng.permutation(200)[:48].astype(np.int32)
+        vals = rng.integers(0, 100, (48, V)).astype(np.int32)
+        for _ in range(3):
+            serve_step.kv_service_step(store, keys, np.full(48, OP_UPSERT, np.int32), vals)
+            vals = vals + 1
+        d = store.kv if store is svc else store
+        d.wait()
+        rec = T.recover(d.dcfg.dir, lambda: serve_step.make_kv_service(
+            cfg, dataclasses.replace(sc, durability=None)))
+        st, rv = rec.read(keys)
+        assert (as_np(st) == ST_OK).all() and np.array_equal(as_np(rv), vals - 1)
+        rec.check_invariants()
