@@ -1,7 +1,8 @@
 #!/usr/bin/env python3
 """Drive the PyTorch port on one CUDA GPU: the F2 store, single-shard,
-sharded over four stores (made durable, killed and recovered) and
-replicated twice over them with the session service on top, the F2-paged serving engine with Granite-3-8B at
+sharded over four stores (made durable, killed and recovered), spilled 8x
+to host memory through its host tier, and replicated twice with the
+session service on top, the F2-paged serving engine with Granite-3-8B at
 full width, Granite-3-8B's training at full width, then RWKV-6-7B's
 serving, prefill and training at full width.
 
@@ -108,6 +109,31 @@ Phases, each printing one JSON line:
   7c. sharded_twins — the sharded store at 2**20 keys through "fused" and
                 "fused_ref": every leaf equal after each phase, a forced
                 migrate() of an edited bucket map, every key read back;
+  7c'. host_tier — `KV(host_config(2**22))`: make_f2_config(2**22) with
+                the host tier on, a device cold ring of 2**19 (n/8, the
+                reference's spill-8x budget), chunks of 16 records, 16,384
+                cache rows (2 x BATCH); 2**22 unique keys loaded in
+                permuted order (spill >= 4 and a floor > 0 asserted),
+                YCSB-B then YCSB-A (Zipf 0.99, 2**18 ops each) with every
+                read checked, a cold->cold pass of n/64 records under the
+                tier inside a two-phase read (`plan_finish` pre-faults its
+                walks), a uniform read-back of 2**18 keys; load and YCSB
+                ops/s, spill, demotions, promotions, prefetch hits, contract
+                splits, host-store against device bytes, per batch the
+                wrapper calls, `ensure` rounds, the manager's host syncs and
+                H2D / D2H bytes; a profile window of 8 YCSB-B batches
+                (device idle share, launches per batch, the share of wall
+                time in the floor-aware walk's per-hop loop);
+  7c''. host_twins — at 2**19 keys: a spilled KV and an all-device KV (both
+                on the kernels) loaded and fed 2**16 uniform mixed ops
+                (read/upsert/RMW/delete .5/.3/.15/.05), statuses and values
+                equal batch by batch, and the spilled KV against the same
+                drive on "fused_ref", every leaf and the host store equal;
+                then the pair as ShardedKV(S=4), the spilled one in
+                DurableKV(fsync="always") with a snapshot after the load,
+                crashed at `host.mid_demote` during the mixed ops,
+                recover()ed on the card, the remaining batches and every
+                key bit-equal to the all-device twin;
   7d. replicated — `make_session_service(cfg, ServiceConfig(n_shards=4,
                 n_replicas=2, lanes=4096, max_sessions=8,
                 session_depth=1024))` over the same 2**24 keys (R*S = 8
@@ -143,13 +169,13 @@ Phases, each printing one JSON line:
                 resynced replica read back pinned; a session wave on the
                 twins, its recorded schedule replayed on the ShardedKV
                 with equal statuses and values;
-  8. serve    — Granite-3-8B (20 of its 40 layers, d_model 4096, bf16
+  8. serve    — Granite-3-8B (10 of its 40 layers, d_model 4096, bf16
                 weights from `init_params` with SEED) through
                 Engine(backend="paged"):
                 16 requests, prompts of 16-256 tokens, 32 new tokens each,
                 8 lanes, max_len 512, pages of 16 (16 hot, 272 cold);
                 the paged-attention counter is zeroed before and read after
-                and must be 20 x decode steps; demotions and cold reads
+                and must be 10 x decode steps; demotions and cold reads
                 must be > 0, every logit finite, every token < vocab;
   9. serve_profile — a profiler window over 8 full decodes of the loaded
                 engine (8 new 16-token prompts): device busy/idle share,
@@ -161,7 +187,7 @@ Phases, each printing one JSON line:
                 boundaries; 2e-5 float32, 2e-2 bfloat16), a second call bit
                 for bit equal, timed beside its bound and
                 scaled_dot_product_attention;
- 11. serve_twins — the same requests through two float32 engines, 4 layers
+ 11. serve_twins — the same requests through two float32 engines, 2 layers
                 at full width, kernel against plain version: every decode's
                 logits within TWIN_LOGITS_TOL, every token equal;
  12. train    — Granite-3-8B at full width, 8 of its 40 layers (bf16
@@ -189,7 +215,7 @@ Phases, each printing one JSON line:
                 steps; every logit finite, every token < vocab;
  17. rwkv_prefill — `prefill_step` on 8 prompts of 1024 tokens, all 32
                 layers: 32 WKV forward launches, finite logits;
- 18. rwkv_twins — float32, 4 layers at full width, the engine on the card
+ 18. rwkv_twins — float32, 2 layers at full width, the engine on the card
                 and on the CPU: the sampled logits within TWIN_LOGITS_TOL
                 (the prompt-feeding steps' within RWKV_PROMPT_TOL: early
                 tokens are ill-conditioned in float32), tokens equal; at
@@ -244,14 +270,22 @@ SESSIONS = 8                              # the sessions phase: 8 sessions ...
 SESSION_DEPTH = 1024                      # ... of 1,024 ring slots ...
 SESSION_WAVES = 16                        # ... each enqueueing a full ring a wave
 TWIN_LOG2_KEYS = 20
+HOST_LOG2_KEYS = 22                       # the host-tier phase: spilled 8x (cut from
+                                          # 2**23 to fit the time limit, PERF.md S4)
+HOST_OPS = 1 << 18                        # ... YCSB-B and -A ops each (from 2**19)
+HOST_READBACK = 1 << 18                   # ... keys read back, a uniform sample (2**19)
+HOST_TWIN_LOG2_KEYS = 19                  # host_twins' keys (from 2**20) ...
+HOST_TWIN_OPS = 1 << 16                   # ... and mixed ops after the load (2**17)
 # serving: Granite-3-8B at full width, random weights from SEED
 SERVE_ARCH = "granite-3-8b"
-SERVE_LAYERS = 20                         # of its 40: the host-bound decode loop
+SERVE_LAYERS = 10                         # of its 40: the host-bound decode loop
+                                          # (20 until PR 22's phases needed the room)
 SERVE_ENGINE = dict(max_batch=8, max_len=512, page_size=16)
 SERVE_REQUESTS = 16
 SERVE_NEW_TOKENS = 32
 SERVE_PROMPT_MIN, SERVE_PROMPT_MAX = 16, 256
-TWIN_LAYERS = 4
+TWIN_LAYERS = 2                           # the float32 serving twins' depth (4 until
+                                          # the host-tier phases needed the room)
 # float32 twins differ only in the attention's summation order (about one
 # ulp per output); four layers and the tied 4096-wide logits projection
 # keep that far below 1e-3 of a logit
@@ -570,7 +604,7 @@ def _device_ms(fn, reps, names, parts=None):
                 fn()
             torch.cuda.synchronize()
         per_name = {n: [0.0, 0] for n in names}
-        for e in prof.key_averages():
+        for e in _aggregate(prof):
             if str(getattr(e, "device_type", "")).endswith("CUDA"):
                 for n in names:
                     if n in e.key:
@@ -984,12 +1018,48 @@ def check_wkv_kernels(device, seed, records):
 # where the time goes: a profiler window over YCSB-A batches
 # ---------------------------------------------------------------------------
 
-def _device_rows(prof):
-    """(device rows, host rows) of a profile as (name, seconds, calls),
-    largest first.  Device rows are kernels, copies and memsets only:
-    CPU-op rows repeat the device time of the kernels they launch."""
+class _Row:
+    """One aggregated profiler row (the attributes the phases read of a
+    `key_averages()` row)."""
+    __slots__ = ("key", "device_type", "count", "self_device_time_total",
+                 "self_cpu_time_total", "cpu_time_total")
+
+    def __init__(self, key, device_type):
+        self.key, self.device_type = key, device_type
+        self.count = 0
+        self.self_device_time_total = self.self_cpu_time_total = 0.0
+        self.cpu_time_total = 0.0
+
+
+def _aggregate(prof):
+    """`prof.key_averages()` in one pass over the recorded events: a window
+    of ~170k events takes ~20 s in key_averages on the card, a few tenths
+    of a second here.  Kernel rows take their durations as self device
+    time; host rows their time less their children's as self time."""
+    rows = {}
+    for e in prof.events():
+        on_dev = str(e.device_type).endswith("CUDA")
+        r = rows.get((e.name, on_dev))
+        if r is None:
+            r = rows[(e.name, on_dev)] = _Row(e.name, e.device_type)
+        r.count += 1
+        t = e.time_range.elapsed_us()
+        if on_dev:
+            r.self_device_time_total += t
+        else:
+            r.cpu_time_total += t
+            r.self_cpu_time_total += t - sum(c.time_range.elapsed_us()
+                                             for c in e.cpu_children)
+    return list(rows.values())
+
+
+def _device_rows(prof, events=None):
+    """(device rows, host rows) of a profile (or of its aggregated rows,
+    `events`, when the caller has them) as (name, seconds, calls), largest
+    first.  Device rows are kernels, copies and memsets only: CPU-op rows
+    repeat the device time of the kernels they launch."""
     dev, host = [], []
-    for e in prof.key_averages():
+    for e in (_aggregate(prof) if events is None else events):
         if str(getattr(e, "device_type", "")).endswith("CUDA"):
             d = getattr(e, "self_device_time_total", None)
             if d is None:
@@ -1172,7 +1242,7 @@ def calls_per_round(kv, seed, n_batches=8, read=False, via=None, expect=None):
             run(b)
         torch.cuda.synchronize()
     rounds = n_batches if rounds0 is None else kv.rounds - r0
-    counts = {e.key: e.count for e in prof.key_averages()}
+    counts = {e.key: e.count for e in _aggregate(prof)}
     syncs = {k: counts.get(k, 0) / rounds for k in SYNC_CALLS}
     kv.trigger = trigger
     for k, v in saved.items():
@@ -1283,7 +1353,7 @@ def sharded_profile(skv, n_keys, seed, records, n_batches=8, read=False,
     dev, host = _device_rows(prof)
     busy = sum(d for _, d, _ in dev)
     rounds = skv.rounds - r0
-    counts = {e.key: e.count for e in prof.key_averages()}
+    counts = {e.key: e.count for e in _aggregate(prof)}
     emit(records, dict(
         phase=phase, workload="C" if read else "A", batches=n_batches, batch=BATCH,
         rounds=rounds, wall_s=wall,
@@ -2029,7 +2099,7 @@ def sessions_main(svc, n_keys, seed, records, expect):
         with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
             svc.step()
             torch.cuda.synchronize()
-        for e in prof.key_averages():
+        for e in _aggregate(prof):
             if e.key in counts:
                 counts[e.key] += e.count
         for s in sessions:
@@ -2159,6 +2229,320 @@ def replicated_twins(cfg, device, n_keys, n_ops, seed, records):
                        session_rounds_replayed=replayed,
                        compactions_per_store=twins["fused"].compactions.tolist(),
                        bit_exact=True))
+
+
+# ---------------------------------------------------------------------------
+# the host tier: a store whose cold log outgrows its device ring 8x
+# ---------------------------------------------------------------------------
+
+def host_config(n_keys, engine="fused", spilled=True):
+    """make_f2_config(n_keys) with the host tier on: the device cold ring an
+    eighth of the keys (the reference's `spill-8x` budget,
+    benchmarks/bench_memory.py), chunks of 16 records, a chunk cache of
+    2 x BATCH rows (its cache contract for batches of BATCH).  The cold-cold
+    trigger's host log budget is 16 rings, so that a loaded store (~7
+    rings) stays under it and its one cold->cold pass is the bounded one,
+    as on the main path (a default 10% pass wraps the chunk log in both
+    packages).  With `spilled` False, the all-device twin: the tier off,
+    make_f2_config's cold ring (2 n), which never demotes."""
+    from repro_torch.workload import make_f2_config
+    cfg = make_f2_config(n_keys, engine=engine)
+    if not spilled:
+        return cfg
+    return dataclasses.replace(cfg, host_tier=True, cold_capacity=n_keys // 8,
+                               host_chunk_records=16, host_cache_chunks=2 * BATCH,
+                               host_resident_frac=0.5, host_prefetch=1,
+                               host_log_factor=16.0)
+
+
+def _host_counters(kv):
+    from repro_torch.kernels.f2_probe import ops
+    ht = kv._ht
+    return dict(fused_probe=ops.launches["fused_probe"],
+                fused_write=ops.launches["fused_write"] / ops.WRITE_KERNELS_PER_CALL,
+                ensure_rounds=ht.ensure_rounds, host_syncs=ht.syncs,
+                h2d_bytes=ht.h2d_bytes, d2h_bytes=ht.d2h_bytes,
+                promotions=ht.promotions, demotions=ht.demotions)
+
+
+def _per_batch(before, after, n):
+    return {k: (after[k] - before[k]) / n for k in after}
+
+
+def host_spill(kv):
+    """The live cold span over the device cold ring (the largest shard's)."""
+    c = kv.state.cold
+    return float((c.tail - c.begin).max()) / kv.cfg.cold_capacity
+
+
+def host_profile(kv, n_keys, seed, expect, n_batches=8):
+    """A profiler window over YCSB-B batches of the spilled store: device
+    idle share, launches per batch, host syncs per batch, and the share of
+    the window's wall time spent in the floor-aware walk's per-hop loop
+    (`host_tier.walk`, each call timed on the host's clock)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.core import host_tier
+    from repro_torch.workload import Zipf, make_ops
+    rng = np.random.default_rng(seed + 5)
+    zipf = Zipf(n_keys, 0.99)
+    batches = [make_ops(rng, "B", zipf, BATCH, kv.cfg.value_width)[:3]
+               for _ in range(n_batches)]
+    for b in batches:
+        fold(expect, *b)
+    kv.apply(*batches[0])       # warm (idempotent: its upserts are folded)
+    torch.cuda.synchronize()
+    walk, walk_s = host_tier.walk, [0.0, 0]
+
+    def timed_walk(*a, **k):
+        t0 = time.perf_counter()
+        try:
+            return walk(*a, **k)
+        finally:
+            walk_s[0] += time.perf_counter() - t0
+            walk_s[1] += 1
+    host_tier.walk = timed_walk
+    try:
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            for b in batches:
+                st, rv = kv.apply(*b)
+                st.cpu(), rv.cpu()
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+    finally:
+        host_tier.walk = walk
+    events = _aggregate(prof)
+    dev, host = _device_rows(prof, events)
+    busy = sum(d for _, d, _ in dev)
+    counts = {e.key: e.count for e in events}
+    return dict(workload="B", batches=n_batches, wall_s=wall,
+                device_busy_s=busy if dev else "not measured",
+                device_idle_share=(1 - busy / wall) if dev else "not measured",
+                launches_per_batch=sum(c for _, _, c in dev) / n_batches
+                if dev else "not measured",
+                walk_host_s=walk_s[0], walk_share_of_wall=walk_s[0] / wall,
+                walk_calls=walk_s[1],
+                host_syncs_per_batch={k: counts.get(k, 0) / n_batches for k in SYNC_CALLS},
+                top_device=[dict(name=k[:80], s=d, calls=c) for k, d, c in dev[:8]],
+                top_host=[dict(name=k[:80], self_s=d, calls=c) for k, d, c in host[:8]])
+
+
+def host_main(device, n_keys, n_ops, seed, records):
+    """`KV(host_config(n_keys))` on the card: load n_keys unique keys in
+    permuted order, YCSB-B then YCSB-A (Zipf 0.99) with every read checked,
+    one cold->cold pass (n/64 records) under the tier inside a two-phase
+    read, a uniform read-back sample; counters per batch, a profile window."""
+    import torch
+    from repro_torch import KV, ST_OK
+    from repro_torch.kernels.f2_probe import ops
+    from repro_torch.workload import Zipf
+    cfg = host_config(n_keys)
+    V = cfg.value_width
+    rng = np.random.default_rng(seed + 41)
+    t_phase = time.perf_counter()
+    parts = {}
+    kv = KV(cfg, device=device)
+    ops.reset_launches()
+    c0 = _host_counters(kv)
+    t0 = time.perf_counter()
+    load_keys(kv, rng.permutation(n_keys).astype(np.int32), V)
+    torch.cuda.synchronize()
+    t_load = time.perf_counter() - t0
+    c_load = _host_counters(kv)
+    n_load = n_keys // BATCH
+    spill = host_spill(kv)
+    floor = int(kv.state.cold.floor)
+    if not (spill >= 4 and floor > 0):
+        raise AssertionError(f"the host-tier store spilled {spill:.2f}x, floor {floor}")
+    expect = val_of(np.arange(n_keys), V)
+    zipf = Zipf(n_keys, 0.99)
+    rates, per_mix = {}, {}
+    t0 = time.perf_counter()
+    for wl in "BA":
+        c_a = _host_counters(kv)
+        rates[wl], _ = ycsb(kv, expect, wl, n_ops, zipf, rng)
+        per_mix[wl] = _per_batch(c_a, _host_counters(kv), n_ops // BATCH)
+    parts["ycsb_s"] = time.perf_counter() - t0
+    # a cold->cold pass under the tier inside a two-phase read
+    t0 = time.perf_counter()
+    keys = rng.choice(n_keys, BATCH, replace=False).astype(np.int32)
+    snap = kv.read_begin(keys)
+    truncs = int(kv.state.cold_truncs)
+    t0 = time.perf_counter()
+    kv.compact_cold_cold(n_records=max(n_keys // 64, kv.compact_batch))
+    torch.cuda.synchronize()
+    t_cc = time.perf_counter() - t0
+    st, v = kv.read_finish(snap)
+    if not (int(kv.state.cold_truncs) > truncs and bool((st == ST_OK).all())
+            and np.array_equal(v.cpu().numpy(), expect[keys])):
+        raise AssertionError("two-phase read across the host-tier cold->cold pass")
+    parts["two_phase_s"] = time.perf_counter() - t0
+    # a uniform read-back sample
+    sample = rng.choice(n_keys, min(HOST_READBACK, n_keys), replace=False).astype(np.int32)
+    t0 = time.perf_counter()
+    for lo in range(0, len(sample), BATCH):
+        k = sample[lo:lo + BATCH]
+        st, v = kv.read(k)
+        if not (bool((st == ST_OK).all()) and np.array_equal(v.cpu().numpy(), expect[k])):
+            raise AssertionError("host-tier read-back: a key reads wrong")
+    torch.cuda.synchronize()
+    t_read = time.perf_counter() - t0
+    kv.check_invariants()
+    launches = dict(ops.launches)
+    t0 = time.perf_counter()
+    prof = host_profile(kv, n_keys, seed, expect)
+    parts["profile_s"] = time.perf_counter() - t0
+    kv.check_invariants()
+    st = kv._ht.stats()
+    emit(records, dict(
+        phase="host_tier", n_keys=n_keys, config=dataclasses.asdict(cfg),
+        reduced=(f"2**{n_keys.bit_length() - 1} keys for the paper's 250M (2**23 "
+                 f"until the time limit asked for less), YCSB {n_ops} ops a mix "
+                 f"and a read-back of {len(sample)} keys (2**19 each)"),
+        load_s=t_load, load_ops_per_s=n_keys / t_load,
+        ycsb_ops_per_s=rates, spill=spill, floor=floor,
+        spill_after=host_spill(kv), cold_cold_s=t_cc,
+        readback_keys=len(sample), readback_ops_per_s=len(sample) / t_read,
+        host=st, host_store_bytes=kv._ht.host_bytes(),
+        device_state_bytes=_state_bytes(kv),
+        memory_model=kv.memory_model_bytes(),
+        per_load_batch=_per_batch(c0, c_load, n_load), per_ycsb_batch=per_mix,
+        launches=launches, profile=prof, seconds_by_part=parts,
+        seconds=time.perf_counter() - t_phase))
+    for k in ("fused_probe", "fused_write"):
+        if launches[k] <= 0:
+            raise AssertionError(f"the host-tier path never launched {k}")
+    if not (st["demotions_total"] > 0 and st["promotions_total"] > 0):
+        raise AssertionError(f"the host tier never moved a chunk: {st}")
+    return launches
+
+
+def _same_leaves(a, b, ctx):
+    import torch
+    from repro_torch import interop
+    la, lb = interop.state_leaves(a), interop.state_leaves(b)
+    if not all(torch.equal(x, y) for x, y in zip(la, lb)):
+        raise AssertionError(f"leaves differ: {ctx}")
+
+
+def _same_host(a, b, ctx):
+    ea, eb = a.export_snapshot(), b.export_snapshot()
+    if a.stats() != b.stats() or not all(np.array_equal(ea[k], eb[k]) for k in ea):
+        raise AssertionError(f"host stores differ: {ctx}")
+
+
+def _mixed_batches(rng, n_keys, n_ops, V):
+    from repro_torch import OP_DELETE, OP_READ, OP_RMW, OP_UPSERT
+    for _ in range(0, n_ops, BATCH):
+        keys = rng.integers(0, n_keys, BATCH).astype(np.int32)
+        ops_ = rng.choice([OP_READ, OP_UPSERT, OP_RMW, OP_DELETE], BATCH,
+                          p=[.5, .3, .15, .05]).astype(np.int32)
+        yield keys, ops_, rng.integers(0, 127, (BATCH, V)).astype(np.int32)
+
+
+def _drive_equal(stores, batches, ctx):
+    """The same batches into every store; statuses and values equal the
+    first's batch by batch."""
+    for i, b in enumerate(batches):
+        outs = [s.apply(*b) for s in stores]
+        for o in outs[1:]:
+            if not all(bool((x == y).all()) for x, y in zip(outs[0], o)):
+                raise AssertionError(f"{ctx}: batch {i} differs")
+
+
+def host_twins(device, n_keys, n_ops, seed, records):
+    """(1) a spilled KV and an all-device KV, both on the kernels, loaded
+    with n_keys keys then fed uniform mixed batches (read/upsert/RMW/delete
+    .5/.3/.15/.05, n_ops ops): statuses and values equal batch by batch;
+    (2) the spilled KV on "fused" against the same drive on "fused_ref":
+    every leaf and the host store equal; (3) the pair of (1) as
+    ShardedKV(S=SHARDS), the spilled one in DurableKV(fsync="always") with
+    a snapshot after the load; (4) that store crashed at `host.mid_demote`
+    during the mixed batches, recover()ed on the card, then the remaining
+    batches and every key bit-equal to the all-device twin."""
+    import tempfile
+    import torch
+    from repro_torch import KV, DurabilityConfig, DurableKV, ShardedKV, recover
+    from repro_torch.testing import faults
+    V = host_config(n_keys).value_width
+    t_phase = time.perf_counter()
+    rec = dict(phase="host_twins", n_keys=n_keys, ops=n_ops,
+               reduced=f"2**{n_keys.bit_length() - 1} keys and {n_ops} mixed ops "
+                       f"(2**20 and 2**17 until the time limit asked for less)")
+    perm = np.random.default_rng(seed + 51).permutation(n_keys).astype(np.int32)
+    load = [(perm[lo:lo + BATCH], np.full(len(perm[lo:lo + BATCH]), 2, np.int32),
+             val_of(perm[lo:lo + BATCH], V)) for lo in range(0, n_keys, BATCH)]
+    mixed = list(_mixed_batches(np.random.default_rng(seed + 52), n_keys, n_ops, V))
+
+    t0 = time.perf_counter()
+    kvs = [KV(host_config(n_keys), device=device),
+           KV(host_config(n_keys, spilled=False), device=device),
+           KV(host_config(n_keys, engine="fused_ref"), device=device)]
+    _drive_equal(kvs, load + mixed, "spilled KV against the all-device KV")
+    _same_leaves(kvs[0]._st, kvs[2]._st, "KV fused against fused_ref")
+    _same_host(kvs[0]._ht, kvs[2]._ht, "KV fused against fused_ref")
+    rec["kv"] = dict(spill=host_spill(kvs[0]), host=kvs[0]._ht.stats(),
+                     seconds=time.perf_counter() - t0)
+    if not rec["kv"]["spill"] >= 4:
+        raise AssertionError(f"the twins' KV spilled {rec['kv']['spill']:.2f}x")
+    for kv in kvs:
+        kv.check_invariants()
+    del kvs
+    torch.cuda.empty_cache()
+
+    t0 = time.perf_counter()
+    d = tempfile.mkdtemp(prefix="f2_host_twins_")
+    try:
+        def make():
+            return ShardedKV(host_config(n_keys // SHARDS), SHARDS, lanes=SHARD_LANES,
+                             device=device)
+        dkv = DurableKV(make(), DurabilityConfig(dir=d, fsync="always"))
+        twin = ShardedKV(host_config(n_keys // SHARDS, spilled=False), SHARDS,
+                         lanes=SHARD_LANES, device=device)
+        _drive_equal([dkv, twin], load, "spilled ShardedKV against the all-device one")
+        dkv.snapshot(blocking=True)
+        snap_chunks = dkv.kv._ht.host_chunks()
+        faults.arm("host.mid_demote")
+        crashed = None
+        try:
+            for i, b in enumerate(mixed):
+                try:
+                    a = dkv.apply(*b)
+                except faults.InjectedCrash:
+                    crashed = i
+                    break
+                w = twin.apply(*b)
+                if not all(bool((x == y).all()) for x, y in zip(a, w)):
+                    raise AssertionError(f"sharded twins: mixed batch {i} differs")
+        finally:
+            faults.reset()
+        if crashed is None:
+            raise AssertionError("host.mid_demote never fired in the mixed batches")
+        twin.apply(*mixed[crashed])      # the crashed batch's WAL record replays
+        dkv.ckpt.wait()
+        t1 = time.perf_counter()
+        r = recover(d, make)
+        torch.cuda.synchronize()
+        t_rec = time.perf_counter() - t1
+        _drive_equal([r, twin], mixed[crashed + 1:], "recovered against the twin")
+        for lo in range(0, n_keys, BATCH):
+            k = np.arange(lo, min(lo + BATCH, n_keys), dtype=np.int32)
+            a, w = r.read(k), twin.read(k)
+            if not all(bool((x == y).all()) for x, y in zip(a, w)):
+                raise AssertionError("recovered store: a key reads unlike the twin")
+        r.check_invariants()
+        rec["sharded_durable"] = dict(
+            spill=host_spill(r.kv), snapshot_host_chunks=snap_chunks,
+            crashed_at_mixed_batch=crashed, recover_s=t_rec, recovery=r.recovery,
+            host=r.kv._ht.stats(), seconds=time.perf_counter() - t0)
+        if not snap_chunks > 0:
+            raise AssertionError("the snapshot held no host chunk")
+        r.close()
+    finally:
+        shutil.rmtree(d, ignore_errors=True)
+    rec.update(bit_exact=True, seconds=time.perf_counter() - t_phase)
+    emit(records, rec)
 
 
 # ---------------------------------------------------------------------------
@@ -2495,6 +2879,7 @@ def serve_twins(cfg, device, seed, records):
     counters = [(e.pkv.demotions, e.pkv.promotions, int(e.pkv.state.cold_reads))
                 for e in twins]
     rec = dict(phase="serve_twins", arch=cfg.name, n_layers=cfg.n_layers,
+               reduced=f"n_layers 40 -> {cfg.n_layers} (4 until PR 22's phases)",
                d_model=cfg.d_model, dtype=cfg.dtype, steps=n_logits,
                max_abs_logit_err=float(err), tol=TWIN_LOGITS_TOL,
                tokens_equal=toks[0] == toks[1], counters=counters[0], wall_s=wall)
@@ -3274,6 +3659,7 @@ def rwkv_twins(device, seed, records):
     seq_err = float((pre - lg).abs().max())
     seq_worst = float(((pre - lg).abs() - TWIN_LOGITS_TOL * (1 + lg.abs())).max())
     rec = dict(phase="rwkv_twins", arch=cfg.name, n_layers=cfg.n_layers,
+               reduced=f"n_layers 32 -> {cfg.n_layers} (4 until PR 22's phases)",
                d_model=cfg.d_model, dtype=cfg.dtype, steps=steps,
                max_abs_logit_err=max(err[RWKV_TWIN_PROMPT - 1:]), tol=TWIN_LOGITS_TOL,
                prompt_max_abs_logit_err=max(err[:RWKV_TWIN_PROMPT - 1]),
@@ -3420,7 +3806,7 @@ def run_all(a, records):
     launches = dict(ops.launches)
     emit(records, dict(phase="main", n_keys=n_keys,
                        reduced=f"2**{a.log2_keys} keys for the paper's 250M",
-                       config=dataclasses.asdict(cfg), launches=launches,
+                       config=dataclasses.asdict(cfg), launches=dict(launches),
                        peak_mem_bytes=torch.cuda.max_memory_allocated(),
                        **main_rec))
     for k, n in launches.items():
@@ -3469,6 +3855,20 @@ def run_all(a, records):
     torch.cuda.empty_cache()
     sharded_twins(make_f2_config((1 << TWIN_LOG2_KEYS) // SHARDS), "cuda",
                   1 << TWIN_LOG2_KEYS, 1 << (a.log2_ops - 4), SEED, records)
+    torch.cuda.empty_cache()
+
+    # the host tier: a KV whose cold log spills 8x to host memory, then the
+    # spilled stores against all-device twins and their plain engine
+    t_host = {"host_tier": time.perf_counter()}
+    host_launches = host_main("cuda", 1 << HOST_LOG2_KEYS, HOST_OPS, SEED, records)
+    t_host["host_tier"] = time.perf_counter() - t_host["host_tier"]
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    host_twins("cuda", 1 << HOST_TWIN_LOG2_KEYS, HOST_TWIN_OPS, SEED, records)
+    t_host["host_twins"] = time.perf_counter() - t0
+    emit(records, dict(phase="host_seconds", total=sum(t_host.values()), **t_host))
+    for k, n in host_launches.items():
+        launches[k] += n
     torch.cuda.empty_cache()
 
     # replication and the session service over the same keyspace: R x S

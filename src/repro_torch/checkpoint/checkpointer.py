@@ -199,9 +199,12 @@ class Checkpointer:
         return steps[-1] if steps else None
 
     @torch.no_grad()
-    def restore(self, like: Any, step: Optional[int] = None) -> Tuple[Any, int]:
+    def restore(self, like: Any, step: Optional[int] = None,
+                resizable=()) -> Tuple[Any, int]:
         """Copy checkpoint `step` (the latest by default) into the tensors
-        of `like`, in place; returns (like, step)."""
+        of `like`, in place; returns (like, step).  A leaf whose path is in
+        `resizable` takes the checkpoint's shape (its tensor is resized in
+        place): a variable-length array such as a host chunk store."""
         step = step if step is not None else self.latest_step()
         if step is None:
             raise FileNotFoundError(f"no complete checkpoint in {self.dir}")
@@ -219,6 +222,8 @@ class Checkpointer:
                 src = torch.from_numpy(np.lib.format.read_array(lf, allow_pickle=False))
                 if dt == str(torch.bfloat16):
                     src = src.view(torch.bfloat16)
+                if path in resizable and src.dtype == t.dtype:
+                    t.resize_(src.shape)
                 if tuple(src.shape) != tuple(t.shape) or src.dtype != t.dtype:
                     raise CheckpointStructureError(
                         step, [f"{path} {t.dtype} {tuple(t.shape)}"],

@@ -16,6 +16,13 @@ The store runs on the CUDA device unless the caller passes another
 holds its state as a stack of one store (leaves [1, ...], see `types`), so
 the store's functions take it as it is; `KV.state` is that store's leaves
 without the shard axis (views, so in-place updates show through).
+
+With `F2Config.host_tier` a `host_tier.HostTier` manages the demoted cold
+chunks: `apply` pre-faults every chunk its batch would touch
+(`store.plan_fetch`), `read` promotes and retries the lanes that missed (and
+splits a batch whose walks outgrow the chunk cache), the compactions demote
+for ring headroom before every step and run cold-cold steps as the
+resumable protocol of `compaction`.
 """
 from __future__ import annotations
 
@@ -24,7 +31,7 @@ from typing import Optional
 import numpy as np
 import torch
 
-from . import cold_index, compaction, store
+from . import cold_index, compaction, host_tier, store
 from .types import BLOCK_BYTES, OP_DELETE, OP_RMW, OP_UPSERT, F2Config, tree_map
 
 COMPACTION_KINDS = ("hot_cold", "cold_cold", "single_log", "chunk_gc")
@@ -38,6 +45,18 @@ def resolve_device(device=None, owner: str = "repro_torch.KV") -> torch.device:
             f"{owner} runs on a CUDA device by default and CUDA is not "
             "available here; pass device='cpu' to run on the CPU")
     return dev
+
+
+def check_host_tier(cfg: F2Config, mode: str, compact_batch: int) -> None:
+    """The facades' host-tier contract: F2 mode, and a chunk cache that
+    holds a cold-cold step's pinned frontier plus room for its walks."""
+    if mode != "f2":
+        raise ValueError("host_tier requires mode='f2'")
+    if cfg.host_cache_chunks * cfg.host_chunk_records < \
+            compact_batch + 4 * cfg.host_chunk_records:
+        raise ValueError(
+            "host_cache_chunks * host_chunk_records must cover compact_batch "
+            "plus chain headroom (>= compact_batch + 4 * host_chunk_records)")
 
 
 class KV:
@@ -65,6 +84,10 @@ class KV:
         self.temp_table_peak_bytes = 0   # scan-based memory overhead (Fig 7)
         self.frontier_bytes = compact_batch * cfg.record_bytes  # lookup-based
         self._admit = mode == "f2" and cfg.rc_capacity > 1
+        self._ht = None
+        if cfg.host_tier:
+            check_host_tier(cfg, mode, compact_batch)
+            self._ht = host_tier.HostTier(cfg, 1, self.device)
 
     @property
     def state(self):
@@ -88,9 +111,17 @@ class KV:
                                dtype=torch.int32, device=self.device)
         else:
             vals = self._i32(vals)
+        if self._ht is not None:
+            # pre-fault every host chunk this batch would touch: writes
+            # cannot defer mid-step, so the committed apply must run clean
+            heads = store.fetch_heads(self.cfg, self._st, keys[None], ops[None])
+            self._st = self._ht.ensure(self._st, lambda st: store.plan_fetch(
+                self.cfg, st, keys[None], ops[None], heads))
         self._st, status, rvals = store.apply(self.cfg, self._st, keys[None],
                                               ops[None], vals[None],
                                               admit_rc=self._admit)
+        if self._ht is not None:
+            self._ht.end_batch()
         self.maybe_compact()
         return status[0], rvals[0]
 
@@ -101,9 +132,83 @@ class KV:
         keys = self._i32(keys)
         active = torch.ones((keys.shape[0],), dtype=torch.bool,
                             device=self.device)
+        if self._ht is not None:
+            return self._read_host_lanes(keys, active)
         self._st, status, vals = store.read_batch(self.cfg, self._st,
                                                   keys[None], active[None],
                                                   admit_rc=self._admit)
+        return status[0], vals[0]
+
+    def _read_host_lanes(self, keys, active):
+        """The host-tier read loop over one subset of lanes: lanes that need
+        an absent chunk come back ST_NONE; their chunks are promoted
+        (partial, pinned) and only those lanes run again.  When the subset's
+        pinned walks outgrow the chunk cache (`CacheThrash`) the pins are
+        dropped and the unserved lanes retry as two halves; only a one-lane
+        subset raises (it first retries alone with the whole cache)."""
+        ht = self._ht
+        b = keys.shape[0]
+        n_active = int(active.sum())
+        status = torch.zeros((b,), dtype=torch.int32, device=self.device)
+        vals = torch.zeros((b, self.cfg.value_width), dtype=torch.int32,
+                           device=self.device)
+        remaining = active
+        for _ in range(ht.max_rounds):
+            self._st, st_r, v_r, missed = store.read_batch_host(
+                self.cfg, self._st, keys[None], remaining[None],
+                admit_rc=self._admit)
+            hmiss = missed[0] >= 0
+            served = remaining & ~hmiss
+            status = torch.where(served, st_r[0], status)
+            vals = torch.where(served[:, None], v_r[0], vals)
+            remaining = remaining & hmiss
+            needs = ht.collect(missed)
+            if not ht.any_missing(needs):
+                break
+            # partial: promote what fits now and pin it; parked lanes go
+            # round again (their walks restart from the chain head)
+            try:
+                self._st = ht.promote(self._st, needs, partial=True)
+            except host_tier.CacheThrash:
+                if n_active <= 1:
+                    raise
+                unserved = torch.nonzero(remaining).flatten().cpu().numpy()
+                ht.end_batch()
+                ht.note_contract_split()
+                parts = (np.array_split(unserved, 2) if len(unserved) > 1
+                         else [unserved])
+                for half in parts:
+                    hmask = np.zeros(b, np.bool_)
+                    hmask[half] = True
+                    hj = torch.as_tensor(hmask, device=self.device)
+                    st_h, v_h = self._read_host_lanes(keys, hj)
+                    status = torch.where(hj, st_h, status)
+                    vals = torch.where(hj[:, None], v_h, vals)
+                return status, vals
+        else:
+            raise RuntimeError("host tier: read deferral did not converge")
+        ht.end_batch()
+        return status, vals
+
+    def read_begin(self, keys):
+        """Phase 1 of a two-phase read (`store.read_begin`): snapshot the
+        keys' chain heads, the cold tail and the truncation count."""
+        keys = self._i32(keys)
+        active = torch.ones(keys.shape, dtype=torch.bool, device=self.device)
+        self._st, snap = store.read_begin(self.cfg, self._st, keys[None],
+                                          active[None])
+        return snap
+
+    def read_finish(self, snap):
+        """Phase 2 (`store.read_finish`); with the host tier its cold walks'
+        chunks are pre-faulted first (`store.plan_finish`).  Returns
+        (status[B], values[B, V])."""
+        if self._ht is not None:
+            self._st = self._ht.ensure(self._st, lambda st: store.plan_finish(
+                self.cfg, st, snap))
+        self._st, status, vals = store.read_finish(self.cfg, self._st, snap)
+        if self._ht is not None:
+            self._ht.end_batch()
         return status[0], vals[0]
 
     def rmw(self, keys, deltas):
@@ -132,7 +237,11 @@ class KV:
             return
         if self.hot_fill() > self.trigger:
             self.compact_hot_cold()
-        if self.cold_fill() > self.trigger:
+        # with the host tier, demotion relieves the ring: a spilled store's
+        # span stays above cold_capacity, so cold-cold GC fires on the span
+        # against the host log budget
+        cold_budget = self.cfg.host_log_factor if self._ht is not None else 1.0
+        if self.cold_fill() / cold_budget > self.trigger:
             self.compact_cold_cold()
         if self.chunklog_fill() > self.trigger:
             self.compact_chunklog()
@@ -158,6 +267,10 @@ class KV:
         begin, n = self._span(self._st.hot, n_records)
         until = self._i32([begin + n])
         for start in range(begin, begin + n, self.compact_batch):
+            if self._ht is not None:
+                # a step appends <= compact_batch cold records: demote first
+                self._st = self._ht.demote_if_needed(
+                    self._st, self.compact_batch + self.cfg.host_chunk_records)
             self._st, _ = compaction.hot_cold_step(
                 self.cfg, self._st, self._i32([start]), until,
                 self.compact_batch)
@@ -169,12 +282,54 @@ class KV:
         begin, n = self._span(self._st.cold, n_records)
         until = self._i32([begin + n])
         for start in range(begin, begin + n, self.compact_batch):
-            self._st, _ = compaction.cold_cold_step(
-                self.cfg, self._st, self._i32([start]), until,
-                self.compact_batch)
+            if self._ht is not None:
+                self._ccstep_host(self._i32([start]), until)
+            else:
+                self._st, _ = compaction.cold_cold_step(
+                    self.cfg, self._st, self._i32([start]), until,
+                    self.compact_batch)
         self._st = compaction.cold_truncate(self.cfg, self._st, until)
+        if self._ht is not None:
+            self._ht.end_batch()
+            self._st = self._ht.gc(self._st)
         self.compactions += 1
         self.compaction_counts["cold_cold"] += 1
+
+    def _ccstep_host(self, start, until):
+        """One cold-cold step under the host tier: demote for headroom, pin
+        the frontier's chunks, drain the resumable liveness walk (parked
+        lanes promote partially, unpinned, and resume), then commit."""
+        ht, cfg, cb = self._ht, self.cfg, self.compact_batch
+        ht.end_batch()
+        # survivors append at the tail while the frontier reads demoted
+        # chunks, so make headroom first
+        self._st = ht.demote_if_needed(self._st, cb + cfg.host_chunk_records)
+        # pin the below-floor frontier chunks for the whole step: `ensure`
+        # pins only what it installs, and the commit reads the frontier again
+        cold = self._st.cold
+        b, t, f = (int(x) for x in torch.cat([cold.begin, cold.tail,
+                                              cold.floor]).tolist())
+        shift = host_tier.chunk_shift(cfg)
+        lo = max(int(start), b)
+        hi = min(int(until), t, int(start) + cb, f)
+        if lo < hi:
+            ht.pin_chunks([set(range(lo >> shift, ((hi - 1) >> shift) + 1))])
+        self._st = ht.ensure(self._st, lambda st: compaction.plan_cc_frontier(
+            cfg, st, start, until, cb))
+        carry = compaction.cc_walk_init(cfg, self._st, start, until, cb)
+        self._st, carry = compaction.cc_walk_round(cfg, self._st, start, until,
+                                                   carry, cb)
+        for _ in range(cb * cfg.chain_max + 8):
+            needs = ht.collect(carry.missed)
+            if not ht.any_missing(needs):
+                break
+            self._st = ht.promote(self._st, needs, partial=True, pin=False)
+            self._st, carry = compaction.cc_walk_round(cfg, self._st, start,
+                                                       until, carry, cb)
+        else:
+            raise RuntimeError("host tier: cold-cold walk did not converge")
+        self._st, _ = compaction.cc_commit(cfg, self._st, start, until, carry,
+                                           cb)
 
     def compact_single_log(self, n_records: Optional[int] = None):
         begin, n = self._span(self._st.hot, n_records)
@@ -205,9 +360,12 @@ class KV:
                     mem_hits=int(s.mem_hits))
 
     def stats(self) -> dict:
-        """The nested telemetry tree (`io`; the flat store has no shards,
-        replicas or sessions)."""
-        return dict(io=self.io_stats())
+        """The nested telemetry tree (`io`, and `host` with the host tier;
+        the flat store has no shards, replicas or sessions)."""
+        t = dict(io=self.io_stats())
+        if self._ht is not None:
+            t["host"] = self._ht.stats()
+        return t
 
     def chain_hops(self, keys) -> np.ndarray:
         """Per-lane hash-chain record touches for a probe of `keys` (pure:
@@ -227,9 +385,14 @@ class KV:
             cold_log_mem=(c.cold_mem if f2 else 0) * c.record_bytes,
             chunk_index=(c.n_chunks if f2 else 0) * 8,
             chunklog_mem=(c.chunklog_mem if f2 else 0) * c.chunk_bytes,
-            host_chunk_cache=0,
+            host_chunk_cache=(c.host_cache_chunks * c.host_chunk_records
+                              * c.record_bytes if c.host_tier else 0),
         )
         out["total"] = sum(out.values())
+        if self._ht is not None:
+            # host-resident chunks are not device memory: reported beside
+            # the device total, not summed into it
+            out["host_store_bytes"] = self._ht.host_bytes()
         return out
 
     def check_invariants(self):
@@ -245,3 +408,24 @@ class KV:
         if int(st.hot.begin) > int(st.hot.tail) or \
                 int(st.cold.begin) > int(st.cold.tail):
             raise AssertionError("log BEGIN passed TAIL")
+        if self.cfg.host_tier:
+            check_host_invariants(self.cfg, st)
+
+
+def check_host_invariants(cfg: F2Config, st) -> None:
+    """Per store of a stacked state: no chunk miss on a committed path, the
+    floor chunk-aligned inside [0, tail], resident chunk ids unique."""
+    c = cfg.host_chunk_records
+    miss = st.host.missed_in_step.cpu().numpy()
+    floor, tail = (x.cpu().numpy() for x in (st.cold.floor, st.cold.tail))
+    chunks = st.host.chunk.cpu().numpy()
+    for s in range(chunks.shape[0]):
+        if miss[s]:
+            raise AssertionError(f"shard {s}: host chunk miss on a committed "
+                                 "path (pre-fault bug)")
+        if floor[s] % c or not 0 <= floor[s] <= tail[s]:
+            raise AssertionError(f"shard {s}: floor {floor[s]} not "
+                                 "chunk-aligned inside [0, tail]")
+        ids = chunks[s][chunks[s] >= 0]
+        if np.unique(ids).size != ids.size:
+            raise AssertionError(f"shard {s}: a chunk resident in two rows")

@@ -11,7 +11,11 @@ restart loop becomes deterministic intra-batch chaining.
 Compaction = copying phase (ConditionalInsert every record of the frontier)
 + truncation phase (advance BEGIN, then invalidate index entries below it).
 The frontier is a fixed-width batch, so the memory overhead is O(B), not
-O(live set).  Host-tier variants (resumable cold-cold walks) are not ported.
+O(live set).  With the host tier the cold frontier and its liveness walks
+read below-floor records through the chunk cache; the facades then run
+each cold-cold step as a resumable protocol (`plan_cc_frontier`,
+`cc_walk_init`, `cc_walk_round`, `cc_commit`, below), because a step's
+walks may need more chunks than the cache holds at once.
 
 Every step takes a stacked state (see `store`): `start`/`until` are [S], one
 frontier a shard.  A shard whose frontier is empty (`until <= start`) is left
@@ -22,12 +26,14 @@ take one store's state without the shard axis (`store.entry`).
 """
 from __future__ import annotations
 
-from typing import Tuple
+from typing import NamedTuple, Tuple
 
 import torch
 
-from . import cold_index, groups, hybrid_log, probe_engine, read_cache
-from .store import F2State, cold_probe, entry, hot_slots, merge_walk_io
+from . import (cold_index, groups, host_tier, hybrid_log, probe_engine,
+               read_cache)
+from .store import (F2State, cold_probe, entry, fold_host, hot_slots,
+                    merge_walk_io)
 from .types import (META_INVALID, META_TOMBSTONE, NULL_ADDR, RC_FLAG,
                     F2Config, IoStats, count, excl_cumsum, is_rc, rc_untag,
                     records_to_blocks)
@@ -44,6 +50,32 @@ def _frontier(log: hybrid_log.LogState, start: torch.Tensor,
     k, v, _, meta = hybrid_log.gather(log, addrs)
     m = m & ((meta & META_INVALID) == 0)
     return addrs, m, k, v, meta
+
+
+def _cold_frontier(cfg: F2Config, state: F2State, start: torch.Tensor,
+                   until: torch.Tensor, B: int):
+    """The cold log's frontier, floor-aware: with the host tier the frontier
+    usually lies below the floor (the oldest records compact first), so its
+    records resolve through the chunk cache.  Returns `_frontier`'s tuple
+    plus (missed [S, B] chunk ids, touch [S, R]); both None with the tier
+    off."""
+    if not cfg.host_tier:
+        return _frontier(state.cold, start, until, B) + (None, None)
+    cold = state.cold
+    addrs = start[:, None] + torch.arange(B, dtype=torch.int32,
+                                          device=cold.key.device)
+    m = ((addrs < until[:, None]) & (addrs < cold.tail[:, None])
+         & (addrs >= cold.begin[:, None]))
+    k, v, _, meta, missing, crow = host_tier.gather_translated(
+        cfg, cold, state.host, addrs)
+    missed = torch.where(m & missing, addrs >> host_tier.chunk_shift(cfg), -1)
+    m = m & ~missing
+    r_rows = state.host.chunk.shape[-1]
+    touch = host_tier.count_touches(
+        torch.zeros((addrs.shape[0], r_rows + 1), dtype=torch.int32,
+                    device=addrs.device), crow, m)[:, :r_rows]
+    m = m & ((meta & META_INVALID) == 0)
+    return addrs, m, k, v, meta, missed, touch
 
 
 def _charge_sequential_read(stats: IoStats, n_records: torch.Tensor,
@@ -174,19 +206,10 @@ def hot_truncate(cfg: F2Config, state: F2State, until: torch.Tensor,
 # Cold -> Cold compaction (paper S5.2 "Cold-Cold Compaction")
 # ---------------------------------------------------------------------------
 
-@entry
-def cold_cold_step(cfg: F2Config, state: F2State, start: torch.Tensor,
-                   until: torch.Tensor, B: int) -> Tuple[F2State, torch.Tensor]:
-    """ConditionalInsert live cold records to the cold tail.  Live tombstones
-    are dropped entirely (everything older dies with the truncation)."""
-    addrs, m, k, v, meta = _frontier(state.cold, start, until, B)
-    stats = _charge_sequential_read(state.stats, count(m), cfg.record_bytes)
-    entries, stats = cold_index.find_entries(state.cold_idx, cfg, k, m, stats)
-    cold_head = hybrid_log.head_addr(state.cold, cfg.cold_mem)
-    res = cold_probe(cfg, state, k, addrs, cold_head, m, entries, target=addrs)
-    stats = merge_walk_io(stats, res)
-    live = m & res.found & (res.addr == addrs)
-    live = live & ((meta & META_TOMBSTONE) == 0)      # drop dead keys for good
+def _cc_append(cfg: F2Config, state: F2State, stats: IoStats, live, k, v,
+               meta, entries, exhausted_any) -> Tuple[F2State, torch.Tensor]:
+    """The cold-cold commit tail: append the live frontier records at the
+    cold tail, chained within the batch, and splice the cold index."""
     g, _, _ = cold_index.slot_coords(cfg, k)
     cold, new_addrs, last = _chain_append(state.cold, live, g, k, v,
                                           torch.zeros_like(meta), entries)
@@ -195,10 +218,33 @@ def cold_cold_step(cfg: F2Config, state: F2State, start: torch.Tensor,
                                           charge_rmw_read=False)
     cold, stats = hybrid_log.charge_flush(cold, stats, cfg.cold_mem,
                                           cfg.record_bytes)
-    state = state._replace(
-        cold=cold, cold_idx=ci, stats=stats,
-        walk_exhausted=state.walk_exhausted | torch.any(res.exhausted, -1))
+    state = state._replace(cold=cold, cold_idx=ci, stats=stats,
+                           walk_exhausted=state.walk_exhausted | exhausted_any)
     return state, count(live)
+
+
+@entry
+def cold_cold_step(cfg: F2Config, state: F2State, start: torch.Tensor,
+                   until: torch.Tensor, B: int) -> Tuple[F2State, torch.Tensor]:
+    """ConditionalInsert live cold records to the cold tail.  Live tombstones
+    are dropped entirely (everything older dies with the truncation).  With
+    the host tier this one-shot step must find every chunk resident (the
+    facades run the resumable protocol below), so a miss latches the
+    tripwire."""
+    addrs, m, k, v, meta, miss_f, touch_f = _cold_frontier(cfg, state, start,
+                                                           until, B)
+    stats = _charge_sequential_read(state.stats, count(m), cfg.record_bytes)
+    entries, stats = cold_index.find_entries(state.cold_idx, cfg, k, m, stats)
+    cold_head = hybrid_log.head_addr(state.cold, cfg.cold_mem)
+    res = cold_probe(cfg, state, k, addrs, cold_head, m, entries, target=addrs)
+    stats = merge_walk_io(stats, res)
+    if cfg.host_tier:
+        state = fold_host(cfg, state, touch_f + res.touch,
+                          torch.maximum(miss_f, res.missed), latch_miss=True)
+    live = m & res.found & (res.addr == addrs)
+    live = live & ((meta & META_TOMBSTONE) == 0)      # drop dead keys for good
+    return _cc_append(cfg, state, stats, live, k, v, meta, entries,
+                      torch.any(res.exhausted, -1))
 
 
 def cold_truncate(cfg: F2Config, state: F2State, until: torch.Tensor) -> F2State:
@@ -209,6 +255,115 @@ def cold_truncate(cfg: F2Config, state: F2State, until: torch.Tensor) -> F2State
     cold = cold._replace(flushed_upto=torch.maximum(cold.flushed_upto,
                                                     cold.begin))
     return state._replace(cold=cold, cold_truncs=state.cold_truncs + 1)
+
+
+# ---------------------------------------------------------------------------
+# The resumable cold-cold step (host tier on)
+#
+# A step's chunk working set (the frontier's chunks and every chunk its
+# liveness walks pass) has no bound, so it cannot all be pinned in the
+# cache.  The facades run each step in three parts instead:
+#
+#   1. ensure the frontier's chunks (at most B/C + 1 rows, pinned);
+#   2. walk the liveness chains in rounds (`cc_walk_round`): a lane that
+#      needs an absent chunk parks, the facade promotes the parked chunks
+#      (partial, unpinned, so passed chunks can be evicted again), and the
+#      next round resumes every lane from its carried cursor;
+#   3. commit (`cc_commit`): the frontier again, the carried walk I/O merged
+#      into IoStats once, and the one-shot step's append tail.
+#
+# Hop and I/O accounting equal the one-shot step's: each chain address is
+# gathered and charged once (a parked lane charges nothing for the absent
+# chunk), and `hops < chain_max` bounds the walk like the one-shot loop.
+# Every function takes [S] frontiers; an idle shard gets an empty one.
+# ---------------------------------------------------------------------------
+
+class CcWalkCarry(NamedTuple):
+    """Per-lane walk cursor carried across promote rounds."""
+    cur: torch.Tensor     # int32 [S, B] next address to examine
+    done: torch.Tensor    # bool  [S, B] key match found
+    faddr: torch.Tensor   # int32 [S, B] matched address
+    hops: torch.Tensor    # int32 [S, B] chain hops used (<= chain_max)
+    io_b: torch.Tensor    # int32 [S] stable-tier block reads so far
+    io_o: torch.Tensor    # int32 [S] read ops so far
+    mem_h: torch.Tensor   # int32 [S] memory-tier hits so far
+    missed: torch.Tensor  # int32 [S, B] chunk the lane is parked on (-1 walks)
+
+
+def plan_cc_frontier(cfg: F2Config, state: F2State, start: torch.Tensor,
+                     until: torch.Tensor, B: int) -> torch.Tensor:
+    """Absent host chunks holding the frontier itself, missed [S, B] (pure):
+    the facade ensures and pins these before the walk rounds."""
+    return _cold_frontier(cfg, state, start, until, B)[5]
+
+
+def _cc_walk_ctx(cfg: F2Config, state: F2State, start, until, B: int):
+    """(addrs, mask, keys, entries, walk_active) of one step, recomputed a
+    round; fixed while the frontier's chunks stay pinned."""
+    addrs, m, keys, _, _, _, _ = _cold_frontier(cfg, state, start, until, B)
+    entries, _ = cold_index.find_entries(state.cold_idx, cfg, keys, m,
+                                         state.stats)
+    fast = m & (entries == addrs)
+    return addrs, m, keys, entries, m & ~fast
+
+
+def cc_walk_init(cfg: F2Config, state: F2State, start: torch.Tensor,
+                 until: torch.Tensor, B: int) -> CcWalkCarry:
+    """A fresh carry: every walk lane starts at its chain head (pure)."""
+    entries = _cc_walk_ctx(cfg, state, start, until, B)[3]
+    S = entries.shape[0]
+    dev = entries.device
+    zeros = torch.zeros((S,), dtype=torch.int32, device=dev)
+    return CcWalkCarry(
+        cur=entries, done=torch.zeros_like(entries, dtype=torch.bool),
+        faddr=torch.full_like(entries, NULL_ADDR),
+        hops=torch.zeros_like(entries), io_b=zeros, io_o=zeros.clone(),
+        mem_h=zeros.clone(), missed=torch.full_like(entries, -1))
+
+
+def cc_walk_round(cfg: F2Config, state: F2State, start: torch.Tensor,
+                  until: torch.Tensor, carry: CcWalkCarry, B: int
+                  ) -> Tuple[F2State, CcWalkCarry]:
+    """One bounded round of the resumable liveness walk.  Parked lanes check
+    their chunk again (the facade promoted between rounds) and resume;
+    lanes that meet an absent chunk park on it.  Cache traffic folds into
+    the eviction signals a round; the walk's I/O sums wait in the carry for
+    `cc_commit`."""
+    r_rows = state.host.chunk.shape[-1]
+    addrs, _, keys, _, walk_active = _cc_walk_ctx(cfg, state, start, until, B)
+    hb = hybrid_log.head_addr(state.cold, cfg.cold_mem)
+    cur, done, faddr, hops, io, mem, missed, touch = host_tier.walk(
+        cfg, state.cold, state.host, keys, addrs, hb, walk_active, carry.cur,
+        carry.done, carry.faddr, carry.hops, max_hops=True)
+    state = fold_host(cfg, state, touch[:, :r_rows], missed, latch_miss=False)
+    return state, CcWalkCarry(cur=cur, done=done, faddr=faddr, hops=hops,
+                              io_b=carry.io_b + io, io_o=carry.io_o + io,
+                              mem_h=carry.mem_h + mem, missed=missed)
+
+
+def cc_commit(cfg: F2Config, state: F2State, start: torch.Tensor,
+              until: torch.Tensor, carry: CcWalkCarry, B: int
+              ) -> Tuple[F2State, torch.Tensor]:
+    """Commit one resumable cold-cold step from a drained carry: liveness,
+    appends and IoStats equal to `cold_cold_step`'s."""
+    addrs, m, k, v, meta, miss_f, touch_f = _cold_frontier(cfg, state, start,
+                                                           until, B)
+    stats = _charge_sequential_read(state.stats, count(m), cfg.record_bytes)
+    entries, stats = cold_index.find_entries(state.cold_idx, cfg, k, m, stats)
+    fast = m & (entries == addrs)
+    walk_active = m & ~fast
+    stats = stats.add_reads(carry.io_b, carry.io_o).add_mem_hits(carry.mem_h)
+    found = (carry.done & walk_active) | fast
+    res_addr = torch.where(fast, entries, carry.faddr)
+    in_range = (carry.cur != NULL_ADDR) & (carry.cur >= addrs)
+    exhausted = walk_active & ~carry.done & in_range
+    # an undrained carry (a lane still parked) latches the tripwire
+    state = fold_host(cfg, state, touch_f, torch.maximum(miss_f, carry.missed),
+                      latch_miss=True)
+    live = m & found & (res_addr == addrs)
+    live = live & ((meta & META_TOMBSTONE) == 0)
+    return _cc_append(cfg, state, stats, live, k, v, meta, entries,
+                      torch.any(exhausted, -1))
 
 
 # ---------------------------------------------------------------------------

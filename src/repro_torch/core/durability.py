@@ -1,7 +1,6 @@
 """CPR-style durability for the sharded and replicated stores: fuzzy
 snapshots, a write-ahead slab log and crash recovery (the JAX package's
-`core/durability.py`, without its observability calls and its host-tier
-branches, which are ROADMAP items 13 and 12).
+`core/durability.py`, without its observability calls, ROADMAP item 13).
 
 `DurableKV` wraps a `ShardedKV` or a `ReplicatedKV` and makes it durable
 with two artifacts under one directory:
@@ -11,7 +10,9 @@ with two artifacts under one directory:
 
 **Snapshots** hold the whole stacked `F2State` and the routing and
 replication metadata (`bucket_map`, `map_version`, epoch, next WAL seq, the
-replicas' `alive` mask) as CPU tensors, captured between rounds: a host copy
+replicas' `alive` mask, and with the host tier the host chunk store as
+`HostTier.export_snapshot`'s arrays: the floor is a state leaf, so a
+restore without them could not read below it) as CPU tensors, captured between rounds: a host copy
 of every leaf (the capture stall, `Checkpointer.capture_s`), then the disk
 write on the checkpointer's thread.  Snapshot E first rotates the WAL to
 segment E, so segment E holds exactly the rounds after snapshot E.
@@ -60,6 +61,7 @@ import torch
 from ..checkpoint.checkpointer import Checkpointer, leaves
 from ..testing import faults
 from . import rebalance, shard_router
+from .host_tier import SNAPSHOT_KEYS as HOST_STORE_KEYS
 from .replication import replicated_view
 from .types import OP_DELETE, OP_NOOP, OP_RMW, OP_UPSERT, IoStats, tree_map
 
@@ -331,7 +333,20 @@ def _meta_like(kv) -> dict:
             "seq": torch.tensor(0, dtype=torch.int64)}
     if hasattr(kv, "alive"):
         meta["alive"] = torch.from_numpy(np.array(kv.alive, bool))
+    ht = getattr(kv, "_ht", None)
+    if ht is not None:
+        # empty placeholders: restore takes their length (the demoted chunk
+        # count) from the checkpoint
+        for k, a in ht.export_snapshot().items():
+            meta[k] = torch.empty((0,) + a.shape[1:], dtype=torch.int32)
     return meta
+
+
+def _host_paths(kv) -> tuple:
+    """The snapshot leaves whose length the checkpoint decides."""
+    if getattr(kv, "_ht", None) is None:
+        return ()
+    return tuple(f"meta.{k}" for k in HOST_STORE_KEYS)
 
 
 def _replica_leaves(state, R: int) -> list:
@@ -421,6 +436,11 @@ class DurableKV:
         meta = _meta_like(self.kv)
         meta["epoch"].fill_(self.epoch)
         meta["seq"].fill_(self._wal.seq)
+        ht = getattr(self.kv, "_ht", None)
+        if ht is not None:
+            # the demoted cold chunks travel with the snapshot
+            meta.update({k: torch.from_numpy(a)
+                         for k, a in ht.export_snapshot().items()})
         return meta
 
     def snapshot(self, blocking: Optional[bool] = None) -> int:
@@ -643,8 +663,10 @@ def recover(directory: str, make_kv: Callable[[], Any],
     else:
         # into the fresh store's tensors, in place
         payload, _ = ckpt.restore({"state": kv.state, "meta": _meta_like(kv)},
-                                  step=snap_epoch)
+                                  step=snap_epoch, resizable=_host_paths(kv))
         meta = payload["meta"]
+        if getattr(kv, "_ht", None) is not None:
+            kv._ht.import_snapshot({k: meta[k].numpy() for k in HOST_STORE_KEYS})
         start_map = meta["bucket_map"].numpy().astype(np.int32)
         kv.bucket_map = start_map.copy()
         kv._bucket_map_dev = kv._dev(start_map)

@@ -37,7 +37,10 @@ class LogState(NamedTuple):
     tail: torch.Tensor          # int32 [S]
     flushed_upto: torch.Tensor  # int32 [S]: stable-tier write accounting mark
     overflowed: torch.Tensor    # bool [S]: live region exceeded capacity
-    floor: torch.Tensor         # int32 [S]: host-tier frontier, always 0 here
+    floor: torch.Tensor         # int32 [S]: host-tier demotion frontier:
+                                # [begin, floor) lives in the host chunk
+                                # store (core.host_tier), the ring holds
+                                # [floor, tail); 0 with the tier off
 
 
 def create(capacity: int, value_width: int, device, lead=()) -> LogState:

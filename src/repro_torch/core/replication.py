@@ -56,9 +56,10 @@ round on the selected replicas only and log nothing:
 `durability.DurableKV.rebuild_replica` replays the WAL into one replica
 through them, with `_sched_rows` restricting the scheduler to its rows.
 
-Not ported: `dispatch="shard_map"` (ROADMAP item 15; `resolve_mesh_2d`),
-the host tier (`F2Config` refuses it) and the reference's observability
-calls (item 13).
+Refused, as in the reference: the host tier (`host_tier=True`: its chunk
+stores would need a replica axis, and resync would have to carry them).  Not ported:
+`dispatch="shard_map"` (ROADMAP item 15; `resolve_mesh_2d`) and the
+reference's observability calls (item 13).
 """
 from __future__ import annotations
 
@@ -148,6 +149,11 @@ class ReplicatedKV(ShardedKV):
             raise ValueError(f"n_replicas={n_replicas} must be >= 1")
         if read_selector not in shard_router.REPLICA_POLICIES:
             raise ValueError(f"unknown read_selector {read_selector!r}")
+        if cfg.host_tier:
+            raise ValueError(
+                "host_tier is not supported under replication (the host "
+                "chunk stores would need a replica axis and resync "
+                "integration)")
         # the hooks used inside ShardedKV.__init__ need these first
         self.R = int(n_replicas)
         self.read_selector = read_selector

@@ -56,9 +56,21 @@ round masked to some replicas (`_rep_do`, replication's rebuild).
 `migrate` logs one MAP record (the new map and the drained records) before
 its purge, and `map_version` counts the flips.
 
-Not ported here: `dispatch="shard_map"` (ROADMAP item 15), the host tier's
-routed planner and read loop (item 12; `F2Config` refuses `host_tier=True`)
-and the reference's observability calls.
+Host tier
+---------
+With `F2Config.host_tier` one `host_tier.HostTier` of S shards keeps every
+shard's demoted cold chunks.  A routed round pre-faults the chunks its
+slabs would touch (`store.plan_fetch` over the routed slabs) before it
+runs; reads share one retry loop between router deferral and chunk misses
+(`_read_host_loop`); the compactions demote for ring headroom before every
+masked step, and masked cold-cold steps run the resumable protocol of
+`compaction` with the idle shards' frontiers empty and their scalars kept,
+so an idle shard's floor and cache clock stay still through a pass it is
+not in.  Live rebalancing is refused with the tier on (a migration would
+have to move host-resident chunks), as in the reference.
+
+Not ported here: `dispatch="shard_map"` (ROADMAP item 15) and the
+reference's observability calls.
 """
 from __future__ import annotations
 
@@ -67,9 +79,9 @@ from typing import Optional
 import numpy as np
 import torch
 
-from . import cold_index, compaction, rebalance, shard_router, store
+from . import cold_index, compaction, host_tier, rebalance, shard_router, store
 from ..testing import faults
-from .api import resolve_device
+from .api import check_host_invariants, check_host_tier, resolve_device
 from .rebalance import RebalanceConfig, select_shards
 from .types import (BLOCK_BYTES, OP_DELETE, OP_NOOP, OP_READ, OP_RMW,
                     OP_UPSERT, F2Config)
@@ -161,6 +173,16 @@ class ShardedKV:
         self.wal = None
         self.map_version = 0
         self._wal_defer = False
+        # the host tier: one manager for every shard's demoted chunks
+        self._ht = None
+        if cfg.host_tier:
+            check_host_tier(cfg, mode, compact_batch)
+            if rebalance_cfg is not None:
+                raise ValueError(
+                    "host_tier is incompatible with live rebalancing (a "
+                    "bucket migration would have to move host-resident "
+                    "chunks)")
+            self._ht = host_tier.HostTier(cfg, self._n_rows, self.device)
 
     def _dev(self, x) -> torch.Tensor:
         if isinstance(x, torch.Tensor):
@@ -277,8 +299,16 @@ class ShardedKV:
         skeys, sops, svals, rt = shard_router.route(
             keys, ops, vals, self.S, self._lanes_of(keys.shape[0]),
             bucket_map=self._bucket_map_dev)
+        if self._ht is not None:
+            # pre-fault every host chunk the round would touch (routed
+            # writes cannot defer mid-step, as in KV.apply)
+            heads = store.fetch_heads(self.cfg, self.state, skeys, sops)
+            self.state = self._ht.ensure(self.state, lambda st: store.plan_fetch(
+                self.cfg, st, skeys, sops, heads))
         self.state, sst, srv = store.apply(self.cfg, self.state, skeys, sops,
                                            svals, admit_rc=self._admit)
+        if self._ht is not None:
+            self._ht.end_batch()
         status, rvals = shard_router.unroute(rt, sst, srv)
         self._note_round(rt.occupancy, bucket_counts(rt, self.n_buckets))
         return status, rvals, rt
@@ -362,12 +392,76 @@ class ShardedKV:
         B = keys.shape[0]
         ops = torch.full((B,), OP_READ, dtype=torch.int32, device=self.device)
 
+        if self._ht is not None:
+            return self._read_host_loop(keys, ops)
+
         def one_round(cur_ops):
             st, rv, rt = self._routed_read(keys, cur_ops)
             return st, rv, rt.placed, rt.deferred
         if self.lanes is None or self.lanes >= B:
             return one_round(ops)[:2]
         return self._rounds(keys, ops, one_round, OP_READ)
+
+    def _read_host_loop(self, keys, cur_ops):
+        """Routed reads under the host tier: router deferral and chunk misses
+        share one retry loop.  A placed lane whose cold walk parked on an
+        absent chunk comes back unserved; the parked chunks are promoted
+        (partial, pinned) and only the unserved lanes run again.  A batch
+        whose pinned walks outgrow the cache splits into two retried halves
+        (`note_contract_split`); a one-lane batch raises `CacheThrash`."""
+        ht = self._ht
+        B = keys.shape[0]
+        n_active = int((cur_ops == OP_READ).sum())
+        status = torch.zeros((B,), dtype=torch.int32, device=self.device)
+        rvals = torch.zeros((B, self.cfg.value_width), dtype=torch.int32,
+                            device=self.device)
+        vals0 = torch.zeros((B, self.cfg.value_width), dtype=torch.int32,
+                            device=self.device)
+        for _ in range(B + ht.max_rounds + 8):
+            skeys, sops, _, rt = shard_router.route(
+                keys, cur_ops, vals0, self.S, self._lanes_of(B),
+                bucket_map=self._bucket_map_dev)
+            self.state, sst, srv, smissed = store.read_batch_host(
+                self.cfg, self.state, skeys, sops == OP_READ,
+                admit_rc=self._admit)
+            st_r, rv_r = shard_router.unroute(rt, sst, srv)
+            lane_miss, _ = shard_router.unroute(rt, smissed, srv)
+            self._note_round(rt.occupancy, bucket_counts(rt, self.n_buckets))
+            hmiss = rt.placed & (lane_miss >= 0)
+            served = rt.placed & ~hmiss
+            status = torch.where(served, st_r, status)
+            rvals = torch.where(served[:, None], rv_r, rvals)
+            redo = rt.deferred | hmiss
+            if not bool(redo.any()):
+                break
+            needs = ht.collect(smissed)
+            if ht.any_missing(needs):
+                try:
+                    self.state = ht.promote(self.state, needs, partial=True)
+                except host_tier.CacheThrash:
+                    if n_active <= 1:
+                        raise
+                    unserved = torch.nonzero(redo).flatten().cpu().numpy()
+                    ht.end_batch()
+                    ht.note_contract_split()
+                    parts = (np.array_split(unserved, 2)
+                             if len(unserved) > 1 else [unserved])
+                    for half in parts:
+                        hmask = np.zeros(B, np.bool_)
+                        hmask[half] = True
+                        hj = torch.as_tensor(hmask, device=self.device)
+                        st_h, rv_h = self._read_host_loop(
+                            keys, torch.where(hj, OP_READ, OP_NOOP
+                                              ).to(torch.int32))
+                        status = torch.where(hj, st_h, status)
+                        rvals = torch.where(hj[:, None], rv_h, rvals)
+                    return status, rvals
+            cur_ops = torch.where(redo, OP_READ, OP_NOOP).to(torch.int32)
+        else:
+            raise RuntimeError(
+                "host tier: sharded read deferral did not converge")
+        ht.end_batch()
+        return status, rvals
 
     def rmw(self, keys, deltas):
         return self.apply(keys, np.full(len(keys), OP_RMW, np.int32), deltas)
@@ -419,7 +513,11 @@ class ShardedKV:
         if hot_over.any():
             self.compact_hot_cold(shards=hot_over)
             _, _, cb, ct, ib, it = self._bounds()
-        cold_over = (ct - cb) / self.cfg.cold_capacity > self.trigger
+        # under the host tier cold-cold GC fires on the span against the host
+        # log budget (demotion handles ring pressure), as in KV
+        cold_budget = self.cfg.cold_capacity * (
+            self.cfg.host_log_factor if self._ht is not None else 1.0)
+        cold_over = (ct - cb) / cold_budget > self.trigger
         if cold_over.any():
             self.compact_cold_cold(shards=cold_over)
             *_, ib, it = self._bounds()
@@ -466,6 +564,12 @@ class ShardedKV:
             starts_np = begins + i * cb
             do = self._dev_bool(shards & (starts_np < until_np))
             starts = self._dev_rows(starts_np)
+            if self._ht is not None:
+                # a step appends <= compact_batch cold records a shard: keep
+                # that much ring headroom by demoting first (every shard, as
+                # the reference's demotion check)
+                self.state = self._ht.demote_if_needed(
+                    self.state, cb + self.cfg.host_chunk_records)
             old = self.state
             new, n_live = step(self.cfg, old, starts,
                                torch.where(do, until, starts), cb)
@@ -504,11 +608,71 @@ class ShardedKV:
     def compact_cold_cold(self, n_records: Optional[int] = None,
                           shards: Optional[np.ndarray] = None):
         begins, n, shards = self._region(shards, n_records, "cold")
-        until, _ = self._masked_steps(compaction.cold_cold_step, begins, n,
-                                      shards)
+        if self._ht is None:
+            until, _ = self._masked_steps(compaction.cold_cold_step, begins, n,
+                                          shards)
+        else:
+            until = self._cc_steps_host(begins, n, shards)
         self._truncate("cold", until, shards)
+        if self._ht is not None:
+            self._ht.end_batch()
+            self.state = self._ht.gc(self.state)
         self.compactions += shards
         self.compaction_counts["cold_cold"] += shards
+
+    def _cc_steps_host(self, begins, n, shards):
+        """The masked cold-cold copying phase under the host tier, step by
+        step: demote for headroom, pin and ensure each live shard's frontier
+        chunks, drain the resumable liveness walk (parked chunks promote
+        partially, unpinned), commit.  Idle shards get an empty frontier
+        and keep their scalars (`select_shards`).  Returns until [S]."""
+        ht, cfg, cb = self._ht, self.cfg, self.compact_batch
+        until_np = begins + n
+        until = self._dev_rows(until_np)
+        n_steps = int(-(-int(n.max()) // cb)) if n.max() > 0 else 0
+        shift = host_tier.chunk_shift(cfg)
+        for i in range(n_steps):
+            starts_np = begins + i * cb
+            do_np = shards & (starts_np < until_np)
+            do = self._dev_bool(do_np)
+            sj = self._dev_rows(starts_np)
+            uj = torch.where(do, until, sj)          # idle shards: empty
+            ht.end_batch()
+            self.state = ht.demote_if_needed(self.state,
+                                             cb + cfg.host_chunk_records)
+            # pin each live shard's below-floor frontier chunks: the commit
+            # reads the frontier again after unpinned walk promotions
+            cold = self.state.cold
+            cbg, ctl, cfl = torch.stack([cold.begin, cold.tail, cold.floor]
+                                        ).cpu().numpy().astype(np.int64)
+            pins = []
+            for s in range(self._n_rows):
+                lo = max(int(starts_np[s]), int(cbg[s]))
+                hi = min(int(until_np[s]), int(ctl[s]),
+                         int(starts_np[s]) + cb, int(cfl[s]))
+                pins.append(set(range(lo >> shift, ((hi - 1) >> shift) + 1))
+                            if do_np[s] and lo < hi else set())
+            ht.pin_chunks(pins)
+            self.state = ht.ensure(self.state, lambda st: compaction.
+                                   plan_cc_frontier(cfg, st, sj, uj, cb))
+            carry = compaction.cc_walk_init(cfg, self.state, sj, uj, cb)
+            for r in range(cb * cfg.chain_max + 9):
+                if r:
+                    needs = ht.collect(carry.missed)
+                    if not ht.any_missing(needs):
+                        break
+                    self.state = ht.promote(self.state, needs, partial=True,
+                                            pin=False)
+                old = self.state
+                new, carry = compaction.cc_walk_round(cfg, old, sj, uj, carry,
+                                                      cb)
+                self.state = select_shards(do, new, old)
+            else:
+                raise RuntimeError("host tier: cold-cold walk did not converge")
+            old = self.state
+            new, _ = compaction.cc_commit(cfg, old, sj, uj, carry, cb)
+            self.state = select_shards(do, new, old)
+        return until
 
     def compact_single_log(self, n_records: Optional[int] = None,
                            shards: Optional[np.ndarray] = None):
@@ -556,7 +720,7 @@ class ShardedKV:
         """The nested telemetry tree (`core.protocol`): `io` (KV.io_stats
         totals) and `shards` (`replicas` under replication, `sessions`
         through the session service)."""
-        return dict(
+        t = dict(
             io=self.io_stats(),
             shards=dict(
                 n_shards=self.S, rounds=self.rounds,
@@ -565,6 +729,9 @@ class ShardedKV:
                 migrations=self.migrations,
                 migrated_buckets=self.migrated_buckets,
                 migrated_records=self.migrated_records))
+        if self._ht is not None:
+            t["host"] = self._ht.stats()
+        return t
 
     def maybe_rebalance(self) -> bool:
         """Every `check_every` routed rounds, plan bucket moves from the
@@ -614,6 +781,8 @@ class ShardedKV:
         """Live bucket migration: drain -> (scheduler pass) -> purge ->
         flip -> replay.  Shards with no moving bucket stay byte-identical.
         Returns the number of records replayed into their new shards."""
+        if self._ht is not None:
+            raise ValueError("host_tier does not support live bucket migration")
         new_map = np.asarray(new_map, np.int32)
         if new_map.shape != (self.n_buckets,):
             raise ValueError(f"bucket map of shape {new_map.shape}, expected "
@@ -741,8 +910,14 @@ class ShardedKV:
             chunk_index=(c.n_chunks if f2 else 0) * 8,
             chunklog_mem=(c.chunklog_mem if f2 else 0) * c.chunk_bytes,
         )
+        if c.host_tier:
+            per["host_chunk_cache"] = (c.host_cache_chunks * c.host_chunk_records
+                                       * 4 * (3 + c.value_width))
         out = {k: v * self.S for k, v in per.items()}
         out["total"] = sum(out.values())
+        if self._ht is not None:
+            # the host store is not device memory: reported, not totalled
+            out["host_store_bytes"] = self._ht.host_bytes()
         return out
 
     def check_invariants(self):
@@ -761,3 +936,5 @@ class ShardedKV:
                     raise AssertionError(f"shard {s}: {what}")
             if hb[s] > ht[s] or cb[s] > ct[s]:
                 raise AssertionError(f"shard {s}: log BEGIN passed TAIL")
+        if self.cfg.host_tier:
+            check_host_invariants(self.cfg, st)

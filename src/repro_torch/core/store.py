@@ -14,9 +14,15 @@ state whose scalar leaves are new tensors.  A caller that needs the old
 state afterwards clones it first.  Every scatter reads what it needs from
 the pre-update tensors before its first write, in the reference's order.
 
-The host tier is not ported: `F2State.host` is the inert 1 x 1 chunk-cache
-leaf that the reference builds when the tier is off, so that the leaves
-still zip one to one.
+With `F2Config.host_tier` the cold log's records below `cold.floor` live in
+a host chunk store and the cold walks resolve them through the device chunk
+cache `F2State.host` (`core.host_tier`): a walk that needs an absent chunk
+reports it (`missed`) instead of reading it.  `read_batch_host` returns
+those misses for the facade's promote-and-retry loop; `plan_fetch` and
+`plan_finish` are pure passes that name the chunks a batch would touch, so
+the facade promotes them before the committed step.  With the tier off
+`F2State.host` is an inert 1 x 1 cache and the walks are the probe
+engine's.
 
 The shard axis (see `types`): every function takes a stacked state of S
 stores (`create(cfg, device, n_shards=S)`; leaves [S, ...], lane batches
@@ -31,40 +37,16 @@ from typing import NamedTuple, Tuple
 
 import torch
 
-from . import cold_index, hybrid_log, probe_engine, read_cache, write_engine
-from .types import (META_TOMBSTONE, NULL_ADDR, OP_DELETE, OP_READ, OP_RMW,
-                    OP_UPSERT, ST_CREATED, ST_NONE, ST_NOT_FOUND, ST_OK,
-                    F2Config, IoStats, i32, is_rc, lanes, rc_untag,
+from . import (cold_index, host_tier, hybrid_log, probe_engine, read_cache,
+               write_engine)
+from .host_tier import HostCacheState
+from .types import (META_TOMBSTONE, NULL_ADDR, OP_DELETE, OP_NOOP, OP_READ,
+                    OP_RMW, OP_UPSERT, ST_CREATED, ST_NONE, ST_NOT_FOUND,
+                    ST_OK, F2Config, IoStats, i32, is_rc, lanes, rc_untag,
                     shard_entry, slot_of_keys, take)
 
 # one store's state (scalar hot tail) is lifted to the shard axis
 entry = shard_entry(lambda cfg, state, *a, **k: state.hot.tail.ndim == 0)
-
-
-class HostCacheState(NamedTuple):
-    """The host tier's device chunk cache, inert (1 row of 1 record) while
-    the tier is off; mirrors the reference's leaves."""
-    chunk: torch.Tensor           # int32 [S, 1]
-    key: torch.Tensor             # int32 [S, 1]
-    val: torch.Tensor             # int32 [S, 1, V]
-    prev: torch.Tensor            # int32 [S, 1]
-    meta: torch.Tensor            # int32 [S, 1]
-    tick: torch.Tensor            # int32 [S, 1]
-    hits: torch.Tensor            # int32 [S, 1]
-    clock: torch.Tensor           # int32 [S]
-    missed_in_step: torch.Tensor  # bool [S]
-
-
-def _inert_host(cfg: F2Config, device, lead) -> HostCacheState:
-    def full(shape, v):
-        return torch.full(lead + shape, v, dtype=torch.int32, device=device)
-    return HostCacheState(chunk=full((1,), -1), key=full((1,), -1),
-                          val=full((1, cfg.value_width), 0),
-                          prev=full((1,), NULL_ADDR), meta=full((1,), 0),
-                          tick=full((1,), 0), hits=full((1,), 0),
-                          clock=i32(0, device, lead),
-                          missed_in_step=torch.zeros(lead, dtype=torch.bool,
-                                                     device=device))
 
 
 class F2State(NamedTuple):
@@ -77,7 +59,7 @@ class F2State(NamedTuple):
     hot_truncs: torch.Tensor       # int32 [S]: hot-log truncation counter
     cold_truncs: torch.Tensor      # int32 [S]: num_truncs of paper S5.4
     walk_exhausted: torch.Tensor   # bool [S]: some chain walk hit chain_max (guard)
-    host: HostCacheState           # inert while the host tier is off
+    host: HostCacheState           # chunk cache (inert with the tier off)
 
 
 def create(cfg: F2Config, device, n_shards=None) -> F2State:
@@ -97,7 +79,7 @@ def create(cfg: F2Config, device, n_shards=None) -> F2State:
         hot_truncs=i32(0, device, lead),
         cold_truncs=i32(0, device, lead),
         walk_exhausted=torch.zeros(lead, dtype=torch.bool, device=device),
-        host=_inert_host(cfg, device, lead),
+        host=host_tier.create(cfg, device, lead),
     )
 
 
@@ -111,10 +93,37 @@ def merge_walk_io(stats: IoStats, res) -> IoStats:
 
 
 def cold_probe(cfg: F2Config, state: F2State, keys, lower_c, cold_head,
-               active, entries, target=None) -> probe_engine.ProbeResult:
-    """Cold-chain probe from cold-index entries (no read cache)."""
+               active, entries, target=None):
+    """Cold-chain probe from cold-index entries (no read cache): the probe
+    engine's `ProbeResult`, or with the host tier the floor-aware walk's
+    `host_tier.HostProbeResult` (also `missed` and `touch`)."""
+    if cfg.host_tier:
+        return host_tier.probe_cold(cfg, keys, state.cold, state.host,
+                                    lower_c, cold_head, active, entries,
+                                    target=target)
     return probe_engine.probe(cfg, keys, state.cold, lower_c, cold_head,
                               active, heads=entries, rc=None, target=target)
+
+
+def fold_host(cfg: F2Config, state: F2State, touch, missed,
+              latch_miss: bool) -> F2State:
+    """Fold a cold pass's cache traffic (`touch` [S, R]) into the eviction
+    signals.  On committed paths (`latch_miss`) a miss (`missed` [S, B])
+    also latches the `missed_in_step` tripwire: the facade should have
+    pre-faulted."""
+    if not cfg.host_tier:
+        return state
+    any_missed = ((missed >= 0).any(dim=-1) if latch_miss
+                  else torch.zeros_like(state.host.missed_in_step))
+    return state._replace(host=host_tier.fold_touch(state.host, touch,
+                                                    any_missed))
+
+
+def fold_probe(cfg: F2Config, state: F2State, res, latch_miss: bool) -> F2State:
+    """`fold_host` of a `cold_probe` result (nothing with the tier off)."""
+    if not cfg.host_tier:
+        return state
+    return fold_host(cfg, state, res.touch, res.missed, latch_miss)
 
 
 def _exhausted(state: F2State, *results) -> torch.Tensor:
@@ -128,10 +137,11 @@ def _exhausted(state: F2State, *results) -> torch.Tensor:
 # Read path (paper S5.3 Read + S7.2 with read cache)
 # ---------------------------------------------------------------------------
 
-def read_batch(cfg: F2Config, state: F2State, keys: torch.Tensor,
-               active: torch.Tensor, admit_rc: bool = True
-               ) -> Tuple[F2State, torch.Tensor, torch.Tensor]:
-    """Returns (state, status[S, B], values[S, B, V])."""
+def _read_core(cfg: F2Config, state: F2State, keys: torch.Tensor,
+               active: torch.Tensor, admit_rc: bool, latch_miss: bool):
+    """The read body: (state, status[S, B], values[S, B, V], missed[S, B]
+    or None with the tier off).  A lane whose cold walk missed a host chunk
+    reports ST_NONE and takes no read-cache admission."""
     hot_head = hybrid_log.head_addr(state.hot, cfg.hot_mem)
     lower = lanes(state.hot.begin, keys)
     res_h = probe_engine.probe(cfg, keys, state.hot, lower, hot_head, active,
@@ -154,6 +164,9 @@ def read_batch(cfg: F2Config, state: F2State, keys: torch.Tensor,
     res_c = cold_probe(cfg, state, keys, lower_c, cold_head, cold_active,
                        entries)
     stats = merge_walk_io(stats, res_c)
+    state = fold_probe(cfg, state, res_c, latch_miss)
+    missed = res_c.missed if cfg.host_tier else None
+    not_found = active if missed is None else active & (missed < 0)
     tomb_cold = res_c.found & ((res_c.meta & META_TOMBSTONE) != 0)
     ok_cold = res_c.found & ~tomb_cold
 
@@ -161,7 +174,7 @@ def read_batch(cfg: F2Config, state: F2State, keys: torch.Tensor,
                        torch.where(ok_cold[..., None], res_c.value, 0))
     found = ok_hot | ok_cold
     status = torch.where(found, ST_OK,
-                         torch.where(active, ST_NOT_FOUND, ST_NONE)
+                         torch.where(not_found, ST_NOT_FOUND, ST_NONE)
                          ).to(torch.int32)
 
     rc, hot_index = state.rc, state.hot_index
@@ -182,7 +195,25 @@ def read_batch(cfg: F2Config, state: F2State, keys: torch.Tensor,
 
     state = state._replace(rc=rc, hot_index=hot_index, stats=stats,
                            walk_exhausted=_exhausted(state, res_h, res_c))
+    return state, status, vals, missed
+
+
+def read_batch(cfg: F2Config, state: F2State, keys: torch.Tensor,
+               active: torch.Tensor, admit_rc: bool = True
+               ) -> Tuple[F2State, torch.Tensor, torch.Tensor]:
+    """Returns (state, status[S, B], values[S, B, V]).  With the host tier
+    a miss latches the tripwire (committed paths pre-fault)."""
+    state, status, vals, _ = _read_core(cfg, state, keys, active, admit_rc,
+                                        latch_miss=True)
     return state, status, vals
+
+
+def read_batch_host(cfg: F2Config, state: F2State, keys: torch.Tensor,
+                    active: torch.Tensor, admit_rc: bool = True):
+    """A host-tier read round: `read_batch`, but misses defer instead of
+    latching; also returns missed[S, B] for the facade's promote-and-retry
+    loop."""
+    return _read_core(cfg, state, keys, active, admit_rc, latch_miss=False)
 
 
 def probe_hops(cfg: F2Config, state: F2State, keys: torch.Tensor) -> torch.Tensor:
@@ -228,6 +259,9 @@ def write_batch(cfg: F2Config, state: F2State, keys: torch.Tensor,
     res_c = cold_probe(cfg, state, keys, lanes(state.cold.begin, keys),
                        cold_head, plan.need_cold, entries)
     stats = merge_walk_io(stats, res_c)
+    # writes cannot defer mid-step: the facade pre-faulted with plan_fetch,
+    # so a miss here latches the tripwire
+    state = fold_probe(cfg, state, res_c, latch_miss=True)
     cold_ok = res_c.found & ((res_c.meta & META_TOMBSTONE) == 0)
     use_cold = plan.need_cold & cold_ok
     final_val = plan.val_nocold + torch.where(use_cold[..., None], res_c.value, 0)
@@ -325,6 +359,7 @@ def read_finish(cfg: F2Config, state: F2State, snap: ReadSnapshot
     res_c = cold_probe(cfg, state, keys, lanes(state.cold.begin, keys),
                        cold_head, cold_active, snap.cold_entries)
     stats = merge_walk_io(stats, res_c)
+    state = fold_probe(cfg, state, res_c, latch_miss=True)
 
     # --- the anomaly fix: recheck the new tail segment on miss ---------------
     truncated_since = state.cold_truncs != snap.num_truncs
@@ -334,6 +369,7 @@ def read_finish(cfg: F2Config, state: F2State, snap: ReadSnapshot
     res_r = cold_probe(cfg, state, keys, lanes(snap.cold_tail, keys), cold_head,
                        retry, entries2)
     stats = merge_walk_io(stats, res_r)
+    state = fold_probe(cfg, state, res_r, latch_miss=True)
 
     cold_found = res_c.found | res_r.found
     v_cold = torch.where(res_c.found[..., None], res_c.value, res_r.value)
@@ -346,3 +382,61 @@ def read_finish(cfg: F2Config, state: F2State, snap: ReadSnapshot
                          torch.where(active, ST_NOT_FOUND, ST_NONE)
                          ).to(torch.int32)
     return state._replace(stats=stats), status, vals
+
+
+# ---------------------------------------------------------------------------
+# Host-tier pre-fault planning (core.host_tier); pure: no state change
+# ---------------------------------------------------------------------------
+
+def fetch_heads(cfg: F2Config, state: F2State, keys: torch.Tensor,
+                ops: torch.Tensor):
+    """`plan_fetch`'s cold-walk inputs (cold_active, entries) [S, B]: the
+    hot probe and the cold-index lookup, which depend on no host-tier leaf,
+    so a facade's plan -> promote loop computes them once."""
+    active = ops != OP_NOOP
+    hot_head = hybrid_log.head_addr(state.hot, cfg.hot_mem)
+    res_h = probe_engine.probe(cfg, keys, state.hot,
+                               lanes(state.hot.begin, keys), hot_head, active,
+                               index=state.hot_index, rc=state.rc,
+                               rc_match=False)
+    cold_active = active & ~res_h.found
+    entries, _ = cold_index.find_entries(state.cold_idx, cfg, keys,
+                                         cold_active, state.stats)
+    return cold_active, entries
+
+
+def plan_fetch(cfg: F2Config, state: F2State, keys: torch.Tensor,
+               ops: torch.Tensor, heads=None) -> torch.Tensor:
+    """Which absent host chunks would `apply(keys, ops)` touch?  missed[S, B]
+    chunk ids (-1 = none); writes nothing, charges no I/O.  `heads` is
+    `fetch_heads(cfg, state, keys, ops)` when the caller has it.
+
+    The cold-active set is a superset of the committed batch's: the hot
+    probe skips read-cache replicas (`rc_match=False`, as the write path's
+    locate walk), and every op that misses the hot log plans a cold walk,
+    not just the pure-RMW groups.  A round shows only each lane's first
+    absent chunk, so the facade loops plan -> promote (`HostTier.ensure`)."""
+    cold_active, entries = (fetch_heads(cfg, state, keys, ops) if heads is None
+                            else heads)
+    cold_head = hybrid_log.head_addr(state.cold, cfg.cold_mem)
+    return host_tier.probe_cold(cfg, keys, state.cold, state.host,
+                                lanes(state.cold.begin, keys), cold_head,
+                                cold_active, entries).missed
+
+
+@entry
+def plan_finish(cfg: F2Config, state: F2State, snap: ReadSnapshot
+                ) -> torch.Tensor:
+    """The pre-fault pass of `read_finish`: its snapshot-head cold walk in
+    pure form; missed[S, B]."""
+    keys, active = snap.keys, snap.active
+    hot_head = hybrid_log.head_addr(state.hot, cfg.hot_mem)
+    res_h = probe_engine.probe(cfg, keys, state.hot,
+                               lanes(state.hot.begin, keys), hot_head, active,
+                               heads=snap.hot_heads, rc=state.rc,
+                               rc_match=False)
+    cold_active = active & ~res_h.found
+    cold_head = hybrid_log.head_addr(state.cold, cfg.cold_mem)
+    return host_tier.probe_cold(cfg, keys, state.cold, state.host,
+                                lanes(state.cold.begin, keys), cold_head,
+                                cold_active, snap.cold_entries).missed

@@ -235,13 +235,17 @@ class F2Config:
     # read cache
     rc_capacity: int = 1 << 14             # 0 disables the read cache
     rc_mutable_frac: float = 0.5
-    # host tier: not ported yet; the fields exist so configs map one to one
+    # host tier (core.host_tier): cold-log chunks below LogState.floor are
+    # demoted to host memory; the device ring only holds [floor, tail)
     host_tier: bool = False
-    host_chunk_records: int = 256
-    host_cache_chunks: int = 16
-    host_resident_frac: float = 0.5
-    host_prefetch: int = 1
-    host_log_factor: float = 8.0
+    host_chunk_records: int = 256          # records per demotable cold chunk
+    host_cache_chunks: int = 16            # device chunk-cache rows
+    host_resident_frac: float = 0.5        # demote target: resident/capacity
+    host_prefetch: int = 1                 # extra chunks warmed per miss
+    host_log_factor: float = 8.0           # cold-cold GC budget as a multiple
+                                           # of cold_capacity (with the tier,
+                                           # demotion relieves the ring, so
+                                           # GC fires on the whole span)
     # execution
     value_width: int = 2
     chain_max: int = 24
@@ -284,8 +288,24 @@ class F2Config:
         if self.engine not in ENGINES:
             raise ValueError(f"unknown engine {self.engine!r}; one of {ENGINES}")
         if self.host_tier:
-            raise NotImplementedError(
-                "host_tier=True is not ported to repro_torch yet")
+            c = self.host_chunk_records
+            if not (c > 0 and (c & (c - 1)) == 0):
+                raise ValueError(f"host_chunk_records={c} not a power of 2")
+            if c > self.cold_capacity:
+                raise ValueError("host_chunk_records exceeds cold_capacity")
+            if self.host_cache_chunks < 1:
+                raise ValueError("host_cache_chunks must be >= 1")
+            if not 0.0 < self.host_resident_frac < 1.0:
+                raise ValueError("host_resident_frac must lie in (0, 1)")
+            if self.host_prefetch < 0:
+                raise ValueError("host_prefetch must be >= 0")
+            if self.host_log_factor < 1.0:
+                raise ValueError("host_log_factor must be >= 1")
+            # the demote target must leave headroom below capacity, or every
+            # compaction step would demote again
+            if int(self.host_resident_frac * self.cold_capacity) + 2 * c \
+                    > self.cold_capacity:
+                raise ValueError("host_resident_frac leaves no headroom")
 
 
 def records_to_blocks(n_records: torch.Tensor, record_bytes: int) -> torch.Tensor:

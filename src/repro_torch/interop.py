@@ -13,6 +13,10 @@ and the JAX reference package, through plain dicts and numpy arrays.
     maps with `n_replicas=R` both ways: the port folds the two axes into
     its R*S rows (row r * S + s), `state_to_numpy(state, n_replicas=R)`
     unfolds them.
+  * `host_store_to_numpy(ht)` / `host_store_from_numpy(ht, d)` map a
+    `HostTier`'s host store (the demoted cold chunks) to and from the
+    reference's `HostTier.export_snapshot()` dict; with the state's leaves
+    they carry a spilled store either way.
   * `pool_to_numpy(pool)` / `pool_from_numpy(leaves, device)` map the
     session layer's `SessionPool` to and from the reference's leaves.
   * `model_config_to_dict(cfg)` / `model_config_from_dict(d)` map
@@ -38,7 +42,7 @@ import numpy as np
 import torch
 
 from .configs.base import ModelConfig
-from .core import cold_index, hybrid_log, read_cache, store
+from .core import cold_index, host_tier, hybrid_log, read_cache, store
 from .core.types import IoStats, F2Config
 from .models import layers, rwkv6, transformer
 from .optim import adamw
@@ -54,7 +58,7 @@ ENGINE_FROM_REFERENCE = {v: k for k, v in ENGINE_TO_REFERENCE.items()}
 _SUBTREES = {"hot": hybrid_log.LogState, "rc": read_cache.RCState,
              "cold": hybrid_log.LogState,
              "cold_idx": cold_index.ColdIndexState, "stats": IoStats,
-             "host": store.HostCacheState}
+             "host": host_tier.HostCacheState}
 
 
 def config_to_dict(cfg: F2Config) -> Dict:
@@ -140,6 +144,26 @@ def shard_state(state: store.F2State, s: int) -> store.F2State:
         fields[f] = (type(node)(*(x[s] for x in node)) if f in _SUBTREES
                      else node[s])
     return store.F2State(**fields)
+
+
+HOST_STORE_KEYS = host_tier.SNAPSHOT_KEYS
+
+
+def host_store_to_numpy(ht: host_tier.HostTier) -> Dict[str, np.ndarray]:
+    """A `HostTier`'s host store as the reference's `export_snapshot()`
+    dict (rows by shard, then chunk id; a flat KV's shard is 0)."""
+    return ht.export_snapshot()
+
+
+def host_store_from_numpy(ht: host_tier.HostTier, d: Dict) -> None:
+    """Load the reference's `export_snapshot()` dict into `ht`'s host store
+    (pins, prefetch marks and miss EWMAs reset, as the reference's
+    `import_snapshot`).  With `state_from_numpy` of the same store's leaves
+    this carries a spilled reference store into the port."""
+    missing = [k for k in HOST_STORE_KEYS if k not in d]
+    if missing:
+        raise KeyError(f"host store dict lacks {missing}")
+    ht.import_snapshot({k: np.asarray(d[k]) for k in HOST_STORE_KEYS})
 
 
 def pool_to_numpy(pool: SessionPool) -> List[np.ndarray]:

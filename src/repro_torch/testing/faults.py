@@ -18,8 +18,8 @@ from __future__ import annotations
 import threading
 
 # Every crash point of the reference, so that tests written against it arm
-# the same names.  The port's code reaches the first four; the host tier's
-# two wait for it (ROADMAP item 12).
+# the same names; the port's code reaches each of them (the host tier's two
+# in `core.host_tier.HostTier`).
 CRASH_POINTS = (
     "checkpoint.before_manifest",  # snapshot leaves written, manifest not yet
     "wal.mid_append",              # WAL record half-written (torn tail)

@@ -960,3 +960,136 @@ def test_durable_sharded_store_recovers_on_the_card(cuda, tmp_path):
     assert torch.equal(a[0], b[0]) and torch.equal(a[1], b[1])
     rec.check_invariants()
     rec.close()
+
+
+# -- the host tier on the card ------------------------------------------------
+
+# tests/test_host_tier.py::host_cfg: a cold ring of 512 under a 4,096-key
+# uniform mix, spilled ~5x within 400 batches of 64; and its all-device twin
+HOST_CFG = T.F2Config(hot_index_size=1 << 10, hot_capacity=1 << 12, hot_mem=1 << 9,
+                      cold_capacity=1 << 9, cold_mem=1 << 7, n_chunks=1 << 8,
+                      chunk_slots=16, chunklog_capacity=1 << 12, chunklog_mem=1 << 8,
+                      rc_capacity=1 << 8, host_tier=True, host_chunk_records=16,
+                      host_cache_chunks=48, host_resident_frac=0.5, host_prefetch=1,
+                      value_width=2, chain_max=24)
+
+
+def _host_stream(seed, n_steps, n_keys=4096, width=64):
+    rng = np.random.default_rng(seed)
+    for step in range(n_steps):
+        keys = rng.integers(1, n_keys + 1, size=width).astype(np.int64)
+        ops_ = rng.choice([T.OP_READ, T.OP_UPSERT, T.OP_RMW, T.OP_DELETE], size=width,
+                          p=[.5, .3, .15, .05]).astype(np.int32)
+        vals = np.stack([keys * 3 + step, keys * 5 + 1], axis=1).astype(np.int32)
+        yield keys.astype(np.int32), ops_, vals
+
+
+def _host_equal(a, b, ctx=""):
+    """Every leaf, the manager's stats and its host store equal."""
+    for n, x, y in zip(interop.leaf_names(), interop.state_to_numpy(a.state if
+                       isinstance(a, T.ShardedKV) else a._st),
+                       interop.state_to_numpy(b.state if isinstance(b, T.ShardedKV) else b._st)):
+        assert np.array_equal(x, y), (ctx, n)
+    assert a._ht.stats() == b._ht.stats(), ctx
+    ea, eb = a._ht.export_snapshot(), b._ht.export_snapshot()
+    assert all(np.array_equal(ea[k], eb[k]) for k in ea), ctx
+
+
+@pytest.mark.parametrize("engine", ["fused", "fused_ref"])
+def test_host_tier_kv_on_the_card_matches_the_cpu(cuda, engine):
+    """A spilled KV on the card (pinned host store, staged promotions)
+    against the same store on the CPU (plain engine), batch by batch, then
+    every leaf, the stats and the host store; every key read back; the
+    kernels ran (engine "fused")."""
+    dev_kv = T.KV(dataclasses.replace(HOST_CFG, engine=engine), device=cuda,
+                  compact_batch=128)
+    cpu_kv = T.KV(dataclasses.replace(HOST_CFG, engine="fused_ref"), device="cpu",
+                  compact_batch=128)
+    assert dev_kv._ht._pin and not cpu_kv._ht._pin
+    ops.reset_launches()
+    for i, (k, o, v) in enumerate(_host_stream(7, 400)):
+        a, b = dev_kv.apply(k, o, v), cpu_kv.apply(k, o, v)
+        assert torch.equal(a[0].cpu(), b[0]) and torch.equal(a[1].cpu(), b[1]), i
+    _host_equal(dev_kv, cpu_kv, "after the drive")
+    st = dev_kv._ht.stats()
+    assert st["demotions_total"] > 0 and st["promotions_total"] > 0
+    assert int(dev_kv.state.cold.floor) > 0 and dev_kv._ht.h2d_bytes > 0
+    if engine == "fused":
+        assert ops.launches["fused_probe"] > 0 and ops.launches["fused_write"] > 0
+    keys = np.arange(1, 4097, dtype=np.int32)
+    for off in range(0, 4096, 32):
+        a, b = dev_kv.read(keys[off:off + 32]), cpu_kv.read(keys[off:off + 32])
+        assert torch.equal(a[0].cpu(), b[0]) and torch.equal(a[1].cpu(), b[1]), off
+    _host_equal(dev_kv, cpu_kv, "after the read-back")
+    dev_kv.check_invariants()
+
+
+def test_host_tier_sharded_on_the_card_matches_the_cpu(cuda):
+    """ShardedKV(S=2) with the host tier on the card against the CPU: masked
+    compactions while driving, a cold->cold pass masked to shard 0 through
+    the resumable walk, a wide read that splits; leaves equal."""
+    cfg = dataclasses.replace(HOST_CFG, hot_capacity=1 << 11, hot_mem=1 << 8)
+    dev_kv = T.ShardedKV(dataclasses.replace(cfg, engine="fused"), 2, device=cuda,
+                         compact_batch=128)
+    cpu_kv = T.ShardedKV(dataclasses.replace(cfg, engine="fused_ref"), 2, device="cpu",
+                         compact_batch=128)
+    for i, (k, o, v) in enumerate(_host_stream(11, 300)):
+        a, b = dev_kv.apply(k, o, v), cpu_kv.apply(k, o, v)
+        assert torch.equal(a[0].cpu(), b[0]) and torch.equal(a[1].cpu(), b[1]), i
+    assert (dev_kv.state.cold.floor > 0).all()
+    for kv in (dev_kv, cpu_kv):
+        kv.compact_cold_cold(shards=np.array([True, False]))
+    _host_equal(dev_kv, cpu_kv, "after a masked cold->cold pass")
+    keys = np.arange(1, 4097, dtype=np.int32)
+    a, b = dev_kv.read(keys), cpu_kv.read(keys)
+    assert torch.equal(a[0].cpu(), b[0]) and torch.equal(a[1].cpu(), b[1])
+    assert dev_kv._ht.contract_splits == cpu_kv._ht.contract_splits
+    _host_equal(dev_kv, cpu_kv, "after a wide read")
+    dev_kv.check_invariants()
+
+
+def test_host_tier_durable_kill_recovers_on_the_card(cuda, tmp_path):
+    """DurableKV(fsync="always") over a spilled ShardedKV(S=2) on the card,
+    killed at `host.mid_demote`, recovered on the card: later batches and
+    every key bit-equal to an uninterrupted twin, and the recovered store
+    still spilled."""
+    from repro_torch.testing import faults
+    cfg = dataclasses.replace(HOST_CFG, hot_capacity=1 << 8, hot_mem=1 << 5,
+                              cold_capacity=1 << 8, engine="fused")
+
+    def make():
+        return T.ShardedKV(cfg, 2, device=cuda, lanes=32, compact_batch=128,
+                           compact_frac=0.25)
+    dkv = T.DurableKV(make(), T.DurabilityConfig(dir=str(tmp_path),
+                                                 snapshot_every_rounds=6,
+                                                 fsync="always"))
+    twin = make()
+    stream = list(_host_stream(121, 60, n_keys=400))
+    i = 0
+    while not bool((dkv.kv.state.cold.floor > 0).any()):
+        a, b = dkv.apply(*stream[i]), twin.apply(*stream[i])
+        assert torch.equal(a[0], b[0]) and torch.equal(a[1], b[1]), i
+        i += 1
+    faults.arm("host.mid_demote")
+    try:
+        while True:
+            try:
+                dkv.apply(*stream[i])
+            except faults.InjectedCrash:
+                break
+            twin.apply(*stream[i])
+            i += 1
+    finally:
+        faults.reset()
+    twin.apply(*stream[i])
+    dkv.ckpt.wait()
+    rec = T.recover(str(tmp_path), make)
+    for k, o, v in stream[i + 1:]:
+        a, b = rec.apply(k, o, v), twin.apply(k, o, v)
+        assert torch.equal(a[0], b[0]) and torch.equal(a[1], b[1])
+    keys = np.arange(1, 401, dtype=np.int32)
+    a, b = rec.read(keys), twin.read(keys)
+    assert torch.equal(a[0], b[0]) and torch.equal(a[1], b[1])
+    assert bool((rec.kv.state.cold.floor > 0).any())
+    rec.check_invariants()
+    rec.close()

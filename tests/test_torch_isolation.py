@@ -186,8 +186,16 @@ def test_sharded_kv_refuses_what_is_not_ported():
     cfg = T.F2Config(**small_dict())
     with pytest.raises(NotImplementedError, match="ROADMAP item 15"):
         T.ShardedKV(cfg, 4, dispatch="shard_map", device="cpu")
-    with pytest.raises(NotImplementedError, match="host_tier"):
-        T.F2Config(**small_dict(host_tier=True))
+    host = T.F2Config(**small_dict(host_tier=True, host_chunk_records=16,
+                                   host_cache_chunks=64))
+    with pytest.raises(ValueError, match="live rebalancing"):
+        T.ShardedKV(host, 4, device="cpu", compact_batch=128,
+                    rebalance_cfg=T.RebalanceConfig())
+    with pytest.raises(ValueError, match="replication"):
+        T.ReplicatedKV(host, 4, device="cpu", compact_batch=128)
+    skv = T.ShardedKV(host, 4, device="cpu", compact_batch=128)
+    with pytest.raises(ValueError, match="migration"):
+        skv.migrate(skv.bucket_map)
     with pytest.raises(ValueError, match="power of 2"):
         T.ShardedKV(cfg, 3, device="cpu")
 
@@ -304,6 +312,71 @@ def test_port_sources_include_the_durability_slice():
                 "testing/faults.py", "core/sharded.py", "core/replication.py",
                 "serve/sessions.py", "serve/serve_step.py"):
         assert mod in names, mod
+
+
+def test_port_sources_include_the_host_tier_slice():
+    """The AST scan above walks every module of the host-tier slice."""
+    names = _port_module_names()
+    for mod in ("core/host_tier.py", "core/store.py", "core/compaction.py",
+                "core/api.py", "core/sharded.py", "core/durability.py",
+                "core/hybrid_log.py", "interop.py", "checkpoint/checkpointer.py"):
+        assert mod in names, mod
+
+
+def test_host_tier_runs_with_the_reference_blocked(tmp_path):
+    """A subprocess that cannot import jax, repro or benchmarks imports
+    `repro_torch.core.host_tier` and runs a KV and a durable ShardedKV whose
+    cold logs spill to host, through demotions, promotions, a cold->cold
+    pass, a snapshot and a recovery; every read is right."""
+    code = textwrap.dedent(f"""
+        import sys
+        class Block:
+            def find_spec(self, name, path=None, target=None):
+                if name.split(".")[0] in {FORBIDDEN!r}:
+                    raise ImportError("blocked: " + name)
+        sys.meta_path.insert(0, Block())
+        import numpy as np
+        import repro_torch as T
+        from repro_torch.core import host_tier
+        cfg = T.F2Config(**{small_dict()!r} | dict(
+            hot_capacity=1 << 10, hot_mem=1 << 7, cold_capacity=1 << 9,
+            host_tier=True, host_chunk_records=16, host_cache_chunks=48))
+        keys = np.arange(1, 3001, dtype=np.int32)
+        kv = T.KV(cfg, device="cpu", compact_batch=128)
+        for i in range(0, 3000, 100):
+            kv.upsert(keys[i:i + 100], np.stack([keys[i:i + 100]] * 2, 1))
+        assert int(kv.state.cold.floor) > 0 and kv._ht.stats()["demotions_total"] > 0
+        kv.compact_cold_cold()
+        for i in range(0, 3000, 20):
+            st, v = kv.read(keys[i:i + 20])
+            assert (st.numpy() == T.ST_OK).all()
+            assert (v.numpy() == np.stack([keys[i:i + 20]] * 2, 1)).all()
+        assert kv._ht.stats()["promotions_total"] > 0
+        kv.check_invariants()
+        import tempfile
+        with tempfile.TemporaryDirectory() as d:
+            mk = lambda: T.ShardedKV(cfg, 2, device="cpu", compact_batch=128)
+            dkv = T.DurableKV(mk(), T.DurabilityConfig(dir=d))
+            for i in range(0, 3000, 100):
+                dkv.upsert(keys[i:i + 100], np.stack([keys[i:i + 100]] * 2, 1))
+            dkv.snapshot(blocking=True)
+            assert dkv.kv._ht.host_chunks() > 0
+            rec = T.recover(d, mk)
+            assert rec.kv._ht.host_chunks() == dkv.kv._ht.host_chunks()
+            for i in range(0, 3000, 50):
+                st, v = rec.read(keys[i:i + 50])
+                assert (st.numpy() == T.ST_OK).all()
+                assert (v.numpy() == np.stack([keys[i:i + 50]] * 2, 1)).all()
+        bad = [m for m in sys.modules if m.split(".")[0] in {FORBIDDEN!r}]
+        assert not bad, bad
+        assert "repro_torch.core.host_tier" in sys.modules
+        print("isolated-ok")
+    """)
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    out = subprocess.run([sys.executable, "-c", code], capture_output=True,
+                         text=True, env=env, timeout=240, cwd=str(ROOT))
+    assert out.returncode == 0, out.stderr[-3000:]
+    assert "isolated-ok" in out.stdout
 
 
 def test_port_sources_include_the_ssm_slice():

@@ -58,8 +58,10 @@ def test_config_round_trip_through_reference(engine):
 
 
 def test_config_refuses_what_this_slice_does_not_do():
-    with pytest.raises(NotImplementedError):
-        T.F2Config(host_tier=True)
+    # the host tier is ported: its config is checked as the reference's is
+    assert T.F2Config(host_tier=True).host_tier
+    with pytest.raises(ValueError, match="host_chunk_records"):
+        T.F2Config(host_tier=True, host_chunk_records=24)
     with pytest.raises(ValueError):
         T.F2Config(engine="jnp")            # the reference's name, not the port's
     with pytest.raises(ValueError):
