@@ -154,6 +154,23 @@ Phases, each printing one JSON line:
                 read the expectation folded round by round, no shard takes
                 more than the pack width; rounds, slab occupancy, host
                 syncs per step();
+  7e'. obs    — `repro_torch.obs` armed for a window on stores earlier
+                phases built (no store is built for it): the main KV
+                (YCSB-A 2**18 ops a turn, off, on, on, off: ops/s each way;
+                stats() off and on equal with equal leaf types; wrapper
+                calls and host syncs per batch equal off and on), the
+                durable store (2**17 YCSB-A ops: the fsync phase and
+                f2_wal_fsync_seconds quantiles, WAL records and bytes per
+                batch from the counters, equal to the file's growth), the
+                spilled KV (2**17 YCSB-B ops: the promote phase's quantiles,
+                f2_host_promotions_total equal to the manager's count) and
+                the session service (16 waves, 2**17 ops: queue, pack, apply
+                and e2e count, mean, p50, p95, p99, p999; the ticket
+                lifecycle oracle: one queue, apply and e2e observation a
+                collected ticket, one pack a round, every duration > 0, the
+                e2e total >= queue + apply); the registry, journal and
+                alerts saved under build/ (`export.save_snapshot`), then
+                obs reset;
   7f. replicated_profile_fan_in / _fan_out — profiler windows over 8
                 YCSB-A fan-in rounds and 8 YCSB-C fan-out rounds: launches,
                 device-busy ms and host syncs per round;
@@ -240,6 +257,7 @@ failed build or failed launch raises, and the script exits non-zero.  It needs a
 from __future__ import annotations
 
 import argparse
+import collections
 import dataclasses
 import json
 import os
@@ -273,6 +291,10 @@ TWIN_LOG2_KEYS = 20
 HOST_LOG2_KEYS = 22                       # the host-tier phase: spilled 8x (cut from
                                           # 2**23 to fit the time limit, PERF.md S4)
 HOST_OPS = 1 << 18                        # ... YCSB-B and -A ops each (from 2**19)
+OBS_KV_OPS = 1 << 18                      # the obs windows: YCSB-A ops a turn on the main KV
+OBS_SESSION_WAVES = 16                    # ... session waves drained with obs on (2**17 ops)
+OBS_DURABLE_OPS = 1 << 17                 # ... durable YCSB-A ops with obs on
+OBS_HOST_OPS = 1 << 17                    # ... spilled-KV YCSB-B ops with obs on
 HOST_READBACK = 1 << 18                   # ... keys read back, a uniform sample (2**19)
 HOST_TWIN_LOG2_KEYS = 19                  # host_twins' keys (from 2**20) ...
 HOST_TWIN_OPS = 1 << 16                   # ... and mixed ops after the load (2**17)
@@ -365,6 +387,197 @@ def unmix32(h):
     x = (x * np.uint64(pow(0x7FEB352D, -1, 2**32))) & m
     x ^= x >> np.uint64(16)
     return x.astype(np.uint32).view(np.int32)
+
+
+# ---------------------------------------------------------------------------
+# observability windows (repro_torch.obs armed on stores other phases built)
+# ---------------------------------------------------------------------------
+
+OBS_TIMES = {}                  # window -> seconds (the obs phase's total)
+
+
+def _same_tree(a, b, path=()):
+    """Equal values and equal leaf types (the registry-backed stats())."""
+    if type(a) is not type(b):
+        raise AssertionError(f"stats() leaf {path}: {type(a)} vs {type(b)}")
+    if isinstance(a, dict):
+        if a.keys() != b.keys():
+            raise AssertionError(f"stats() keys differ at {path}")
+        for k in a:
+            _same_tree(a[k], b[k], path + (k,))
+    elif a != b:
+        raise AssertionError(f"stats() leaf {path}: {a!r} vs {b!r}")
+
+
+def obs_kv_window(kv, n_keys, seed, records):
+    """The main KV (2^24 keys) with obs off and on: YCSB-A turns of
+    OBS_KV_OPS ops, off, on, on, off (ops/s each way and on/off); stats()
+    read off then on with no op between, equal in values and leaf types;
+    wrapper calls and host syncs per batch (calls_per_round, scheduler off)
+    off and on, equal.  Obs is reset here: the first window."""
+    from repro_torch import obs
+    from repro_torch.workload import Zipf
+    t0 = time.perf_counter()
+    obs.configure(enabled=False, reset=True)
+    rng = np.random.default_rng(seed + 61)
+    zipf = Zipf(n_keys, 0.99)
+    secs = {False: 0.0, True: 0.0}
+    for armed in (False, True, True, False):
+        obs.configure(enabled=armed)
+        r, _ = ycsb(kv, None, "A", OBS_KV_OPS, zipf, rng)
+        secs[armed] += OBS_KV_OPS / r
+    obs.configure(enabled=False)
+    off = kv.stats()
+    obs.configure(enabled=True)
+    on = kv.stats()
+    _same_tree(off, on)
+    # the same batches from the same state both ways (a store's syncs can
+    # follow its data): the state saved on the card and put back between
+    from repro_torch import interop
+    saved = [t.clone() for t in interop.state_leaves(kv._st)]
+    obs.configure(enabled=False)
+    calls_off, syncs_off = calls_per_round(kv, seed)
+    for dst, src in zip(interop.state_leaves(kv._st), saved):
+        dst.copy_(src)
+    del saved
+    obs.configure(enabled=True)
+    calls_on, syncs_on = calls_per_round(kv, seed)
+    obs.configure(enabled=False)
+    if (calls_on, syncs_on) != (calls_off, syncs_off):
+        raise AssertionError(f"obs on: calls {calls_on}, syncs {syncs_on}; off: "
+                             f"calls {calls_off}, syncs {syncs_off}")
+    rate = {k: 2 * OBS_KV_OPS / v for k, v in secs.items()}
+    OBS_TIMES["kv"] = time.perf_counter() - t0
+    emit(records, dict(phase="obs", window="kv", n_keys=n_keys, batch=BATCH,
+                       ops_per_turn=OBS_KV_OPS, turns="off, on, on, off",
+                       ops_per_s_off=rate[False], ops_per_s_on=rate[True],
+                       on_over_off=rate[True] / rate[False],
+                       stats_equal=True, calls_per_batch=calls_on,
+                       host_syncs_per_batch=syncs_on,
+                       seconds=OBS_TIMES["kv"]))
+
+
+def obs_durable_window(dkv, expect, zipf, rng, wal_bytes_per_batch, records):
+    """The durable store (DurableKV over the loaded sharded store) with obs
+    on: OBS_DURABLE_OPS YCSB-A ops, every read checked; the fsync phase and
+    f2_wal_fsync_seconds, and WAL records and bytes per batch from the
+    counters, equal to what the segment file grew by a batch."""
+    from repro_torch import obs
+    t0 = time.perf_counter()
+    obs.configure(enabled=True)
+    wal = dkv._wal
+    seq0, pos0 = wal.seq, wal._f.tell()
+    reg = obs.get_registry()
+
+    def counter(name):
+        m = reg.get(name)
+        return sum(c.value for _, c in m.samples()) if m is not None else 0
+    rec0, bytes0 = counter("f2_wal_records_total"), counter("f2_wal_bytes_total")
+    ycsb(dkv, expect, "A", OBS_DURABLE_OPS, zipf, rng)
+    obs.configure(enabled=False)
+    batches = OBS_DURABLE_OPS // BATCH
+    n_rec = counter("f2_wal_records_total") - rec0
+    n_bytes = counter("f2_wal_bytes_total") - bytes0
+    if not (n_rec == wal.seq - seq0 == batches
+            and n_bytes == wal._f.tell() - pos0
+            and n_bytes / batches == wal_bytes_per_batch):
+        raise AssertionError(f"WAL counters: {n_rec} records, {n_bytes} B for "
+                             f"{batches} batches ({wal_bytes_per_batch} B a batch "
+                             "by the file)")
+    fsync = obs.latency.summary().get("fsync")
+    hist = obs.latency.summary("f2_wal_fsync_seconds").get("")
+    if not (fsync and fsync["count"] == batches and hist and hist["count"] == batches):
+        raise AssertionError(f"fsync observations: {fsync}, {hist} for {batches} batches")
+    OBS_TIMES["durable"] = time.perf_counter() - t0
+    emit(records, dict(phase="obs", window="durable", batches=batches,
+                       fsync_phase=fsync, wal_fsync_seconds=hist,
+                       wal_records_per_batch=n_rec / batches,
+                       wal_bytes_per_batch=n_bytes / batches,
+                       seconds=OBS_TIMES["durable"]))
+
+
+def obs_host_window(kv, expect, zipf, rng, records):
+    """The spilled KV with obs on: OBS_HOST_OPS YCSB-B ops, every read
+    checked; the promote phase's quantiles, and f2_host_promotions_total
+    equal to the manager's own promotions over the window."""
+    from repro_torch import obs
+    t0 = time.perf_counter()
+    obs.configure(enabled=True)
+    reg = obs.get_registry()
+
+    def promoted():
+        m = reg.get("f2_host_promotions_total")
+        return m.labels(facade="kv").value if m is not None else 0
+    c0, p0 = promoted(), kv._ht.promotions
+    ycsb(kv, expect, "B", OBS_HOST_OPS, zipf, rng)
+    obs.configure(enabled=False)
+    n = kv._ht.promotions - p0
+    if not (n > 0 and promoted() - c0 == n):
+        raise AssertionError(f"f2_host_promotions_total {promoted() - c0}, the "
+                             f"manager's promotions {n}")
+    promote = obs.latency.summary().get("promote")
+    if not promote or promote["count"] <= 0:
+        raise AssertionError(f"no promote observation: {promote}")
+    OBS_TIMES["host"] = time.perf_counter() - t0
+    emit(records, dict(phase="obs", window="host", ops=OBS_HOST_OPS,
+                       promotions=n, promote_phase=promote,
+                       seconds=OBS_TIMES["host"]))
+
+
+def obs_sessions_window(svc, sessions, rng, zipf, expect, records):
+    """The session service over the R = 2, S = 4 store with obs on:
+    OBS_SESSION_WAVES waves drained (every completion and read checked),
+    then the ticket lifecycle oracle: one queue, apply and e2e observation
+    a collected ticket, one pack observation a round, every duration > 0,
+    the e2e total >= queue + apply."""
+    from repro_torch import obs
+    t0 = time.perf_counter()
+    obs.configure(enabled=True)
+    c0, r0 = svc.collected, svc.pack_rounds
+    n_ops, t_run, rounds, _ = run_session_waves(svc, sessions, rng, zipf,
+                                                OBS_SESSION_WAVES, expect)
+    obs.configure(enabled=False)
+    s = obs.latency.summary()
+    n, n_rounds = svc.collected - c0, svc.pack_rounds - r0
+    if svc._clock.outstanding:
+        raise AssertionError(f"{svc._clock.outstanding} tickets never collected")
+    if not all(s.get(p, {}).get("count") == n for p in ("queue", "apply", "e2e")):
+        raise AssertionError(f"{n} tickets collected: {s}")
+    if s["pack"]["count"] != n_rounds or n != n_ops:
+        raise AssertionError(f"{n_rounds} rounds, {n_ops} ops: {s}")
+    for p in ("queue", "pack", "apply", "e2e"):
+        if not (s[p]["mean"] > 0 and s[p]["p50"] > 0):
+            raise AssertionError(f"phase {p}: {s[p]}")
+    e2e = s["e2e"]["mean"] * n
+    if e2e < (s["queue"]["mean"] + s["apply"]["mean"]) * n * (1 - 1e-9):
+        raise AssertionError(f"e2e total {e2e} under queue + apply: {s}")
+    OBS_TIMES["sessions"] = time.perf_counter() - t0
+    emit(records, dict(phase="obs", window="sessions", ops=n_ops,
+                       ops_per_s=n_ops / t_run, rounds=n_rounds,
+                       latency={p: s[p] for p in ("queue", "pack", "apply", "e2e")},
+                       seconds=OBS_TIMES["sessions"]))
+
+
+def obs_finish(records):
+    """The obs phase's end: the registry, journal and alert state of every
+    window saved with `export.save_snapshot` under build/ (path and size
+    printed), the phases' quantiles, then obs reset."""
+    from repro_torch import obs
+    path = os.path.join(ROOT, "build", "obs_snapshot.json")
+    os.makedirs(os.path.dirname(path), exist_ok=True)
+    obs.export.save_snapshot(path)
+    print(f"obs snapshot: {path} ({os.path.getsize(path)} bytes)", flush=True)
+    emit(records, dict(phase="obs", window="all", snapshot=path,
+                       snapshot_bytes=os.path.getsize(path),
+                       latency=obs.latency.summary(),
+                       journal_events=obs.journal.JOURNAL.total,
+                       journal_kinds=collections.Counter(
+                           f"{e['kind']} {e.get('facade', '')}".strip()
+                           for e in obs.journal.events()),
+                       trace_events=len(obs.trace.TRACER),
+                       seconds_by_window=dict(OBS_TIMES),
+                       seconds=sum(OBS_TIMES.values())))
+    obs.configure(enabled=False, reset=True)
 
 
 # ---------------------------------------------------------------------------
@@ -1702,6 +1915,7 @@ def durable_main(skv, n_keys, seed, records, expect, plain_calls):
         host_copies = wal.d2h_copies - copies0
         fsync_ms = np.array(fsync_s) * 1e3      # one group commit a durable batch
         wal.sync = sync
+        obs_durable_window(dkv, expect, zipf, rng, wal_bytes / logged, records)
         t0 = time.perf_counter()
         dkv.snapshot(blocking=True)
         save_s = time.perf_counter() - t0
@@ -2023,38 +2237,33 @@ def replicated_main(cfg, device, n_keys, n_ops, seed, records, sharded_rec):
     return svc, rec, expect
 
 
-def sessions_main(svc, n_keys, seed, records, expect):
-    """The session service over the loaded replicated store: SESSIONS
-    sessions each enqueue SESSION_DEPTH Zipf-0.99 ops (reads, upserts and
-    RMWs) a wave and drain, SESSION_WAVES waves.  Every completion equals
-    its round's result, and every round's reads equal `expect` folded round
-    by round in lane order (the traced schedule); no shard ever takes more
-    than the pack width.  Then a profiler window counts host syncs per
-    step()."""
+def session_wave(rng, zipf, n_sessions, V):
+    """One wave's batches: SESSION_DEPTH Zipf ops (reads, upserts, RMWs) a
+    session."""
+    from repro_torch import OP_READ, OP_RMW, OP_UPSERT
+    out = []
+    for _ in range(n_sessions):
+        keys = zipf.sample(rng, SESSION_DEPTH).astype(np.int32)
+        ops_ = rng.choice([OP_READ, OP_UPSERT, OP_RMW], SESSION_DEPTH,
+                          p=[.5, .25, .25]).astype(np.int32)
+        out.append((keys, ops_, rng.integers(0, 127, (SESSION_DEPTH, V))
+                    .astype(np.int32)))
+    return out
+
+
+def run_session_waves(svc, sessions, rng, zipf, n_waves, expect):
+    """`n_waves` waves: every session enqueues its batch, then each drains.
+    Every completion equals its round's result, and every round's reads
+    equal `expect` folded round by round in lane order (the traced
+    schedule), which takes the writes.  Returns (ops, drain seconds,
+    rounds, reads checked)."""
     import torch
-    from torch.profiler import ProfilerActivity, profile
-    from repro_torch import OP_READ, OP_RMW, OP_UPSERT, ST_OK
-    from repro_torch.workload import Zipf
-    rng = np.random.default_rng(seed + 31)
-    V = svc.V
-    zipf = Zipf(n_keys, 0.99)
-    sessions = [svc.open_session() for _ in range(SESSIONS)]
-
-    def wave():
-        out = []
-        for _ in sessions:
-            keys = zipf.sample(rng, SESSION_DEPTH).astype(np.int32)
-            ops_ = rng.choice([OP_READ, OP_UPSERT, OP_RMW], SESSION_DEPTH,
-                              p=[.5, .25, .25]).astype(np.int32)
-            out.append((keys, ops_, rng.integers(0, 127, (SESSION_DEPTH, V))
-                        .astype(np.int32)))
-        return out
-
+    from repro_torch import OP_READ, OP_UPSERT, ST_OK
     svc.trace_schedule = True
     r0, t_run = svc.pack_rounds, 0.0
     tickets, statuses, values = [], [], []
-    for _ in range(SESSION_WAVES):
-        batches = wave()
+    for _ in range(n_waves):
+        batches = session_wave(rng, zipf, len(sessions), svc.V)
         t0 = time.perf_counter()
         for s, b in zip(sessions, batches):
             if not (s.enqueue(*b) >= 0).all():
@@ -2066,19 +2275,23 @@ def sessions_main(svc, n_keys, seed, records, expect):
         t_run += time.perf_counter() - t0
     rounds = svc.pack_rounds - r0
     schedule, svc.schedule, svc.trace_schedule = svc.schedule, [], False
-    n_ops = SESSIONS * SESSION_DEPTH * SESSION_WAVES
     tk = np.concatenate(tickets)
+    t_base = int(tk.min())
+    n_ops = len(sessions) * SESSION_DEPTH * n_waves
     res_st = np.full(n_ops, -1, np.int32)
-    res_v = np.zeros((n_ops, V), np.int32)
-    res_st[tk], res_v[tk] = np.concatenate(statuses), np.concatenate(values)
-    if not (np.sort(tk) == np.arange(n_ops)).all() or not (res_st == ST_OK).all():
+    res_v = np.zeros((n_ops, svc.V), np.int32)
+    res_st[tk - t_base] = np.concatenate(statuses)
+    res_v[tk - t_base] = np.concatenate(values)
+    if (not (np.sort(tk) - t_base == np.arange(n_ops)).all()
+            or not (res_st == ST_OK).all()):
         raise AssertionError("a session op was lost or failed")
     checked = 0
     for sess, valid, bkeys, bops, bvals, st, rv, tkt in schedule:
         valid = valid.cpu().numpy()
         k, o, v = (x.cpu().numpy()[valid] for x in (bkeys, bops, bvals))
         st, rv, tkt = (x.cpu().numpy()[valid] for x in (st, rv, tkt))
-        if not (np.array_equal(res_st[tkt], st) and np.array_equal(res_v[tkt], rv)):
+        if not (np.array_equal(res_st[tkt - t_base], st)
+                and np.array_equal(res_v[tkt - t_base], rv)):
             raise AssertionError("a completion differs from its round's result")
         r = o == OP_READ
         if not np.array_equal(rv[r], expect[k[r]]):
@@ -2086,14 +2299,33 @@ def sessions_main(svc, n_keys, seed, records, expect):
         checked += int(r.sum())
         for i in np.flatnonzero(~r):          # writes, in lane order
             expect[k[i]] = v[i] if o[i] == OP_UPSERT else expect[k[i]] + v[i]
+    return n_ops, t_run, rounds, checked
+
+
+def sessions_main(svc, n_keys, seed, records, expect):
+    """The session service over the loaded replicated store: SESSIONS
+    sessions each enqueue SESSION_DEPTH Zipf-0.99 ops (reads, upserts and
+    RMWs) a wave and drain, SESSION_WAVES waves (`run_session_waves`: every
+    completion and every read checked); no shard ever takes more than the
+    pack width.  Then a profiler window counts host syncs per step()."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.workload import Zipf
+    rng = np.random.default_rng(seed + 31)
+    V = svc.V
+    zipf = Zipf(n_keys, 0.99)
+    sessions = [svc.open_session() for _ in range(SESSIONS)]
+    n_ops, t_run, rounds, checked = run_session_waves(svc, sessions, rng, zipf,
+                                                      SESSION_WAVES, expect)
     if svc.max_fill > svc.W:
         raise AssertionError(f"a shard took {svc.max_fill} lanes of {svc.W}")
+    obs_sessions_window(svc, sessions, rng, zipf, expect, records)
     # host syncs per step(), scheduler off (as calls_per_round): one
     # profiled step after each of 4 more waves
     steps, counts = 4, dict.fromkeys(SYNC_CALLS, 0)
     trigger, svc.kv.trigger = svc.kv.trigger, 2.0
     for _ in range(steps):
-        for s, b in zip(sessions, wave()):
+        for s, b in zip(sessions, session_wave(rng, zipf, len(sessions), V)):
             s.enqueue(*b)
         torch.cuda.synchronize()
         with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
@@ -2390,6 +2622,7 @@ def host_main(device, n_keys, n_ops, seed, records):
     t_read = time.perf_counter() - t0
     kv.check_invariants()
     launches = dict(ops.launches)
+    obs_host_window(kv, expect, zipf, rng, records)
     t0 = time.perf_counter()
     prof = host_profile(kv, n_keys, seed, expect)
     parts["profile_s"] = time.perf_counter() - t0
@@ -3817,6 +4050,7 @@ def run_all(a, records):
     summary["probe"] = check_probe_kernel(kv, n_keys, SEED, records)
     profile_window(kv, n_keys, SEED, records)
     main_calls, main_syncs = calls_per_round(kv, SEED)
+    obs_kv_window(kv, n_keys, SEED, records)
     del kv
     torch.cuda.empty_cache()
     twin_parity(make_f2_config(1 << TWIN_LOG2_KEYS), "cuda",
@@ -3880,6 +4114,7 @@ def run_all(a, records):
     t0 = time.perf_counter()
     sessions_main(svc, n_keys, SEED, records, expect)
     t_new["sessions"] = time.perf_counter() - t0
+    obs_finish(records)
     t0 = time.perf_counter()
     rkv = svc.kv
     r_calls, r_syncs = calls_per_round(rkv, SEED)

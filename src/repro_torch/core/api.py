@@ -23,6 +23,12 @@ chunks: `apply` pre-faults every chunk its batch would touch
 splits a batch whose walks outgrow the chunk cache), the compactions demote
 for ring headroom before every step and run cold-cold steps as the
 resumable protocol of `compaction`.
+
+Observability (`repro_torch.obs`, off by default): the compactions are
+spanned, journaled (`compaction.*`) and counted (`f2_compactions_total`),
+`stats()` is folded through the registry (`fold_stats`) and `chain_hops`
+feeds the `f2_chain_hops` histogram, at the reference's points; disabled,
+each site is one flag check.
 """
 from __future__ import annotations
 
@@ -31,6 +37,7 @@ from typing import Optional
 import numpy as np
 import torch
 
+from .. import obs
 from . import cold_index, compaction, host_tier, store
 from .types import BLOCK_BYTES, OP_DELETE, OP_RMW, OP_UPSERT, F2Config, tree_map
 
@@ -60,6 +67,8 @@ def check_host_tier(cfg: F2Config, mode: str, compact_batch: int) -> None:
 
 
 class KV:
+    _obs_facade = "kv"      # the label of every metric this facade folds
+
     def __init__(self, cfg: F2Config, mode: str = "f2", trigger: float = 0.8,
                  compact_frac: float = 0.1, compact_batch: int = 2048,
                  faster_compaction: str = "scan", device=None):
@@ -87,7 +96,8 @@ class KV:
         self._ht = None
         if cfg.host_tier:
             check_host_tier(cfg, mode, compact_batch)
-            self._ht = host_tier.HostTier(cfg, 1, self.device)
+            self._ht = host_tier.HostTier(cfg, 1, self.device,
+                                          obs_facade=self._obs_facade)
 
     @property
     def state(self):
@@ -248,10 +258,17 @@ class KV:
 
     def compact_chunklog(self):
         """Chunk-log GC: relocate live chunks out of the oldest half."""
-        ci, stats = cold_index.compact_chunklog(self._st.cold_idx, self.cfg,
-                                                self._st.stats)
-        self._st = self._st._replace(cold_idx=ci, stats=stats)
+        with obs.span("compact.chunk_gc", cat="compaction"):
+            ci, stats = cold_index.compact_chunklog(self._st.cold_idx, self.cfg,
+                                                    self._st.stats)
+            self._st = self._st._replace(cold_idx=ci, stats=stats)
         self.compaction_counts["chunk_gc"] += 1
+        self._note_compaction("chunk_gc")
+
+    def _note_compaction(self, kind: str, **fields):
+        obs.journal.emit(f"compaction.{kind}", facade=self._obs_facade,
+                         **fields)
+        obs.count("f2_compactions_total", facade=self._obs_facade, kind=kind)
 
     def _region(self, log_tail, log_begin):
         n = int(log_tail - log_begin)
@@ -266,34 +283,40 @@ class KV:
         """Copying phase over the oldest records, then truncation."""
         begin, n = self._span(self._st.hot, n_records)
         until = self._i32([begin + n])
-        for start in range(begin, begin + n, self.compact_batch):
-            if self._ht is not None:
-                # a step appends <= compact_batch cold records: demote first
-                self._st = self._ht.demote_if_needed(
-                    self._st, self.compact_batch + self.cfg.host_chunk_records)
-            self._st, _ = compaction.hot_cold_step(
-                self.cfg, self._st, self._i32([start]), until,
-                self.compact_batch)
-        self._st = compaction.hot_truncate(self.cfg, self._st, until)
+        with obs.span("compact.hot_cold", cat="compaction", records=n):
+            for start in range(begin, begin + n, self.compact_batch):
+                if self._ht is not None:
+                    # a step appends <= compact_batch cold records: demote
+                    # first
+                    self._st = self._ht.demote_if_needed(
+                        self._st,
+                        self.compact_batch + self.cfg.host_chunk_records)
+                self._st, _ = compaction.hot_cold_step(
+                    self.cfg, self._st, self._i32([start]), until,
+                    self.compact_batch)
+            self._st = compaction.hot_truncate(self.cfg, self._st, until)
         self.compactions += 1
         self.compaction_counts["hot_cold"] += 1
+        self._note_compaction("hot_cold", records=n)
 
     def compact_cold_cold(self, n_records: Optional[int] = None):
         begin, n = self._span(self._st.cold, n_records)
         until = self._i32([begin + n])
-        for start in range(begin, begin + n, self.compact_batch):
+        with obs.span("compact.cold_cold", cat="compaction", records=n):
+            for start in range(begin, begin + n, self.compact_batch):
+                if self._ht is not None:
+                    self._ccstep_host(self._i32([start]), until)
+                else:
+                    self._st, _ = compaction.cold_cold_step(
+                        self.cfg, self._st, self._i32([start]), until,
+                        self.compact_batch)
+            self._st = compaction.cold_truncate(self.cfg, self._st, until)
             if self._ht is not None:
-                self._ccstep_host(self._i32([start]), until)
-            else:
-                self._st, _ = compaction.cold_cold_step(
-                    self.cfg, self._st, self._i32([start]), until,
-                    self.compact_batch)
-        self._st = compaction.cold_truncate(self.cfg, self._st, until)
-        if self._ht is not None:
-            self._ht.end_batch()
-            self._st = self._ht.gc(self._st)
+                self._ht.end_batch()
+                self._st = self._ht.gc(self._st)
         self.compactions += 1
         self.compaction_counts["cold_cold"] += 1
+        self._note_compaction("cold_cold", records=n)
 
     def _ccstep_host(self, start, until):
         """One cold-cold step under the host tier: demote for headroom, pin
@@ -335,21 +358,23 @@ class KV:
         begin, n = self._span(self._st.hot, n_records)
         until = self._i32([begin + n])
         live_total = 0
-        for start in range(begin, begin + n, self.compact_batch):
-            self._st, n_live = compaction.single_log_lookup_step(
-                self.cfg, self._st, self._i32([start]), until,
-                self.compact_batch,
-                charge_walk_io=self.faster_compaction == "lookup")
-            live_total += int(n_live)
-        if self.faster_compaction == "scan":
-            # full-log sequential liveness scan + temp hash table memory
-            self._st = compaction.charge_full_scan(self.cfg, self._st)
-            self.temp_table_peak_bytes = max(
-                self.temp_table_peak_bytes,
-                live_total * (self.cfg.record_bytes + 16))
-        self._st = compaction.hot_truncate(self.cfg, self._st, until)
+        with obs.span("compact.single_log", cat="compaction", records=n):
+            for start in range(begin, begin + n, self.compact_batch):
+                self._st, n_live = compaction.single_log_lookup_step(
+                    self.cfg, self._st, self._i32([start]), until,
+                    self.compact_batch,
+                    charge_walk_io=self.faster_compaction == "lookup")
+                live_total += int(n_live)
+            if self.faster_compaction == "scan":
+                # full-log sequential liveness scan + temp hash table memory
+                self._st = compaction.charge_full_scan(self.cfg, self._st)
+                self.temp_table_peak_bytes = max(
+                    self.temp_table_peak_bytes,
+                    live_total * (self.cfg.record_bytes + 16))
+            self._st = compaction.hot_truncate(self.cfg, self._st, until)
         self.compactions += 1
         self.compaction_counts["single_log"] += 1
+        self._note_compaction("single_log", records=n)
 
     # -- reporting ------------------------------------------------------------
     def io_stats(self) -> dict:
@@ -359,19 +384,30 @@ class KV:
                     read_ops=int(s.read_ops),
                     mem_hits=int(s.mem_hits))
 
-    def stats(self) -> dict:
-        """The nested telemetry tree (`io`, and `host` with the host tier;
-        the flat store has no shards, replicas or sessions)."""
+    def _stats_tree(self) -> dict:
+        """The raw nested telemetry tree (`io`, and `host` with the host
+        tier; the flat store has no shards, replicas or sessions)."""
         t = dict(io=self.io_stats())
         if self._ht is not None:
             t["host"] = self._ht.stats()
         return t
 
+    def stats(self) -> dict:
+        """`_stats_tree()`, folded through the metrics registry when
+        observability is on (every leaf an `f2_stats_*` gauge labeled by
+        facade, the tree rebuilt from them: equal values and types)."""
+        return obs.fold_stats(self._obs_facade, self._stats_tree())
+
     def chain_hops(self, keys) -> np.ndarray:
         """Per-lane hash-chain record touches for a probe of `keys` (pure:
-        no state change, no modeled I/O charged)."""
+        no state change, no modeled I/O charged); observed into the
+        `f2_chain_hops` histogram when observability is on."""
         hops = store.probe_hops(self.cfg, self._st, self._i32(keys)[None])
-        return hops[0].cpu().numpy()
+        hops = hops[0].cpu().numpy()
+        obs.observe("f2_chain_hops", hops, buckets=obs.COUNT_BUCKETS,
+                    help="hash-chain record touches per probe lane",
+                    facade=self._obs_facade)
+        return hops
 
     def memory_model_bytes(self) -> dict:
         """In-memory footprint of each component under the paper's geometry

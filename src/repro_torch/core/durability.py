@@ -1,6 +1,6 @@
 """CPR-style durability for the sharded and replicated stores: fuzzy
 snapshots, a write-ahead slab log and crash recovery (the JAX package's
-`core/durability.py`, without its observability calls, ROADMAP item 13).
+`core/durability.py`).
 
 `DurableKV` wraps a `ShardedKV` or a `ReplicatedKV` and makes it durable
 with two artifacts under one directory:
@@ -15,7 +15,10 @@ replicas' `alive` mask, and with the host tier the host chunk store as
 restore without them could not read below it) as CPU tensors, captured between rounds: a host copy
 of every leaf (the capture stall, `Checkpointer.capture_s`), then the disk
 write on the checkpointer's thread.  Snapshot E first rotates the WAL to
-segment E, so segment E holds exactly the rounds after snapshot E.
+segment E, so segment E holds exactly the rounds after snapshot E.  The
+leaves are written under the reference's names and in its order
+(`interop.snapshot_tree`), so either package recovers a directory the other
+wrote.
 
 **The WAL** logs client batches, not rounds: a SLAB record is one batch's
 keys, ops and values, logged once before its first routed round.  Routing is
@@ -45,6 +48,13 @@ of a healthy replica, which serves no drain read.  The replay is masked to r
 rows, record by record as the reference replays them.  Segment reads retry
 with bounded backoff; a torn tail record (length or CRC mismatch) is
 dropped.
+
+**Observability** (`repro_torch.obs`, off by default), at the reference's
+points: `f2_wal_records_total` / `f2_wal_bytes_total{kind=}`, the group
+commit's `f2_wal_fsync_seconds` and the `fsync` latency phase, the
+`wal.segment_rotated`, `snapshot.taken` / `snapshot.committed`,
+`replica.rebuilt` and `recovery.completed` events, `f2_snapshots_total`,
+`f2_checkpoint_save_seconds`, and the snapshot, rebuild and recovery spans.
 """
 from __future__ import annotations
 
@@ -58,6 +68,7 @@ from typing import Any, Callable, List, NamedTuple, Optional
 import numpy as np
 import torch
 
+from .. import interop, obs
 from ..checkpoint.checkpointer import Checkpointer, leaves
 from ..testing import faults
 from . import rebalance, shard_router
@@ -207,6 +218,11 @@ class WalWriter:
         else:
             self._dirty = True          # flushed and fsync'd at sync()/close()
         self.seq += 1
+        kind = "slab" if rtype == REC_SLAB else "map"
+        obs.count("f2_wal_records_total", help="WAL records appended",
+                  kind=kind)
+        obs.count("f2_wal_bytes_total", _REC_HDR.size + len(payload),
+                  help="WAL bytes appended", kind=kind)
 
     # -- the two record types --------------------------------------------------
     def _host(self, keys, ops, vals):
@@ -236,15 +252,20 @@ class WalWriter:
         """Group-commit barrier: fsync the buffered appends (none buffered:
         nothing to do)."""
         if self._dirty and self._f is not None and not self._f.closed:
+            t0 = time.perf_counter() if obs.enabled() else 0.0
             self._f.flush()
             os.fsync(self._f.fileno())
             self._dirty = False
+            if obs.enabled():
+                obs.observe("f2_wal_fsync_seconds", time.perf_counter() - t0,
+                            help="group-commit fsync latency")
 
     def rotate(self, new_epoch: int):
         """Start segment `new_epoch` (at a snapshot's capture point)."""
         self.close()
         self.epoch = int(new_epoch)
         self._open()
+        obs.journal.emit("wal.segment_rotated", epoch=self.epoch)
 
     def close(self):
         if self._f is not None and not self._f.closed:
@@ -346,7 +367,13 @@ def _host_paths(kv) -> tuple:
     """The snapshot leaves whose length the checkpoint decides."""
     if getattr(kv, "_ht", None) is None:
         return ()
-    return tuple(f"meta.{k}" for k in HOST_STORE_KEYS)
+    return tuple(interop.snapshot_meta_name(k) for k in HOST_STORE_KEYS)
+
+
+def _snapshot_tree(kv, state, meta) -> dict:
+    """`state` and `meta` as the snapshot's leaves, under the reference's
+    names and in its order (a replicated state's rows as [R, S, ...])."""
+    return interop.snapshot_tree(state, meta, getattr(kv, "R", None))
 
 
 def _replica_leaves(state, R: int) -> list:
@@ -364,6 +391,8 @@ class DurableKV:
     (`rebuild_replica`); `recover` brings a whole store back.  Conforms to
     `KVProtocol`; every other attribute (bucket_map, migrate, drop_replica,
     shard_stats, ...) is the wrapped store's."""
+
+    _obs_facade = "durable"
 
     def __init__(self, kv, cfg: DurabilityConfig):
         if getattr(kv, "wal", "missing") is not None:
@@ -386,7 +415,12 @@ class DurableKV:
         """Group commit ("batch"): fsync what this batch appended before its
         statuses reach the caller."""
         if self.dcfg.fsync == "batch":
-            self._wal.sync()
+            if obs.enabled():   # fsync-to-ack: the durability ack stall
+                t0 = time.perf_counter()
+                self._wal.sync()
+                obs.observe_phase("fsync", time.perf_counter() - t0)
+            else:
+                self._wal.sync()
 
     def _acked(self, out):
         self._commit()
@@ -414,7 +448,10 @@ class DurableKV:
         return self._acked(self.kv.delete(keys))
 
     def stats(self) -> dict:
-        out = self.kv.stats()
+        return obs.fold_stats(self._obs_facade, self._stats_tree())
+
+    def _stats_tree(self) -> dict:
+        out = self.kv._stats_tree()
         out["durability"] = {
             "epoch": self.epoch,
             "snapshots": self.snapshots,
@@ -448,16 +485,33 @@ class DurableKV:
         the state, write it on the checkpointer's thread (waiting for it
         only if `blocking`).  Returns the new epoch."""
         self.ckpt.wait()                # a prior save's error surfaces here
-        self.epoch += 1
-        self._wal.rotate(self.epoch)
-        payload = {"state": self.kv.state, "meta": self._meta()}
-        blocking = (self.dcfg.blocking_snapshots if blocking is None
-                    else blocking)
-        # segment GC waits for the snapshot to be durable, on its thread
-        self.ckpt.save(self.epoch, payload, blocking=blocking,
-                       on_commit=self._gc_segments)
-        self.snapshots += 1
-        self._last_snap_rounds = self.kv.rounds
+        with obs.span("durability.snapshot", cat="durability"):
+            self.epoch += 1
+            self._wal.rotate(self.epoch)
+            payload = _snapshot_tree(self.kv, self.kv.state, self._meta())
+            blocking = (self.dcfg.blocking_snapshots if blocking is None
+                        else blocking)
+            epoch, t0 = self.epoch, time.perf_counter()
+
+            def on_commit():
+                # on the checkpointer's thread (the registry and the journal
+                # take locks); segment GC waits for the snapshot to be
+                # durable
+                dt = time.perf_counter() - t0
+                obs.observe("f2_checkpoint_save_seconds", dt,
+                            help="snapshot capture-to-durable latency",
+                            facade=self._obs_facade)
+                obs.journal.emit("snapshot.committed", epoch=epoch,
+                                 seconds=round(dt, 6))
+                self._gc_segments()
+
+            self.ckpt.save(self.epoch, payload, blocking=blocking,
+                           on_commit=on_commit)
+            self.snapshots += 1
+            self._last_snap_rounds = self.kv.rounds
+        obs.journal.emit("snapshot.taken", epoch=self.epoch,
+                         blocking=bool(blocking))
+        obs.count("f2_snapshots_total", facade=self._obs_facade)
         return self.epoch
 
     def maybe_snapshot(self) -> bool:
@@ -517,9 +571,8 @@ class DurableKV:
             # the device, into r's rows in place
             host = tree_map(lambda t: torch.empty(t.shape, dtype=t.dtype),
                             kv.state)
-            payload, _ = self.ckpt.restore(
-                {"state": host, "meta": _meta_like(kv)}, step=snap_epoch)
-            meta = payload["meta"]
+            meta = _meta_like(kv)
+            self.ckpt.restore(_snapshot_tree(kv, host, meta), step=snap_epoch)
             snap_alive = meta["alive"].numpy().astype(bool)
             src = r if snap_alive[r] else int(np.flatnonzero(snap_alive)[0])
             for dst, snap in zip(_replica_leaves(kv.state, kv.R),
@@ -540,12 +593,16 @@ class DurableKV:
                         retries=self.dcfg.segment_retries,
                         backoff=self.dcfg.retry_backoff)
         kv.alive[r] = True
-        n, end_map, _ = _replay(kv, recs, start_map, start_version,
-                                rep_mask=onehot)
+        with obs.span("durability.rebuild_replica", cat="durability",
+                      replica=r):
+            n, end_map, _ = _replay(kv, recs, start_map, start_version,
+                                    rep_mask=onehot)
         if not (end_map == kv.bucket_map).all():
             raise WalError("the WAL replay ended on another bucket map than "
                            "the live store's")
         kv.resyncs += 1
+        obs.journal.emit("replica.rebuilt", facade=self._obs_facade,
+                         replica=r, records=n)
         return n
 
 
@@ -662,9 +719,9 @@ def recover(directory: str, make_kv: Callable[[], Any],
         from_epoch, next_seq, epoch = 0, 0, 0
     else:
         # into the fresh store's tensors, in place
-        payload, _ = ckpt.restore({"state": kv.state, "meta": _meta_like(kv)},
-                                  step=snap_epoch, resizable=_host_paths(kv))
-        meta = payload["meta"]
+        meta = _meta_like(kv)
+        ckpt.restore(_snapshot_tree(kv, kv.state, meta), step=snap_epoch,
+                     resizable=_host_paths(kv))
         if getattr(kv, "_ht", None) is not None:
             kv._ht.import_snapshot({k: meta[k].numpy() for k in HOST_STORE_KEYS})
         start_map = meta["bucket_map"].numpy().astype(np.int32)
@@ -682,7 +739,11 @@ def recover(directory: str, make_kv: Callable[[], Any],
     t0 = time.perf_counter()
     recs = read_wal(directory, from_epoch=from_epoch,
                     retries=cfg.segment_retries, backoff=cfg.retry_backoff)
-    n_replayed, _, _ = _replay(kv, recs, start_map, start_version=kv.map_version)
+    with obs.span("durability.recover", cat="durability"):
+        n_replayed, _, _ = _replay(kv, recs, start_map,
+                                   start_version=kv.map_version)
+    obs.journal.emit("recovery.completed", records=n_replayed,
+                     snapshot_epoch=snap_epoch)
     if recs:
         next_seq = max(next_seq, recs[-1].seq + 1)
     if (hasattr(kv, "alive") and cfg.revive_dead_replicas

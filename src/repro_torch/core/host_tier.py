@@ -36,15 +36,23 @@ device) with a chunk id -> row map per shard: a promotion gathers its
 chunks into a pinned staging buffer and installs them after one
 non-blocking host-to-device copy, a demotion copies a span device-to-host
 in a few large slabs.
+
+Observability (`repro_torch.obs`, off by default) at the reference's points:
+`f2_host_promotions_total` / `host.promoted`, `f2_host_demotions_total` /
+`host.demoted`, `f2_prefetch_hits_total`, `f2_cache_contract_splits_total` /
+`host.contract_split`, the `promote` latency phase (every `promote` call)
+and the `f2_host_chunks` gauge at `stats()`, labeled by the owning facade.
 """
 from __future__ import annotations
 
+import time
 from typing import (Callable, Dict, Iterator, List, NamedTuple, Optional,
                     Sequence, Set, Tuple)
 
 import numpy as np
 import torch
 
+from .. import obs
 from ..testing import faults
 from . import hybrid_log
 from .types import META_INVALID, NULL_ADDR, F2Config, i32, take
@@ -484,9 +492,11 @@ class HostTier:
     `ensure_rounds` (plan passes run by `ensure`), `syncs` (device reads it
     waits for), `h2d_bytes` and `d2h_bytes`."""
 
-    def __init__(self, cfg: F2Config, n_shards: int, device):
+    def __init__(self, cfg: F2Config, n_shards: int, device,
+                 obs_facade: str = "kv"):
         assert cfg.host_tier
         self.cfg = cfg
+        self._obs_facade = obs_facade
         self.lead = n_shards             # stores (shards) it manages
         self.device = torch.device(device)
         self._pin = self.device.type == "cuda"
@@ -532,6 +542,11 @@ class HostTier:
         """A facade split one batch into cache-sized slices after a
         `CacheThrash`: counted, so that an undersized cache shows."""
         self.contract_splits += 1
+        obs.count("f2_cache_contract_splits_total",
+                  help="batches split into cache-sized slices after a "
+                       "chunk-cache thrash", facade=self._obs_facade)
+        obs.journal.emit("host.contract_split", facade=self._obs_facade,
+                         splits=self.contract_splits)
 
     def pin_chunks(self, needs: Sequence[Set[int]]) -> None:
         """Pin chunk ids (per shard) until `end_batch` without promoting."""
@@ -548,6 +563,7 @@ class HostTier:
         to the rows available (at least one), otherwise the whole demand
         must fit.  Raises KeyError for a chunk never demoted and
         `CacheThrash` when the cache cannot hold the demand."""
+        t0 = time.perf_counter() if obs.enabled() else 0.0
         cfg = self.cfg
         res_chunk, res_hits, res_tick = self._np(state.host.chunk, state.host.hits,
                                                  state.host.tick)
@@ -593,6 +609,12 @@ class HostTier:
             faults.maybe_crash("host.mid_promote")
             state = self._install(state, plan, total)
             self.promotions += total
+            obs.count("f2_host_promotions_total", total,
+                      facade=self._obs_facade)
+            obs.journal.emit("host.promoted", facade=self._obs_facade,
+                             chunks=total)
+        if obs.enabled():       # the promotion stall: the facade waits here
+            obs.observe_phase("promote", time.perf_counter() - t0)
         return state
 
     def _install(self, state, plan, total: int):
@@ -704,7 +726,11 @@ class HostTier:
             row = rowof[arr]
             present = row >= 0
             hit = present & (res_hits[s][row] > 0)
-            self.prefetch_hits += int(hit.sum())
+            n_hit = int(hit.sum())
+            if n_hit:
+                self.prefetch_hits += n_hit
+                obs.count("f2_prefetch_hits_total", n_hit,
+                          facade=self._obs_facade)
             pf -= set(arr[hit | ~present].tolist())
 
     def ensure(self, state, plan: Callable):
@@ -764,6 +790,9 @@ class HostTier:
         state = demote_commit(state, torch.as_tensor(
             new_floors.astype(np.int32), device=self.device))
         self.demotions += total
+        obs.count("f2_host_demotions_total", total, facade=self._obs_facade)
+        obs.journal.emit("host.demoted", facade=self._obs_facade,
+                         chunks=total)
         return state
 
     def _demote_slab(self, state, s: int, first: int, n: int) -> None:
@@ -863,8 +892,10 @@ class HostTier:
         return self.host_chunks() * cfg.host_chunk_records * 4 * (3 + cfg.value_width)
 
     def stats(self) -> Dict[str, int]:
+        n = self.host_chunks()
+        obs.gauge_set("f2_host_chunks", n, facade=self._obs_facade)
         return {
-            "chunks": self.host_chunks(),
+            "chunks": n,
             "promotions_total": self.promotions,
             "demotions_total": self.demotions,
             "prefetch_hits_total": self.prefetch_hits,

@@ -18,9 +18,9 @@ Surface (batch-first, int32):
     delete(keys)        -> (status [B], vals [B, V])
     stats()             -> the nested telemetry dict: `io` always
         (read_bytes/write_bytes/read_ops/mem_hits), plus `shards` /
-        `replicas` / `sessions` as the deployment grows axes.  (The
-        reference mirrors its leaves into its metrics registry, ROADMAP
-        item 13; the tree is the same.)
+        `replicas` / `sessions` as the deployment grows axes.  With
+        `repro_torch.obs` on, every leaf is mirrored into an `f2_stats_*`
+        gauge labeled by facade; the tree is the same.
     check_invariants()  -> raises AssertionError on a broken store
 """
 from __future__ import annotations

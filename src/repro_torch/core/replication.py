@@ -58,8 +58,18 @@ through them, with `_sched_rows` restricting the scheduler to its rows.
 
 Refused, as in the reference: the host tier (`host_tier=True`: its chunk
 stores would need a replica axis, and resync would have to carry them).  Not ported:
-`dispatch="shard_map"` (ROADMAP item 15; `resolve_mesh_2d`) and the
-reference's observability calls (item 13).
+`dispatch="shard_map"` (ROADMAP item 15; `resolve_mesh_2d`).
+
+Observability (`repro_torch.obs`, off by default), at the reference's
+points: `replicated.read` spans and `f2_deferral_rounds{path=read}` (a
+fan-in round has no span and no count, as in the reference), the fan-out
+gauges at `_fold_read` (`f2_replica_load`, `f2_fanout_*_total`),
+`replica.dropped` / `replica.resynced` events with their counters and the
+`replica.resync` span.  The resync's replay runs fewer rounds than the
+reference's (see above), so its scheduler passes, which the reference runs
+round by round, are grouped otherwise: the `compaction.*` events and
+`f2_compactions_total` increments inside a resync differ, the per-row
+compaction counts do not.
 """
 from __future__ import annotations
 
@@ -68,6 +78,7 @@ from typing import Optional
 import numpy as np
 import torch
 
+from .. import obs
 from . import rebalance, shard_router, store
 from ..testing import faults
 from .rebalance import select_shards
@@ -141,6 +152,11 @@ class ReplicatedKV(ShardedKV):
     """`ShardedKV`'s API over R replica copies of S hash-partitioned shards:
     writes fan in to every alive replica, `read` fans out (each lane served
     by one replica), and replicas can be dropped and resynced live."""
+
+    _obs_facade = "replicated"
+    _read_span = "replicated.read"
+    _observe_apply = False          # the reference's fan-in has no span and
+    #                                 no count, its fan-out no deferral time
 
     def __init__(self, cfg: F2Config, n_shards: int, n_replicas: int = 2,
                  read_selector: str = "round_robin",
@@ -304,6 +320,18 @@ class ReplicatedKV(ShardedKV):
             self._read_exhausted |= exh_r.reshape(shape)
             self._replica_load = (self._replica_decay * self._replica_load
                                   + rl_r.astype(np.float64))
+        if obs.enabled():       # mirror the folded fan-out read signal
+            obs.gauge_set("f2_replica_load", self._replica_load.tolist(),
+                          help="per-replica fan-out read-load EWMA",
+                          facade=self._obs_facade)
+            obs.count_total("f2_fanout_read_ops_total",
+                            int(self._read_io["read_ops"].sum()),
+                            help="reads served via replica fan-out",
+                            facade=self._obs_facade)
+            obs.count_total("f2_fanout_mem_hits_total",
+                            int(self._read_io["mem_hits"].sum()),
+                            help="fan-out reads served from memory",
+                            facade=self._obs_facade)
 
     @property
     def replica_load(self) -> np.ndarray:
@@ -323,6 +351,9 @@ class ReplicatedKV(ShardedKV):
             raise RuntimeError("drop_replica during a migration")
         self.alive[r] = False
         self.drops += 1
+        obs.journal.emit("replica.dropped", facade=self._obs_facade,
+                         replica=r)
+        obs.count("f2_replica_drops_total", facade=self._obs_facade)
 
     def _reset_rows(self, r: int):
         """Replica r's rows set to an empty store, in place (one empty
@@ -342,6 +373,8 @@ class ReplicatedKV(ShardedKV):
             raise ValueError(f"replica {r} is alive; drop it first")
         if self._migrating:
             raise RuntimeError("resync during a migration")
+        rs_span = obs.span("replica.resync", cat="replication", replica=r)
+        rs_span.__enter__()
         h = self._primary(self.alive)
         Bm = self._mig_batch
         V = self.cfg.value_width
@@ -394,8 +427,12 @@ class ReplicatedKV(ShardedKV):
         finally:
             self._sched_rows = None
             self._migrating = False
+            rs_span.__exit__(None, None, None)
         self.resyncs += 1
         self.resynced_records += n_moved
+        obs.journal.emit("replica.resynced", facade=self._obs_facade,
+                         replica=r, records=n_moved)
+        obs.count("f2_replica_resyncs_total", facade=self._obs_facade)
         return n_moved
 
     def _pass_counts(self, r: int) -> np.ndarray:
@@ -490,8 +527,8 @@ class ReplicatedKV(ShardedKV):
             resynced_records=self.resynced_records,
         )
 
-    def stats(self) -> dict:
-        out = super().stats()
+    def _stats_tree(self) -> dict:
+        out = super()._stats_tree()
         out["replicas"] = self.replica_stats()
         return out
 

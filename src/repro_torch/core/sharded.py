@@ -69,16 +69,27 @@ so an idle shard's floor and cache clock stay still through a pass it is
 not in.  Live rebalancing is refused with the tier on (a migration would
 have to move host-resident chunks), as in the reference.
 
-Not ported here: `dispatch="shard_map"` (ROADMAP item 15) and the
-reference's observability calls.
+Observability
+-------------
+`repro_torch.obs` (off by default) is called at the reference's points:
+`sharded.apply_round` and `sharded.read` spans, `f2_deferral_rounds{path=}`
+per client batch and the `deferral` latency phase, the compactions' spans,
+journal events and `f2_compactions_total`, the migration's span, journal
+event and counters, and at the traffic fold (`_fold_traffic`) the router
+gauges and an alert-rule pass.  Every device value it reads is one the
+store reads anyway; disabled, each site is one flag check.
+
+Not ported here: `dispatch="shard_map"` (ROADMAP item 15).
 """
 from __future__ import annotations
 
+import time
 from typing import Optional
 
 import numpy as np
 import torch
 
+from .. import obs
 from . import cold_index, compaction, host_tier, rebalance, shard_router, store
 from ..testing import faults
 from .api import check_host_invariants, check_host_tier, resolve_device
@@ -103,6 +114,11 @@ class ShardedKV:
     check_invariants, io_stats, memory_model_bytes) over S hash-partitioned
     shards behind one deterministic batch router, on one device (the CUDA
     device unless `device` says otherwise)."""
+
+    _obs_facade = "sharded"         # the label of every metric it folds
+    _read_span = "sharded.read"     # the span of one routed read round
+    _observe_apply = True           # write rounds spanned and counted, and
+    #                                 deferral rounds timed
 
     def __init__(self, cfg: F2Config, n_shards: int, mode: str = "f2",
                  trigger: float = 0.8, compact_frac: float = 0.1,
@@ -182,7 +198,8 @@ class ShardedKV:
                     "host_tier is incompatible with live rebalancing (a "
                     "bucket migration would have to move host-resident "
                     "chunks)")
-            self._ht = host_tier.HostTier(cfg, self._n_rows, self.device)
+            self._ht = host_tier.HostTier(cfg, self._n_rows, self.device,
+                                          obs_facade=self._obs_facade)
 
     def _dev(self, x) -> torch.Tensor:
         if isinstance(x, torch.Tensor):
@@ -259,6 +276,15 @@ class ShardedKV:
         for occ_np, bc_np in zip(occ, bc):
             self._routed_lanes += occ_np.astype(np.int64)
             self._traffic_ewma = self._decay * self._traffic_ewma + bc_np
+        if obs.enabled():       # mirror the folded traffic signal
+            obs.gauge_set("f2_bucket_traffic_ewma",
+                          self._traffic_ewma.tolist(),
+                          help="per-bucket routed-traffic EWMA",
+                          facade=self._obs_facade)
+            obs.gauge_set("f2_routed_lanes", self._routed_lanes.tolist(),
+                          help="cumulative routed lanes per shard",
+                          facade=self._obs_facade)
+            obs.rules.maybe_evaluate()  # an alert pass at the fold point
 
     @property
     def traffic_ewma(self) -> np.ndarray:
@@ -337,24 +363,46 @@ class ShardedKV:
         if self._logs(_rep_do) and not self._wal_defer:
             self._log_slab(keys, ops, vals)
         keys, ops, vals = self._coerce(keys, ops, vals)
-        status, rvals, rt = self._routed_apply(keys, ops, vals, _rep_do)
-        self.maybe_compact()
+        span = (obs.span("sharded.apply_round", cat="serve",
+                         B=int(keys.shape[0]))
+                if self._observe_apply else obs.NOOP_SPAN)
+        with span:
+            status, rvals, rt = self._routed_apply(keys, ops, vals, _rep_do)
+            self.maybe_compact()
         return status, rvals, rt.placed, rt.deferred
 
-    def _rounds(self, keys, ops, one_round, redo_op):
+    def _note_rounds(self, n_rounds: int, path: str, t_defer=None):
+        """A client batch's routed rounds into `f2_deferral_rounds{path=}`,
+        and the time from its first deferral to its end into the `deferral`
+        phase (`t_defer`: when round 1 left lanes deferred)."""
+        if t_defer is not None:
+            obs.observe_phase("deferral", time.perf_counter() - t_defer)
+        obs.observe("f2_deferral_rounds", n_rounds, buckets=obs.COUNT_BUCKETS,
+                    help="routed rounds needed per client batch",
+                    facade=self._obs_facade, path=path)
+
+    def _rounds(self, keys, ops, one_round, redo_op, path):
         """Route rounds until no lane is deferred; results in lane order
         (a lane's from the round that placed it: the first round's results
         hold ST_NONE and zeros for every lane it deferred).  The results
         merge on the device; a round's one host read is whether any lane is
-        still deferred."""
+        still deferred.  The rounds are observed under `path` (None: not
+        observed)."""
         status, rvals, _, deferred = one_round(ops)
+        n_rounds, t_defer = 1, None
         for _ in range(keys.shape[0]):    # each round places >= 1 lane
             if not bool(deferred.any()):
                 break
+            if (t_defer is None and path and self._observe_apply
+                    and obs.enabled()):
+                t_defer = time.perf_counter()
             cur_ops = torch.where(deferred, redo_op, OP_NOOP).to(torch.int32)
             st_r, rv_r, placed, deferred = one_round(cur_ops)
+            n_rounds += 1
             status = torch.where(placed, st_r, status)
             rvals = torch.where(placed[:, None], rv_r, rvals)
+        if path:
+            self._note_rounds(n_rounds, path, t_defer)
         return status, rvals
 
     def apply(self, keys, ops, vals=None, _rep_do=None):
@@ -367,6 +415,8 @@ class ShardedKV:
         B = len(keys)
         if self.lanes is None or self.lanes >= B:
             status, rvals, _, _ = self.apply_round(keys, ops, vals, _rep_do)
+            if self._observe_apply:
+                self._note_rounds(1, "apply")
         else:
             if self._logs(_rep_do):
                 self._log_slab(keys, ops, vals)
@@ -375,7 +425,8 @@ class ShardedKV:
             try:
                 status, rvals = self._rounds(
                     keys, ops,
-                    lambda o: self.apply_round(keys, o, vals, _rep_do), ops)
+                    lambda o: self.apply_round(keys, o, vals, _rep_do), ops,
+                    "apply" if self._observe_apply else None)
             finally:
                 self._wal_defer = False
         self.maybe_rebalance()
@@ -396,11 +447,14 @@ class ShardedKV:
             return self._read_host_loop(keys, ops)
 
         def one_round(cur_ops):
-            st, rv, rt = self._routed_read(keys, cur_ops)
+            with obs.span(self._read_span, cat="serve", B=B):
+                st, rv, rt = self._routed_read(keys, cur_ops)
             return st, rv, rt.placed, rt.deferred
         if self.lanes is None or self.lanes >= B:
-            return one_round(ops)[:2]
-        return self._rounds(keys, ops, one_round, OP_READ)
+            status, rvals = one_round(ops)[:2]
+            self._note_rounds(1, "read")
+            return status, rvals
+        return self._rounds(keys, ops, one_round, OP_READ, "read")
 
     def _read_host_loop(self, keys, cur_ops):
         """Routed reads under the host tier: router deferral and chunk misses
@@ -417,16 +471,20 @@ class ShardedKV:
                             device=self.device)
         vals0 = torch.zeros((B, self.cfg.value_width), dtype=torch.int32,
                             device=self.device)
+        n_rounds, t_defer = 0, None
         for _ in range(B + ht.max_rounds + 8):
-            skeys, sops, _, rt = shard_router.route(
-                keys, cur_ops, vals0, self.S, self._lanes_of(B),
-                bucket_map=self._bucket_map_dev)
-            self.state, sst, srv, smissed = store.read_batch_host(
-                self.cfg, self.state, skeys, sops == OP_READ,
-                admit_rc=self._admit)
-            st_r, rv_r = shard_router.unroute(rt, sst, srv)
-            lane_miss, _ = shard_router.unroute(rt, smissed, srv)
-            self._note_round(rt.occupancy, bucket_counts(rt, self.n_buckets))
+            with obs.span(self._read_span, cat="serve", B=B):
+                skeys, sops, _, rt = shard_router.route(
+                    keys, cur_ops, vals0, self.S, self._lanes_of(B),
+                    bucket_map=self._bucket_map_dev)
+                self.state, sst, srv, smissed = store.read_batch_host(
+                    self.cfg, self.state, skeys, sops == OP_READ,
+                    admit_rc=self._admit)
+                st_r, rv_r = shard_router.unroute(rt, sst, srv)
+                lane_miss, _ = shard_router.unroute(rt, smissed, srv)
+                self._note_round(rt.occupancy,
+                                 bucket_counts(rt, self.n_buckets))
+            n_rounds += 1
             hmiss = rt.placed & (lane_miss >= 0)
             served = rt.placed & ~hmiss
             status = torch.where(served, st_r, status)
@@ -434,6 +492,8 @@ class ShardedKV:
             redo = rt.deferred | hmiss
             if not bool(redo.any()):
                 break
+            if t_defer is None and obs.enabled():
+                t_defer = time.perf_counter()
             needs = ht.collect(smissed)
             if ht.any_missing(needs):
                 try:
@@ -455,12 +515,14 @@ class ShardedKV:
                                               ).to(torch.int32))
                         status = torch.where(hj, st_h, status)
                         rvals = torch.where(hj[:, None], rv_h, rvals)
+                    self._note_rounds(n_rounds, "read", t_defer)
                     return status, rvals
             cur_ops = torch.where(redo, OP_READ, OP_NOOP).to(torch.int32)
         else:
             raise RuntimeError(
                 "host tier: sharded read deferral did not converge")
         ht.end_batch()
+        self._note_rounds(n_rounds, "read", t_defer)
         return status, rvals
 
     def rmw(self, keys, deltas):
@@ -531,13 +593,21 @@ class ShardedKV:
         of the oldest half of their chunk logs."""
         shards = self._sched_mask(np.ones(self._lead_shape, bool)
                                   if shards is None else np.asarray(shards, bool))
-        do = self._dev_bool(shards)
-        old = self.state
-        ci, stats = cold_index.compact_chunklog(old.cold_idx, self.cfg,
-                                                old.stats, do=do)
-        self.state = select_shards(do, old._replace(cold_idx=ci, stats=stats),
-                                   old)
+        n_sh = int(shards.sum())
+        with obs.span("compact.chunk_gc", cat="compaction", shards=n_sh):
+            do = self._dev_bool(shards)
+            old = self.state
+            ci, stats = cold_index.compact_chunklog(old.cold_idx, self.cfg,
+                                                    old.stats, do=do)
+            self.state = select_shards(
+                do, old._replace(cold_idx=ci, stats=stats), old)
         self.compaction_counts["chunk_gc"] += shards
+        self._note_compaction("chunk_gc", n_sh)
+
+    def _note_compaction(self, kind: str, n_sh: int):
+        obs.journal.emit(f"compaction.{kind}", facade=self._obs_facade,
+                         shards=n_sh)
+        obs.count("f2_compactions_total", facade=self._obs_facade, kind=kind)
 
     def _regions(self, begins, tails, n_records, shards):
         """Per-shard compaction region sizes, as `KV._region` (0 where a
@@ -599,26 +669,32 @@ class ShardedKV:
     def compact_hot_cold(self, n_records: Optional[int] = None,
                          shards: Optional[np.ndarray] = None):
         begins, n, shards = self._region(shards, n_records, "hot")
-        until, _ = self._masked_steps(compaction.hot_cold_step, begins, n,
-                                      shards)
-        self._truncate("hot", until, shards)
+        n_sh = int(shards.sum())
+        with obs.span("compact.hot_cold", cat="compaction", shards=n_sh):
+            until, _ = self._masked_steps(compaction.hot_cold_step, begins, n,
+                                          shards)
+            self._truncate("hot", until, shards)
         self.compactions += shards
         self.compaction_counts["hot_cold"] += shards
+        self._note_compaction("hot_cold", n_sh)
 
     def compact_cold_cold(self, n_records: Optional[int] = None,
                           shards: Optional[np.ndarray] = None):
         begins, n, shards = self._region(shards, n_records, "cold")
-        if self._ht is None:
-            until, _ = self._masked_steps(compaction.cold_cold_step, begins, n,
-                                          shards)
-        else:
-            until = self._cc_steps_host(begins, n, shards)
-        self._truncate("cold", until, shards)
-        if self._ht is not None:
-            self._ht.end_batch()
-            self.state = self._ht.gc(self.state)
+        n_sh = int(shards.sum())
+        with obs.span("compact.cold_cold", cat="compaction", shards=n_sh):
+            if self._ht is None:
+                until, _ = self._masked_steps(compaction.cold_cold_step,
+                                              begins, n, shards)
+            else:
+                until = self._cc_steps_host(begins, n, shards)
+            self._truncate("cold", until, shards)
+            if self._ht is not None:
+                self._ht.end_batch()
+                self.state = self._ht.gc(self.state)
         self.compactions += shards
         self.compaction_counts["cold_cold"] += shards
+        self._note_compaction("cold_cold", n_sh)
 
     def _cc_steps_host(self, begins, n, shards):
         """The masked cold-cold copying phase under the host tier, step by
@@ -677,23 +753,27 @@ class ShardedKV:
     def compact_single_log(self, n_records: Optional[int] = None,
                            shards: Optional[np.ndarray] = None):
         begins, n, shards = self._region(shards, n_records, "hot")
+        n_sh = int(shards.sum())
         charge = self.faster_compaction == "lookup"
 
         def step(cfg, state, start, until, B):
             return compaction.single_log_lookup_step(
                 cfg, state, start, until, B, charge_walk_io=charge)
-        until, live_total = self._masked_steps(step, begins, n, shards)
-        if self.faster_compaction == "scan":
-            do = self._dev_bool(shards)
-            old = self.state
-            self.state = select_shards(
-                do, compaction.charge_full_scan(self.cfg, old), old)
-            self.temp_table_peak_bytes = np.maximum(
-                self.temp_table_peak_bytes,
-                np.where(shards, live_total * (self.cfg.record_bytes + 16), 0))
-        self._truncate("hot", until, shards)
+        with obs.span("compact.single_log", cat="compaction", shards=n_sh):
+            until, live_total = self._masked_steps(step, begins, n, shards)
+            if self.faster_compaction == "scan":
+                do = self._dev_bool(shards)
+                old = self.state
+                self.state = select_shards(
+                    do, compaction.charge_full_scan(self.cfg, old), old)
+                self.temp_table_peak_bytes = np.maximum(
+                    self.temp_table_peak_bytes,
+                    np.where(shards, live_total * (self.cfg.record_bytes + 16),
+                             0))
+            self._truncate("hot", until, shards)
         self.compactions += shards
         self.compaction_counts["single_log"] += shards
+        self._note_compaction("single_log", n_sh)
 
     # -- live rebalancing (core.rebalance) -----------------------------------
     def shard_stats(self) -> rebalance.ShardStats:
@@ -719,7 +799,12 @@ class ShardedKV:
     def stats(self) -> dict:
         """The nested telemetry tree (`core.protocol`): `io` (KV.io_stats
         totals) and `shards` (`replicas` under replication, `sessions`
-        through the session service)."""
+        through the session service), folded through the metrics registry
+        when observability is on (`obs.fold_stats`)."""
+        return obs.fold_stats(self._obs_facade, self._stats_tree())
+
+    def _stats_tree(self) -> dict:
+        """The raw nested telemetry tree `stats()` folds."""
         t = dict(
             io=self.io_stats(),
             shards=dict(
@@ -799,6 +884,9 @@ class ShardedKV:
         V = self.cfg.value_width
         cfg, nb = self.cfg, self.n_buckets
         self._migrating = True
+        mig_span = obs.span("rebalance.migrate", cat="rebalance",
+                            buckets=int(changed.size))
+        mig_span.__enter__()
         try:
             # drain the cold then the hot log of the source shards, so the
             # replay puts hot versions after cold ones
@@ -857,9 +945,16 @@ class ShardedKV:
                            np.pad(vals_all[off:off + Bm], ((0, pad), (0, 0))))
         finally:
             self._migrating = False
+            mig_span.__exit__(None, None, None)
         self.migrations += 1
         self.migrated_buckets += int(changed.size)
         self.migrated_records += n_moved
+        obs.journal.emit("rebalance.migrated", facade=self._obs_facade,
+                         buckets=int(changed.size), records=n_moved,
+                         map_version=self.map_version)
+        obs.count("f2_migrations_total", facade=self._obs_facade)
+        obs.count("f2_migrated_records_total", n_moved,
+                  facade=self._obs_facade)
         return n_moved
 
     def _collect(self, k, v, tomb, took) -> list:

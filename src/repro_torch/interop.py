@@ -13,6 +13,16 @@ and the JAX reference package, through plain dicts and numpy arrays.
     maps with `n_replicas=R` both ways: the port folds the two axes into
     its R*S rows (row r * S + s), `state_to_numpy(state, n_replicas=R)`
     unfolds them.
+  * `snapshot_tree(state, meta, n_replicas)` is a store snapshot (the
+    `{"state": F2State, "meta": {...}}` payload of `core.durability`) as
+    one flat dict keyed by the reference's leaf names
+    (`jax.tree_util.keystr` paths: `"['meta']['seq']"`,
+    `"['state'].hot.key"`), in the reference's flattening order (the meta
+    keys sorted, then the state's leaves), a replicated state's rows
+    unfolded to [R, S, ...].  The durability layer writes and restores its
+    snapshots through it, so each package's `recover` takes a durable
+    directory the other wrote: the reference's restore matches leaves by
+    position, the port's by name (`snapshot_leaf_names`).
   * `host_store_to_numpy(ht)` / `host_store_from_numpy(ht, d)` map a
     `HostTier`'s host store (the demoted cold chunks) to and from the
     reference's `HostTier.export_snapshot()` dict; with the state's leaves
@@ -147,6 +157,34 @@ def shard_state(state: store.F2State, s: int) -> store.F2State:
 
 
 HOST_STORE_KEYS = host_tier.SNAPSHOT_KEYS
+
+
+def snapshot_meta_name(key: str) -> str:
+    """The reference's leaf name of snapshot metadata entry `key`."""
+    return f"['meta']['{key}']"
+
+
+def snapshot_leaf_names(meta_keys) -> List[str]:
+    """The reference's names of a store snapshot's leaves, in its
+    flattening order: a dict's keys sorted ("meta" before "state"; the
+    metadata's own keys too), an F2State's fields in declaration order."""
+    return ([snapshot_meta_name(k) for k in sorted(meta_keys)]
+            + [f"['state'].{n}" for n in leaf_names()])
+
+
+def snapshot_tree(state: store.F2State, meta: Dict[str, torch.Tensor],
+                  n_replicas=None) -> Dict[str, torch.Tensor]:
+    """A store snapshot as {the reference's leaf name: tensor}, in the
+    reference's order: `meta`'s tensors, then the state's leaves as views
+    (with `n_replicas=R`, a replicated state's rows viewed as [R, S, ...]),
+    so a restore into the dict lands in `state` and `meta` in place."""
+    def view(t):
+        if n_replicas is None:
+            return t
+        return t.view((n_replicas, t.shape[0] // n_replicas) + t.shape[1:])
+    tensors = ([meta[k] for k in sorted(meta)]
+               + [view(t) for t in state_leaves(state)])
+    return dict(zip(snapshot_leaf_names(meta), tensors))
 
 
 def host_store_to_numpy(ht: host_tier.HostTier) -> Dict[str, np.ndarray]:

@@ -14,8 +14,10 @@ telemetry an operator polls.  The store runs on the CUDA device unless
 `core.durability.DurabilityConfig`) wraps the store in `DurableKV`:
 snapshots and a write-ahead slab log, from which
 `core.durability.recover(dir, make_kv)` brings the deployment back.
-Observability (`obs_enabled`, `obs_port`, ROADMAP item 13) is not ported:
-setting it raises.
+`obs_enabled` arms `repro_torch.obs` process-wide (metrics, spans, the
+journal, latency histograms, alert rules); `obs_port` serves its endpoints
+(`/metrics`, `/snapshot.json`, `/trace.json`, `/healthz`) on the loopback,
+port 0 picking a free one (`obs.serve.start`).
 """
 from __future__ import annotations
 
@@ -25,7 +27,9 @@ from typing import Any, Dict, Optional, Tuple
 
 import torch
 
+from .. import obs
 from ..configs.base import ModelConfig
+from ..obs import serve as obs_serve
 from ..models import transformer
 
 
@@ -65,12 +69,16 @@ class ServiceConfig:
     session_depth: int = 64         # ring slots per session
     pack_lanes: Optional[int] = None    # per-shard pack width (None: lanes)
     durability: Any = None          # core.durability.DurabilityConfig
-    # -- not ported: observability (item 13) --
+    # -- observability (repro_torch.obs): armed process-wide --
     obs_enabled: bool = False
-    obs_port: Optional[int] = None
+    obs_port: Optional[int] = None  # set: serve /metrics etc. on this port
     # -- pass-through store knobs (mode, trigger, compact_batch, device...) --
     store_kwargs: Dict[str, Any] = dataclasses.field(default_factory=dict)
 
+
+# (server, thread) of every endpoint `make_kv_service` started in this
+# process (`server.server_address[1]` is its port; `server.shutdown()` ends it)
+OBS_SERVERS: list = []
 
 _LEGACY_KEYS = ("n_shards", "lanes", "dispatch", "rebalance_cfg",
                 "n_replicas", "read_selector", "max_sessions",
@@ -99,12 +107,14 @@ def make_kv_service(kv_cfg, service: Optional[ServiceConfig] = None, **kw):
     them with fan-in writes and fan-out reads (`core.replication.
     ReplicatedKV`) when `service.n_replicas > 1`; the live rebalancer armed
     by `service.rebalance_cfg`; wrapped in `core.durability.DurableKV` when
-    `service.durability` is set."""
+    `service.durability` is set; `service.obs_enabled` arms observability
+    and `service.obs_port` serves its endpoints on a daemon thread."""
     sc = _coerce_service_cfg(service, dict(kw))
-    if sc.obs_enabled or sc.obs_port is not None:
-        raise NotImplementedError(
-            "ServiceConfig.obs_enabled / obs_port (observability) is ROADMAP "
-            "item 13, not ported yet")
+    if sc.obs_enabled:
+        obs.configure(enabled=True)
+    if sc.obs_port is not None:
+        # a daemon thread; port 0 picks a free one: read it from the server
+        OBS_SERVERS.append(obs_serve.start(port=sc.obs_port))
     if sc.n_replicas > 1:
         from ..core.replication import ReplicatedKV
         kv = ReplicatedKV(kv_cfg, sc.n_shards, n_replicas=sc.n_replicas,

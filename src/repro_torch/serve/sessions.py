@@ -38,17 +38,27 @@ history is the round sequence under the store's batch semantics (reads see
 the round's entry snapshot, writes apply in ticket order), and the oldest
 pending op is packed every round: no session starves.
 
-Not ported: the reference's ticket latency clock
-(`obs.latency.TicketClock`) and its observability calls wait for ROADMAP
-item 13.
+Observability
+-------------
+With `repro_torch.obs` on, `step()` is spanned (`sessions.step`) and a
+`TicketClock` stamps each ticket's enqueue, pack, apply and collection on
+the host; a round's packed tickets are gathered into a fresh tensor on the
+device and queued, and a fold (every `FOLD_EVERY` rounds, at a collection,
+or at `_fold_fill`) reads all the queued ones in one device-to-host copy
+(`fetch_tickets`), then feeds the `queue`, `pack`, `apply` and `e2e`
+latency phases.  `_fold_fill` also sets `f2_slab_occupancy` and
+`f2_packed_lanes_total` and runs an alert pass; sessions opened and closed
+are journaled.  Disabled, none of it runs.
 """
 from __future__ import annotations
 
-from typing import NamedTuple, Optional, Sequence
+import time
+from typing import List, NamedTuple, Optional, Sequence
 
 import numpy as np
 import torch
 
+from .. import obs
 from ..core import shard_router
 from ..core.types import (OP_DELETE, OP_NOOP, OP_READ, OP_RMW, OP_UPSERT,
                           ST_NONE)
@@ -157,6 +167,15 @@ def round_tickets(pool: SessionPool, sess, slot, valid) -> torch.Tensor:
     return torch.where(valid, t, -1).to(torch.int32)
 
 
+def fetch_tickets(rounds: Sequence[torch.Tensor]) -> List[list]:
+    """The ticket lists of queued rounds (the `TicketClock`'s fetch): every
+    round's tensor read in one device-to-host copy, split on the host."""
+    flat = [t.reshape(-1) for t in rounds]
+    host = torch.cat(flat).cpu().numpy()
+    cuts = np.cumsum([t.numel() for t in flat])[:-1]
+    return [part.tolist() for part in np.split(host, cuts)]
+
+
 class Session:
     """A caller's handle: enqueue ops, collect completions by ticket.  One
     session's ops execute in FIFO order; sessions interleave inside the
@@ -222,6 +241,8 @@ class KVSessionService:
     The synchronous `KVProtocol` surface (apply/read/upsert/rmw/delete)
     runs through a private session."""
 
+    _obs_facade = "sessions"
+
     def __init__(self, kv, max_sessions: int = 8, session_depth: int = 64,
                  pack_lanes: Optional[int] = None):
         if not hasattr(kv, "apply_round"):
@@ -254,6 +275,10 @@ class KVSessionService:
         self.trace_schedule = False             # record the rounds (tests)
         self.schedule: list = []    # [(sess, valid, bkeys, bops, bvals,
         #                              status, rvals, ticket)] per round
+        # the tickets' lifecycle stamps (enqueue -> packed -> applied ->
+        # collected), with obs on; a round's tickets are queued on the
+        # device and read at a fold
+        self._clock = obs.latency.TicketClock(fetch=fetch_tickets)
 
     # -- session lifecycle ----------------------------------------------------
     def open_session(self) -> Session:
@@ -267,6 +292,8 @@ class KVSessionService:
                     raise RuntimeError(f"session slot {sid} has slots in use")
                 self._sessions[sid] = s
                 self.sessions_opened += 1
+                obs.journal.emit("session.opened", sid=sid)
+                obs.count("f2_sessions_opened_total", facade=self._obs_facade)
                 return s
         raise RuntimeError(f"all {self.N} sessions are open")
 
@@ -275,6 +302,7 @@ class KVSessionService:
             raise RuntimeError("close_session with outstanding ops: drain() first")
         self._sessions[session.sid] = None
         session.open = False
+        obs.journal.emit("session.closed", sid=session.sid)
 
     # -- the scheduler round --------------------------------------------------
     def total_outstanding(self) -> int:
@@ -285,25 +313,35 @@ class KVSessionService:
         the rebalance check.  With `sync=False` nothing is read back here;
         `sync=True` returns the number of lanes packed."""
         kv, pool = self.kv, self.pool
-        (bkeys, bops, bvals, sess, slot, valid,
-         fill) = shard_router.pack_from_pool(
-            pool.keys, pool.ops, pool.vals, pool.ticket,
-            pool.slot_state == SLOT_PENDING, kv.S, self.W, kv._bucket_map_dev)
-        status, rvals, placed, _ = kv.apply_round(bkeys, bops, bvals)
-        # the packer never exceeds a shard's slab, so nothing defers;
-        # `placed` still gates the commit
-        commit(pool, sess, slot, valid & placed, status, rvals)
-        kv.maybe_rebalance()
-        # a DurableKV snapshots on its cadence at packed-round boundaries
-        # (between rounds the rings hold every un-acked op)
-        snap = getattr(kv, "maybe_snapshot", None)
-        if snap is not None:
-            snap()
+        armed = obs.enabled()
+        t_pack0 = time.perf_counter() if armed else 0.0
+        with obs.span("sessions.step", cat="serve"):
+            (bkeys, bops, bvals, sess, slot, valid,
+             fill) = shard_router.pack_from_pool(
+                pool.keys, pool.ops, pool.vals, pool.ticket,
+                pool.slot_state == SLOT_PENDING, kv.S, self.W,
+                kv._bucket_map_dev)
+            t_pack1 = time.perf_counter() if armed else 0.0
+            status, rvals, placed, _ = kv.apply_round(bkeys, bops, bvals)
+            # the packer never exceeds a shard's slab, so nothing defers;
+            # `placed` still gates the commit
+            commit(pool, sess, slot, valid & placed, status, rvals)
+            t_applied = time.perf_counter() if armed else 0.0
+            kv.maybe_rebalance()
+            # a DurableKV snapshots on its cadence at packed-round
+            # boundaries (between rounds the rings hold every un-acked op)
+            snap = getattr(kv, "maybe_snapshot", None)
+            if snap is not None:
+                snap()
         self.pack_rounds += 1
         self._pending_fill.append(fill)
-        if self.trace_schedule:
-            self.schedule.append((sess, valid, bkeys, bops, bvals, status,
-                                  rvals, round_tickets(pool, sess, slot, valid)))
+        if armed or self.trace_schedule:
+            tkt = round_tickets(pool, sess, slot, valid)    # a fresh tensor
+            if armed:       # queued on the device, read at a fold
+                self._clock.note_round(tkt, t_pack0, t_pack1, t_applied)
+            if self.trace_schedule:
+                self.schedule.append((sess, valid, bkeys, bops, bvals, status,
+                                      rvals, tkt))
         if len(self._pending_fill) >= 128:
             self._fold_fill()
         if sync:
@@ -350,6 +388,8 @@ class KVSessionService:
         self._next_ticket += n_acc
         self.tickets_issued += n_acc
         self.tickets_rejected += B - n_acc
+        if n_acc and obs.enabled():
+            self._clock.note_enqueue(t0, n_acc, time.perf_counter())
         for i in range(n_acc):
             s._slot_of[t0 + i] = s._tail + i    # monotone cursor, slot = mod C
             s._fifo.append(t0 + i)
@@ -382,6 +422,8 @@ class KVSessionService:
                 s._freed.remove(s._head)
                 s._head += 1
             self.collected += len(tickets)
+            if obs.enabled():   # a collection reads the device anyway
+                self._clock.note_collected(tickets, time.perf_counter())
         return out_st, out_v
 
     def _poll(self, s: Session, tickets: np.ndarray):
@@ -426,6 +468,18 @@ class KVSessionService:
         self._packed_lanes += int(fills.sum())
         self._fill_rounds += len(fills)
         self._fill_max = max(self._fill_max, int(fills.max()))
+        if obs.enabled():       # mirror the folded packing signal
+            denom = self._fill_rounds * self.kv.S * self.W
+            obs.gauge_set("f2_slab_occupancy",
+                          self._packed_lanes / denom if denom else 0.0,
+                          help="mean fraction of slab lanes filled per "
+                               "packed round",
+                          facade=self._obs_facade)
+            obs.count_total("f2_packed_lanes_total", self._packed_lanes,
+                            help="lanes packed into routed rounds",
+                            facade=self._obs_facade)
+            self._clock.fold()          # the queued ticket rounds ride along
+            obs.rules.maybe_evaluate()  # an alert pass at the fold point
 
     @property
     def packed_lanes(self) -> int:
@@ -511,8 +565,12 @@ class KVSessionService:
         return self.kv.io_stats()
 
     def stats(self) -> dict:
-        """The store's nested telemetry tree plus the `sessions` view."""
-        out = self.kv.stats()
+        """The store's nested telemetry tree plus the `sessions` view,
+        folded through the metrics registry when observability is on."""
+        return obs.fold_stats(self._obs_facade, self._stats_tree())
+
+    def _stats_tree(self) -> dict:
+        out = self.kv._stats_tree()
         self._fold_fill()
         out["sessions"] = dict(
             max_sessions=self.N,

@@ -1,5 +1,7 @@
 """Crash-fault injection: named crash points for durability testing (the
-JAX package's `testing/faults.py`, without its journal events).
+JAX package's `testing/faults.py`).  Arming a point and hitting it are
+journaled (`crashpoint.armed`, `crashpoint.hit`) when observability is on,
+so fault-injection tests pin the event sequence of a crash and recovery.
 
 Code calls ``maybe_crash("point.name")`` at the instants where a real
 process death would be most damaging (for the checkpointer: after the
@@ -16,6 +18,8 @@ point never leaks into the next test.
 from __future__ import annotations
 
 import threading
+
+from .. import obs
 
 # Every crash point of the reference, so that tests written against it arm
 # the same names; the port's code reaches each of them (the host tier's two
@@ -55,6 +59,13 @@ def arm(point: str, at: int = 1) -> None:
         raise ValueError(f"at must be >= 1, got {at}")
     with _lock:
         _armed[point] = at
+    obs.journal.emit("crashpoint.armed", point=point, at=at)
+
+
+def armed(point: str) -> bool:
+    """True if ``point`` is currently armed (without consuming a hit)."""
+    with _lock:
+        return point in _armed
 
 
 def maybe_crash(point: str) -> None:
@@ -66,6 +77,7 @@ def maybe_crash(point: str) -> None:
         if _armed[point] > 0:
             return
         del _armed[point]
+    obs.journal.emit("crashpoint.hit", point=point)
     raise InjectedCrash(point)
 
 

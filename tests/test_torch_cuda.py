@@ -20,7 +20,8 @@ over a stacked store's shard axis (S of 1, 2 and 4 in one launch, equal to
 their plain versions and to S single-shard calls) and over a replicated
 state's R*S = 8 rows, the kernel-backed ShardedKV and ReplicatedKV (through
 a drop and resync) against the plain-engine ones, the session service
-over ReplicatedKV against a dict model, and a DurableKV over the
+over ReplicatedKV against a dict model (and its rounds' host syncs with
+observability on and off), and a DurableKV over the
 kernel-backed ShardedKV recovering bit-exact against its twin.
 
 These tests need a CUDA device and nvcc and skip without them.  They import
@@ -904,6 +905,58 @@ def test_session_service_over_replicated_store(cuda):
     assert svc.max_fill <= 64
     assert replication.replicas_byte_identical(svc.kv)
     svc.check_invariants()
+
+
+SYNC_KEYS = ("cudaStreamSynchronize", "cudaMemcpyAsync", "aten::item",
+             "aten::_local_scalar_dense", "aten::nonzero")
+
+
+def _sync_counts(fn):
+    """Host-sync calls (stream syncs, device copies, scalar reads) made by
+    fn(), from a profiler window."""
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    counts = {e.key: e.count for e in prof.key_averages()}
+    return {k: counts.get(k, 0) for k in SYNC_KEYS}
+
+
+def test_session_rounds_sync_alike_with_obs_on(cuda):
+    """The session service over ReplicatedKV on the card, scheduler off:
+    each `step()` makes the same host syncs with `repro_torch.obs` on as
+    off (the ticket clock queues a round's tickets on the device), and the
+    clock's fold reads every queued round in one device-to-host copy."""
+    from repro_torch import obs
+    from repro_torch.serve import serve_step
+    counts = {}
+    try:
+        for armed in (False, True):
+            obs.configure(enabled=armed, reset=True)
+            svc = serve_step.make_session_service(CFG, serve_step.ServiceConfig(
+                n_shards=4, n_replicas=2, lanes=64, max_sessions=4, session_depth=512,
+                store_kwargs=dict(device=cuda, compact_batch=128, trigger=2.0)))
+            sessions = [svc.open_session() for _ in range(4)]
+            rng = np.random.default_rng(12)
+            for s in sessions:
+                keys = rng.integers(0, 4000, 512).astype(np.int32)
+                s.enqueue(keys, np.full(512, T.OP_UPSERT, np.int32),
+                          rng.integers(0, 100, (512, CFG.value_width)).astype(np.int32))
+            svc.step()
+            counts[armed] = [_sync_counts(svc.step) for _ in range(4)]
+            if armed:
+                assert len(svc._clock._rounds) == 5     # queued, not read yet
+                fold = _sync_counts(svc._clock.fold)
+                assert fold["cudaMemcpyAsync"] == 1, fold
+                assert not svc._clock._rounds
+            for s in sessions:
+                s.drain()
+            if armed:
+                assert obs.latency.summary()["e2e"]["count"] == svc.collected == 2048
+    finally:
+        obs.configure(enabled=False, reset=True)
+    assert counts[True] == counts[False], counts
 
 
 # ---------------------------------------------------------------------------

@@ -1,6 +1,6 @@
 """The port stands alone: it imports and runs (the store, single-shard,
-sharded with a live migration and replicated with a drop and resync, the
-session service over it, a durable store through a snapshot, a replica
+sharded with a live migration, sharded with observability on, replicated
+with a drop and resync, the session service over it, a durable store through a snapshot, a replica
 rebuild and a recovery, reduced serving
 engines and reduced training runs of the dense and RWKV-6 families) with
 the JAX package, JAX and the benchmarks blocked; its entry points default to the CUDA device and
@@ -78,6 +78,22 @@ def test_port_runs_with_the_reference_blocked():
         assert (v.numpy() == np.stack([keys] * 2, 1)).all()
         assert skv.compactions.sum() > 0 and skv.rounds > 30
         skv.check_invariants()
+        from repro_torch import obs
+        from repro_torch.obs import serve as obs_serve
+        obs.configure(enabled=True, reset=True)
+        okv = T.ShardedKV(cfg, 4, device="cpu", compact_batch=128, lanes=64,
+                          trigger=0.3)
+        for i in range(0, 3000, 100):
+            okv.upsert(keys[i:i + 100], np.stack([keys[i:i + 100]] * 2, 1))
+        st, v = okv.read(keys[:500])
+        assert (st.numpy() == T.ST_OK).all()
+        assert sum(okv.stats()["shards"]["compactions"]) > 0
+        names = obs.get_registry().names()
+        assert "f2_deferral_rounds" in names and "f2_stats_io_read_ops" in names
+        assert "compaction.hot_cold" in obs.journal.kinds()
+        assert obs.latency.summary()["deferral"]["count"] > 0
+        assert obs_serve.render("/healthz")[0] == 200
+        obs.configure(enabled=False, reset=True)
         rkv = T.ReplicatedKV(cfg, 2, n_replicas=2, device="cpu",
                              compact_batch=128, lanes=64, trigger=0.3)
         for i in range(0, 3000, 100):
@@ -377,6 +393,16 @@ def test_host_tier_runs_with_the_reference_blocked(tmp_path):
                          text=True, env=env, timeout=240, cwd=str(ROOT))
     assert out.returncode == 0, out.stderr[-3000:]
     assert "isolated-ok" in out.stdout
+
+
+def test_port_sources_include_the_obs_slice():
+    """The AST scan above walks every module of the observability slice."""
+    names = _port_module_names()
+    for mod in ("obs/__init__.py", "obs/_flags.py", "obs/metrics.py",
+                "obs/trace.py", "obs/journal.py", "obs/latency.py",
+                "obs/rules.py", "obs/export.py", "obs/serve.py",
+                "obs/report.py", "testing/faults.py", "interop.py"):
+        assert mod in names, mod
 
 
 def test_port_sources_include_the_ssm_slice():

@@ -455,14 +455,47 @@ def test_make_kv_service_builds_the_deployment():
         serve_step.make_kv_service(cfg, serve_step.ServiceConfig(), mode="f2")
 
 
-@pytest.mark.parametrize("field,value,item", [("obs_enabled", True, "item 13"),
-                                              ("obs_port", 0, "item 13")])
-def test_make_kv_service_refuses_what_is_not_ported(field, value, item):
+@pytest.mark.parametrize("field,value", [("obs_enabled", True), ("obs_port", 0)],
+                         ids=["obs_enabled-True-item 13", "obs_port-0-item 13"])
+def test_make_kv_service_refuses_what_is_not_ported(field, value):
+    """ROADMAP item 13's two settings, which raised until observability was
+    ported, now work in both factories: `obs_enabled` arms
+    `repro_torch.obs` (a write reaches the registry and the trace), and
+    `obs_port=0` serves `/healthz` 200 on the loopback at a free port."""
+    import json
+    import urllib.request
+    from repro_torch import obs
     sc = dataclasses.replace(serve_step.ServiceConfig(n_shards=2, store_kwargs=_store_kw()),
                              **{field: value})
-    for make in (serve_step.make_kv_service, serve_step.make_session_service):
-        with pytest.raises(NotImplementedError, match=item):
-            make(tiny_configs()[1], sc)
+    obs.configure(enabled=False, reset=True)
+    try:
+        for make in (serve_step.make_kv_service, serve_step.make_session_service):
+            n_srv = len(serve_step.OBS_SERVERS)
+            kv = make(tiny_configs()[1], sc)
+            keys = np.arange(1, 33, dtype=np.int32)
+            kv.upsert(keys, np.ones((32, V), np.int32))
+            if field == "obs_enabled":
+                assert obs.enabled() and obs.get_registry().names()
+                kv.stats()
+                assert "f2_stats_io_read_ops" in obs.get_registry().names()
+                assert len(obs.trace.TRACER) > 0
+                obs.configure(enabled=False, reset=True)
+                continue
+            assert not obs.enabled()
+            srv, thread = serve_step.OBS_SERVERS[n_srv]
+            try:
+                host, port = srv.server_address[:2]
+                assert host == "127.0.0.1" and port > 0
+                with urllib.request.urlopen(f"http://127.0.0.1:{port}/healthz",
+                                            timeout=10) as r:
+                    assert r.status == 200
+                    assert json.loads(r.read())["status"] == "ok"
+            finally:
+                srv.shutdown()
+                srv.server_close()
+                thread.join(timeout=10)
+    finally:
+        obs.configure(enabled=False, reset=True)
 
 
 @pytest.mark.parametrize("replicas", [1, 2])
