@@ -54,7 +54,7 @@ import torch
 from .configs.base import ModelConfig
 from .core import cold_index, host_tier, hybrid_log, read_cache, store
 from .core.types import IoStats, F2Config
-from .models import layers, rwkv6, transformer
+from .models import layers, moe, rwkv6, ssm, transformer
 from .optim import adamw
 from .serve.sessions import SessionPool
 from .train import train_step
@@ -233,10 +233,11 @@ def model_config_from_dict(d: Dict) -> ModelConfig:
 
 def params_from_numpy(tree, cfg: ModelConfig, device="cpu") -> transformer.Transformer:
     """The port's model from the reference's parameter tree of numpy arrays
-    (float32 masters).  Matmul weights, the embedding and RWKV-6's `CAST`
-    leaves are cast to `cfg.dtype` (round to nearest even, as the
-    reference's `.astype` at use); norm scales and RWKV-6's `w0`, `wB`, `u`
-    and `ln_x` stay float32."""
+    (float32 masters).  Matmul weights, the embedding, the experts and
+    RWKV-6's and the SSM's `CAST` leaves are cast to `cfg.dtype` (round to
+    nearest even, as the reference's `.astype` at use); norm scales, the
+    MoE router, RWKV-6's `w0`, `wB`, `u` and `ln_x` and the SSM's `wdt`,
+    `dt_bias` and `a_log` stay float32."""
     transformer.check_family(cfg)
     dt = layers.weight_dtype(cfg)
 
@@ -251,29 +252,56 @@ def params_from_numpy(tree, cfg: ModelConfig, device="cpu") -> transformer.Trans
         return layers.Norm(f32(pick(t["scale"])),
                            f32(pick(t["bias"])) if "bias" in t else None)
 
-    B = tree["blocks"]
-    blocks = []
-    for l in range(cfg.n_layers):
-        if cfg.family == "ssm":
+    def attn(a, l):
+        qk = (f32(a["q_norm"][l]), f32(a["k_norm"][l])) if "q_norm" in a else ()
+        return layers.Attention(w(a["wq"][l]), w(a["wk"][l]), w(a["wv"][l]),
+                                w(a["wo"][l]), *qk)
+
+    def block(B, l):
+        if "rwkv" in B:
             R = B["rwkv"]
             leaves = {n: (w if n in rwkv6.CAST else f32)(R[n][l]) for n in rwkv6.NAMES}
-            blocks.append(transformer.RWKVBlock(norm(B["norm1"], l), norm(B["norm2"], l),
-                                                rwkv6.RWKV(**leaves)))
-            continue
-        a = B["attn"]
-        qk = (f32(a["q_norm"][l]), f32(a["k_norm"][l])) if "q_norm" in a else ()
-        attn = layers.Attention(w(a["wq"][l]), w(a["wk"][l]), w(a["wv"][l]),
-                                w(a["wo"][l]), *qk)
-        mlp = layers.MLP(w(B["mlp"]["wi"][l]), w(B["mlp"]["wo"][l]))
-        blocks.append(transformer.Block(norm(B["norm1"], l), norm(B["norm2"], l),
-                                        attn, mlp))
+            return transformer.RWKVBlock(norm(B["norm1"], l), norm(B["norm2"], l),
+                                         rwkv6.RWKV(**leaves))
+        extra = {}
+        if "mlp" in B:
+            extra["mlp"] = layers.MLP(w(B["mlp"]["wi"][l]), w(B["mlp"]["wo"][l]))
+        if "moe" in B:
+            M = B["moe"]
+            shared = ((w(M["shared_wi"][l]), w(M["shared_wo"][l]))
+                      if "shared_wi" in M else ())
+            extra["moe"] = moe.MoE(f32(M["router"][l]), w(M["wi"][l]), w(M["wo"][l]),
+                                   *shared)
+        if "ssm" in B:
+            S = B["ssm"]
+            extra["ssm"] = ssm.SSM(**{n: (w if n in ssm.CAST else f32)(S[n][l])
+                                      for n in ssm.NAMES})
+        for n in ("norm_attn_out", "norm_ssm_out", "norm_cross"):
+            if n in B:
+                extra[n] = norm(B[n], l)
+        if "cross" in B:
+            extra["cross"] = attn(B["cross"], l)
+        return transformer.Block(norm(B["norm1"], l), norm(B["norm2"], l),
+                                 attn(B["attn"], l), **extra)
+
+    blocks = [block(tree["blocks"], l) for l in range(cfg.n_layers)]
+    enc = {}
+    if cfg.is_encoder_decoder:
+        enc = dict(enc_blocks=[block(tree["enc_blocks"], l)
+                               for l in range(cfg.n_encoder_layers)],
+                   enc_final_norm=norm(tree["enc_final_norm"]))
     return transformer.Transformer(cfg, layers.Embed(w(tree["embed"]["table"])),
-                                   blocks, norm(tree["final_norm"]))
+                                   blocks, norm(tree["final_norm"]), **enc)
+
+
+# the module lists whose layers the reference stacks on a leading axis
+STACKED = ("blocks", "enc_blocks")
 
 
 def _stack_named(items) -> Dict:
-    """The reference's nested tree (blocks stacked on a leading layer axis)
-    from (port parameter name, numpy array) pairs, layers in order."""
+    """The reference's nested tree (blocks and encoder blocks stacked on a
+    leading layer axis) from (port parameter name, numpy array) pairs,
+    layers in order."""
     tree: Dict = {}
     stacked: Dict = {}
 
@@ -285,12 +313,12 @@ def _stack_named(items) -> Dict:
 
     for name, a in items:
         parts = name.split(".")
-        if parts[0] == "blocks":      # blocks.<l>.<path>, layers in order
-            stacked.setdefault(tuple(parts[2:]), []).append(a)
+        if parts[0] in STACKED:       # blocks.<l>.<path>, layers in order
+            stacked.setdefault((parts[0],) + tuple(parts[2:]), []).append(a)
         else:
             put(parts, a)
     for path, arrs in stacked.items():
-        put(("blocks",) + path, np.stack(arrs))
+        put(path, np.stack(arrs))
     return tree
 
 
@@ -299,8 +327,8 @@ def reference_leaf(tree, name: str):
     stacked block leaf)."""
     parts = name.split(".")
     layer = None
-    if parts[0] == "blocks":
-        layer, parts = int(parts[1]), ["blocks"] + parts[2:]
+    if parts[0] in STACKED:
+        layer, parts = int(parts[1]), [parts[0]] + parts[2:]
     node = tree
     for k in parts:
         node = node[k]

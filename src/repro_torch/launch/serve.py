@@ -4,7 +4,10 @@
         --reduced --device cpu --backend paged --requests 8
 
 Without `--device` it runs on the CUDA device (and fails without one).
-Weights are random, drawn from seed 0.
+Weights are random, drawn from seed 0.  The paged backend serves the dense
+and vlm families; moe, hybrid, audio and ssm archs need `--backend
+contiguous` (Whisper's cross-attention cache then stays at zeros, as the
+reference's engine leaves it).
 """
 import argparse
 

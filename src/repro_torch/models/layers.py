@@ -182,14 +182,17 @@ def project_qkv(cfg: ModelConfig, p: Attention, x, positions, use_rope=True,
     return q, k, v
 
 
-def flash_attention(q, k, v, *, causal: bool = True, window=None):
+def flash_attention(q, k, v, *, causal: bool = True, window=None,
+                    cross: bool = False):
     """Full-sequence GQA attention: q [B,Hq,Tq,Dh], k/v [B,Hkv,Tk,Dh] ->
-    [B,Hq,Tq,Dh]; window None or <= 0 means unlimited.  The flash-attention
-    kernels on a CUDA device, their plain version on the CPU.  (The
-    reference's `cross` branch serves the audio family, which is not
-    ported.)"""
+    [B,Hq,Tq,Dh]; window None or <= 0 means unlimited; `cross` (the
+    encoder-decoder's attention to the encoder output, Tq != Tk) drops the
+    causal mask.  The flash-attention kernels on a CUDA device, their plain
+    version on the CPU; both take any Tk, so the reference's padding of a
+    ragged Tk to its key block has no counterpart here."""
     w = 0 if window is None else int(window)
-    return fa_ops.flash_attention(q, k, v, causal=causal, window=max(w, 0))
+    return fa_ops.flash_attention(q, k, v, causal=causal and not cross,
+                                  window=max(w, 0))
 
 
 def attn_out(p: Attention, attn, dtype):
@@ -268,6 +271,16 @@ def mlp(cfg: ModelConfig, p: MLP, x):
 # ---------------------------------------------------------------------------
 # Embedding / logits
 # ---------------------------------------------------------------------------
+
+def sinusoid_pos(positions, d: int, dtype):
+    """Whisper-style sinusoidal positions.  positions: [B,T] -> [B,T,d]."""
+    half = d // 2
+    step = torch.log(torch.tensor(10000.0, device=positions.device)) / max(half - 1, 1)
+    freqs = torch.exp(-torch.arange(half, dtype=torch.float32,
+                                    device=positions.device) * step)
+    ang = positions[..., None].float() * freqs
+    return torch.cat([torch.sin(ang), torch.cos(ang)], dim=-1).to(dtype)
+
 
 class Embed(nn.Module):
     """table [padded_vocab, D], tied with the output projection."""

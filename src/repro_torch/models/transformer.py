@@ -1,18 +1,29 @@
-"""The decoders of the dense and ssm (RWKV-6) families as `nn.Module`s,
-and their decode paths.
+"""The model families as `nn.Module`s (the JAX package's
+`models/transformer.py`), with their full-sequence and decode paths:
+
+  dense / vlm      : GQA attention (+ sliding-window / local:global) + MLP;
+                     vlm prepends the (stub) patch embeddings
+  moe              : GQA attention + capacity-bounded MoE FFN (`moe.py`)
+  ssm (rwkv6)      : time-mix (WKV6, data-dependent decay) + channel-mix
+  hybrid (hymba)   : parallel attention || selective-SSM heads (`ssm.py`) + MLP
+  audio (whisper)  : encoder stack (bidirectional) + decoder with cross-attention
 
 The module tree keeps the JAX reference's parameter names: `embed.table`,
 `final_norm` and, per block, `blocks[l].{norm1,norm2,attn.{wq,wk,wv,wo},
-mlp.{wi,wo}}` (dense; `attn.q_norm`/`attn.k_norm` with qk-norm) or
-`blocks[l].{norm1,norm2,rwkv.{mu,wr,...,cr}}` (ssm).  The layer stack is an
-`nn.ModuleList` walked by a Python loop where the reference scans over
+mlp.{wi,wo}}` (`attn.q_norm`/`attn.k_norm` with qk-norm; `moe.{router,wi,
+wo,shared_wi,shared_wo}` in place of `mlp` for moe; `ssm.*`,
+`norm_attn_out` and `norm_ssm_out` added for hybrid; `norm_cross` and
+`cross.*` added for audio, with `enc_blocks[l].*` and `enc_final_norm`) or
+`blocks[l].{norm1,norm2,rwkv.{mu,wr,...,cr}}` (ssm).  Layer stacks are
+`nn.ModuleList`s walked by a Python loop where the reference scans over
 stacked blocks.
 
 Exposes `layer_flags`, `init_params`, the full-sequence path of training
-and prefill (`forward_hidden`, `forward`, `loss_fn`) and the decode path
-(`init_cache`, `decode_step`: the contiguous-cache backend of the serving
-engine).  The other families (moe, hybrid, audio, vlm) are not ported yet
-(ROADMAP queue 1, item 14): asking for them raises `NotImplementedError`.
+and prefill (`encode`, `forward_hidden`, `forward`, `loss_fn`) and the
+decode path (`init_cache`, `decode_step`: the contiguous-cache backend of
+the serving engine).  Modality frontends are stubs, as in the reference:
+the patch embeddings (batch["frontend"]) and the encoder's frames
+(batch["frames"]) arrive precomputed.
 
 Parameters are made with `requires_grad=False`; the training step switches
 them on.  `decode_step` runs under `torch.no_grad()` whatever they hold.
@@ -26,16 +37,15 @@ from torch import nn
 from torch.utils.checkpoint import checkpoint
 
 from ..configs.base import ModelConfig
-from . import layers, rwkv6
+from . import layers, moe, rwkv6, ssm
 
-PORTED_FAMILIES = ("dense", "ssm")
+PORTED_FAMILIES = ("dense", "moe", "ssm", "hybrid", "audio", "vlm")
 
 
 def check_family(cfg: ModelConfig) -> None:
     if cfg.family not in PORTED_FAMILIES:
-        raise NotImplementedError(
-            f"{cfg.name}: the {cfg.family!r} family is not ported to PyTorch "
-            f"yet (ROADMAP queue 1, item 14); {PORTED_FAMILIES} run")
+        raise ValueError(f"{cfg.name}: unknown family {cfg.family!r}; "
+                         f"{PORTED_FAMILIES} run")
 
 
 # ---------------------------------------------------------------------------
@@ -65,10 +75,19 @@ def layer_flags(cfg: ModelConfig) -> Dict[str, torch.Tensor]:
 # ---------------------------------------------------------------------------
 
 class Block(nn.Module):
+    """norm1, norm2, attn and the FFN: `mlp`, or `moe` (moe family).  The
+    hybrid family adds `ssm`, `norm_attn_out` and `norm_ssm_out`; the
+    encoder-decoder adds `norm_cross` and `cross` (an `Attention`)."""
+
     def __init__(self, norm1: layers.Norm, norm2: layers.Norm,
-                 attn: layers.Attention, mlp: layers.MLP):
+                 attn: layers.Attention, mlp: Optional[layers.MLP] = None,
+                 **extra: nn.Module):
         super().__init__()
-        self.norm1, self.norm2, self.attn, self.mlp = norm1, norm2, attn, mlp
+        self.norm1, self.norm2, self.attn = norm1, norm2, attn
+        if mlp is not None:
+            self.mlp = mlp
+        for name, m in extra.items():
+            setattr(self, name, m)
 
 
 class RWKVBlock(nn.Module):
@@ -79,12 +98,46 @@ class RWKVBlock(nn.Module):
 
 class Transformer(nn.Module):
     def __init__(self, cfg: ModelConfig, embed: layers.Embed,
-                 blocks: List[nn.Module], final_norm: layers.Norm):
+                 blocks: List[nn.Module], final_norm: layers.Norm,
+                 enc_blocks: Optional[List[Block]] = None,
+                 enc_final_norm: Optional[layers.Norm] = None):
         super().__init__()
         self.cfg = cfg
         self.embed = embed
         self.blocks = nn.ModuleList(blocks)
         self.final_norm = final_norm
+        if enc_blocks is not None:
+            self.enc_blocks = nn.ModuleList(enc_blocks)
+            self.enc_final_norm = enc_final_norm
+
+
+def _block_params(cfg: ModelConfig, gen: torch.Generator, device) -> nn.Module:
+    d = cfg.d_model
+    if cfg.family == "ssm":
+        return RWKVBlock(layers.norm_params(cfg, d, device),
+                         layers.norm_params(cfg, d, device),
+                         rwkv6.rwkv_params(cfg, gen, device))
+    extra: Dict[str, nn.Module] = {}
+    if cfg.family == "moe":
+        extra["moe"] = moe.moe_params(cfg, gen, d, device)
+    else:
+        extra["mlp"] = layers.mlp_params(cfg, gen, d, cfg.d_ff, device)
+    if cfg.family == "hybrid":
+        extra["ssm"] = ssm.ssm_params(cfg, gen, d, device)
+        extra["norm_attn_out"] = layers.norm_params(cfg, d, device)
+        extra["norm_ssm_out"] = layers.norm_params(cfg, d, device)
+    if cfg.is_encoder_decoder:
+        extra["norm_cross"] = layers.norm_params(cfg, d, device)
+        extra["cross"] = layers.attn_params(cfg, gen, d, device)
+    return Block(layers.norm_params(cfg, d, device), layers.norm_params(cfg, d, device),
+                 layers.attn_params(cfg, gen, d, device), **extra)
+
+
+def _enc_block_params(cfg: ModelConfig, gen: torch.Generator, device) -> Block:
+    d = cfg.d_model
+    return Block(layers.norm_params(cfg, d, device), layers.norm_params(cfg, d, device),
+                 layers.attn_params(cfg, gen, d, device),
+                 layers.mlp_params(cfg, gen, d, cfg.d_ff, device))
 
 
 def init_params(cfg: ModelConfig, generator: torch.Generator,
@@ -94,33 +147,47 @@ def init_params(cfg: ModelConfig, generator: torch.Generator,
     check_family(cfg)
     d = cfg.d_model
     embed = layers.embed_params(cfg, generator, device)
-    if cfg.family == "ssm":
-        blocks = [RWKVBlock(layers.norm_params(cfg, d, device),
-                            layers.norm_params(cfg, d, device),
-                            rwkv6.rwkv_params(cfg, generator, device))
-                  for _ in range(cfg.n_layers)]
-        return Transformer(cfg, embed, blocks, layers.norm_params(cfg, d, device))
-    blocks = [Block(layers.norm_params(cfg, d, device),
-                    layers.norm_params(cfg, d, device),
-                    layers.attn_params(cfg, generator, d, device),
-                    layers.mlp_params(cfg, generator, d, cfg.d_ff, device))
-              for _ in range(cfg.n_layers)]
-    return Transformer(cfg, embed, blocks,
-                       layers.norm_params(cfg, d, device))
+    blocks = [_block_params(cfg, generator, device) for _ in range(cfg.n_layers)]
+    enc = {}
+    if cfg.is_encoder_decoder:
+        enc = dict(enc_blocks=[_enc_block_params(cfg, generator, device)
+                               for _ in range(cfg.n_encoder_layers)],
+                   enc_final_norm=layers.norm_params(cfg, d, device))
+    return Transformer(cfg, embed, blocks, layers.norm_params(cfg, d, device), **enc)
 
 
 # ---------------------------------------------------------------------------
 # Full-sequence forward (train / prefill)
 # ---------------------------------------------------------------------------
 
-def _attn_block_seq(cfg: ModelConfig, blk: Block, x, tables, window: int):
+def _ffn(cfg: ModelConfig, blk: Block, h):
+    if cfg.family == "moe":
+        return moe.moe_ffn(cfg, blk.moe, h)
+    return layers.mlp(cfg, blk.mlp, h)
+
+
+def _attn_block_seq(cfg: ModelConfig, blk: Block, x, tables, window: int,
+                    enc_out=None):
     h = layers.norm(cfg, x, blk.norm1)
     q, k, v = layers.project_qkv(cfg, blk.attn, h, None,
                                  use_rope=(cfg.norm != "layernorm"), tables=tables)
     att = layers.flash_attention(q, k, v, causal=True, window=window)
-    x = x + layers.attn_out(blk.attn, att, x.dtype)
+    attn_out = layers.attn_out(blk.attn, att, x.dtype)
+    if cfg.family == "hybrid":
+        s_out, _ = ssm.ssm_mix(cfg, blk.ssm, h,
+                               ssm.init_ssm_state(cfg, x.shape[0], x.dtype, x.device))
+        x = x + (layers.norm(cfg, attn_out, blk.norm_attn_out)
+                 + layers.norm(cfg, s_out, blk.norm_ssm_out)) * 0.5
+    else:
+        x = x + attn_out
+    if enc_out is not None:          # cross-attention: K/V from the encoder output
+        hc = layers.norm(cfg, x, blk.norm_cross)
+        qc = layers._heads(hc, blk.cross.wq)
+        kc, vc = layers._heads(enc_out, blk.cross.wk), layers._heads(enc_out, blk.cross.wv)
+        att_c = layers.flash_attention(qc, kc, vc, causal=False, cross=True)
+        x = x + layers.attn_out(blk.cross, att_c, x.dtype)
     h2 = layers.norm(cfg, x, blk.norm2)
-    return x + layers.mlp(cfg, blk.mlp, h2)
+    return x + _ffn(cfg, blk, h2)
 
 
 def _rwkv_block_seq(cfg: ModelConfig, blk: RWKVBlock, x):
@@ -135,10 +202,38 @@ def _rwkv_block_seq(cfg: ModelConfig, blk: RWKVBlock, x):
     return x + cm
 
 
+def _enc_block(cfg: ModelConfig, blk: Block, x):
+    h = layers.norm(cfg, x, blk.norm1)
+    q, k, v = layers.project_qkv(cfg, blk.attn, h, None, use_rope=False)
+    att = layers.flash_attention(q, k, v, causal=False)
+    x = x + layers.attn_out(blk.attn, att, x.dtype)
+    h2 = layers.norm(cfg, x, blk.norm2)
+    return x + layers.mlp(cfg, blk.mlp, h2)
+
+
+def encode(cfg: ModelConfig, model: Transformer, frames: torch.Tensor,
+           remat: bool = True) -> torch.Tensor:
+    """The Whisper encoder over precomputed (stub) conv frames [B, Tf, D]:
+    sinusoid positions, bidirectional blocks, the final norm.  With remat
+    each block is recomputed in the backward pass (the reference always
+    checkpoints its encoder blocks)."""
+    x = frames.to(layers.weight_dtype(cfg))
+    B, Tf = x.shape[:2]
+    pos = torch.arange(Tf, device=x.device).expand(B, Tf)
+    x = x + layers.sinusoid_pos(pos, cfg.d_model, x.dtype)
+    for blk in model.enc_blocks:
+        x = (checkpoint(_enc_block, cfg, blk, x, use_reentrant=False) if remat
+             else _enc_block(cfg, blk, x))
+    return layers.norm(cfg, x, model.enc_final_norm)
+
+
 def forward_hidden(cfg: ModelConfig, model: Transformer,
                    batch: Dict[str, torch.Tensor], remat: bool = True) -> torch.Tensor:
-    """Final hidden states [B, T, D] of batch["tokens"] [B, T].  With remat
-    each block is recomputed in the backward pass from its input (the
+    """Final hidden states [B, T, D] over the positions of batch["tokens"]
+    [B, T]; batch["frontend"] [B, P, D] (vlm: patch embeddings, prepended
+    and cut off again at the end) and batch["frames"] [B, Tf, D] (audio:
+    the encoder's input) where the family takes them.  With remat each
+    block is recomputed in the backward pass from its input (the
     reference's `jax.checkpoint` with nothing saveable), so only the block
     inputs stay alive between the passes."""
     check_family(cfg)
@@ -149,20 +244,30 @@ def forward_hidden(cfg: ModelConfig, model: Transformer,
             x = (checkpoint(_rwkv_block_seq, cfg, blk, x, use_reentrant=False)
                  if remat else _rwkv_block_seq(cfg, blk, x))
         return layers.norm(cfg, x, model.final_norm)
-    B, T = tokens.shape
+    n_front = 0
+    if cfg.frontend == "patches" and "frontend" in batch:
+        fe = batch["frontend"].to(x.dtype)
+        x = torch.cat([fe, x], dim=1)
+        n_front = fe.shape[1]
+    B, T = x.shape[:2]
     positions = torch.arange(T, device=tokens.device).expand(B, T)
     tables = None
-    if cfg.norm != "layernorm":      # one rotary table for every layer
+    if cfg.norm == "layernorm":      # whisper: absolute positions, no RoPE
+        x = x + layers.sinusoid_pos(positions, cfg.d_model, x.dtype)
+    else:                            # one rotary table for every layer
         tables = layers.rope_tables(positions[:, None, :], cfg.resolved_head_dim,
                                     cfg.rope_theta, cfg.rope_fraction)
+    enc_out = (encode(cfg, model, batch["frames"], remat=remat)
+               if cfg.is_encoder_decoder else None)
     windows = layer_flags(cfg)["window"].tolist()
     for blk, w in zip(model.blocks, windows):
         if remat:
-            x = checkpoint(_attn_block_seq, cfg, blk, x, tables, w,
+            x = checkpoint(_attn_block_seq, cfg, blk, x, tables, w, enc_out,
                            use_reentrant=False)
         else:
-            x = _attn_block_seq(cfg, blk, x, tables, w)
-    return layers.norm(cfg, x, model.final_norm)
+            x = _attn_block_seq(cfg, blk, x, tables, w, enc_out)
+    x = layers.norm(cfg, x, model.final_norm)
+    return x[:, n_front:, :] if n_front else x
 
 
 def forward(cfg: ModelConfig, model: Transformer, batch: Dict[str, torch.Tensor],
@@ -184,11 +289,12 @@ def _chunk_nll(cfg: ModelConfig, embed: layers.Embed, xc, tc, mc):
 def loss_fn(cfg: ModelConfig, model: Transformer, batch: Dict[str, torch.Tensor],
             remat: bool = True, loss_chunk: int = 1024) -> torch.Tensor:
     """Next-token cross-entropy over batch["tokens"] [B, T+1] (weighted by
-    batch["loss_mask"] [B, T+1] where given), computed in sequence chunks of
+    batch["loss_mask"] [B, T+1] where given; batch["frontend"] and
+    batch["frames"] go to `forward_hidden`), computed in sequence chunks of
     `loss_chunk` so the [B, T, V] logits never exist at once; with remat
     each chunk's logits are recomputed in the backward pass."""
     toks = batch["tokens"]
-    x = forward_hidden(cfg, model, {"tokens": toks[:, :-1]}, remat=remat)
+    x = forward_hidden(cfg, model, dict(batch, tokens=toks[:, :-1]), remat=remat)
     tgt = toks[:, 1:]
     mask: Optional[torch.Tensor] = batch.get("loss_mask")
     mask = (torch.ones(tgt.shape, dtype=torch.float32, device=tgt.device)
@@ -213,23 +319,36 @@ def loss_fn(cfg: ModelConfig, model: Transformer, batch: Dict[str, torch.Tensor]
 
 def init_cache(cfg: ModelConfig, batch: int, max_len: int, dtype=None,
                device=None) -> Dict[str, Any]:
-    """{"len": int32 [B]} and, dense: "k"/"v" [L, B, Hkv, max_len, Dh] in
-    the model dtype; ssm: "wkv" [L, B, H, Dh, Dh] float32 (float64 in a
-    float64 model) and "shift" [L, 2, B, D] in the model dtype (max_len
-    unused)."""
+    """{"len": int32 [B]} and, attention families: "k"/"v" [L, B, Hkv,
+    max_len, Dh] in the model dtype, plus for hybrid the SSM's "conv" [L, B,
+    CONV_K-1, din] (model dtype) and "h" [L, B, din, N] float32, and for
+    audio the cross-attention K/V "xk"/"xv" [L, B, Hkv, encoder_len, Dh]
+    (zeros: the caller fills them from `encode`, as the reference's caller
+    does); ssm: "wkv" [L, B, H, Dh, Dh] float32 (float64 in a float64
+    model) and "shift" [L, 2, B, D] in the model dtype (max_len unused)."""
     check_family(cfg)
     dt = getattr(torch, dtype or cfg.dtype)
     L, Hkv, Dh = cfg.n_layers, cfg.n_kv_heads, cfg.resolved_head_dim
+    cache: Dict[str, Any] = {"len": torch.zeros((batch,), dtype=torch.int32,
+                                                device=device)}
     if cfg.family == "ssm":
         H = cfg.n_heads
-        return {"len": torch.zeros((batch,), dtype=torch.int32, device=device),
-                "wkv": torch.zeros((L, batch, H, Dh, Dh), device=device,
-                                   dtype=dt if dt == torch.float64 else torch.float32),
-                "shift": torch.zeros((L, 2, batch, cfg.d_model), dtype=dt,
-                                     device=device)}
-    return {"len": torch.zeros((batch,), dtype=torch.int32, device=device),
-            "k": torch.zeros((L, batch, Hkv, max_len, Dh), dtype=dt, device=device),
-            "v": torch.zeros((L, batch, Hkv, max_len, Dh), dtype=dt, device=device)}
+        cache["wkv"] = torch.zeros((L, batch, H, Dh, Dh), device=device,
+                                   dtype=dt if dt == torch.float64 else torch.float32)
+        cache["shift"] = torch.zeros((L, 2, batch, cfg.d_model), dtype=dt, device=device)
+        return cache
+    cache["k"] = torch.zeros((L, batch, Hkv, max_len, Dh), dtype=dt, device=device)
+    cache["v"] = torch.zeros((L, batch, Hkv, max_len, Dh), dtype=dt, device=device)
+    if cfg.family == "hybrid":
+        din = cfg.ssm_expand * cfg.d_model
+        cache["conv"] = torch.zeros((L, batch, ssm.CONV_K - 1, din), dtype=dt,
+                                    device=device)
+        cache["h"] = torch.zeros((L, batch, din, cfg.ssm_state), device=device)
+    if cfg.is_encoder_decoder:
+        for n in ("xk", "xv"):
+            cache[n] = torch.zeros((L, batch, Hkv, cfg.encoder_len, Dh), dtype=dt,
+                                   device=device)
+    return cache
 
 
 def _decode_attn(cfg, p: layers.Attention, x, cache_k, cache_v, cache_len,
@@ -256,8 +375,8 @@ def decode_step(cfg: ModelConfig, model: Transformer, cache: Dict[str, Any],
                 tokens: torch.Tensor) -> Tuple[torch.Tensor, Dict[str, Any]]:
     """tokens: [B] int32 (the last generated token).  Returns
     (logits [B, Vpad], cache).  Uses cache["len"] as the position.  The
-    cache's K/V (dense) or WKV-state and shift (ssm) tensors are updated in
-    place; "len" is replaced by len+1."""
+    cache's K/V and SSM state (attention families) or WKV state and shift
+    (ssm) are updated in place; "len" is replaced by len+1."""
     check_family(cfg)
     x = layers.embed(cfg, model.embed, tokens[:, None])
     cache_len = cache["len"]
@@ -276,15 +395,34 @@ def decode_step(cfg: ModelConfig, model: Transformer, cache: Dict[str, Any],
         cache = dict(cache, len=cache_len + 1)
         x = layers.norm(cfg, x, model.final_norm)
         return layers.logits(cfg, model.embed, x)[:, 0], cache
+    B = tokens.shape[0]
+    if cfg.norm == "layernorm":      # whisper: absolute positions
+        x = x + layers.sinusoid_pos(cache_len[:, None], cfg.d_model, x.dtype)
     windows = layer_flags(cfg)["window"].tolist()
     tables = layers.rope_tables(cache_len[:, None, None], cfg.resolved_head_dim,
                                 cfg.rope_theta, cfg.rope_fraction)
     for l, blk in enumerate(model.blocks):
         h = layers.norm(cfg, x, blk.norm1)
-        x = x + _decode_attn(cfg, blk.attn, h, cache["k"][l], cache["v"][l],
-                             cache_len, windows[l], tables)
+        att = _decode_attn(cfg, blk.attn, h, cache["k"][l], cache["v"][l],
+                           cache_len, windows[l], tables)
+        if cfg.family == "hybrid":
+            s_out, st = ssm.ssm_mix(cfg, blk.ssm, h, {"conv": cache["conv"][l],
+                                                      "h": cache["h"][l]})
+            x = x + (layers.norm(cfg, att, blk.norm_attn_out)
+                     + layers.norm(cfg, s_out, blk.norm_ssm_out)) * 0.5
+            cache["conv"][l].copy_(st["conv"])
+            cache["h"][l].copy_(st["h"])
+        else:
+            x = x + att
+        if cfg.is_encoder_decoder:
+            hc = layers.norm(cfg, x, blk.norm_cross)
+            qc = layers._heads(hc, blk.cross.wq)[:, :, 0, :]
+            enc_len = torch.full((B,), cfg.encoder_len, dtype=torch.int32,
+                                 device=x.device)
+            att_c = layers.decode_attention(qc, cache["xk"][l], cache["xv"][l], enc_len)
+            x = x + layers.attn_out_token(blk.cross, att_c.to(x.dtype))[:, None, :]
         h2 = layers.norm(cfg, x, blk.norm2)
-        x = x + layers.mlp(cfg, blk.mlp, h2)
+        x = x + _ffn(cfg, blk, h2)
     cache = dict(cache, len=cache_len + 1)
     x = layers.norm(cfg, x, model.final_norm)
     return layers.logits(cfg, model.embed, x)[:, 0], cache

@@ -1,12 +1,14 @@
 """Serving engine: continuous batching over either cache backend.
 
-  * backend="contiguous": the model's own cache (`decode_step`): dense K/V,
-    or RWKV-6's per-lane WKV state and token shift (the only backend of
-    the ssm family, which has no K/V to page);
+  * backend="contiguous": the model's own cache (`decode_step`): dense K/V
+    (with the SSM state of hybrid and the cross K/V of audio), or RWKV-6's
+    per-lane WKV state and token shift; every family runs on it;
   * backend="paged": the F2-tiered paged cache (`repro_torch.kvcache`) with
     the paged-attention CUDA kernel per layer — hot/cold page tiering,
     demotion under pressure, promotion of re-read pages, metered cold
-    touches.  This is the paper's design serving tokens.
+    touches.  This is the paper's design serving tokens.  It runs the
+    dense block, so it serves the dense and vlm families and refuses the
+    others (`PAGED_REFUSES`).
 
 Requests enter a queue; each engine step admits new sequences into free
 slots, decodes one token for every active sequence, and retires finished
@@ -30,6 +32,20 @@ from ..kvcache.paged import PagedConfig, PagedKV
 from ..models import layers, transformer
 
 
+# why the paged backend does not serve a family: its decode is the
+# reference's `_paged_decode`, a dense block (attention with RoPE, then
+# `mlp`) over the paged pools
+PAGED_REFUSES = {
+    "ssm": "pages attention K/V, and the ssm family has none (its state is O(1) "
+           "per lane)",
+    "moe": "runs the dense block's `mlp`, which the moe family lacks (the "
+           "reference's paged decode reads blocks['mlp'] and fails there)",
+    "hybrid": "would compute another model: its dense block has no SSM branch",
+    "audio": "would compute another model: its dense block applies RoPE to a "
+             "layernorm model and has no cross-attention",
+}
+
+
 @dataclasses.dataclass
 class Request:
     rid: int
@@ -49,9 +65,8 @@ class Engine:
         transformer.check_family(cfg)
         if backend not in ("contiguous", "paged"):
             raise ValueError(f"backend {backend!r}: 'contiguous' or 'paged'")
-        if backend == "paged" and cfg.family == "ssm":
-            raise ValueError(f"{cfg.name}: backend='paged' pages attention K/V, and the "
-                             "ssm family has none (its state is O(1) per lane); "
+        if backend == "paged" and cfg.family in PAGED_REFUSES:
+            raise ValueError(f"{cfg.name}: backend='paged' {PAGED_REFUSES[cfg.family]}; "
                              "use backend='contiguous'")
         self.cfg = cfg
         self.model = model

@@ -35,13 +35,14 @@ def trainable(model: transformer.Transformer) -> Dict[str, torch.Tensor]:
 def cast_like_reference(cfg: ModelConfig, model: transformer.Transformer):
     """The reference's `init_state` cast of its float32 masters: every
     float32 leaf of two or more dimensions takes `cfg.dtype`.  The
-    reference stacks the blocks' leaves on a layer axis, so a block's norm
-    scales (and RWKV-6's `w0`, `wB`, `u`, `ln_x`) are cast, and only
-    `final_norm` stays float32.  The functions read these leaves in float32
-    whatever their dtype."""
+    reference stacks the blocks' (and encoder blocks') leaves on a layer
+    axis, so a block's norm scales (and RWKV-6's `w0`, `wB`, `u`, `ln_x`,
+    the MoE router, the SSM's `wdt`, `dt_bias`, `a_log`) are cast, and only
+    `final_norm` and `enc_final_norm` stay float32.  The functions read
+    these leaves as the reference reads them, whatever their dtype."""
     dt = getattr(torch, cfg.dtype)
     for name, p in model.named_parameters():
-        ndim = p.dim() + (1 if name.startswith("blocks.") else 0)
+        ndim = p.dim() + (1 if name.startswith(("blocks.", "enc_blocks.")) else 0)
         if p.dtype == torch.float32 and ndim >= 2:
             p.data = p.data.to(dt)
     return model

@@ -21,8 +21,13 @@ their plain versions and to S single-shard calls) and over a replicated
 state's R*S = 8 rows, the kernel-backed ShardedKV and ReplicatedKV (through
 a drop and resync) against the plain-engine ones, the session service
 over ReplicatedKV against a dict model (and its rounds' host syncs with
-observability on and off), and a DurableKV over the
-kernel-backed ShardedKV recovering bit-exact against its twin.
+observability on and off), a DurableKV over the
+kernel-backed ShardedKV recovering bit-exact against its twin, and the
+moe, hybrid, audio and vlm families at their reduced sizes: the kernel
+path against the plain path on the CPU (logits 1e-4, the loss 1e-4
+relative, each gradient leaf 1e-3 of its largest magnitude), two decodes
+bit-equal, and `layers.flash_attention` at Dh 112 and with `cross=True`
+at Tq != Tk.
 
 These tests need a CUDA device and nvcc and skip without them.  They import
 neither JAX nor the JAX package, so they also run where only PyTorch is
@@ -1146,3 +1151,124 @@ def test_host_tier_durable_kill_recovers_on_the_card(cuda, tmp_path):
     assert bool((rec.kv.state.cold.floor > 0).any())
     rec.check_invariants()
     rec.close()
+
+
+# ---------------------------------------------------------------------------
+# the moe, hybrid, audio and vlm families at their reduced sizes (float32)
+# ---------------------------------------------------------------------------
+
+FAMILY_ARCHS = ("phi35_moe_42b_a6_6b", "kimi_k2_1t_a32b", "hymba_1_5b",
+                "whisper_large_v3", "llava_next_34b")
+
+
+def _family_twins(arch, dev):
+    """(config, CPU model, card model): one set of weights from seed 0."""
+    import copy
+    from repro_torch.models import transformer
+    from repro_torch.models.registry import get_config
+    cfg = get_config(arch).reduced()
+    cpu = transformer.init_params(cfg, torch.Generator().manual_seed(0), "cpu")
+    return cfg, cpu, copy.deepcopy(cpu).to(dev)
+
+
+def _family_batch(cfg, B=2, T=33, seed=0):
+    g = torch.Generator().manual_seed(seed)
+    b = {"tokens": torch.randint(0, cfg.vocab_size, (B, T), generator=g)}
+    if cfg.frontend == "patches":
+        b["frontend"] = torch.randn((B, cfg.num_frontend_tokens, cfg.d_model), generator=g)
+    if cfg.is_encoder_decoder:
+        b["frames"] = torch.randn((B, cfg.encoder_len, cfg.d_model), generator=g)
+    return b
+
+
+@pytest.mark.parametrize("arch", FAMILY_ARCHS)
+def test_family_kernel_path_matches_plain_path(cuda, arch):
+    """Forward logits, the loss and every gradient leaf of the model on the
+    card (the flash kernels, forward and gradient) against the same model on
+    the CPU (their plain version): logits within 1e-4, the loss within 1e-4
+    relative, each gradient leaf within 1e-3 of its largest magnitude."""
+    from repro_torch.models import transformer
+    from repro_torch.train import train_step as ts
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg, cpu, card = _family_twins(arch, cuda)
+    b = _family_batch(cfg)
+    fwd = {k: v[:, :-1] if k == "tokens" else v for k, v in b.items()}
+    out = {}
+    fa_ops.reset_launches()
+    for where, model in (("card", card), ("cpu", cpu)):
+        dev = model.embed.table.device
+        with torch.no_grad():
+            lg = transformer.forward(cfg, model, {k: v.to(dev) for k, v in fwd.items()})
+        params = ts.trainable(model)
+        loss = transformer.loss_fn(cfg, model, {k: v.to(dev) for k, v in b.items()},
+                                   loss_chunk=16)
+        grads = torch.autograd.grad(loss, list(params.values()))
+        out[where] = (lg.cpu(), float(loss.detach()), [g.cpu() for g in grads])
+    torch.cuda.synchronize()
+    attn_calls = cfg.n_layers * (2 if cfg.is_encoder_decoder else 1) + cfg.n_encoder_layers
+    assert fa_ops.launches["flash_attention_fwd"] == 3 * attn_calls   # forward, loss, remat
+    assert fa_ops.launches["flash_attention_bwd"] == attn_calls
+    (lg_a, l_a, g_a), (lg_b, l_b, g_b) = out["card"], out["cpu"]
+    torch.testing.assert_close(lg_a, lg_b, atol=1e-4, rtol=1e-4)
+    assert abs(l_a - l_b) <= 1e-4 * abs(l_b)
+    for name, a, g in zip(ts.trainable(cpu), g_a, g_b):
+        scale = float(g.abs().max()) or 1.0
+        assert float((a - g).abs().max()) <= 1e-3 * scale, name
+
+
+@pytest.mark.parametrize("arch", FAMILY_ARCHS)
+def test_family_decodes_are_bit_equal(cuda, arch):
+    """Two runs of two decode steps on the card from the same cache (the
+    cross cache filled from the encoder for Whisper): logits and every
+    cache leaf bit-equal, and the MoE combine adds no atomics."""
+    from repro_torch.models import layers, transformer
+    _, _, card = _family_twins(arch, cuda)
+    cfg = card.cfg
+    b = {k: v.to(cuda) for k, v in _family_batch(cfg, B=4, T=2, seed=1).items()}
+    runs = []
+    with torch.no_grad():
+        for _ in range(2):
+            cache = transformer.init_cache(cfg, 4, 8, device=cuda)
+            if cfg.is_encoder_decoder:
+                enc = transformer.encode(cfg, card, b["frames"], remat=False)
+                for l, blk in enumerate(card.blocks):
+                    cache["xk"][l] = layers._heads(enc, blk.cross.wk)
+                    cache["xv"][l] = layers._heads(enc, blk.cross.wv)
+            lgs = []
+            for t in range(2):
+                lg, cache = transformer.decode_step(cfg, card, cache,
+                                                    b["tokens"][:, t].int())
+                lgs.append(lg)
+            runs.append((lgs, cache))
+    torch.cuda.synchronize()
+    for x, y in zip(runs[0][0], runs[1][0]):
+        assert torch.equal(x, y)
+    for k in runs[0][1]:
+        assert torch.equal(runs[0][1][k], runs[1][1][k]), k
+
+
+@pytest.mark.parametrize("case", [
+    # (B, Hq, Hkv, Tq, Tk, Dh, dtype, causal, cross): Kimi-K2's Dh 112 (G 8),
+    # Whisper's cross shape (Tq != Tk, no mask; causal asked and dropped),
+    # and Dh 112 over a ragged Tk with cross
+    (1, 16, 2, 160, 160, 112, torch.bfloat16, True, False),
+    (2, 4, 4, 30, 150, 64, torch.bfloat16, True, True),
+    (2, 4, 4, 30, 150, 64, torch.float32, False, True),
+    (1, 8, 1, 70, 333, 112, torch.bfloat16, False, True),
+], ids=["dh112_causal", "whisper_cross_bf16", "whisper_cross_f32", "dh112_cross"])
+def test_layers_flash_attention_cross_and_dh112(cuda, case):
+    """`layers.flash_attention` in the model layout on the card against the
+    plain version on the CPU (2e-5 in float32, 2e-2 in bfloat16)."""
+    from repro_torch.models import layers
+    B, Hq, Hkv, Tq, Tk, Dh, dt, causal, cross = case
+    g = torch.Generator().manual_seed(3)
+    q = torch.randn((B, Hq, Tq, Dh), generator=g).to(dt)
+    k, v = (torch.randn((B, Hkv, Tk, Dh), generator=g).to(dt) for _ in range(2))
+    fa_ops.reset_launches()
+    got = layers.flash_attention(q.to(cuda), k.to(cuda), v.to(cuda), causal=causal,
+                                 cross=cross)
+    torch.cuda.synchronize()
+    assert fa_ops.launches["flash_attention_fwd"] == 1
+    want = layers.flash_attention(q, k, v, causal=causal, cross=cross)
+    tol = 2e-5 if dt == torch.float32 else 2e-2
+    torch.testing.assert_close(got.cpu().float(), want.float(), atol=tol, rtol=tol)

@@ -2,7 +2,7 @@
 sharded with a live migration, sharded with observability on, replicated
 with a drop and resync, the session service over it, a durable store through a snapshot, a replica
 rebuild and a recovery, reduced serving
-engines and reduced training runs of the dense and RWKV-6 families) with
+engines and reduced training runs of every family) with
 the JAX package, JAX and the benchmarks blocked; its entry points default to the CUDA device and
 refuse to quietly run without it; the forced-kernel engine refuses CPU
 tensors."""
@@ -276,6 +276,99 @@ def test_rwkv6_entry_points_default_to_the_cuda_device(tmp_path):
             make()
 
 
+FAMILY_ARCHS = {"moe": "phi3.5-moe-42b-a6.6b", "hybrid": "hymba-1.5b",
+                "audio": "whisper-large-v3", "vlm": "llava-next-34b"}
+
+
+@pytest.mark.parametrize("family", sorted(FAMILY_ARCHS))
+def test_family_entry_points_default_to_the_cuda_device(family, tmp_path):
+    """The moe, hybrid, audio and vlm families' engine, trainer and
+    launchers take the CUDA device unless told otherwise, and refuse to
+    run quietly without it."""
+    from repro_torch.data.pipeline import TokenPipeline
+    from repro_torch.launch import serve, train
+    from repro_torch.models import transformer
+    from repro_torch.models.registry import get_config
+    from repro_torch.optim.adamw import AdamWConfig
+    from repro_torch.serve.engine import Engine
+    from repro_torch.train.trainer import Trainer, TrainerConfig
+    arch = FAMILY_ARCHS[family]
+    cfg = get_config(arch).reduced()
+    model = transformer.init_params(cfg, torch.Generator().manual_seed(0), "cpu")
+    trainer = lambda: Trainer(cfg, AdamWConfig(), TrainerConfig(ckpt_dir=str(tmp_path)),  # noqa: E731
+                              TokenPipeline(cfg.vocab_size, batch=2, seq_len=8))
+    if torch.cuda.is_available():
+        assert Engine(cfg, model.cuda()).device.type == "cuda"
+        assert trainer().device.type == "cuda"
+        return
+    for make in (lambda: Engine(cfg, model), trainer,
+                 lambda: serve.main(["--arch", arch, "--reduced", "--backend",
+                                     "contiguous", "--requests", "1"]),
+                 lambda: train.main(["--arch", arch, "--reduced", "--steps", "1",
+                                     "--ckpt-dir", str(tmp_path)])):
+        with pytest.raises(RuntimeError, match="CUDA is not available"):
+            make()
+
+
+@pytest.mark.parametrize("family", sorted(FAMILY_ARCHS))
+def test_family_runs_with_the_reference_blocked(family):
+    """A subprocess that cannot import jax, repro or benchmarks builds the
+    family's reduced model, runs prefill_step (with the patches or frames
+    it takes), the contiguous engine (and the paged one for vlm), and the
+    serving and training launchers on the CPU."""
+    arch = FAMILY_ARCHS[family]
+    code = textwrap.dedent(f"""
+        import sys
+        class Block:
+            def find_spec(self, name, path=None, target=None):
+                if name.split(".")[0] in {FORBIDDEN!r}:
+                    raise ImportError("blocked: " + name)
+        sys.meta_path.insert(0, Block())
+        import tempfile
+        import numpy as np
+        import torch
+        from repro_torch.checkpoint.checkpointer import Checkpointer
+        from repro_torch.launch import serve, train
+        from repro_torch.models import transformer
+        from repro_torch.models.registry import get_config
+        from repro_torch.serve import serve_step
+        from repro_torch.serve.engine import Engine, Request
+        cfg = get_config({arch!r}).reduced()
+        model = transformer.init_params(cfg, torch.Generator().manual_seed(0), "cpu")
+        batch = {{"tokens": torch.arange(1, 9, dtype=torch.int32).expand(2, 8)}}
+        if cfg.frontend == "patches":
+            batch["frontend"] = torch.randn(2, cfg.num_frontend_tokens, cfg.d_model)
+        if cfg.is_encoder_decoder:
+            batch["frames"] = torch.randn(2, cfg.encoder_len, cfg.d_model)
+        lg = serve_step.prefill_step(cfg, model, batch)
+        assert lg.shape == (2, cfg.padded_vocab)
+        assert torch.isfinite(lg[:, :cfg.vocab_size]).all()
+        for backend in (("contiguous", "paged") if cfg.family == "vlm" else ("contiguous",)):
+            eng = Engine(cfg, model, max_batch=2, max_len=32, backend=backend,
+                         page_size=4, device="cpu")
+            for i in range(3):
+                eng.submit(Request(rid=i, prompt=np.arange(1, 5, dtype=np.int32) + i,
+                                   max_new_tokens=3))
+            assert sorted(len(r.out_tokens) for r in eng.run()) == [3, 3, 3]
+        serve.main(["--arch", {arch!r}, "--reduced", "--device", "cpu",
+                    "--backend", "contiguous", "--requests", "2",
+                    "--max-new-tokens", "2"])
+        with tempfile.TemporaryDirectory() as d:
+            train.main(["--arch", {arch!r}, "--reduced", "--device", "cpu",
+                        "--steps", "1", "--batch", "2", "--seq", "16",
+                        "--ckpt-dir", d])
+            assert Checkpointer(d).latest_step() == 1
+        bad = [m for m in sys.modules if m.split(".")[0] in {FORBIDDEN!r}]
+        assert not bad, bad
+        print("isolated-ok")
+    """)
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    out = subprocess.run([sys.executable, "-c", code], capture_output=True,
+                         text=True, env=env, timeout=240, cwd=str(ROOT))
+    assert out.returncode == 0, out.stderr[-3000:]
+    assert "isolated-ok" in out.stdout
+
+
 def _port_module_names():
     return {p.relative_to(ROOT / "src" / "repro_torch").as_posix()
             for p in _port_sources() if "repro_torch" in p.parts}
@@ -411,6 +504,16 @@ def test_port_sources_include_the_ssm_slice():
     for mod in ("models/rwkv6.py", "kernels/rwkv6_wkv/ops.py",
                 "kernels/rwkv6_wkv/ref.py", "serve/serve_step.py",
                 "configs/rwkv6_7b.py"):
+        assert mod in names, mod
+
+
+def test_port_sources_include_the_families_slice():
+    """The AST scan above walks every module of the moe, hybrid, audio and
+    vlm slice."""
+    names = _port_module_names()
+    for mod in ("models/moe.py", "models/ssm.py", "configs/phi35_moe_42b_a6_6b.py",
+                "configs/kimi_k2_1t_a32b.py", "configs/hymba_1_5b.py",
+                "configs/whisper_large_v3.py", "configs/llava_next_34b.py"):
         assert mod in names, mod
 
 

@@ -141,10 +141,67 @@ def test_decode_step_contiguous_cache(arch):
     assert tc["len"].tolist() == np.asarray(jc["len"]).tolist()
 
 
+FAMILY_ARCH = {"moe": "phi35_moe_42b_a6_6b", "hybrid": "hymba_1_5b",
+               "audio": "whisper_large_v3", "vlm": "llava_next_34b"}
+
+
 @pytest.mark.parametrize("family", ["moe", "hybrid", "audio", "vlm"])
-def test_other_families_are_not_ported(family):
+def test_other_families_build_and_run_forward(family):
+    """Each family's reduced config builds from a generator and runs one
+    forward: finite logits over the token positions (LLaVA's patch prefix
+    cut off again, Whisper's encoder run on its frames)."""
+    cfg = interop.model_config_from_dict(interop.model_config_to_dict(
+        jget(FAMILY_ARCH[family]).reduced()))
+    assert cfg.family == family and family in ttf.PORTED_FAMILIES
+    model = ttf.init_params(cfg, torch.Generator().manual_seed(0), "cpu")
+    rng = np.random.default_rng(0)
+    batch = {"tokens": torch.from_numpy(rng.integers(0, cfg.vocab_size, (2, 8)))}
+    if family == "vlm":
+        batch["frontend"] = torch.from_numpy(_x((2, cfg.num_frontend_tokens, cfg.d_model)))
+    if family == "audio":
+        batch["frames"] = torch.from_numpy(_x((2, cfg.encoder_len, cfg.d_model)))
+    with torch.no_grad():
+        lg = ttf.forward(cfg, model, batch)
+    assert lg.shape == (2, 8, cfg.padded_vocab)
+    assert torch.isfinite(lg[..., :cfg.vocab_size]).all()
+
+
+def test_unknown_family_is_refused():
     cfg = dataclasses.replace(
         interop.model_config_from_dict(interop.model_config_to_dict(
-            jget("granite_3_8b").reduced())), family=family)
-    with pytest.raises(NotImplementedError, match="item 14"):
+            jget("granite_3_8b").reduced())), family="diffusion")
+    with pytest.raises(ValueError, match="unknown family"):
         ttf.init_params(cfg, torch.Generator().manual_seed(0), "cpu")
+
+
+@pytest.mark.parametrize("d,positions,atol", [
+    (64, [[0, 1, 2, 15], [7, 30, 40, 63]], 1e-5),   # the reduced configs' range
+    (1280, [[0, 3, 17, 63]], 1e-5),                  # Whisper-large's width
+    (3, [[0, 5]], 1e-5),                             # odd d: half 1, max(half - 1, 1)
+    # Whisper's frame positions up to 1499: the two libraries' float32 exp
+    # differ by up to one ulp in a frequency (<= 2**-23 relative, f <= 1),
+    # so an angle differs by up to p * 2**-23 = 1.8e-4 at p = 1499
+    (1280, [[100, 448, 1000, 1499]], 1499 * 2.0 ** -23),
+])
+def test_sinusoid_pos(d, positions, atol):
+    pos = np.array(positions, np.int32)
+    got = tl.sinusoid_pos(torch.from_numpy(pos), d, torch.float32)
+    want = jl.sinusoid_pos(jnp.asarray(pos), d, jnp.float32)
+    assert tuple(got.shape) == want.shape
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=atol, rtol=1e-5)
+
+
+@pytest.mark.parametrize("Tq,Tk,causal", [(5, 16, False), (16, 5, False), (12, 12, True)])
+def test_flash_attention_cross(Tq, Tk, causal):
+    """cross=True drops the causal mask over Tq != Tk keys (the reference
+    pads a ragged Tk to its key block; here the kernel takes any Tk)."""
+    q = _x((2, 4, Tq, 16))
+    k, v = _x((2, 2, Tk, 16), 1), _x((2, 2, Tk, 16), 2)
+    got = tl.flash_attention(torch.from_numpy(q), torch.from_numpy(k), torch.from_numpy(v),
+                             causal=causal, cross=True)
+    want = jl.flash_attention(jnp.asarray(q), jnp.asarray(k), jnp.asarray(v),
+                              causal=causal, cross=True, block_kv=8)
+    _close(got, want)
+    plain = tl.flash_attention(torch.from_numpy(q), torch.from_numpy(k), torch.from_numpy(v),
+                               causal=False)
+    assert torch.equal(got, plain)
