@@ -4,9 +4,11 @@ sharded over four stores (made durable, killed and recovered), spilled 8x
 to host memory through its host tier, and replicated twice with the
 session service on top, the F2-paged serving engine with Granite-3-8B at
 full width, Granite-3-8B's training at full width, then RWKV-6-7B's
-serving, prefill and training at full width, and the moe, hybrid, audio
+serving, prefill and training at full width, the moe, hybrid, audio
 and vlm families (Phi-3.5-MoE, Kimi-K2, Hymba-1.5B, Whisper-large-v3,
-LLaVA-NeXT-34B) at full width.
+LLaVA-NeXT-34B) at full width, the stores' partitioned dispatch over a
+device list, and the distributed slice (a one-rank mesh, MoE's expert-
+parallel branch, a training step under the mesh, one dry-run cell).
 
     python3 chip_smoke.py            # the full run: 2**23 keys, models at full width
 
@@ -180,7 +182,7 @@ Phases, each printing one JSON line:
                 store's 8 rows ([8, 4096] fan-out and fan-in slabs, probe
                 at [8, 8192]): plain version, second call, 8 single-row
                 calls, timed;
-  7h. replicated_twins — 2**20 keys loaded into a "fused" ReplicatedKV
+  7h. replicated_twins — 2**19 keys loaded into a "fused" ReplicatedKV
                 and a fused ShardedKV (replica 0 leaf-equal to it), a
                 "fused_ref" twin copied from the loaded one; the twins
                 leaf-equal (replica 0 to the ShardedKV) after YCSB-A/B/F, a
@@ -188,6 +190,17 @@ Phases, each printing one JSON line:
                 resynced replica read back pinned; a session wave on the
                 twins, its recorded schedule replayed on the ShardedKV
                 with equal statuses and values;
+  7i. shard_map — dispatch="shard_map" at 2**20 keys: ShardedKV(S=4) over
+                [cuda:0] (P = 1) and [cuda:0, cuda:0] (P = 2), and
+                ReplicatedKV(R=2, S=2) over [cuda:0] ((1, 1)) and
+                [cuda:0] x 4 ((2, 2) by the reference's mesh rule), each
+                beside a vmap twin: load, a YCSB-A mix of 2**17 ops,
+                statuses and values bit-equal batch by batch and every leaf
+                after; wrapper calls per routed round equal to vmap's
+                (3/1/0) at one partition and P times them at P; ops/s of
+                each beside the card's name and power limit; the store
+                kernels' counters zeroed before the partitioned stores and
+                read after;
   8. serve    — Granite-3-8B (6 of its 40 layers, d_model 4096, bf16
                 weights from `init_params` with SEED) through
                 Engine(backend="paged"):
@@ -206,9 +219,10 @@ Phases, each printing one JSON line:
                 boundaries; 2e-5 float32, 2e-2 bfloat16), a second call bit
                 for bit equal, timed beside its bound and
                 scaled_dot_product_attention;
- 11. serve_twins — the same requests through two float32 engines, 2 layers
-                at full width, kernel against plain version: every decode's
-                logits within TWIN_LOGITS_TOL, every token equal;
+ 11. serve_twins — the first 8 of those requests through two float32
+                engines, 2 layers at full width, kernel against plain
+                version: every decode's logits within TWIN_LOGITS_TOL,
+                every token equal;
  12. train    — Granite-3-8B at full width, 8 of its 40 layers (bf16
                 weights, f32 AdamW moments, from `init_or_restore(SEED)`):
                 `Trainer.run()` for 6 steps of 2 x 4096 tokens, ending in
@@ -279,7 +293,18 @@ Phases, each printing one JSON line:
                 its live pools (kernels_vlm); vlm_serve_twins (kernel
                 against interpret, 2 float32 layers) and vlm_twins (64
                 patches on the CPU); kernels_vlm_flash;
- 25. the kernels line, the nvidia-smi line, and the final ok line.
+ 25. distributed — an NCCL group of one rank (a file:// init) and
+                make_mesh((1, 1), ("data", "model")) on the card;
+                Phi-3.5-MoE at 2 layers, full width, bf16: prefill 8 x
+                1024 through the expert-parallel branch (under the mesh)
+                bit-equal with the local branch, and one Trainer step under
+                the mesh (1 x 4096 tokens) whose loss equals the same
+                batch's loss without it; the flash counters zeroed before
+                and read after; then the record of one dry-run cell
+                (granite_3_8b x train_4k on the 16 x 16 mesh), run in a
+                subprocess started after the build, on no device (meta
+                tensors, a fake process group), beside the card's phases;
+ 26. the kernels line, the nvidia-smi line, and the final ok line.
 
 The kernels line has one entry for each kernel of the main paths and one
 for each store kernel over the shard axis (`*_sharded`) and over the
@@ -321,6 +346,8 @@ SESSIONS = 8                              # the sessions phase: 8 sessions ...
 SESSION_DEPTH = 1024                      # ... of 1,024 ring slots ...
 SESSION_WAVES = 16                        # ... each enqueueing a full ring a wave
 TWIN_LOG2_KEYS = 20
+REPLICATED_TWIN_LOG2_KEYS = 19            # replicated_twins' keys (2**20 until the
+                                          # shard_map and distributed phases needed the room)
 HOST_LOG2_KEYS = 21                       # the host-tier phase: spilled 8x (cut from
                                           # 2**23, then 2**22, to fit the time limit,
                                           # PERF.md S4)
@@ -339,6 +366,9 @@ SERVE_LAYERS = 6                          # of its 40: the host-bound decode loo
                                           # 24's needed the room)
 SERVE_ENGINE = dict(max_batch=8, max_len=512, page_size=16)
 SERVE_REQUESTS = 16
+SERVE_TWIN_REQUESTS = 8                   # the float32 twins take the first 8 (all 16
+                                          # until the shard_map and distributed phases
+                                          # needed the room)
 SERVE_NEW_TOKENS = 32
 SERVE_PROMPT_MIN, SERVE_PROMPT_MAX = 16, 256
 TWIN_LAYERS = 2                           # the float32 serving twins' depth (4 until
@@ -406,6 +436,15 @@ LLAVA_ARCH, LLAVA_LAYERS = "llava-next-34b", 10            # of 60
 LLAVA_PREFILL = (4, 128)                  # prompts x text tokens after the patches
 VLM_PROMPT_MIN, VLM_PROMPT_MAX = 8, 24
 FAMILY_ENGINE = dict(max_batch=8, max_len=64)
+SHARD_MAP_LOG2_KEYS = 20                  # the shard_map phase: 2**20 keys ...
+SHARD_MAP_OPS = 1 << 17                   # ... and a YCSB-A mix of 2**17 ops
+SHARD_MAP_P = 2                           # ShardedKV over [cuda:0] x P
+SHARD_MAP_REP_SHARDS = 2                  # ReplicatedKV(R=2, S=2) over [cuda:0] x 4: the
+SHARD_MAP_REP_DEVICES = 4                 # reference's rule gives (2, 2) (at S=4, (1, 4))
+SHARD_MAP_REP_LOG2_KEYS = 19              # ... at 2**19 keys: (2, 2) runs 4 store steps a round
+SHARD_MAP_CALL_ROUNDS = 4                 # rounds counted for wrapper calls a round
+DIST_LAYERS = 2                           # the distributed phase: Phi-3.5-MoE's depth
+DRYRUN_CELL = ("granite_3_8b", "train_4k")
 FAMILY_REQUESTS, FAMILY_PROMPT, FAMILY_NEW_TOKENS = 16, 16, 32
 FAMILY_TWIN_LAYERS = 2
 FAMILY_TWIN_PROMPT, FAMILY_TWIN_PATCHES, FAMILY_TWIN_DECODES = 32, 64, 4
@@ -1472,15 +1511,17 @@ def sharded_two_phase(skv, n_keys, seed):
     return truncs
 
 
-def calls_per_round(kv, seed, n_batches=8, read=False, via=None, expect=None):
+def calls_per_round(kv, seed, n_batches=8, read=False, via=None, expect=None,
+                    profile=True):
     """Wrapper calls per routed round (a KV batch is one round) of YCSB-A
     batches with the scheduler off (trigger 2.0: no compaction), or with
     `read` of YCSB-C batches through kv.read, and the host sync calls per
-    round from a profiler window over the same kind of batches.  `via` is a
-    wrapper of kv (a DurableKV) the batches go through; `expect`, if given,
-    takes their writes.  Counters and trigger are restored."""
+    round from a profiler window over the same kind of batches (None
+    without `profile`).  `via` is a wrapper of kv (a DurableKV) the batches
+    go through; `expect`, if given, takes their writes.  Counters and
+    trigger are restored."""
     import torch
-    from torch.profiler import ProfilerActivity, profile
+    from torch.profiler import ProfilerActivity, profile as torch_profile
     from repro_torch.kernels.f2_probe import ops
     from repro_torch.workload import Zipf, make_ops
     rng = np.random.default_rng(seed + 11)
@@ -1502,14 +1543,17 @@ def calls_per_round(kv, seed, n_batches=8, read=False, via=None, expect=None):
     rounds = n_batches if rounds0 is None else kv.rounds - rounds0
     calls = {k: v / rounds for k, v in ops.launches.items()}
     calls["fused_write"] /= ops.WRITE_KERNELS_PER_CALL
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        r0 = getattr(kv, "rounds", 0)
-        for b in batches[n_batches:]:
-            run(b)
-        torch.cuda.synchronize()
-    rounds = n_batches if rounds0 is None else kv.rounds - r0
-    counts = {e.key: e.count for e in _aggregate(prof)}
-    syncs = {k: counts.get(k, 0) / rounds for k in SYNC_CALLS}
+    syncs = None
+    if profile:
+        with torch_profile(activities=[ProfilerActivity.CPU,
+                                       ProfilerActivity.CUDA]) as prof:
+            r0 = getattr(kv, "rounds", 0)
+            for b in batches[n_batches:]:
+                run(b)
+            torch.cuda.synchronize()
+        rounds = n_batches if rounds0 is None else kv.rounds - r0
+        counts = {e.key: e.count for e in _aggregate(prof)}
+        syncs = {k: counts.get(k, 0) / rounds for k in SYNC_CALLS}
     kv.trigger = trigger
     for k, v in saved.items():
         ops.launches[k] = v + ops.launches[k]
@@ -2509,6 +2553,8 @@ def replicated_twins(cfg, device, n_keys, n_ops, seed, records):
         kv.check_invariants()
     emit(records, dict(phase="replicated_twins", shards=SHARDS, replicas=REPLICAS,
                        lanes=SHARD_LANES, n_keys=n_keys, ops_per_mix=n_ops,
+                       reduced=f"2**{REPLICATED_TWIN_LOG2_KEYS} keys (2**20 until the "
+                               "shard_map and distributed phases needed the room)",
                        migrated_records=moved[0], resync_records=resynced["fused"],
                        resync_rounds_run=twins["fused"].resync_rounds,
                        session_rounds_replayed=replayed,
@@ -3137,8 +3183,8 @@ def check_paged_kernel(cfg, live, seed, records, cases=None, phase="kernels"):
 
 def serve_twins(cfg, device, seed, records, prompts=None, phase="serve_twins",
                 full_layers=40):
-    """The same requests (`prompts`, by default SERVE_REQUESTS of
-    serve_prompts) through two engines at full width, TWIN_LAYERS deep, in
+    """The same requests (`prompts`, by default the first SERVE_TWIN_REQUESTS
+    of serve_prompts' SERVE_REQUESTS) through two engines at full width, TWIN_LAYERS deep, in
     float32, sharing weights: one runs the kernel, the other the plain
     version (`interpret=True`).  Every decode's logits must agree within
     TWIN_LOGITS_TOL and every token must be equal."""
@@ -3150,7 +3196,7 @@ def serve_twins(cfg, device, seed, records, prompts=None, phase="serve_twins",
     twins = [make_engine(cfg, model, device, interpret=i, keep_logits=True)
              for i in (False, True)]
     if prompts is None:
-        prompts = serve_prompts(cfg.vocab_size, seed, SERVE_REQUESTS)
+        prompts = serve_prompts(cfg.vocab_size, seed, SERVE_REQUESTS)[:SERVE_TWIN_REQUESTS]
     for e in twins:
         _submit(e, prompts, SERVE_NEW_TOKENS)
     worst = torch.zeros((), device=device)     # max of |a-b| - (atol + rtol|b|)
@@ -3176,7 +3222,9 @@ def serve_twins(cfg, device, seed, records, prompts=None, phase="serve_twins",
     counters = [(e.pkv.demotions, e.pkv.promotions, int(e.pkv.state.cold_reads))
                 for e in twins]
     rec = dict(phase=phase, arch=cfg.name, n_layers=cfg.n_layers,
-               reduced=(f"n_layers 40 -> {cfg.n_layers} (4 until PR 22's phases)"
+               reduced=(f"n_layers 40 -> {cfg.n_layers} (4 until the host-tier phases), "
+                        f"{len(prompts)} of the {SERVE_REQUESTS} requests (all until "
+                        "the shard_map and distributed phases)"
                         if phase == "serve_twins" else
                         f"n_layers {full_layers} -> {cfg.n_layers}, prompts of "
                         f"{min(map(len, prompts))}-{max(map(len, prompts))} tokens"),
@@ -4572,6 +4620,230 @@ def tc_kernel_report(build):
     return rows
 
 
+# ---------------------------------------------------------------------------
+# the partitioned store dispatch and the distributed slice
+# ---------------------------------------------------------------------------
+
+def shard_map_main(device, seed, records):
+    """`dispatch="shard_map"` on the card: ShardedKV(S=4) over [cuda:0] (P = 1)
+    and [cuda:0] x SHARD_MAP_P, then ReplicatedKV(R=2, S=2) over [cuda:0]
+    ((1, 1) partitions) and [cuda:0] x SHARD_MAP_REP_DEVICES ((2, 2)), each
+    beside a vmap twin: 2**SHARD_MAP_LOG2_KEYS keys loaded
+    (2**SHARD_MAP_REP_LOG2_KEYS replicated), a YCSB-A mix of
+    SHARD_MAP_OPS ops (reads checked on the vmap store), statuses and values
+    equal batch by batch and every leaf after; wrapper calls per routed
+    round (scheduler off) equal to vmap's at one partition and P times them
+    at P; ops/s of each.  The store kernels' counters are zeroed before the
+    shard_map stores run and read after (the YCSB path runs fused_probe and
+    fused_write; the first-hop probe serves two-phase reads only).  Returns
+    their launches."""
+    import torch
+    from repro_torch import ReplicatedKV, ShardedKV, interop
+    from repro_torch.kernels.f2_probe import ops
+    from repro_torch.workload import Zipf, make_f2_config
+    nk = {"sharded": 1 << SHARD_MAP_LOG2_KEYS, "replicated": 1 << SHARD_MAP_REP_LOG2_KEYS}
+    cfg = make_f2_config(nk["sharded"] // SHARDS, engine="fused")
+    rcfg = make_f2_config(nk["replicated"] // SHARD_MAP_REP_SHARDS, engine="fused")
+    V = cfg.value_width
+    card = torch.device(device, 0) if torch.device(device).index is None else device
+    launches = collections.Counter()
+    out = dict(phase="shard_map", n_keys=nk, ops=SHARD_MAP_OPS, shards=SHARDS,
+               replicas=REPLICAS, replica_shards=SHARD_MAP_REP_SHARDS,
+               smi=nvidia_smi_line(), stores={},
+               reduced=[f"2**{SHARD_MAP_LOG2_KEYS} keys, YCSB-A only (the main paths' "
+                        "2**23 keys and A/B/F run on the vmap dispatch)",
+                        f"ReplicatedKV at S={SHARD_MAP_REP_SHARDS} and "
+                        f"2**{SHARD_MAP_REP_LOG2_KEYS} keys: the reference's mesh rule "
+                        "gives (1, 4), not (2, 2), for R=2, S=4 on 4 devices, and "
+                        "(2, 2) runs four store steps a round"])
+    cases = (("sharded", lambda **kw: ShardedKV(cfg, SHARDS, lanes=SHARD_LANES, **kw),
+              [card] * SHARD_MAP_P),
+             ("replicated", lambda **kw: ReplicatedKV(rcfg, SHARD_MAP_REP_SHARDS,
+                                                      n_replicas=REPLICAS,
+                                                      lanes=2 * SHARD_LANES, **kw),
+              [card] * SHARD_MAP_REP_DEVICES))
+    t0 = time.perf_counter()
+    for kind, make, wide in cases:
+        n_keys = nk[kind]
+        perm = np.random.default_rng(seed).permutation(n_keys).astype(np.int32)
+        zipf = Zipf(n_keys, 0.99)
+        stores = {"vmap": make(device=card, dispatch="vmap"),
+                  "one": make(dispatch="shard_map", devices=[card]),
+                  "wide": make(dispatch="shard_map", devices=wide)}
+        parts = {k: (1 if kv.mesh is None else len(kv.mesh.devices))
+                 for k, kv in stores.items()}
+        # on the empty stores, scheduler off (a loaded shard's hot ring
+        # has no room for uncompacted batches)
+        calls = {k: calls_per_round(kv, seed, SHARD_MAP_CALL_ROUNDS, profile=False)[0]
+                 for k, kv in stores.items()}
+        for k, c in calls.items():
+            want = {n: parts[k] * v for n, v in calls["vmap"].items()}
+            if c != want:
+                raise AssertionError(f"shard_map {kind} {k}: wrapper calls a round {c}, "
+                                     f"expected {want} ({parts[k]} partitions)")
+        expect = val_of(np.arange(n_keys), V)
+        res = {}
+        for name, kv in stores.items():
+            if name != "vmap":
+                ops.reset_launches()
+            t1 = time.perf_counter()
+            load_keys(kv, perm, V)
+            torch.cuda.synchronize()
+            load_s = time.perf_counter() - t1
+            rate, outs = ycsb(kv, expect if name == "vmap" else None, "A",
+                              SHARD_MAP_OPS, zipf, np.random.default_rng(seed + 5))
+            if name != "vmap":
+                torch.cuda.synchronize()
+                launches.update(ops.launches)
+            res[name] = dict(load_ops_per_s=n_keys / load_s, ycsb_a_ops_per_s=rate,
+                             outs=outs)
+        for name in ("one", "wide"):
+            for (s1, v1), (s2, v2) in zip(res["vmap"]["outs"], res[name]["outs"]):
+                if not (np.array_equal(s1, s2) and np.array_equal(v1, v2)):
+                    raise AssertionError(f"shard_map {kind} {name}: statuses or "
+                                         "values differ from vmap's")
+            la, lb = (interop.state_leaves(stores[k].state) for k in ("vmap", name))
+            if not all(torch.equal(x, y) for x, y in zip(la, lb)):
+                raise AssertionError(f"shard_map {kind} {name}: a leaf differs from vmap's")
+            if not np.array_equal(stores["vmap"].compactions, stores[name].compactions):
+                raise AssertionError(f"shard_map {kind} {name}: compactions differ")
+        for kv in stores.values():
+            kv.check_invariants()
+        out["stores"][kind] = {
+            k: dict(dispatch=kv.dispatch,
+                    partitions=None if kv.mesh is None else list(kv.mesh.shape),
+                    calls_per_round=calls[k],
+                    load_ops_per_s=res[k]["load_ops_per_s"],
+                    ycsb_a_ops_per_s=res[k]["ycsb_a_ops_per_s"])
+            for k, kv in stores.items()}
+        del stores, res
+        torch.cuda.empty_cache()
+    out.update(bit_exact=True, launches=dict(launches), seconds=time.perf_counter() - t0)
+    emit(records, out)
+    for k in ("fused_probe", "fused_write"):
+        if launches[k] <= 0:
+            raise AssertionError(f"the shard_map path never launched {k}")
+    return dict(launches)
+
+
+def start_dryrun_cell():
+    """One dry-run cell (DRYRUN_CELL on the 16 x 16 mesh) in a subprocess of
+    the card machine's PyTorch, on no device (meta tensors, a fake process
+    group): it runs beside the card's phases, and `distributed_main` reads
+    its record.  Returns (process, output path)."""
+    out = os.path.join(ROOT, "build", "dryrun_cell.json")
+    os.makedirs(os.path.dirname(out), exist_ok=True)
+    env = dict(os.environ, PYTHONPATH=os.path.join(ROOT, "src"),
+               CUDA_VISIBLE_DEVICES="")
+    with open(out + ".log", "w") as log:
+        proc = subprocess.Popen(
+            [sys.executable, "-m", "repro_torch.launch.dryrun", "--arch",
+             DRYRUN_CELL[0], "--shape", DRYRUN_CELL[1], "--out", out], env=env,
+            stdout=log, stderr=subprocess.STDOUT)
+    return proc, out
+
+
+def distributed_main(device, seed, records, dry):
+    """The distributed slice on the card: an NCCL group of one rank (a
+    file:// init) and `make_mesh((1, 1), ("data", "model"))`; Phi-3.5-MoE at
+    DIST_LAYERS layers, full width, bf16: prefill logits through the
+    expert-parallel branch (under the mesh) bit-equal with the local branch,
+    and one Trainer step under the mesh whose loss equals the loss of the
+    same batch without it; then the dry-run cell's record.  The flash
+    counters are zeroed before the mesh runs and read after.  Returns their
+    launches."""
+    import gc
+    import tempfile
+    import torch
+    import torch.distributed as dist
+    from repro_torch.data.pipeline import TokenPipeline
+    from repro_torch.distributed.sharding import use_mesh
+    from repro_torch.kernels.flash_attention import ops as fa_ops
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.models import moe, transformer
+    from repro_torch.optim.adamw import AdamWConfig
+    from repro_torch.serve.serve_step import prefill_step
+    from repro_torch.train.trainer import Trainer, TrainerConfig
+    t0 = time.perf_counter()
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_dist_")
+    rec = dict(phase="distributed", arch=MOE_ARCH, n_layers=DIST_LAYERS,
+               reduced=f"n_layers 32 -> {DIST_LAYERS}; one rank (the card)")
+    try:
+        on_card = torch.device(device).type == "cuda"
+        if on_card:
+            torch.cuda.set_device(0)
+        dist.init_process_group("nccl" if on_card else "gloo",
+                                init_method=f"file://{tmp}/init", rank=0, world_size=1)
+        mesh = make_mesh((1, 1), ("data", "model"), device_type=torch.device(device).type)
+        cfg = family_config(MOE_ARCH, DIST_LAYERS)
+        if not moe._ep_ready(cfg, mesh):
+            raise AssertionError("the mesh does not take the expert-parallel branch")
+        n_batch, n_seq = MOE_TRAIN["batch"], MOE_TRAIN["seq"]
+        pipe = TokenPipeline(cfg.vocab_size, batch=n_batch, seq_len=n_seq, seed=seed)
+        tr = Trainer(cfg, AdamWConfig(total_steps=1),
+                     TrainerConfig(total_steps=1, ckpt_every=2, ckpt_dir=tmp + "/ckpt",
+                                   log_every=1), pipe, device=device, mesh=mesh)
+        tr.ckpt.save = lambda *a, **kw: None
+        state = tr.init_or_restore(seed)
+        model = state.params
+        batch = family_batch(cfg, *MOE_PREFILL, seed, device)
+        with torch.no_grad():
+            local = prefill_step(cfg, model, batch)
+            fa_ops.reset_launches()
+            with use_mesh(mesh):
+                ep = prefill_step(cfg, model, batch)
+            _sync(device)
+            prefill_launches = dict(fa_ops.launches)
+            tb = {k: torch.as_tensor(v, device=device)
+                  for k, v in pipe.batch_at(0).items()}
+            loss_local = float(transformer.loss_fn(cfg, model, tb))
+        if not torch.equal(local, ep):
+            raise AssertionError("expert-parallel prefill logits differ from the local "
+                                 f"branch's (max {float((local - ep).abs().max())})")
+        if not torch.isfinite(ep.float()).all():
+            raise AssertionError("non-finite prefill logits")
+        fa_ops.reset_launches()
+        state = tr.run(state)
+        _sync(device)
+        train_launches = dict(fa_ops.launches)
+        loss_mesh = tr.metrics_log[0]["loss"]
+        if loss_mesh != loss_local:
+            raise AssertionError(f"the step under the mesh has loss {loss_mesh}, the "
+                                 f"same batch without it {loss_local}")
+        rec.update(mesh=list(mesh.shape), backend=dist.get_backend(),
+                   world_size=dist.get_world_size(), prefill=list(MOE_PREFILL),
+                   prefill_bit_equal=True, train=[n_batch, n_seq],
+                   loss_local=loss_local, loss_mesh=loss_mesh,
+                   prefill_launches=prefill_launches, train_launches=train_launches)
+        del tr, state, model
+        gc.collect()
+        if on_card:
+            torch.cuda.empty_cache()
+    finally:
+        if dist.is_initialized():
+            dist.destroy_process_group()
+        shutil.rmtree(tmp, ignore_errors=True)
+    launches = collections.Counter(prefill_launches)
+    launches.update(train_launches)
+    for k in ("flash_attention_fwd", "flash_attention_bwd"):
+        if launches[k] <= 0:
+            raise AssertionError(f"the distributed path never launched {k}")
+    proc, path = dry
+    t1 = time.perf_counter()
+    proc.wait(timeout=600)
+    rec["dryrun_wait_s"] = time.perf_counter() - t1
+    with open(path + ".log") as f:
+        rec["dryrun_log_tail"] = f.read().strip().splitlines()[-2:]
+    with open(path) as f:
+        cell = json.load(f)[0]
+    rec["dryrun_cell"] = cell
+    rec["seconds"] = time.perf_counter() - t0
+    emit(records, rec)
+    if proc.returncode != 0 or cell["status"] != "ok":
+        raise AssertionError(f"the dry-run cell failed: {cell.get('error')}")
+    return dict(launches)
+
+
 def nvidia_smi_line():
     out = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
@@ -4608,9 +4880,6 @@ def main(argv=None):
 def run_all(a, records):
     import torch
     from repro_torch.kernels import build
-    from repro_torch.kernels.f2_probe import ops
-    from repro_torch.models.registry import get_config
-    from repro_torch.workload import make_f2_config
 
     t_all = time.perf_counter()
     smi = nvidia_smi_line()
@@ -4620,6 +4889,22 @@ def run_all(a, records):
                        torch=torch.__version__, cuda=torch.version.cuda))
 
     t_build = build.build_all()
+    dry = start_dryrun_cell()          # beside the card's phases, on no device
+    try:
+        return _run_all(a, records, t_all, smi, name, t_build, dry)
+    finally:
+        if dry[0].poll() is None:
+            dry[0].kill()
+            dry[0].wait()
+
+
+def _run_all(a, records, t_all, smi, name, t_build, dry):
+    import torch
+    from repro_torch.kernels import build
+    from repro_torch.kernels.f2_probe import ops
+    from repro_torch.models.registry import get_config
+    from repro_torch.workload import make_f2_config
+
     ptxas = {k: [ln.strip() for ln in v.splitlines() if "registers" in ln]
              for k, v in build.build_log.items()}
     emit(records, dict(phase="build", seconds=t_build, ptxas=ptxas))
@@ -4748,10 +5033,16 @@ def run_all(a, records):
     del svc, rkv, expect
     torch.cuda.empty_cache()
     t0 = time.perf_counter()
-    replicated_twins(make_f2_config((1 << TWIN_LOG2_KEYS) // SHARDS), "cuda",
-                     1 << TWIN_LOG2_KEYS, 1 << (a.log2_ops - 6), SEED, records)
+    replicated_twins(make_f2_config((1 << REPLICATED_TWIN_LOG2_KEYS) // SHARDS), "cuda",
+                     1 << REPLICATED_TWIN_LOG2_KEYS, 1 << (a.log2_ops - 6), SEED, records)
     t_new["replicated_twins"] = time.perf_counter() - t0
     emit(records, dict(phase="replication_seconds", total=sum(t_new.values()), **t_new))
+    torch.cuda.empty_cache()
+
+    # the partitioned dispatch: the shard axis, then the (replica, shard)
+    # rows, over a device list naming the card P times
+    for k, n in shard_map_main("cuda", SEED, records).items():
+        launches[k] += n
     torch.cuda.empty_cache()
 
     scfg = dataclasses.replace(get_config(SERVE_ARCH), n_layers=SERVE_LAYERS)
@@ -4814,6 +5105,11 @@ def run_all(a, records):
     for k, n in fam_launches.items():
         if n <= 0:
             raise AssertionError(f"the family phases never launched {k}")
+        launches[k] += n
+
+    # the distributed slice: a one-rank NCCL mesh, MoE's expert-parallel
+    # branch, a step under the mesh, and the dry-run cell's record
+    for k, n in distributed_main("cuda", SEED, records, dry).items():
         launches[k] += n
 
     csrc = "src/repro_torch/kernels/{}/csrc/{}.cu"

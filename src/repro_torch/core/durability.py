@@ -575,9 +575,11 @@ class DurableKV:
             self.ckpt.restore(_snapshot_tree(kv, host, meta), step=snap_epoch)
             snap_alive = meta["alive"].numpy().astype(bool)
             src = r if snap_alive[r] else int(np.flatnonzero(snap_alive)[0])
-            for dst, snap in zip(_replica_leaves(kv.state, kv.R),
+            st = kv.state               # gathered under a device mesh
+            for dst, snap in zip(_replica_leaves(st, kv.R),
                                  _replica_leaves(host, kv.R)):
                 dst[r].copy_(snap[src])
+            kv.state = st
             start_map = meta["bucket_map"].numpy().astype(np.int32)
             start_version = int(meta["map_version"])
             from_epoch = int(meta["epoch"])
@@ -666,9 +668,9 @@ def _replay(kv, recs: List[WalRecord], start_map: np.ndarray,
                     mshard = move.any(axis=1)
                     do = (kv._rep_shard(mshard) if rep_mask is None else
                           np.asarray(rep_mask, bool)[:, None] & mshard[None, :])
-                    kv.state = rebalance.purge_step(
-                        kv.cfg, kv.n_buckets, kv.state, kv._rep_move(move),
-                        kv._dev_bool(do))
+                    kv._st = kv._map(
+                        rebalance.purge_step, kv.cfg, kv.n_buckets, kv._st,
+                        kv._rep_move(move), kv._dev_bool(do))
                 cur_map = new_map.copy()
                 cur_ver = int(rec.map_version)
                 kv._bucket_map_dev = kv._dev(cur_map)
@@ -720,8 +722,10 @@ def recover(directory: str, make_kv: Callable[[], Any],
     else:
         # into the fresh store's tensors, in place
         meta = _meta_like(kv)
-        ckpt.restore(_snapshot_tree(kv, kv.state, meta), step=snap_epoch,
+        st = kv.state                   # gathered under a device mesh
+        ckpt.restore(_snapshot_tree(kv, st, meta), step=snap_epoch,
                      resizable=_host_paths(kv))
+        kv.state = st
         if getattr(kv, "_ht", None) is not None:
             kv._ht.import_snapshot({k: meta[k].numpy() for k in HOST_STORE_KEYS})
         start_map = meta["bucket_map"].numpy().astype(np.int32)
@@ -752,9 +756,11 @@ def recover(directory: str, make_kv: Callable[[], Any],
         # rows (alive replicas are byte-identical, so this is what a
         # finished resync would give)
         h = int(np.flatnonzero(kv.alive)[0])
-        for leaf in _replica_leaves(kv.state, kv.R):
+        st = kv.state                   # gathered under a device mesh
+        for leaf in _replica_leaves(st, kv.R):
             for d in np.flatnonzero(~kv.alive):
                 leaf[d].copy_(leaf[h])
+        kv.state = st
         kv.alive[:] = True
     if kv.device.type == "cuda":
         torch.cuda.synchronize(kv.device)

@@ -56,9 +56,14 @@ round on the selected replicas only and log nothing:
 `durability.DurableKV.rebuild_replica` replays the WAL into one replica
 through them, with `_sched_rows` restricting the scheduler to its rows.
 
+Dispatch: `dispatch="shard_map"` partitions the (replica, shard) rows over
+a 2-D device mesh (`resolve_mesh_2d`: the most devices that factor as a
+divisor of R times a divisor of S), each device holding a block of replicas
+by a block of shards; fan-in, fan-out, drop and resync run per partition
+(`ShardedKV._map`).
+
 Refused, as in the reference: the host tier (`host_tier=True`: its chunk
-stores would need a replica axis, and resync would have to carry them).  Not ported:
-`dispatch="shard_map"` (ROADMAP item 15; `resolve_mesh_2d`).
+stores would need a replica axis, and resync would have to carry them).
 
 Observability (`repro_torch.obs`, off by default), at the reference's
 points: `replicated.read` spans and `f2_deferral_rounds{path=read}` (a
@@ -82,7 +87,7 @@ from .. import obs
 from . import rebalance, shard_router, store
 from ..testing import faults
 from .rebalance import select_shards
-from .sharded import ShardedKV, bucket_counts
+from .sharded import DISPATCHES, ShardedKV, StoreMesh, _flags_of, bucket_counts
 from .types import BLOCK_BYTES, OP_NOOP, OP_READ, F2Config, IoStats, tree_map
 
 
@@ -90,6 +95,43 @@ def create(cfg: F2Config, device, n_replicas: int, n_shards: int
            ) -> store.F2State:
     """R * S empty stores on one row axis (row r * S + s)."""
     return store.create(cfg, device, n_shards=n_replicas * n_shards)
+
+
+def resolve_mesh_2d(dispatch: str, n_replicas: int, n_shards: int,
+                    devices) -> Optional[StoreMesh]:
+    """None -> every row on one device; else a 2-D (replica, shard) mesh of
+    the most devices that factor as (divisor of R) x (divisor of S).  A
+    (1, 1) mesh is valid, so `dispatch="shard_map"` runs on one device."""
+    if dispatch not in DISPATCHES:
+        raise ValueError(f"unknown dispatch {dispatch!r}")
+    devs = [torch.device(d) for d in devices]
+    if dispatch == "vmap" or (dispatch == "auto" and len(devs) == 1):
+        return None
+    best, best_n = (1, 1), 0
+    for rd in range(1, min(len(devs), n_replicas) + 1):
+        if n_replicas % rd:
+            continue
+        sd = max(d for d in range(1, min(len(devs) // rd, n_shards) + 1)
+                 if n_shards % d == 0)
+        if rd * sd > best_n:
+            best, best_n = (rd, sd), rd * sd
+    return StoreMesh(tuple(devs[:best_n]), best, ("replica", "shard"))
+
+
+def _reset(cfg: F2Config, st, rows: torch.Tensor):
+    """The rows with `rows` set to an empty store, in place (one empty
+    store's leaves broadcast over them)."""
+    fresh = store.create(cfg, rows.device, n_shards=1)
+    for dst, src in zip(_leaves(st), _leaves(fresh)):
+        dst[rows] = src
+    return st
+
+
+def _read_charges(new, old):
+    """(int32 [rows, 4] I/O a fan-out read charged, bool [rows] its chain-walk
+    exhaustion) of a read's returned state against the one it read."""
+    return (torch.stack([a - b for a, b in zip(new.stats, old.stats)], dim=1),
+            new.walk_exhausted)
 
 
 def _leaves(state) -> list:
@@ -195,6 +237,18 @@ class ReplicatedKV(ShardedKV):
     def _lead_shape(self) -> tuple:
         return (self.R, self.S)
 
+    def _resolve_mesh(self, dispatch: str, devices) -> Optional[StoreMesh]:
+        return resolve_mesh_2d(dispatch, self.R, self.S, devices)
+
+    def _partition_rows(self) -> list:
+        """Device (i, j) of the (rd, sd) mesh holds replicas block i by
+        shards block j: rows r * S + s, in row order."""
+        rd, sd = self.mesh.shape
+        nr, ns = self.R // rd, self.S // sd
+        return [(np.arange(i * nr, (i + 1) * nr)[:, None] * self.S
+                 + np.arange(j * ns, (j + 1) * ns)[None, :]).reshape(-1)
+                for i in range(rd) for j in range(sd)]
+
     def _sched_mask(self, rows: np.ndarray) -> np.ndarray:
         """Scheduler passes touch only alive replicas, or, mid-resync, only
         the rows of the replica being rebuilt that the replay says are due
@@ -248,11 +302,11 @@ class ReplicatedKV(ShardedKV):
         if not all_rows:
             rows = self._rows_of(sel)
             rops = torch.where(rows[:, None], rops, OP_NOOP).to(torch.int32)
-        old = self.state
-        new, sst, srv = store.apply(self.cfg, old, skeys.repeat(R, 1), rops,
-                                    svals.repeat(R, 1, 1),
-                                    admit_rc=self._admit)
-        self.state = new if all_rows else select_shards(rows, new, old)
+        old = self._st
+        new, sst, srv = self._map(store.apply, self.cfg, old, skeys.repeat(R, 1),
+                                  rops, svals.repeat(R, 1, 1),
+                                  admit_rc=self._admit)
+        self._st = new if all_rows else self._map(select_shards, rows, new, old)
         h = self._primary(sel)
         status, rvals = shard_router.unroute(
             rt, sst.view(R, S, W)[h], srv.view(R, S, W, -1)[h])
@@ -269,15 +323,15 @@ class ReplicatedKV(ShardedKV):
             keys, ops, vals, S, self._lanes_of(keys.shape[0]),
             bucket_map=self._bucket_map_dev, replica=self._read_rep,
             n_replicas=R)
-        old = self.state
-        new, sst, srv = store.read_batch(self.cfg, old, skeys, sops == OP_READ,
-                                         admit_rc=False)
+        old = self._st
+        new, sst, srv = self._map(store.read_batch, self.cfg, old, skeys,
+                                  sops == OP_READ, admit_rc=False)
         status, rvals = shard_router.unroute(rt, sst, srv)
         occ = rt.occupancy.view(R, S)
-        io = torch.stack([a - b for a, b in zip(new.stats, old.stats)])
+        io, exhausted = self._map(_read_charges, new, old)
         self._note_round(occ.sum(0, dtype=torch.int32),
                          bucket_counts(rt, self.n_buckets))
-        self._pending_read.append((io, new.walk_exhausted,
+        self._pending_read.append((io.T, exhausted,
                                    occ.sum(1, dtype=torch.int32)))
         if len(self._pending_read) >= 128:
             self._fold_read()
@@ -358,10 +412,8 @@ class ReplicatedKV(ShardedKV):
     def _reset_rows(self, r: int):
         """Replica r's rows set to an empty store, in place (one empty
         store's leaves broadcast over the S rows)."""
-        fresh = store.create(self.cfg, self.device, n_shards=1)
-        rows = slice(r * self.S, (r + 1) * self.S)
-        for dst, src in zip(_leaves(self.state), _leaves(fresh)):
-            dst[rows].copy_(src.expand_as(dst[rows]))
+        self._st = self._map(_reset, self.cfg, self._st,
+                             self._rows_of(np.arange(self.R) == r))
 
     def resync(self, r: int) -> int:
         """Rebuild dropped replica r live from the primary: reset r, drain
@@ -402,12 +454,14 @@ class ReplicatedKV(ShardedKV):
                 sdo = self._dev_bool(do & (starts < begins + n))
                 sj = self._dev_rows(starts)
                 if tier == "cold":
-                    _, k, v, took = rebalance.drain_cold_step(
-                        cfg, Bm, nb, self.state, sj, until, move, sdo)
+                    _, k, v, took = self._map(
+                        rebalance.drain_cold_step, cfg, Bm, nb, self._st, sj,
+                        until, move, sdo)
                     tomb = None
                 else:
-                    _, k, v, tomb, took = rebalance.drain_hot_step(
-                        cfg, Bm, nb, self.state, sj, until, move, sdo)
+                    _, k, v, tomb, took = self._map(
+                        rebalance.drain_hot_step, cfg, Bm, nb, self._st, sj,
+                        until, move, sdo)
                 parts += self._collect(k, v, tomb, took)   # h's rows
         # --- replay into r alone, the scheduler restricted to r ------------
         if parts:
@@ -480,10 +534,10 @@ class ReplicatedKV(ShardedKV):
                 idx[r * S + s, :len(lanes)] = lanes
             if take.any():
                 it = torch.as_tensor(idx, device=dev)
-                old = self.state
-                new, _, _ = store.apply(self.cfg, old, keys_d[it], ops_d[it],
-                                        vals_d[it], admit_rc=self._admit)
-                self.state = select_shards(rows, new, old)
+                old = self._st
+                new, _, _ = self._map(store.apply, self.cfg, old, keys_d[it],
+                                      ops_d[it], vals_d[it], admit_rc=self._admit)
+                self._st = self._map(select_shards, rows, new, old)
             self._sched_rows[r] = take | (owed > 0)
             before = self._pass_counts(r)
             self.maybe_compact()
@@ -538,10 +592,7 @@ class ReplicatedKV(ShardedKV):
     def check_invariants(self):
         """Every ShardedKV invariant, per (replica, shard), fan-out reads'
         chain-walk exhaustion included."""
-        st = self.state
-        flags = torch.stack([st.hot.overflowed, st.cold.overflowed,
-                             st.cold_idx.overflowed, st.walk_exhausted]
-                            ).cpu().numpy().reshape(4, self.R, self.S)
+        flags = self._rows_of_state(_flags_of).reshape(4, self.R, self.S)
         self._fold_read()
         flags[3] |= self._read_exhausted
         hb, ht, cb, ct, *_ = self._bounds()

@@ -79,12 +79,26 @@ event and counters, and at the traffic fold (`_fold_traffic`) the router
 gauges and an alert-rule pass.  Every device value it reads is one the
 store reads anyway; disabled, each site is one flag check.
 
-Not ported here: `dispatch="shard_map"` (ROADMAP item 15).
+Dispatch
+--------
+`dispatch="vmap"` (the default on one device) holds every row on one
+device.  `dispatch="shard_map"` partitions the row axis over a device mesh
+(`resolve_mesh`: the most devices that divide S, from `devices`, by default
+every visible CUDA device, or the store's own device when it runs on the
+CPU); `"auto"` picks it when there is more than one device.  A mesh of P
+devices holds P partitions of S/P rows, each an `F2State` on its own device
+(`_Parts`), and every store step runs once per partition (`_map`): the
+routed slabs split by rows, and the results come back in row order on the
+first device.  No partition reads another's state.  At P = 1 the program is
+the vmap program.  The list may name a device twice, which runs P > 1 on
+one device (the counterpart of a forced host device count).  `state` gathers
+the partitions on read and splits on write, for the layers that take the
+state whole (snapshots, recovery, interop, the host tier's manager).
 """
 from __future__ import annotations
 
 import time
-from typing import Optional
+from typing import NamedTuple, Optional
 
 import numpy as np
 import torch
@@ -95,7 +109,7 @@ from ..testing import faults
 from .api import check_host_invariants, check_host_tier, resolve_device
 from .rebalance import RebalanceConfig, select_shards
 from .types import (BLOCK_BYTES, OP_DELETE, OP_NOOP, OP_READ, OP_RMW,
-                    OP_UPSERT, F2Config)
+                    OP_UPSERT, F2Config, tree_map)
 
 DISPATCHES = ("auto", "vmap", "shard_map")
 COMPACTION_KINDS = ("hot_cold", "cold_cold", "single_log", "chunk_gc")
@@ -107,6 +121,70 @@ def bucket_counts(rt: shard_router.Route, n_buckets: int) -> torch.Tensor:
     bidx = torch.where(rt.placed, rt.bucket, n_buckets)
     counts = torch.zeros((n_buckets + 1,), dtype=torch.int32, device=bidx.device)
     return counts.index_add_(0, bidx, torch.ones_like(bidx))[:n_buckets]
+
+
+def _bounds_of(s) -> torch.Tensor:
+    return torch.stack([s.hot.begin, s.hot.tail, s.cold.begin, s.cold.tail,
+                        s.cold_idx.begin, s.cold_idx.tail], dim=1)
+
+
+def _cold_bounds_of(s) -> torch.Tensor:
+    return torch.stack([s.cold.begin, s.cold.tail, s.cold.floor], dim=1)
+
+
+def _io_of(s) -> torch.Tensor:
+    return torch.stack([s.stats.read_blocks, s.stats.write_blocks,
+                        s.stats.read_ops, s.stats.mem_hits], dim=1)
+
+
+def _flags_of(s) -> torch.Tensor:
+    """bool [rows, 4]: the invariants' overflow and exhaustion flags."""
+    return torch.stack([s.hot.overflowed, s.cold.overflowed,
+                        s.cold_idx.overflowed, s.walk_exhausted], dim=1)
+
+
+def _chunklog_step(cfg: F2Config, old, do: torch.Tensor):
+    """Masked chunk-log GC of the rows with `do`."""
+    ci, stats = cold_index.compact_chunklog(old.cold_idx, cfg, old.stats, do=do)
+    return select_shards(do, old._replace(cold_idx=ci, stats=stats), old)
+
+
+def _hot_truncate(cfg: F2Config, old, until: torch.Tensor, do: torch.Tensor):
+    return compaction.hot_truncate(cfg, old, until, do=do)
+
+
+class StoreMesh(NamedTuple):
+    """The devices a store's rows are partitioned over: `devices` row-major
+    over `shape`, which is (P,) over the shard axis, or (replica devices,
+    shard devices) over (replica, shard)."""
+    devices: tuple
+    shape: tuple
+    axis_names: tuple
+
+
+def store_devices(device: torch.device) -> list:
+    """The default device list of the partitioned dispatch: every visible
+    CUDA device for a CUDA store, the store's own device otherwise."""
+    if device.type == "cuda":
+        return [torch.device("cuda", i) for i in range(torch.cuda.device_count())]
+    return [device]
+
+
+def resolve_mesh(dispatch: str, n_shards: int, devices) -> Optional[StoreMesh]:
+    """None -> every row on one device (vmap); else a 1-D mesh over the
+    shard axis of the most devices that divide S (1 is always valid)."""
+    if dispatch not in DISPATCHES:
+        raise ValueError(f"unknown dispatch {dispatch!r}")
+    devs = [torch.device(d) for d in devices]
+    if dispatch == "vmap" or (dispatch == "auto" and len(devs) == 1):
+        return None
+    ndev = max(d for d in range(1, min(len(devs), n_shards) + 1)
+               if n_shards % d == 0)
+    return StoreMesh(tuple(devs[:ndev]), (ndev,), ("shard",))
+
+
+class _Parts(list):
+    """A partitioned state: one `F2State` of its rows per mesh device."""
 
 
 class ShardedKV:
@@ -126,7 +204,7 @@ class ShardedKV:
                  dispatch: str = "auto", lanes: Optional[int] = None,
                  n_buckets: Optional[int] = None,
                  rebalance_cfg: Optional[RebalanceConfig] = None,
-                 device=None):
+                 device=None, devices=None):
         if mode not in ("f2", "faster"):
             raise ValueError(f"unknown mode {mode!r}")
         if faster_compaction not in ("scan", "lookup"):
@@ -137,10 +215,8 @@ class ShardedKV:
             raise ValueError("mode='faster' needs rc_capacity >= 1")
         if dispatch not in DISPATCHES:
             raise ValueError(f"unknown dispatch {dispatch!r}")
-        if dispatch == "shard_map":
-            raise NotImplementedError(
-                "dispatch='shard_map' (the shard axis over a device mesh) is "
-                "ROADMAP item 15; 'auto'/'vmap' run every shard on one device")
+        if device is None and devices:
+            device = devices[0]
         self.device = resolve_device(device, f"repro_torch.{type(self).__name__}")
         self.cfg = cfg
         self.S = n_shards
@@ -150,9 +226,22 @@ class ShardedKV:
         self.compact_batch = compact_batch
         self.faster_compaction = faster_compaction
         self.lanes = lanes
-        self.dispatch = "vmap"
+        self.mesh = self._resolve_mesh(
+            dispatch, store_devices(self.device) if devices is None else devices)
+        self.dispatch = "vmap" if self.mesh is None else "shard_map"
+        self._pp = None                 # [(rows, device)] when P > 1
+        self._inv = None                # gathered order -> row order
+        if self.mesh is not None:
+            self.device = self.mesh.devices[0]
+            if len(self.mesh.devices) > 1:
+                self._partition()
         lead = self._lead_shape
-        self.state = store.create(cfg, self.device, n_shards=self._n_rows)
+        if self._pp is None:
+            self._st = store.create(cfg, self.device, n_shards=self._n_rows)
+        else:
+            self._st = _Parts(store.create(cfg, dev, n_shards=len(r))
+                              for r, dev in zip(self._partition_rows(),
+                                                self.mesh.devices))
         self.compactions = np.zeros(lead, np.int64)
         self.compaction_counts = {k: np.zeros(lead, np.int64)
                                   for k in COMPACTION_KINDS}
@@ -200,6 +289,104 @@ class ShardedKV:
                     "chunks)")
             self._ht = host_tier.HostTier(cfg, self._n_rows, self.device,
                                           obs_facade=self._obs_facade)
+
+    # -- the partitioned dispatch ----------------------------------------------
+    def _resolve_mesh(self, dispatch: str, devices) -> Optional[StoreMesh]:
+        return resolve_mesh(dispatch, self.S, devices)
+
+    def _partition_rows(self) -> list:
+        """The rows of each mesh device, in mesh order: S/P consecutive
+        shards each."""
+        n = self.S // len(self.mesh.devices)
+        return [np.arange(p * n, (p + 1) * n) for p in range(len(self.mesh.devices))]
+
+    def _partition(self):
+        rows = self._partition_rows()
+        self._pp = []
+        for r, dev in zip(rows, self.mesh.devices):
+            if np.array_equal(r, np.arange(r[0], r[0] + len(r))):
+                idx = slice(int(r[0]), int(r[0]) + len(r))
+            else:
+                idx = torch.as_tensor(r, device=self.device)
+            self._pp.append((idx, dev))
+        order = np.concatenate(rows)
+        if not np.array_equal(order, np.arange(len(order))):
+            self._inv = torch.as_tensor(np.argsort(order), device=self.device)
+
+    def _take(self, x, p: int, copy: bool = False):
+        """Partition p's part of a row-leading argument: its rows of every
+        tensor (moved to its device), its `F2State` of a partitioned state;
+        anything else as it is."""
+        if isinstance(x, _Parts):
+            return x[p]
+        rows, dev = self._pp[p]
+        n = self._n_rows
+
+        def part(t):
+            if t.dim() == 0:
+                return t.to(dev)
+            if t.shape[0] != n:
+                raise ValueError(f"a partitioned step got a tensor of shape "
+                                 f"{tuple(t.shape)}; its rows must be {n}")
+            out = t[rows]
+            if out.device != dev:
+                return out.to(dev)
+            return out.clone() if copy and isinstance(rows, slice) else out
+        return tree_map(part, x)
+
+    def _cat(self, outs):
+        """Per-partition results as one result in row order on the first
+        device (a state stays partitioned: `_Parts`)."""
+        o = outs[0]
+        if isinstance(o, store.F2State):
+            return _Parts(outs)
+        if isinstance(o, torch.Tensor):
+            t = torch.cat([x.to(self.device) for x in outs])
+            return t if self._inv is None else t[self._inv]
+        if isinstance(o, tuple):
+            vals = [self._cat([x[i] for x in outs]) for i in range(len(o))]
+            return type(o)(*vals) if hasattr(o, "_fields") else tuple(vals)
+        if o is None:
+            return None
+        raise TypeError(f"a partitioned step returned {type(o).__name__}")
+
+    def _map(self, fn, *args, **kw):
+        """`fn(*args, **kw)` once per partition, on its rows and device: every
+        positional tensor is row-leading (the partitioned state passes as
+        itself), keywords pass as they are; results come back by `_cat`.
+        Without partitions, the call itself."""
+        if self._pp is None:
+            return fn(*args, **kw)
+        return self._cat([fn(*(self._take(a, p) for a in args), **kw)
+                          for p in range(len(self._pp))])
+
+    @property
+    def state(self) -> store.F2State:
+        """The whole state: the partitions gathered in row order on the first
+        device (a copy) under a multi-device mesh."""
+        if self._pp is None:
+            return self._st
+        return self._gather(self._st)
+
+    @state.setter
+    def state(self, st):
+        if self._pp is None or isinstance(st, _Parts):
+            self._st = st
+        else:
+            self._st = _Parts(self._take(st, p, copy=True)
+                              for p in range(len(self._pp)))
+
+    def _gather(self, parts: _Parts) -> store.F2State:
+        leaves = [[] for _ in parts]
+        for out, st in zip(leaves, parts):
+            tree_map(out.append, st)
+        flat = iter([self._cat([lv[i] for lv in leaves])
+                     for i in range(len(leaves[0]))])
+        return tree_map(lambda _: next(flat), parts[0])
+
+    def _rows_of_state(self, fn) -> np.ndarray:
+        """`fn(state)` -> [rows, k] per store, as a host array [k, rows]."""
+        return self._map(fn, self._st).cpu().numpy().T
 
     def _dev(self, x) -> torch.Tensor:
         if isinstance(x, torch.Tensor):
@@ -328,11 +515,11 @@ class ShardedKV:
         if self._ht is not None:
             # pre-fault every host chunk the round would touch (routed
             # writes cannot defer mid-step, as in KV.apply)
-            heads = store.fetch_heads(self.cfg, self.state, skeys, sops)
+            heads = self._map(store.fetch_heads, self.cfg, self._st, skeys, sops)
             self.state = self._ht.ensure(self.state, lambda st: store.plan_fetch(
                 self.cfg, st, skeys, sops, heads))
-        self.state, sst, srv = store.apply(self.cfg, self.state, skeys, sops,
-                                           svals, admit_rc=self._admit)
+        self._st, sst, srv = self._map(store.apply, self.cfg, self._st, skeys,
+                                       sops, svals, admit_rc=self._admit)
         if self._ht is not None:
             self._ht.end_batch()
         status, rvals = shard_router.unroute(rt, sst, srv)
@@ -345,9 +532,9 @@ class ShardedKV:
         skeys, sops, _, rt = shard_router.route(
             keys, ops, vals, self.S, self._lanes_of(keys.shape[0]),
             bucket_map=self._bucket_map_dev)
-        self.state, sst, srv = store.read_batch(self.cfg, self.state, skeys,
-                                                sops == OP_READ,
-                                                admit_rc=self._admit)
+        self._st, sst, srv = self._map(store.read_batch, self.cfg, self._st,
+                                       skeys, sops == OP_READ,
+                                       admit_rc=self._admit)
         status, rvals = shard_router.unroute(rt, sst, srv)
         self._note_round(rt.occupancy, bucket_counts(rt, self.n_buckets))
         return status, rvals, rt
@@ -477,9 +664,9 @@ class ShardedKV:
                 skeys, sops, _, rt = shard_router.route(
                     keys, cur_ops, vals0, self.S, self._lanes_of(B),
                     bucket_map=self._bucket_map_dev)
-                self.state, sst, srv, smissed = store.read_batch_host(
-                    self.cfg, self.state, skeys, sops == OP_READ,
-                    admit_rc=self._admit)
+                self._st, sst, srv, smissed = self._map(
+                    store.read_batch_host, self.cfg, self._st, skeys,
+                    sops == OP_READ, admit_rc=self._admit)
                 st_r, rv_r = shard_router.unroute(rt, sst, srv)
                 lane_miss, _ = shard_router.unroute(rt, smissed, srv)
                 self._note_round(rt.occupancy,
@@ -536,9 +723,7 @@ class ShardedKV:
         """(hot begin, hot tail, cold begin, cold tail, chunk-log begin,
         chunk-log tail) of every store, int64 of `_lead_shape` each, in one
         transfer."""
-        s = self.state
-        b = torch.stack([s.hot.begin, s.hot.tail, s.cold.begin, s.cold.tail,
-                         s.cold_idx.begin, s.cold_idx.tail]).cpu().numpy()
+        b = self._rows_of_state(_bounds_of)
         return list(b.astype(np.int64).reshape((6,) + self._lead_shape))
 
     def hot_fills(self) -> np.ndarray:
@@ -595,12 +780,8 @@ class ShardedKV:
                                   if shards is None else np.asarray(shards, bool))
         n_sh = int(shards.sum())
         with obs.span("compact.chunk_gc", cat="compaction", shards=n_sh):
-            do = self._dev_bool(shards)
-            old = self.state
-            ci, stats = cold_index.compact_chunklog(old.cold_idx, self.cfg,
-                                                    old.stats, do=do)
-            self.state = select_shards(
-                do, old._replace(cold_idx=ci, stats=stats), old)
+            self._st = self._map(_chunklog_step, self.cfg, self._st,
+                                 self._dev_bool(shards))
         self.compaction_counts["chunk_gc"] += shards
         self._note_compaction("chunk_gc", n_sh)
 
@@ -640,10 +821,10 @@ class ShardedKV:
                 # the reference's demotion check)
                 self.state = self._ht.demote_if_needed(
                     self.state, cb + self.cfg.host_chunk_records)
-            old = self.state
-            new, n_live = step(self.cfg, old, starts,
-                               torch.where(do, until, starts), cb)
-            self.state = select_shards(do, new, old)
+            old = self._st
+            new, n_live = self._map(step, self.cfg, old, starts,
+                                    torch.where(do, until, starts), cb)
+            self._st = self._map(select_shards, do, new, old)
             live += torch.where(do, n_live, 0)
         return until, live.cpu().numpy().reshape(self._lead_shape)
 
@@ -651,12 +832,12 @@ class ShardedKV:
         """The truncation phase on the selected shards (the hot one masks
         its index writes; the cold one writes scalars only)."""
         do = self._dev_bool(shards)
-        old = self.state
+        old = self._st
         if tier == "hot":
-            new = compaction.hot_truncate(self.cfg, old, until, do=do)
+            new = self._map(_hot_truncate, self.cfg, old, until, do)
         else:
-            new = compaction.cold_truncate(self.cfg, old, until)
-        self.state = select_shards(do, new, old)
+            new = self._map(compaction.cold_truncate, self.cfg, old, until)
+        self._st = self._map(select_shards, do, new, old)
 
     def _region(self, shards, n_records, tier):
         """(begins [S], region sizes [S], shard mask) of one log tier."""
@@ -718,9 +899,7 @@ class ShardedKV:
                                              cb + cfg.host_chunk_records)
             # pin each live shard's below-floor frontier chunks: the commit
             # reads the frontier again after unpinned walk promotions
-            cold = self.state.cold
-            cbg, ctl, cfl = torch.stack([cold.begin, cold.tail, cold.floor]
-                                        ).cpu().numpy().astype(np.int64)
+            cbg, ctl, cfl = self._rows_of_state(_cold_bounds_of).astype(np.int64)
             pins = []
             for s in range(self._n_rows):
                 lo = max(int(starts_np[s]), int(cbg[s]))
@@ -731,7 +910,7 @@ class ShardedKV:
             ht.pin_chunks(pins)
             self.state = ht.ensure(self.state, lambda st: compaction.
                                    plan_cc_frontier(cfg, st, sj, uj, cb))
-            carry = compaction.cc_walk_init(cfg, self.state, sj, uj, cb)
+            carry = self._map(compaction.cc_walk_init, cfg, self._st, sj, uj, cb)
             for r in range(cb * cfg.chain_max + 9):
                 if r:
                     needs = ht.collect(carry.missed)
@@ -739,15 +918,15 @@ class ShardedKV:
                         break
                     self.state = ht.promote(self.state, needs, partial=True,
                                             pin=False)
-                old = self.state
-                new, carry = compaction.cc_walk_round(cfg, old, sj, uj, carry,
-                                                      cb)
-                self.state = select_shards(do, new, old)
+                old = self._st
+                new, carry = self._map(compaction.cc_walk_round, cfg, old, sj,
+                                       uj, carry, cb)
+                self._st = self._map(select_shards, do, new, old)
             else:
                 raise RuntimeError("host tier: cold-cold walk did not converge")
-            old = self.state
-            new, _ = compaction.cc_commit(cfg, old, sj, uj, carry, cb)
-            self.state = select_shards(do, new, old)
+            old = self._st
+            new, _ = self._map(compaction.cc_commit, cfg, old, sj, uj, carry, cb)
+            self._st = self._map(select_shards, do, new, old)
         return until
 
     def compact_single_log(self, n_records: Optional[int] = None,
@@ -763,9 +942,10 @@ class ShardedKV:
             until, live_total = self._masked_steps(step, begins, n, shards)
             if self.faster_compaction == "scan":
                 do = self._dev_bool(shards)
-                old = self.state
-                self.state = select_shards(
-                    do, compaction.charge_full_scan(self.cfg, old), old)
+                old = self._st
+                self._st = self._map(
+                    select_shards, do,
+                    self._map(compaction.charge_full_scan, self.cfg, old), old)
                 self.temp_table_peak_bytes = np.maximum(
                     self.temp_table_peak_bytes,
                     np.where(shards, live_total * (self.cfg.record_bytes + 16),
@@ -901,12 +1081,14 @@ class ShardedKV:
                     sdo = self._dev_bool(do & (starts < begins + n))
                     sj = self._dev_rows(starts)
                     if tier == "cold":
-                        self.state, k, v, took = rebalance.drain_cold_step(
-                            cfg, Bm, nb, self.state, sj, until, move, sdo)
+                        self._st, k, v, took = self._map(
+                            rebalance.drain_cold_step, cfg, Bm, nb, self._st,
+                            sj, until, move, sdo)
                         tomb = None
                     else:
-                        self.state, k, v, tomb, took = rebalance.drain_hot_step(
-                            cfg, Bm, nb, self.state, sj, until, move, sdo)
+                        self._st, k, v, tomb, took = self._map(
+                            rebalance.drain_hot_step, cfg, Bm, nb, self._st,
+                            sj, until, move, sdo)
                     parts += self._collect(k, v, tomb, took)
             # a pending pressure pass may interleave: the drained snapshot
             # stays valid (compaction copies live records and truncates), and
@@ -928,8 +1110,8 @@ class ShardedKV:
                 self.wal.log_map(new_map, self.map_version + 1, keys_all,
                                  ops_all, vals_all)
             # purge the source copies, then flip the indirection
-            self.state = rebalance.purge_step(cfg, nb, self.state, move,
-                                              self._dev_bool(do))
+            self._st = self._map(rebalance.purge_step, cfg, nb, self._st, move,
+                                 self._dev_bool(do))
             self.bucket_map = new_map.copy()
             self._bucket_map_dev = self._dev(self.bucket_map)
             self.map_version += 1
@@ -976,9 +1158,7 @@ class ShardedKV:
 
     # -- reporting ------------------------------------------------------------
     def _io(self) -> np.ndarray:
-        s = self.state.stats
-        return torch.stack([s.read_blocks, s.write_blocks, s.read_ops,
-                            s.mem_hits]).cpu().numpy().astype(np.int64)
+        return self._rows_of_state(_io_of).astype(np.int64)
 
     def io_stats(self) -> dict:
         """KV-compatible totals over all shards."""
@@ -1017,10 +1197,7 @@ class ShardedKV:
 
     def check_invariants(self):
         """Every invariant of `KV.check_invariants`, per shard."""
-        st = self.state
-        flags = torch.stack([st.hot.overflowed, st.cold.overflowed,
-                             st.cold_idx.overflowed, st.walk_exhausted]
-                            ).cpu().numpy()
+        flags = self._rows_of_state(_flags_of)
         hb, ht, cb, ct, *_ = self._bounds()
         for s in range(self.S):
             for bad, what in zip(flags[:, s], (
@@ -1032,4 +1209,4 @@ class ShardedKV:
             if hb[s] > ht[s] or cb[s] > ct[s]:
                 raise AssertionError(f"shard {s}: log BEGIN passed TAIL")
         if self.cfg.host_tier:
-            check_host_invariants(self.cfg, st)
+            check_host_invariants(self.cfg, self.state)

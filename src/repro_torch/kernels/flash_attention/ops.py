@@ -194,7 +194,7 @@ def flash_attention(q, k, v, causal: bool = True, window: int = 0):
     kr = k.reshape(B * Hkv, 1, Tk, Dh)
     vr = v.reshape(B * Hkv, 1, Tk, Dh)
     dev = q.device
-    if dev.type == "cpu":
+    if dev.type in ("cpu", "meta"):     # meta: the dry-run's shapes only
         out = mha_reference(qr, kr, vr, causal=causal, window=int(window))
     elif dev.type == "cuda":
         out = flash_attention_cuda(qr.contiguous(), kr.contiguous(), vr.contiguous(),

@@ -5,6 +5,7 @@ through it is the plain version of the gradient kernels."""
 from __future__ import annotations
 
 import torch
+from torch.distributed.tensor import DTensor
 
 NEG_INF = -1e30
 
@@ -15,7 +16,11 @@ def mha_reference(q, k, v, *, causal: bool = True, window: int = 0):
     query >= key; window > 0: query - key < window) take the finite NEG_INF."""
     Tq, Dh = q.shape[2], q.shape[3]
     Tk = k.shape[2]
-    s = torch.einsum("bgqd,bokd->bgqk", q.float(), k.float()) * (Dh ** -0.5)
+    # a DTensor takes the broadcast matmul: einsum's flattening of (G, Tq)
+    # is refused where Tq is sharded (sequence parallelism)
+    dist = isinstance(q, DTensor)
+    s = (torch.matmul(q.float(), k.float().transpose(-1, -2)) if dist else
+         torch.einsum("bgqd,bokd->bgqk", q.float(), k.float())) * (Dh ** -0.5)
     q_pos = torch.arange(Tq, device=q.device)[:, None]
     kv_pos = torch.arange(Tk, device=q.device)[None, :]
     mask = torch.ones((Tq, Tk), dtype=torch.bool, device=q.device)
@@ -27,4 +32,6 @@ def mha_reference(q, k, v, *, causal: bool = True, window: int = 0):
     p = torch.exp(s - s.amax(-1, keepdim=True))
     p = p / torch.clamp(p.sum(-1, keepdim=True), min=1e-30)
     p = p.to(v.dtype).float()
+    if dist:
+        return torch.matmul(p, v.float()).to(q.dtype)
     return torch.einsum("bgqk,bokd->bgqd", p, v.float()).to(q.dtype)

@@ -208,7 +208,8 @@ def wkv_cuda(r, k, v, w, u, state=None, need_state=False):
 
 def wkv(r, k, v, w, u, state=None, need_state=False):
     """Model layout -> (y [B, H, T, D] float32, final state [B, H, D, D] or
-    None): the kernels on a CUDA device, the plain version on the CPU.
+    None): the kernels on a CUDA device, the plain version on the CPU (and
+    on `meta`, the dry-run's shape-only tensors).
     r, k, v are cast to float32 (as `wkv_scan` casts them), or, where r is
     float64, all to float64 (a float64 model on the CPU)."""
     dev = r.device
@@ -216,7 +217,7 @@ def wkv(r, k, v, w, u, state=None, need_state=False):
     r, k, v, w, u = (t.to(ct) for t in (r, k, v, w, u))
     if state is not None:
         state = state.to(ct)
-    if dev.type == "cpu":
+    if dev.type in ("cpu", "meta"):
         y, s = wkv_reference(r, k, v, w, u, state)
         return y, (s if need_state else None)
     if dev.type != "cuda":

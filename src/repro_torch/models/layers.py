@@ -25,6 +25,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from ..configs.base import ModelConfig
+from ..distributed.sharding import constrain, matmul, merge_dims, split_dim
 from ..kernels.flash_attention import ops as fa_ops
 
 NEG_INF = -1e30
@@ -156,11 +157,18 @@ def attn_params(cfg: ModelConfig, gen: torch.Generator, d: int,
     return Attention(*w)
 
 
+def gated_proj(x, w):
+    """einsum("...d,dcf->...cf", x, w) for w [D, 2, F]: one matmul on a view
+    of w."""
+    _, C, Fd = w.shape
+    return split_dim(matmul(x, merge_dims(w, 1, 2)), x.dim() - 1, (C, Fd))
+
+
 def _heads(x, w):
     """einsum("btd,dhk->bhtk", x, w) as one matmul on a view of w."""
     B, T, D = x.shape
     _, H, K = w.shape
-    return (x @ w.to(x.dtype).reshape(D, H * K)).view(B, T, H, K).transpose(1, 2)
+    return split_dim(matmul(x, merge_dims(w.to(x.dtype), 1, 2)), 2, (H, K)).transpose(1, 2)
 
 
 def project_qkv(cfg: ModelConfig, p: Attention, x, positions, use_rope=True,
@@ -179,6 +187,9 @@ def project_qkv(cfg: ModelConfig, p: Attention, x, positions, use_rope=True,
                                  cfg.rope_theta, cfg.rope_fraction)
         q, k = apply_rope(torch.cat([q, k], dim=1), tables).split(
             [q.shape[1], k.shape[1]], dim=1)
+    q = constrain(q, "batch", "heads", "seq", None)
+    k = constrain(k, "batch", "kv_heads", "seq", None)
+    v = constrain(v, "batch", "kv_heads", "seq", None)
     return q, k, v
 
 
@@ -191,6 +202,9 @@ def flash_attention(q, k, v, *, causal: bool = True, window=None,
     version on the CPU; both take any Tk, so the reference's padding of a
     ragged Tk to its key block has no counterpart here."""
     w = 0 if window is None else int(window)
+    # K/V gathered over the sequence once (q keeps its layout)
+    k = constrain(k, "batch", "kv_heads", None, None)
+    v = constrain(v, "batch", "kv_heads", None, None)
     return fa_ops.flash_attention(q, k, v, causal=causal and not cross,
                                   window=max(w, 0))
 
@@ -198,7 +212,7 @@ def flash_attention(q, k, v, *, causal: bool = True, window=None,
 def attn_out(p: Attention, attn, dtype):
     """einsum("bhtk,hkd->btd", attn, wo) as one matmul: attn [B,Hq,T,Dh]."""
     B, H, T, K = attn.shape
-    return attn.transpose(1, 2).reshape(B, T, H * K) @ p.wo.to(dtype).reshape(H * K, -1)
+    return matmul(merge_dims(attn.transpose(1, 2), 2, 2), merge_dims(p.wo.to(dtype), 0, 2))
 
 
 def decode_attention(q, k_cache, v_cache, cache_len, *, window=None):
@@ -210,7 +224,7 @@ def decode_attention(q, k_cache, v_cache, cache_len, *, window=None):
     B, Hq, Dh = q.shape
     _, Hkv, S, _ = k_cache.shape
     G = Hq // Hkv
-    qg = q.reshape(B, Hkv, G, Dh)
+    qg = split_dim(q, 1, (Hkv, G))
     s = torch.einsum("bhgd,bhkd->bhgk", qg, k_cache).float()
     s = s * (Dh ** -0.5)
     pos = torch.arange(S, device=q.device)
@@ -230,7 +244,7 @@ def decode_attention(q, k_cache, v_cache, cache_len, *, window=None):
 def attn_out_token(p: Attention, attn):
     """einsum("bhk,hkd->bd", attn, wo) for one token: attn [B,Hq,Dh]."""
     B, H, K = attn.shape
-    return attn.reshape(B, H * K) @ p.wo.to(attn.dtype).reshape(H * K, -1)
+    return merge_dims(attn, 1, 2) @ merge_dims(p.wo.to(attn.dtype), 0, 2)
 
 
 # ---------------------------------------------------------------------------
@@ -257,15 +271,16 @@ def mlp_params(cfg: ModelConfig, gen: torch.Generator, d: int, f: int,
 def mlp(cfg: ModelConfig, p: MLP, x):
     dt = x.dtype
     if cfg.mlp_act in ("swiglu", "geglu"):
-        D, _, Fd = p.wi.shape
-        h = (x @ p.wi.to(dt).reshape(D, 2 * Fd)).unflatten(-1, (2, Fd))
+        h = gated_proj(x, p.wi.to(dt))
+        h = constrain(h, "batch", "seq", None, "mlp")
         gate, up = h[..., 0, :], h[..., 1, :]
         # jax.nn.gelu is the tanh approximation by default
         act = F.silu(gate) if cfg.mlp_act == "swiglu" else F.gelu(gate, approximate="tanh")
         h = act * up
     else:
-        h = F.gelu(x @ p.wi.to(dt), approximate="tanh")
-    return h @ p.wo.to(dt)
+        h = F.gelu(constrain(matmul(x, p.wi.to(dt)), "batch", "seq", "mlp"),
+                   approximate="tanh")
+    return constrain(matmul(h, p.wo.to(dt)), "batch", "seq", "embed")
 
 
 # ---------------------------------------------------------------------------
@@ -296,15 +311,17 @@ def embed_params(cfg: ModelConfig, gen: torch.Generator, device=None) -> Embed:
 
 
 def embed(cfg: ModelConfig, p: Embed, tokens):
-    t = p.table.to(weight_dtype(cfg))
+    t = constrain(p.table.to(weight_dtype(cfg)), "vocab", "embed")
     x = F.embedding(tokens, t)
     if cfg.name.startswith("gemma"):
         x = x * torch.tensor(cfg.d_model ** 0.5, dtype=x.dtype, device=x.device)
-    return x
+    return constrain(x, "batch", "seq", "embed")
 
 
 def logits(cfg: ModelConfig, p: Embed, x):
-    out = x @ p.table.to(x.dtype).T
+    out = matmul(x, p.table.to(x.dtype).T)
+    # vocab-sharded logits; seq deliberately unsharded (see the loss chunks)
+    out = constrain(out, "batch", None, "vocab")
     if cfg.padded_vocab != cfg.vocab_size:
         pad = torch.arange(cfg.padded_vocab, device=x.device) >= cfg.vocab_size
         out = out.masked_fill(pad, NEG_INF)

@@ -30,6 +30,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from ..configs.base import ModelConfig
+from ..distributed.sharding import constrain, matmul, merge_dims, split_dim
 from ..kernels.rwkv6_wkv import ops as wkv_ops
 from .layers import _heads, _normal, _param, upcast, weight_dtype
 
@@ -95,13 +96,17 @@ def _time_mix_inputs(cfg: ModelConfig, p: RWKV, x, x_prev):
     k = _heads(xk, p.wk)
     v = _heads(xv, p.wv)
     g = F.silu(_heads(xg, p.wg))
-    dd = torch.tanh(xw @ p.wA.to(dt))                               # [B,T,R]
+    dd = torch.tanh(matmul(xw, p.wA.to(dt)))                        # [B,T,R]
     B, T, _ = x.shape
     R, H, hd = p.wB.shape
     dd = upcast(dd)
-    lw = (dd @ p.wB.to(dd.dtype).reshape(R, H * hd)).view(B, T, H, hd).transpose(1, 2)
+    lw = split_dim(matmul(dd, merge_dims(p.wB.to(dd.dtype), 1, 2)), 2,
+                   (H, hd)).transpose(1, 2)
     lw = p.w0.float()[None, :, None, :] + lw
     w = torch.exp(-torch.exp(lw))                                    # (0,1) decay
+    r = constrain(r, "batch", "heads", "seq", None)
+    k = constrain(k, "batch", "heads", "seq", None)
+    v = constrain(v, "batch", "heads", "seq", None)
     return r, k, v, g, w
 
 
@@ -121,8 +126,8 @@ def time_mix(cfg: ModelConfig, p: RWKV, x, x_prev, wkv_state,
     # per-head group norm then gate
     y = rmsnorm_heads(y.to(dt), p.ln_x) * g
     B, H, T, K = y.shape
-    out = y.transpose(1, 2).reshape(B, T, H * K) @ p.wo.to(dt).reshape(H * K, -1)
-    return out, x[:, -1, :], new_state
+    out = matmul(merge_dims(y.transpose(1, 2), 2, 2), merge_dims(p.wo.to(dt), 0, 2))
+    return constrain(out, "batch", "seq", "embed"), x[:, -1, :], new_state
 
 
 def rmsnorm_heads(y, scale, eps=1e-6):
@@ -139,7 +144,8 @@ def channel_mix(cfg: ModelConfig, p: RWKV, x, x_prev):
     mu = p.mu_c.to(dt)
     xk = x + diff * mu[0]
     xr = x + diff * mu[1]
-    kk = torch.square(F.relu(xk @ p.ck.to(dt)))
-    vv = kk @ p.cv.to(dt)
-    rr = torch.sigmoid(xr @ p.cr.to(dt))
-    return rr * vv, x[:, -1, :]
+    kk = torch.square(F.relu(matmul(xk, p.ck.to(dt))))
+    kk = constrain(kk, "batch", "seq", "mlp")
+    vv = matmul(kk, p.cv.to(dt))
+    rr = torch.sigmoid(matmul(xr, p.cr.to(dt)))
+    return constrain(rr * vv, "batch", "seq", "embed"), x[:, -1, :]

@@ -25,7 +25,8 @@ import torch.nn.functional as F
 from torch import nn
 
 from ..configs.base import ModelConfig
-from .layers import _normal, _param, weight_dtype
+from ..distributed.sharding import constrain, matmul
+from .layers import _normal, _param, gated_proj, weight_dtype
 
 CONV_K = 4
 NAMES = ("in_proj", "conv", "wdt", "dt_bias", "wb", "wc", "a_log", "dskip",
@@ -75,9 +76,9 @@ def ssm_mix(cfg: ModelConfig, p: SSM, x, state: Dict[str, torch.Tensor]):
     """x: [B,T,D]; state: {"conv": [B,K-1,din], "h": [B,din,N] float32}.
     Returns (y [B,T,D], new state)."""
     dt_ = x.dtype
-    D, _, din = p.in_proj.shape
-    hproj = (x @ p.in_proj.to(dt_).reshape(D, 2 * din)).unflatten(-1, (2, din))
+    hproj = gated_proj(x, p.in_proj.to(dt_))
     xs, z = hproj[..., 0, :], hproj[..., 1, :]               # [B,T,din]
+    xs = constrain(xs, "batch", "seq", "mlp")
     xs, conv_state = causal_conv(xs, p.conv.to(dt_), state["conv"])
     xs = F.silu(xs)
 
@@ -85,8 +86,8 @@ def ssm_mix(cfg: ModelConfig, p: SSM, x, state: Dict[str, torch.Tensor]):
     # as jax.nn.softplus computes it (F.softplus turns linear above 20)
     v = xs.float() * p.wdt[None, None, :] + p.dt_bias[None, None, :]
     dt = torch.logaddexp(v, torch.zeros((), dtype=v.dtype, device=v.device))
-    B_ = (xs @ p.wb.to(dt_)).float()                         # [B,T,N]
-    C_ = (xs @ p.wc.to(dt_)).float()
+    B_ = matmul(xs, p.wb.to(dt_)).float()                    # [B,T,N]
+    C_ = matmul(xs, p.wc.to(dt_)).float()
     A = -torch.exp(p.a_log)                                  # [din,N] negative
 
     xs32 = xs.float()
@@ -100,8 +101,8 @@ def ssm_mix(cfg: ModelConfig, p: SSM, x, state: Dict[str, torch.Tensor]):
     y = torch.stack(ys, dim=1).to(dt_)
     y = y + xs * p.dskip.to(dt_)[None, None, :]
     y = y * F.silu(z)
-    out = y @ p.out_proj.to(dt_)
-    return out, {"conv": conv_state, "h": h}
+    out = matmul(y, p.out_proj.to(dt_))
+    return constrain(out, "batch", "seq", "embed"), {"conv": conv_state, "h": h}
 
 
 def init_ssm_state(cfg: ModelConfig, batch: int, dtype, device=None):

@@ -282,7 +282,9 @@ def forward(cfg: ModelConfig, model: Transformer, batch: Dict[str, torch.Tensor]
 def _chunk_nll(cfg: ModelConfig, embed: layers.Embed, xc, tc, mc):
     lg = layers.logits(cfg, embed, xc).float()
     lse = torch.logsumexp(lg, dim=-1)
-    gold = torch.gather(lg, -1, tc[..., None].long())[..., 0]
+    # the gold logit, summed over the vocab shards before it is reshaped
+    gold = layers.constrain(torch.gather(lg, -1, tc[..., None].long()),
+                            "batch", None, None)[..., 0]
     return torch.sum((lse - gold) * mc), torch.sum(mc)
 
 

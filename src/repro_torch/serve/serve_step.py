@@ -1,7 +1,7 @@
 """Serving steps (the JAX package's `serve/serve_step.py`): prefill (a
 full-sequence forward that keeps only the last position's logits) and
-decode (one token against the model's cache), and the F2 KV service served
-beside the model.
+decode (one token against the model's cache), the decode cache's sharding
+(`cache_specs`), and the F2 KV service served beside the model.
 
 KV service: `ServiceConfig` is a deployment's shape (shards, replicas,
 slab width, rebalancer, session pool); `make_kv_service` builds the
@@ -33,6 +33,33 @@ from ..obs import serve as obs_serve
 from ..models import transformer
 
 
+def cache_specs(cfg: ModelConfig, mesh=None) -> Dict[str, Any]:
+    """PartitionSpecs of each decode-cache entry (`transformer.init_cache`'s
+    keys), laid out per REPRO_DECODE_KV: batch over (pod, data), and the
+    cache sequence (`seq`, the default) or the KV heads (`heads`) over
+    `model`."""
+    from ..distributed import sharding
+    sp = lambda *names: sharding.spec_for(names, mesh=mesh)  # noqa: E731
+    specs: Dict[str, Any] = {"len": sp("batch")}
+    if cfg.family == "ssm":
+        specs["wkv"] = sp(None, "batch", "heads", None, None)
+        specs["shift"] = sp(None, None, "batch", None)
+        return specs
+    if sharding._DECODE_KV == "heads":
+        kv = sp(None, "batch", "kv_heads", None, None)
+    else:
+        kv = sp(None, "batch", None, "cache_seq", None)
+    specs["k"] = kv
+    specs["v"] = kv
+    if cfg.family == "hybrid":
+        specs["conv"] = sp(None, "batch", None, "mlp")
+        specs["h"] = sp(None, "batch", "mlp", None)
+    if cfg.is_encoder_decoder:
+        specs["xk"] = kv
+        specs["xv"] = kv
+    return specs
+
+
 @torch.no_grad()
 def prefill_step(cfg: ModelConfig, model: transformer.Transformer,
                  batch: Dict[str, torch.Tensor]) -> torch.Tensor:
@@ -60,7 +87,7 @@ class ServiceConfig:
 
     n_shards: int = 1               # hash-routed F2 shards (power of 2)
     lanes: Optional[int] = None     # per-shard slab width (None: 1 round)
-    dispatch: str = "auto"          # "auto" | "vmap" ("shard_map": item 15)
+    dispatch: str = "auto"          # "auto" | "vmap" | "shard_map"
     rebalance_cfg: Any = None       # core.rebalance.RebalanceConfig
     n_replicas: int = 1             # replica copies of every shard
     read_selector: str = "round_robin"   # fan-out read policy

@@ -1,5 +1,8 @@
 """Training step: loss -> gradients -> AdamW (the JAX package's
-`train/train_step.py` on one device).
+`train/train_step.py`).  The loss and its gradient run under
+`TRAIN_RULES`: with DTensor parameters under an active mesh, the
+activations take the training layout (FSDP + sequence parallelism); on
+plain tensors the rules change nothing.
 
 `TrainState` holds the model (its parameters are the trained leaves), the
 AdamW state over the same parameter names and the step count.  The step
@@ -14,6 +17,7 @@ from typing import Dict, NamedTuple
 import torch
 
 from ..configs.base import ModelConfig
+from ..distributed.sharding import TRAIN_RULES, use_rules
 from ..models import transformer
 from ..optim import adamw
 
@@ -65,8 +69,11 @@ def make_train_step(cfg: ModelConfig, ocfg: adamw.AdamWConfig,
     device."""
 
     def value_and_grad(params, model, batch):
-        loss = transformer.loss_fn(cfg, model, batch, remat=remat)
-        grads = torch.autograd.grad(loss, list(params.values()))
+        # the training layout (FSDP + sequence parallelism), for the
+        # recomputed blocks of the backward pass too
+        with use_rules(TRAIN_RULES):
+            loss = transformer.loss_fn(cfg, model, batch, remat=remat)
+            grads = torch.autograd.grad(loss, list(params.values()))
         return loss.detach(), dict(zip(params, grads))
 
     def train_step(state: TrainState, batch: Dict[str, torch.Tensor]):

@@ -1,5 +1,4 @@
-"""Fault-tolerant training loop (the JAX package's `train/trainer.py` on
-one device).
+"""Fault-tolerant training loop (the JAX package's `train/trainer.py`).
 
   * checkpoint/restart: async checkpoints every `ckpt_every`; on (re)start
     the trainer resumes from the latest complete manifest and the data
@@ -9,7 +8,10 @@ one device).
   * failure injection: `fail_at_step` raises mid-run, for restart tests.
 
 The trainer runs on the CUDA device unless the caller passes another
-`device`.  A step's wall time ends when its loss reaches the host.
+`device`.  With a `mesh` (a DeviceMesh) its steps run under it
+(`distributed.sharding.use_mesh`): the model's expert-parallel branch and
+its layout constraints see the mesh.  A step's wall time ends when its loss
+reaches the host.
 """
 from __future__ import annotations
 
@@ -25,6 +27,7 @@ from ..checkpoint.checkpointer import Checkpointer
 from ..configs.base import ModelConfig
 from ..core.api import resolve_device
 from ..data.pipeline import TokenPipeline
+from ..distributed.sharding import use_mesh
 from ..optim import adamw
 from . import train_step as ts
 
@@ -46,8 +49,10 @@ class TrainerConfig:
 
 class Trainer:
     def __init__(self, cfg: ModelConfig, ocfg: adamw.AdamWConfig,
-                 tcfg: TrainerConfig, pipeline: TokenPipeline, device=None):
+                 tcfg: TrainerConfig, pipeline: TokenPipeline, device=None,
+                 mesh=None):
         self.device = resolve_device(device, "repro_torch.train.Trainer")
+        self.mesh = mesh
         self.cfg, self.ocfg, self.tcfg = cfg, ocfg, tcfg
         self.pipeline = pipeline
         self.ckpt = Checkpointer(tcfg.ckpt_dir or default_ckpt_dir())
@@ -76,7 +81,8 @@ class Trainer:
             batch = {k: torch.as_tensor(v, device=self.device)
                      for k, v in self.pipeline.batch_at(step).items()}
             t0 = time.perf_counter()
-            state, metrics = self._step(state, batch)
+            with use_mesh(self.mesh):
+                state, metrics = self._step(state, batch)
             loss = float(metrics["loss"])
             dt = time.perf_counter() - t0
             ema = dt if ema is None else 0.9 * ema + 0.1 * dt

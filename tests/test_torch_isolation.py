@@ -3,7 +3,8 @@ sharded with a live migration, sharded with observability on, replicated
 with a drop and resync, the session service over it, a durable store through a snapshot, a replica
 rebuild and a recovery, reduced serving
 engines and reduced training runs of every family) with
-the JAX package, JAX and the benchmarks blocked; its entry points default to the CUDA device and
+the JAX package, JAX and the benchmarks blocked (the distributed slice too:
+a partitioned store and a dry-run cell); its entry points default to the CUDA device and
 refuse to quietly run without it; the forced-kernel engine refuses CPU
 tensors."""
 import ast
@@ -200,8 +201,6 @@ def test_kv_defaults_to_the_cuda_device(make):
 
 def test_sharded_kv_refuses_what_is_not_ported():
     cfg = T.F2Config(**small_dict())
-    with pytest.raises(NotImplementedError, match="ROADMAP item 15"):
-        T.ShardedKV(cfg, 4, dispatch="shard_map", device="cpu")
     host = T.F2Config(**small_dict(host_tier=True, host_chunk_records=16,
                                    host_cache_chunks=64))
     with pytest.raises(ValueError, match="live rebalancing"):
@@ -515,6 +514,81 @@ def test_port_sources_include_the_families_slice():
                 "configs/kimi_k2_1t_a32b.py", "configs/hymba_1_5b.py",
                 "configs/whisper_large_v3.py", "configs/llava_next_34b.py"):
         assert mod in names, mod
+
+
+def test_port_sources_include_the_distributed_slice():
+    """The AST scan above walks every module of the distributed slice: the
+    sharding rules, parameter specs, mesh, specs and the dry-run."""
+    names = _port_module_names()
+    for mod in ("distributed/sharding.py", "distributed/param_sharding.py",
+                "launch/mesh.py", "launch/specs.py", "launch/comm_analysis.py",
+                "launch/step_trace.py", "launch/dryrun.py"):
+        assert mod in names, mod
+
+
+def test_distributed_slice_runs_with_the_reference_blocked():
+    """With jax, repro and benchmarks blocked: the rules and specs, a
+    partitioned ShardedKV over two listed CPU devices, and one reduced
+    dry-run cell on a fake group of 4 ranks."""
+    code = textwrap.dedent(f"""
+        import sys
+        class Block:
+            def find_spec(self, name, path=None, target=None):
+                if name.split(".")[0] in {FORBIDDEN!r}:
+                    raise ImportError("blocked: " + name)
+        sys.meta_path.insert(0, Block())
+        import dataclasses
+        import numpy as np
+        import repro_torch as T
+        from repro_torch.configs.base import ShapeSpec
+        from repro_torch.distributed.sharding import spec_for
+        from repro_torch.launch import dryrun
+        from repro_torch.models.registry import get_config
+        class M:
+            axis_names = ("data", "model")
+            shape = {{"data": 16, "model": 16}}
+        assert tuple(spec_for(("batch", "heads"), mesh=M())) == ("data", "model")
+        cfg = T.F2Config(**{small_dict()!r})
+        kv = T.ShardedKV(cfg, 4, dispatch="shard_map", devices=["cpu", "cpu"],
+                         compact_batch=128)
+        keys = np.arange(500, dtype=np.int32)
+        kv.upsert(keys, np.stack([keys] * 2, 1))
+        st, v = kv.read(keys)
+        assert (st.numpy() == T.ST_OK).all() and kv.mesh.shape == (2,)
+        g = dataclasses.replace(get_config("granite_3_8b").reduced(), n_layers=1)
+        rec = dryrun.run_cell("granite_3_8b", "tiny", False, verbose=False, cfg=g,
+                              shape=ShapeSpec("tiny", 16, 4, "decode"),
+                              mesh_shape=(2, 2))
+        assert rec["status"] == "ok", rec
+        print("DIST_OK")
+    """)
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    out = subprocess.run([sys.executable, "-c", code], env=env, capture_output=True,
+                         text=True, timeout=300)
+    assert out.returncode == 0, out.stderr[-3000:]
+    assert "DIST_OK" in out.stdout
+
+
+def test_distributed_entry_points_default_to_the_cuda_device():
+    """make_mesh and make_production_mesh lay a mesh over CUDA devices
+    unless told otherwise; the partitioned store lists every CUDA device by
+    default."""
+    import inspect
+    from repro_torch.core import sharded
+    from repro_torch.launch import mesh
+    assert inspect.signature(mesh.make_mesh).parameters["device_type"].default == "cuda"
+    assert (inspect.signature(mesh.make_production_mesh).parameters["device_type"]
+            .default == "cuda")
+    n = torch.cuda.device_count()
+    assert sharded.store_devices(torch.device("cuda")) == [
+        torch.device("cuda", i) for i in range(n)]
+    assert sharded.store_devices(torch.device("cpu")) == [torch.device("cpu")]
+    cfg = T.F2Config(**small_dict())
+    if torch.cuda.is_available():
+        assert T.ShardedKV(cfg, 4, dispatch="shard_map").device.type == "cuda"
+    else:
+        with pytest.raises(RuntimeError, match="CUDA is not available"):
+            T.ShardedKV(cfg, 4, dispatch="shard_map")
 
 
 def test_forced_kernel_engine_refuses_cpu_tensors():

@@ -448,8 +448,6 @@ def test_replicated_refusals_and_resync_crash_point():
     """What is not ported or not allowed raises; an armed crash point stops
     a resync mid-replay (the durability tests of item 11 use it)."""
     cfg = tiny_configs()[1]
-    with pytest.raises(NotImplementedError, match="ROADMAP item 15"):
-        T.ReplicatedKV(cfg, 4, dispatch="shard_map", device="cpu")
     with pytest.raises(ValueError):
         T.ReplicatedKV(cfg, 4, n_replicas=0, device="cpu")
     with pytest.raises(ValueError):

@@ -104,9 +104,11 @@ def test_wrappers_refuse_and_count_nothing_on_the_cpu():
         ops.wkv_cuda(r, k, v, w, u)
     with pytest.raises(ValueError, match="needs CUDA tensors"):
         ops.forward_cuda(r, k, v, w, u)
+    # meta tensors (the dry-run's) take the plain version too
     meta = r.to("meta")
-    with pytest.raises(ValueError, match="no kernel for device"):
-        ops.wkv(meta, meta, meta, meta, u.to("meta"))
+    y, _ = ops.wkv(meta, meta, meta, meta, u.to("meta"))
+    assert y.device.type == "meta" and y.shape == r.shape
+    assert ops.launches == {"wkv_forward": 0, "wkv_backward": 0}
 
 
 def _rows_alone(r, k, v, w, u, dy, s0, ds, rows):
