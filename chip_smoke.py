@@ -8,7 +8,7 @@ serving, prefill and training at full width, the moe, hybrid, audio
 and vlm families (Phi-3.5-MoE, Kimi-K2, Hymba-1.5B, Whisper-large-v3,
 LLaVA-NeXT-34B) at full width, the stores' partitioned dispatch over a
 device list, and the distributed slice (a one-rank mesh, MoE's expert-
-parallel branch, a training step under the mesh, one dry-run cell).
+parallel branch, a training step under the mesh, four dry-run cells).
 
     python3 chip_smoke.py            # the full run: 2**23 keys, models at full width
 
@@ -37,7 +37,11 @@ Phases, each printing one JSON line:
                 shape (B*H 512, T 1024) and edge cases (y and state 2e-3 abs
                 and rel; each gradient 2e-3 of its largest reference
                 magnitude; two forward and two gradient calls bit for bit
-                equal), timed beside their bounds
+                equal), timed beside their bounds; then G 20 query heads a
+                KV head (above the 16 a launch holds) through the flash
+                wrapper, forward and gradient in bf16 and float32, and the
+                paged wrapper, each as two head groups of 10 (a launch
+                each), at the same tolerances, two calls bit-equal
                 (first, while the profiler is fresh and the card's memory
                 free);
   4. main     — `KV(cfg, device="cuda")` at the paper's YCSB shape (8-byte
@@ -300,10 +304,12 @@ Phases, each printing one JSON line:
                 bit-equal with the local branch, and one Trainer step under
                 the mesh (1 x 4096 tokens) whose loss equals the same
                 batch's loss without it; the flash counters zeroed before
-                and read after; then the record of one dry-run cell
-                (granite_3_8b x train_4k on the 16 x 16 mesh), run in a
-                subprocess started after the build, on no device (meta
-                tensors, a fake process group), beside the card's phases;
+                and read after; then the records of four dry-run cells
+                (granite_3_8b x train_4k, glm4_9b and whisper_large_v3 x
+                decode_32k, rwkv6_7b x train_4k on the 16 x 16 mesh), run
+                in one subprocess started after the build, on no device
+                (meta tensors, a fake process group), beside the card's
+                phases: each must be ok, its temporaries measured;
  26. the kernels line, the nvidia-smi line, and the final ok line.
 
 The kernels line has one entry for each kernel of the main paths and one
@@ -444,7 +450,8 @@ SHARD_MAP_REP_DEVICES = 4                 # reference's rule gives (2, 2) (at S=
 SHARD_MAP_REP_LOG2_KEYS = 19              # ... at 2**19 keys: (2, 2) runs 4 store steps a round
 SHARD_MAP_CALL_ROUNDS = 4                 # rounds counted for wrapper calls a round
 DIST_LAYERS = 2                           # the distributed phase: Phi-3.5-MoE's depth
-DRYRUN_CELL = ("granite_3_8b", "train_4k")
+DRYRUN_CELLS = (("granite_3_8b", "train_4k"), ("glm4_9b", "decode_32k"),
+                ("whisper_large_v3", "decode_32k"), ("rwkv6_7b", "train_4k"))
 FAMILY_REQUESTS, FAMILY_PROMPT, FAMILY_NEW_TOKENS = 16, 16, 32
 FAMILY_TWIN_LAYERS = 2
 FAMILY_TWIN_PROMPT, FAMILY_TWIN_PATCHES, FAMILY_TWIN_DECODES = 32, 64, 4
@@ -3488,6 +3495,121 @@ def flash_bound(BH, G, Tq, Tk, Dh, dtype, causal, window, backward):
             nbytes, flops)
 
 
+def _hold_flash(name, q, k, v, do, causal, window, o, grads):
+    """A flash output o and its gradients (dq, dk, dv) against autograd
+    through the plain version: the output within 2e-5 (float32) / 2e-2
+    (bfloat16) of the plain one on the same inputs; the gradients within
+    1e-4 (float32, abs and rel) or 2e-2 of the largest reference gradient
+    (bfloat16, the reference run in float32 on the same bfloat16 inputs).
+    Raises where one is beyond; returns (output error, its tolerance,
+    {gradient: error})."""
+    import torch
+    from repro_torch.kernels.flash_attention import ref as fa_ref
+    dt = q.dtype
+    want = fa_ref.mha_reference(q, k, v, causal=causal, window=window)
+    r = [t.float().requires_grad_(True) for t in (q, k, v)]
+    ref_grads = torch.autograd.grad(
+        fa_ref.mha_reference(*r, causal=causal, window=window), r, do.float())
+    _sync(q.device)
+    tol = 2e-5 if dt == torch.float32 else 2e-2
+    err = float((o.float() - want.float()).abs().max())
+    if o.dtype != want.dtype or not torch.allclose(o.float(), want.float(),
+                                                   atol=tol, rtol=tol):
+        raise AssertionError(f"flash_attention_fwd/{name}: max |kernel - plain| "
+                             f"= {err} beyond atol = rtol = {tol}")
+    gerr = {}
+    for gname, got, ref in zip(("dq", "dk", "dv"), grads, ref_grads):
+        e = float((got.float() - ref).abs().max())
+        gerr[gname] = e
+        if dt == torch.float32:
+            ok = torch.allclose(got, ref, atol=1e-4, rtol=1e-4)
+        else:
+            # an identically zero gradient (dq and dk at T 1: the softmax
+            # over one key has no derivative) is held to the largest of
+            # the three reference gradients
+            scale = (float(ref.abs().max())
+                     or max(float(r_.abs().max()) for r_ in ref_grads))
+            ok = e <= 2e-2 * scale
+        if got.dtype != dt or not ok:
+            raise AssertionError(f"flash_attention_bwd/{name}: {gname} differs "
+                                 f"from the plain gradient by {e}")
+    return err, tol, gerr
+
+
+def check_head_groups(device, seed, records):
+    """G 20 query heads a KV head, above the 16 a launch of the flash and
+    paged kernels holds: `flash_attention_cuda` (forward and gradient,
+    bfloat16 on the tensor cores and float32 on the CUDA cores) and
+    `paged_attention` run it as two head groups of 10, a launch each, held
+    to their plain versions at the kernels phase's tolerances, and a second
+    call bit-equal to the first.  Off the card the plain versions stand in
+    (a rehearsal of the checks)."""
+    import torch
+    from repro_torch.kernels.flash_attention import ops as fa_ops, ref as fa_ref
+    from repro_torch.kernels.paged_attention import ops as pa_ops, ref as pa_ref
+    dev = torch.device(device)
+    on_card = dev.type == "cuda"
+    g = torch.Generator(device=dev).manual_seed(seed)
+    t0 = time.perf_counter()
+    cases = []
+    BH, G, T, Dh = 2, 20, 512, 128
+    for dt in (torch.bfloat16, torch.float32):
+        name = f"flash_g20_{str(dt)[6:]}"
+        q, k, v, do = (torch.randn(s, generator=g, device=dev).to(dt) for s in
+                       ((BH, G, T, Dh), (BH, 1, T, Dh), (BH, 1, T, Dh), (BH, G, T, Dh)))
+        fa_ops.reset_launches()
+        runs = []
+        for _ in range(2):
+            qkv = [t.clone().requires_grad_(True) for t in (q, k, v)]
+            o = (fa_ops.flash_attention_cuda if on_card else fa_ref.mha_reference)(
+                *qkv, causal=True, window=0)
+            runs.append((o.detach(),) + torch.autograd.grad(o, qkv, do))
+        _sync(dev)
+        launches = dict(fa_ops.launches)
+        if on_card and launches != {"flash_attention_fwd": 4, "flash_attention_bwd": 4}:
+            raise AssertionError(f"{name}: launches {launches}, expected two head "
+                                 "groups a call")
+        bitwise = all(torch.equal(a, b) for a, b in zip(*runs))
+        if not bitwise:
+            raise AssertionError(f"{name}: two calls on the same inputs differ")
+        err, tol, gerr = _hold_flash(name, q, k, v, do, True, 0, runs[0][0], runs[0][1:])
+        cases.append(dict(case=name, BH=BH, G=G, T=T, Dh=Dh, dtype=str(dt),
+                          groups=fa_ops.head_groups(G), launches=launches,
+                          route=fa_ops.route(dt, Dh), max_abs_err=err, tol=tol,
+                          grad_max_abs_err=gerr, bitwise_equal=bitwise))
+        del q, k, v, do, runs
+    for qdt in (torch.bfloat16, torch.float32):
+        name = f"paged_g20_{str(qdt)[6:]}"
+        B, Hkv, page, n_pool, max_pages = 4, 2, 16, 64, 12
+        q = torch.randn((B, Hkv, G, Dh), generator=g, device=dev).to(qdt)
+        kp, vp = (torch.randn((Hkv, n_pool, page, Dh), generator=g, device=dev)
+                  for _ in range(2))
+        table = torch.randint(0, n_pool, (B, max_pages), generator=g, device=dev,
+                              dtype=torch.int32)
+        lens = torch.tensor([1, 77, 150, page * max_pages], dtype=torch.int32, device=dev)
+        pa_ops.reset_launches()
+        call = pa_ops.paged_attention if on_card else pa_ref.paged_attention_reference
+        got, again = call(q, kp, vp, table, lens), call(q, kp, vp, table, lens)
+        want = pa_ref.paged_attention_reference(q, kp, vp, table, lens)
+        _sync(dev)
+        n = pa_ops.launches["paged_attention"]
+        if on_card and n != 4:
+            raise AssertionError(f"{name}: {n} launches, expected two head groups a call")
+        tol = 2e-5 if qdt == torch.float32 else 2e-2
+        err = float((got.float() - want.float()).abs().max())
+        if got.dtype != want.dtype or not torch.allclose(got.float(), want.float(),
+                                                         atol=tol, rtol=tol):
+            raise AssertionError(f"{name}: max |kernel - plain| = {err} beyond "
+                                 f"atol = rtol = {tol}")
+        if not torch.equal(got, again):
+            raise AssertionError(f"{name}: two calls on the same inputs differ")
+        cases.append(dict(case=name, B=B, Hkv=Hkv, G=G, Dh=Dh, q_dtype=str(qdt),
+                          pool_dtype=str(kp.dtype), groups=fa_ops.head_groups(G),
+                          launches=n, max_abs_err=err, tol=tol, bitwise_equal=True))
+    emit(records, dict(phase="kernels", kernel="head_groups", cases=cases,
+                       seconds=time.perf_counter() - t0))
+
+
 def check_flash_kernels(device, seed, records):
     """The flash kernels against autograd through their plain version, on
     the card, in every case: forward within 2e-5 (float32) / 2e-2
@@ -3535,40 +3657,14 @@ def check_flash_kernels(device, seed, records):
             o = fa_ref.mha_reference(*qkv, causal=causal, window=window)
             dq, dk, dv = torch.autograd.grad(o, qkv, do)
             o = o.detach()
-        want = fa_ref.mha_reference(q, k, v, causal=causal, window=window)
-        r = [t.float().requires_grad_(True) for t in (q, k, v)]
-        ref_grads = torch.autograd.grad(
-            fa_ref.mha_reference(*r, causal=causal, window=window), r, do.float())
-        _sync(dev)
-        tol = 2e-5 if dt == torch.float32 else 2e-2
-        err = float((o.float() - want.float()).abs().max())
-        if o.dtype != want.dtype or not torch.allclose(o.float(), want.float(),
-                                                       atol=tol, rtol=tol):
-            raise AssertionError(f"flash_attention_fwd/{name}: max |kernel - plain| "
-                                 f"= {err} beyond atol = rtol = {tol}")
-        gerr = {}
-        for gname, got, ref in zip(("dq", "dk", "dv"), (dq, dk, dv), ref_grads):
-            e = float((got.float() - ref).abs().max())
-            gerr[gname] = e
-            if dt == torch.float32:
-                ok = torch.allclose(got, ref, atol=1e-4, rtol=1e-4)
-            else:
-                # an identically zero gradient (dq and dk at T 1: the softmax
-                # over one key has no derivative) is held to the largest of
-                # the three reference gradients
-                scale = (float(ref.abs().max())
-                         or max(float(r_.abs().max()) for r_ in ref_grads))
-                ok = e <= 2e-2 * scale
-            if got.dtype != dt or not ok:
-                raise AssertionError(f"flash_attention_bwd/{name}: {gname} differs "
-                                     f"from the plain gradient by {e}")
+        err, tol, gerr = _hold_flash(name, q, k, v, do, causal, window, o, (dq, dk, dv))
         if causal and Tk > T and (dk[:, :, T:].count_nonzero() or dv[:, :, T:].count_nonzero()):
             raise AssertionError(f"flash_attention_bwd/{name}: dk or dv of keys that no "
                                  "query sees is not zero")
         rec = dict(case=name, route=route, BH=BH, G=G, T=T, Tk=Tk, Dh=Dh, dtype=str(dt),
                    causal=causal, window=window, max_abs_err=err, tol=tol,
                    grad_max_abs_err=gerr, grad_bitwise_equal=bitwise)
-        del want, r, ref_grads, dq, dk, dv
+        del dq, dk, dv
         if on_card:
             fwd = lambda: fa_ops.forward_cuda(q, k, v, causal, window)  # noqa: E731
             bwd = lambda: fa_ops.backward_cuda(q, k, v, o, lse, do, causal, window)  # noqa: E731
@@ -4727,19 +4823,22 @@ def shard_map_main(device, seed, records):
 
 
 def start_dryrun_cell():
-    """One dry-run cell (DRYRUN_CELL on the 16 x 16 mesh) in a subprocess of
-    the card machine's PyTorch, on no device (meta tensors, a fake process
-    group): it runs beside the card's phases, and `distributed_main` reads
-    its record.  Returns (process, output path)."""
+    """The dry-run cells (DRYRUN_CELLS on the 16 x 16 mesh: a dense train
+    step, the GLM-4 and Whisper decodes whose cache write needs a strategy
+    the card machine's PyTorch has, and RWKV-6's training with its WKV
+    counted by trip count) in one subprocess of the card machine's PyTorch,
+    on no device (meta tensors, a fake process group): it runs beside the
+    card's phases, and `distributed_main` reads their records.  Returns
+    (process, output path)."""
     out = os.path.join(ROOT, "build", "dryrun_cell.json")
     os.makedirs(os.path.dirname(out), exist_ok=True)
     env = dict(os.environ, PYTHONPATH=os.path.join(ROOT, "src"),
                CUDA_VISIBLE_DEVICES="")
+    cells = [a for arch, shape in DRYRUN_CELLS for a in ("--cell", f"{arch}:{shape}")]
     with open(out + ".log", "w") as log:
         proc = subprocess.Popen(
-            [sys.executable, "-m", "repro_torch.launch.dryrun", "--arch",
-             DRYRUN_CELL[0], "--shape", DRYRUN_CELL[1], "--out", out], env=env,
-            stdout=log, stderr=subprocess.STDOUT)
+            [sys.executable, "-m", "repro_torch.launch.dryrun", *cells, "--out", out],
+            env=env, stdout=log, stderr=subprocess.STDOUT)
     return proc, out
 
 
@@ -4749,9 +4848,9 @@ def distributed_main(device, seed, records, dry):
     DIST_LAYERS layers, full width, bf16: prefill logits through the
     expert-parallel branch (under the mesh) bit-equal with the local branch,
     and one Trainer step under the mesh whose loss equals the loss of the
-    same batch without it; then the dry-run cell's record.  The flash
-    counters are zeroed before the mesh runs and read after.  Returns their
-    launches."""
+    same batch without it; then the dry-run cells' records, each of which
+    must be ok with its temporaries measured.  The flash counters are
+    zeroed before the mesh runs and read after.  Returns their launches."""
     import gc
     import tempfile
     import torch
@@ -4834,13 +4933,19 @@ def distributed_main(device, seed, records, dry):
     rec["dryrun_wait_s"] = time.perf_counter() - t1
     with open(path + ".log") as f:
         rec["dryrun_log_tail"] = f.read().strip().splitlines()[-2:]
-    with open(path) as f:
-        cell = json.load(f)[0]
-    rec["dryrun_cell"] = cell
+    cells = []
+    if os.path.exists(path):
+        with open(path) as f:
+            cells = json.load(f)
+    rec["dryrun_cells"] = cells
     rec["seconds"] = time.perf_counter() - t0
     emit(records, rec)
-    if proc.returncode != 0 or cell["status"] != "ok":
-        raise AssertionError(f"the dry-run cell failed: {cell.get('error')}")
+    got = [(c["arch"], c["shape"]) for c in cells]
+    bad = [f"{c['arch']} x {c['shape']}: {c.get('error', c['status'])}" for c in cells
+           if c["status"] != "ok" or c["memory"]["temp_bytes_per_device"] is None]
+    if proc.returncode != 0 or got != list(DRYRUN_CELLS) or bad:
+        raise AssertionError(f"the dry-run cells failed (exit {proc.returncode}, "
+                             f"ran {got}): {bad}")
     return dict(launches)
 
 
@@ -4914,6 +5019,8 @@ def _run_all(a, records, t_all, smi, name, t_build, dry):
     flash_summary = check_flash_kernels("cuda", SEED, records)
     torch.cuda.empty_cache()
     wkv_summary = check_wkv_kernels("cuda", SEED, records)
+    torch.cuda.empty_cache()
+    check_head_groups("cuda", SEED, records)
     torch.cuda.empty_cache()
 
     n_keys = 1 << a.log2_keys
@@ -5108,7 +5215,7 @@ def _run_all(a, records, t_all, smi, name, t_build, dry):
         launches[k] += n
 
     # the distributed slice: a one-rank NCCL mesh, MoE's expert-parallel
-    # branch, a step under the mesh, and the dry-run cell's record
+    # branch, a step under the mesh, and the dry-run cells' records
     for k, n in distributed_main("cuda", SEED, records, dry).items():
         launches[k] += n
 

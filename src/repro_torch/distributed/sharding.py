@@ -310,6 +310,52 @@ def is_distributed(x) -> bool:
     return isinstance(x, DTensor)
 
 
+def index_write_(x, dim: int, index, src):
+    """`x.index_copy_(dim, index, src)` for a one-element `index`: the row
+    `src` (size 1 on `dim`) written into x at position index[0], in place.
+
+    A plain tensor takes `index_copy_` itself.  A DTensor is written through
+    `local_map`: `src` and `index` are laid out as x is, replicated over the
+    mesh dimensions that shard `dim`, and each shard writes the row only
+    where it holds the position (elsewhere it writes back what it holds, so
+    no shard reads the index on the host).  x keeps its placements; DTensor
+    has no sharding strategy for `index_copy_` in every PyTorch version, and
+    where it has one it may relabel x's placements without moving its
+    shards."""
+    if not is_distributed(x):
+        return x.index_copy_(dim, index, src)
+    from torch.distributed.tensor import DTensor, Replicate, Shard
+    from torch.distributed.tensor.experimental import local_map
+    mesh = x.device_mesh
+    x_pl = tuple(x.placements)
+    split = [i for i, p in enumerate(x_pl) if isinstance(p, Shard) and p.dim == dim]
+    n_shards = 1
+    for i in split:
+        n_shards *= mesh.size(i)
+    if x.shape[dim] % n_shards:
+        raise ValueError(f"index_write_: dimension {dim} of {tuple(x.shape)} "
+                         f"splits unevenly over {n_shards} shards")
+    src_pl = tuple(Replicate() if i in split else p for i, p in enumerate(x_pl))
+    rep = (Replicate(),) * mesh.ndim
+    args = [t if isinstance(t, DTensor) else
+            DTensor.from_local(t, mesh, rep, run_check=False) for t in (index, src)]
+
+    def body(xl, il, sl):
+        n = xl.shape[dim]
+        chunk = 0                       # this shard's place along `dim`
+        for i in split:
+            chunk = chunk * mesh.size(i) + mesh.get_local_rank(i)
+        at = il - chunk * n
+        held = (at >= 0) & (at < n)
+        at = at.clamp(0, n - 1)
+        xl.index_copy_(dim, at, torch.where(held, sl, xl.index_select(dim, at)))
+        return xl
+
+    local_map(body, out_placements=(x_pl,), in_placements=(x_pl, rep, src_pl),
+              device_mesh=mesh, redistribute_inputs=True)(x, *args)
+    return x
+
+
 
 def _merged(x, dim: int, n: int):
     shape = tuple(x.shape)

@@ -13,7 +13,10 @@ gradient kernels; any other device raises.
 [BH, 1, Tk, Dh]) and raises for tensors that are not on a CUDA device.  The
 kernels take float32 or bfloat16 (one dtype for q, k and v), contiguous
 tensors with 16-byte aligned storage, 4 <= Dh <= 256 with Dh % 4 == 0, and
-G <= 16.
+G <= MAX_GROUP a launch; `flash_attention_cuda` runs a larger G as groups of
+at most MAX_GROUP query heads (`head_groups`), a launch each, forward and
+gradient (exact: query heads are independent given their KV head; dK and dV
+sum the groups' shares).
 
 Two routes, picked by `route(dtype, Dh)`: "tc", the tensor-core kernels of
 `csrc/flash_attention_tc.cu` (the forward on `wgmma` at Dh 128, on
@@ -48,6 +51,13 @@ def reset_launches() -> None:
     for d in (launches, route_launches):
         for k in d:
             d[k] = 0
+
+
+def head_groups(G: int, most: int = MAX_GROUP) -> list:
+    """Sizes of the groups, at most `most` query heads each and as even as
+    can be, that G query heads of one KV head are launched in."""
+    n = -(-G // most)
+    return [G // n + (i < G % n) for i in range(n)]
 
 
 def route(dtype: torch.dtype, head_dim: int) -> str:
@@ -172,11 +182,16 @@ class _FlashAttention(torch.autograd.Function):
 
 def flash_attention_cuda(q, k, v, causal: bool = True, window: int = 0):
     """The kernels, forced: q [BH, G, Tq, Dh], k/v [BH, 1, Tk, Dh] on a CUDA
-    device -> [BH, G, Tq, Dh], differentiable through the gradient kernels."""
+    device -> [BH, G, Tq, Dh], differentiable through the gradient kernels;
+    G above MAX_GROUP runs in `head_groups`, a launch each."""
     if q.device.type != "cuda":
         raise ValueError(f"flash_attention_cuda: q is on {q.device}; the kernel "
                          "needs CUDA tensors")
-    return _FlashAttention.apply(q, k, v, bool(causal), int(window))
+    causal, window = bool(causal), int(window)
+    if q.dim() != 4 or q.shape[1] <= MAX_GROUP:
+        return _FlashAttention.apply(q, k, v, causal, window)
+    return torch.cat([_FlashAttention.apply(qg.contiguous(), k, v, causal, window)
+                      for qg in q.split(head_groups(q.shape[1]), dim=1)], dim=1)
 
 
 def flash_attention(q, k, v, causal: bool = True, window: int = 0):

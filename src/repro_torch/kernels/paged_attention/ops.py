@@ -9,7 +9,9 @@ A call launches two CUDA kernels: the split kernel (grid B * Hkv x
 n_split, each CTA a run of `pages_per_split` pages) and the merge of the
 partials; `splits` picks the split from max_pages and the shape, never from
 the lengths, so a call makes no host sync.  `launches["paged_attention"]`
-counts calls, one per call.
+counts launches, one per call of up to MAX_GROUP query heads a KV head: a
+q of more runs in groups of at most MAX_GROUP (`head_groups`), a launch
+each (exact: query heads are independent given their KV head).
 """
 from __future__ import annotations
 
@@ -19,6 +21,7 @@ from typing import Dict
 import torch
 
 from .. import build
+from ..flash_attention.ops import head_groups
 from .ref import paged_attention_reference
 
 launches: Dict[str, int] = {"paged_attention": 0}
@@ -79,7 +82,7 @@ def paged_attention(q, k_pool, v_pool, page_table, lengths):
 
 def paged_attention_cuda(q, k_pool, v_pool, page_table, lengths):
     """The CUDA kernel, forced: raises for tensors that are not on a CUDA
-    device."""
+    device; G above MAX_GROUP runs in `head_groups`, a launch each."""
     dev = q.device
     if dev.type != "cuda":
         raise ValueError(f"paged_attention_cuda: q is on {dev}; the kernel "
@@ -90,9 +93,13 @@ def paged_attention_cuda(q, k_pool, v_pool, page_table, lengths):
     B, Hkv, G, Dh = q.shape
     _, n_pool, page, _ = k_pool.shape
     max_pages = page_table.shape[1] if page_table.dim() == 2 else -1
-    if not 1 <= G <= MAX_GROUP or not 1 <= Dh <= MAX_HEAD_DIM:
-        raise ValueError(f"paged_attention: G={G} (max {MAX_GROUP}), "
+    if G < 1 or not 1 <= Dh <= MAX_HEAD_DIM:
+        raise ValueError(f"paged_attention: G={G} (at least 1), "
                          f"Dh={Dh} (max {MAX_HEAD_DIM})")
+    if G > MAX_GROUP:
+        return torch.cat([paged_attention_cuda(qg.contiguous(), k_pool, v_pool,
+                                               page_table, lengths)
+                          for qg in q.split(head_groups(G, MAX_GROUP), dim=2)], dim=2)
     if n_pool < 1 or page < 1 or max_pages < 1:
         raise ValueError(f"paged_attention: pool {tuple(k_pool.shape)}, "
                          f"table {tuple(page_table.shape)}")

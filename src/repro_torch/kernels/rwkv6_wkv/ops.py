@@ -209,7 +209,9 @@ def wkv_cuda(r, k, v, w, u, state=None, need_state=False):
 def wkv(r, k, v, w, u, state=None, need_state=False):
     """Model layout -> (y [B, H, T, D] float32, final state [B, H, D, D] or
     None): the kernels on a CUDA device, the plain version on the CPU (and
-    on `meta`, the dry-run's shape-only tensors).
+    on `meta`, the dry-run's shape-only tensors, where it runs one step
+    under `step_trace.repeat(T)` unless `step_trace.unrolled()` asks for
+    every step).
     r, k, v are cast to float32 (as `wkv_scan` casts them), or, where r is
     float64, all to float64 (a float64 model on the CPU)."""
     dev = r.device
@@ -217,6 +219,14 @@ def wkv(r, k, v, w, u, state=None, need_state=False):
     r, k, v, w, u = (t.to(ct) for t in (r, k, v, w, u))
     if state is not None:
         state = state.to(ct)
+    if dev.type == "meta":
+        from ...launch import step_trace
+        if step_trace.by_trip_count():
+            # the dry-run: one step of the recurrence, counted T times
+            B, H, T, D = r.shape
+            y, s = step_trace.scan_by_trip_count(
+                wkv_reference, T, *(t[:, :, :1] for t in (r, k, v, w)), u, state)
+            return y.expand(B, H, T, D), (s if need_state else None)
     if dev.type in ("cpu", "meta"):
         y, s = wkv_reference(r, k, v, w, u, state)
         return y, (s if need_state else None)

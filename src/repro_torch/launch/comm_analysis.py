@@ -38,6 +38,7 @@ class CollectiveOp:
     cross_node: bool
     link_bytes: float        # per-device bytes over the wire
     mesh_dims: tuple = ()    # the mesh dimensions the group spans
+    count: int = 1           # times it runs (a loop body's trip count)
 
 
 def link_bytes(kind: str, bytes_result: int, group_size: int) -> float:
@@ -59,27 +60,32 @@ def crosses_node(ranks: Sequence[int], node_size: int = NODE_SIZE) -> bool:
 
 
 def make_op(kind: str, bytes_result: int, ranks: Sequence[int],
-            mesh_dims: tuple = ()) -> CollectiveOp:
+            mesh_dims: tuple = (), count: int = 1) -> CollectiveOp:
     g = len(ranks)
     return CollectiveOp(kind=kind, bytes_result=int(bytes_result), group_size=g,
                         cross_node=crosses_node(ranks),
                         link_bytes=link_bytes(kind, bytes_result, g),
-                        mesh_dims=tuple(mesh_dims))
+                        mesh_dims=tuple(mesh_dims), count=int(count))
 
 
 def collective_summary(ops: List[CollectiveOp]) -> Dict[str, object]:
     """Link bytes by kind and by link class (within a node, between nodes),
-    and the count of collectives."""
+    and the count of collectives, each op counted `count` times (the
+    reference's `hlo_tree` weighs a loop body's collectives by its trip
+    count)."""
     by_kind: Dict[str, float] = defaultdict(float)
     intra = inter = 0.0
+    count = 0
     for op in ops:
-        by_kind[op.kind] += op.link_bytes
+        b = op.link_bytes * op.count
+        by_kind[op.kind] += b
+        count += op.count
         if op.cross_node:
-            inter += op.link_bytes
+            inter += b
         else:
-            intra += op.link_bytes
+            intra += b
     return {"by_kind": dict(by_kind), "intra_node_bytes": intra,
-            "inter_node_bytes": inter, "count": len(ops)}
+            "inter_node_bytes": inter, "count": count}
 
 
 def roofline_terms(flops: float, hbm_bytes: float, coll: Dict[str, object],

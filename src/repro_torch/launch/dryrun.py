@@ -4,6 +4,7 @@ production meshes and trace one step of it (the JAX package's
 
     PYTHONPATH=src python -m repro_torch.launch.dryrun --arch granite-3-8b --shape train_4k
     PYTHONPATH=src python -m repro_torch.launch.dryrun --all [--multi-pod] [--out r.json]
+    PYTHONPATH=src python -m repro_torch.launch.dryrun --cell glm4_9b:decode_32k --cell rwkv6_7b:train_4k
 
 It runs on no device.  The process joins a fake process group of the
 mesh's size (every collective returns at once), the weights, optimizer
@@ -12,10 +13,12 @@ and the step runs once, eagerly, on the port's plain paths (a meta tensor
 is no CUDA tensor, so every kernel wrapper takes its plain version), under
 `step_trace.StepTrace`.  Each record holds:
 
-  * memory per device: the arguments' local shards and the outputs' local
-    shards; temporaries have no allocator to measure on meta tensors, so
-    `temp_bytes_per_device` is null with its reason;
-  * FLOPs and matmul operand bytes per device, counted on the local shards;
+  * memory per device: the arguments' local shards, the outputs' local
+    shards, the temporaries (the peak of the live local tensors the step
+    creates, `step_trace.StepTrace`: an eager peak, not XLA's buffer
+    assignment) and their total, arguments + temporaries;
+  * FLOPs and matmul operand bytes per device, counted on the local shards
+    (a recurrence's step counted by its trip count, `step_trace.repeat`);
   * the collectives as the step asked for them, with the ring formulas'
     link bytes (`comm_analysis`), and the three roofline terms on the H100
     SXM's datasheet figures;
@@ -113,6 +116,27 @@ def _tensors(x):
     return []
 
 
+TEMP_BYTES_METHOD = ("peak of the live local shards the eager step creates "
+                     "(step_trace.StepTrace), not XLA's buffer assignment: "
+                     "expect it above the reference's")
+
+
+def memory_record(arg_bytes: int, args, out, trace) -> dict:
+    """Bytes per device of a traced step, as the reference reports them:
+    arguments, outputs (the results that are not arguments), temporaries
+    (the trace's peak of live tensors it saw created) and total = arguments
+    + temporaries."""
+    out_tensors = [t for t in _tensors(out)
+                   if not any(t is a for a in _tensors(args))]
+    return {
+        "argument_bytes_per_device": arg_bytes,
+        "output_bytes_per_device": step_trace.local_bytes(out_tensors),
+        "temp_bytes_per_device": trace.temp_peak,
+        "temp_bytes_method": TEMP_BYTES_METHOD,
+        "total_bytes_per_device": arg_bytes + trace.temp_peak,
+    }
+
+
 class CellTimeout(Exception):
     pass
 
@@ -128,8 +152,7 @@ def run_cell(arch: str, shape_name: str, multi_pod: bool, verbose: bool = True,
     """One cell's record.  `cfg`, `shape` and `mesh_shape` (over ("data",
     "model")) replace the registry's config, the named shape and the
     production mesh (tests run reduced cells on small fake groups).  A step
-    still running after `timeout_s` seconds fails the cell (the plain WKV
-    and SSM recurrences run a loop step per token)."""
+    still running after `timeout_s` seconds fails the cell."""
     cfg = cfg or get_config(arch)
     shape = shape or specs.SHAPES[shape_name]
     ok, why = shape_applicable(cfg, shape)
@@ -158,8 +181,6 @@ def run_cell(arch: str, shape_name: str, multi_pod: bool, verbose: bool = True,
             comm = CommDebugMode()
             with comm, trace:
                 out = fn(*args)
-        out_tensors = [t for t in _tensors(out)
-                       if not any(t is a for a in _tensors(args))]
         summary = trace.summary()
         flops = float(trace.flops)
         hbm = float(trace.op_bytes)
@@ -168,14 +189,7 @@ def run_cell(arch: str, shape_name: str, multi_pod: bool, verbose: bool = True,
             "arch": arch, "shape": shape_name, "status": "ok",
             "mesh": list(mesh.shape), "n_devices": n_dev, "device": DEVICE,
             "compile_s": round(time.time() - t0, 1),
-            "memory": {
-                "argument_bytes_per_device": arg_bytes,
-                "output_bytes_per_device": step_trace.local_bytes(out_tensors),
-                "temp_bytes_per_device": None,
-                "temp_bytes_reason": "meta tensors have no allocator to measure "
-                                     "a peak on",
-                "total_bytes_per_device": arg_bytes,
-            },
+            "memory": memory_record(arg_bytes, args, out, trace),
             "cost": {"flops_per_device": flops, "hbm_bytes_per_device": hbm},
             "collectives": summary,
             "comm_debug_counts": {str(k): int(v) for k, v in
@@ -184,9 +198,11 @@ def run_cell(arch: str, shape_name: str, multi_pod: bool, verbose: bool = True,
             "model_flops": model_flops(arch, shape_name, cfg, shape),
         }
         if verbose:
-            gib = rec["memory"]["total_bytes_per_device"] / 2**30
+            mem = rec["memory"]
             print(f"[{arch} x {shape_name} x {n_dev}d] OK {rec['compile_s']}s |"
-                  f" {gib:.2f} GiB/dev args | {flops / 1e9:.1f} GF/dev | coll"
+                  f" {mem['argument_bytes_per_device'] / 2**30:.2f} GiB/dev args"
+                  f" + {mem['temp_bytes_per_device'] / 2**30:.2f} temp |"
+                  f" {flops / 1e9:.1f} GF/dev | coll"
                   f" {summary['intra_node_bytes'] / 2**20:.1f} MiB nvlink"
                   f" +{summary['inter_node_bytes'] / 2**20:.1f} MiB inter-node |"
                   f" dominant={roof['dominant']}", flush=True)
@@ -230,24 +246,26 @@ def main(argv: Optional[list] = None) -> None:
                     help="device bytes the serving layout plans for")
     ap.add_argument("--cell-timeout", type=int, default=600,
                     help="seconds a cell's step may run before it fails")
+    ap.add_argument("--cell", action="append", default=[], metavar="ARCH:SHAPE",
+                    help="one cell (repeatable; in place of --arch/--shape)")
     ap.add_argument("--out", default=None, help="write JSON records here")
     args = ap.parse_args(argv)
 
     archs = list(ARCH_IDS) if args.all or not args.arch else [args.arch]
     shapes = ([s.name for s in ALL_SHAPES] if args.all or not args.shape
               else [args.shape])
+    cells = ([tuple(c.split(":", 1)) for c in args.cell] if args.cell and not args.all
+             else [(a, s) for a in archs for s in shapes])
     meshes = [False, True] if args.both_meshes else [args.multi_pod]
 
     records = []
     for mp in meshes:
-        for arch in archs:
-            for shape in shapes:
-                records.append(run_cell(arch, shape, mp,
-                                        device_memory=args.device_memory,
-                                        timeout_s=args.cell_timeout))
-                if args.out:                # every record as soon as it exists
-                    with open(args.out, "w") as f:
-                        json.dump(records, f, indent=1)
+        for arch, shape in cells:
+            records.append(run_cell(arch, shape, mp, device_memory=args.device_memory,
+                                    timeout_s=args.cell_timeout))
+            if args.out:                # every record as soon as it exists
+                with open(args.out, "w") as f:
+                    json.dump(records, f, indent=1)
     n_ok = sum(r["status"] == "ok" for r in records)
     n_skip = sum(r["status"] == "skipped" for r in records)
     n_fail = sum(r["status"] == "failed" for r in records)

@@ -30,7 +30,8 @@ import torch.nn.functional as F
 from torch import nn
 
 from ..configs.base import ModelConfig
-from ..distributed.sharding import constrain, matmul, merge_dims, split_dim
+from ..distributed.sharding import (constrain, is_distributed, matmul, merge_dims,
+                                    split_dim)
 from ..kernels.rwkv6_wkv import ops as wkv_ops
 from .layers import _heads, _normal, _param, upcast, weight_dtype
 
@@ -113,8 +114,37 @@ def _time_mix_inputs(cfg: ModelConfig, p: RWKV, x, x_prev):
 def wkv_scan(r, k, v, w, u, state: Optional[torch.Tensor], need_state: bool = True):
     """The WKV recurrence.  r, k, v: [B,H,T,Dh] (taken in float32); w:
     [B,H,T,Dh] decay; u: [H,Dh]; state: [B,H,Dh,Dh] or None (zeros).
-    Returns (y [B,H,T,Dh] float32, state' or None without need_state)."""
-    return wkv_ops.wkv(r, k, v, w, u, state, need_state=need_state)
+    Returns (y [B,H,T,Dh] float32, state' or None without need_state).
+    Laid out over a mesh, the sequence is gathered once, each device runs
+    the recurrence of its (batch, heads) shard (`_wkv_per_shard`), and y is
+    split over the sequence again as r came."""
+    if not is_distributed(r):
+        return wkv_ops.wkv(r, k, v, w, u, state, need_state=need_state)
+    r, k, v, w = (constrain(t, "batch", "heads", None, None) for t in (r, k, v, w))
+    y, s = _wkv_per_shard(r, k, v, w, u, state, need_state)
+    return constrain(y, "batch", "heads", "seq", None), s
+
+
+def _wkv_per_shard(r, k, v, w, u, state, need_state: bool):
+    """`wkv_ops.wkv` on each device's shard through `local_map`: r, k, v, w
+    (and the state) split over batch and heads only, u over the heads as r
+    is.  No batch row or head crosses a shard, so each runs alone; u's
+    gradient is partial over the mesh dimensions that split the batch."""
+    from torch.distributed.tensor import Partial, Replicate, Shard
+    from torch.distributed.tensor.experimental import local_map
+    pl = tuple(r.placements)
+    if any(p not in (Shard(0), Shard(1), Replicate()) for p in pl):
+        raise ValueError(f"wkv: r laid out as {pl}; the recurrence takes batch "
+                         "and heads split, the sequence whole")
+    u_pl = tuple(Shard(0) if p == Shard(1) else Replicate() for p in pl)
+    u_grad = tuple(Partial() if p == Shard(0) else q for p, q in zip(pl, u_pl))
+    s_pl = pl if state is not None else None
+    return local_map(
+        lambda *a: wkv_ops.wkv(*a, need_state=need_state),
+        out_placements=(pl, pl if need_state else None),
+        in_placements=(pl, pl, pl, pl, u_pl, s_pl),
+        in_grad_placements=(pl, pl, pl, pl, u_grad, s_pl),
+        device_mesh=r.device_mesh, redistribute_inputs=True)(r, k, v, w, u, state)
 
 
 def time_mix(cfg: ModelConfig, p: RWKV, x, x_prev, wkv_state,

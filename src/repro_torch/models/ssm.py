@@ -10,6 +10,8 @@ conv (k = 4) precedes the SSM as in Mamba; decode carries the conv's tail.
 The scan is a plain PyTorch loop over T, as the reference's is a
 `lax.scan` outside any Pallas kernel: a handful of small launches a step,
 so a prefill of T tokens through L layers makes about 8 * T * L of them.
+On `meta` tensors (the dry-run) one step runs, counted T times
+(`launch.step_trace.scan_by_trip_count`).
 
 `in_proj`, `conv`, `wb`, `wc`, `dskip` and `out_proj` are stored in
 `cfg.dtype` (the reference casts its float32 masters at use); `wdt`,
@@ -26,6 +28,7 @@ from torch import nn
 
 from ..configs.base import ModelConfig
 from ..distributed.sharding import constrain, matmul
+from ..launch import step_trace
 from .layers import _normal, _param, gated_proj, weight_dtype
 
 CONV_K = 4
@@ -72,6 +75,18 @@ def causal_conv(x, w, conv_state) -> Tuple[torch.Tensor, torch.Tensor]:
     return out, xp[:, -(CONV_K - 1):, :]
 
 
+def _scan(dt, xs32, B_, C_, A, h):
+    """The selective scan over T: dt, xs32 [B,T,din], B_, C_ [B,T,N]
+    float32, A [din,N], h [B,din,N] -> (y [B,T,din] float32, final h)."""
+    ys = []
+    for t in range(dt.shape[1]):
+        dtt = dt[:, t]                                       # [B,din]
+        da = torch.exp(dtt[..., None] * A[None])             # [B,din,N]
+        h = da * h + (dtt * xs32[:, t])[..., None] * B_[:, t, None, :]
+        ys.append(torch.einsum("bcn,bn->bc", h, C_[:, t]))
+    return torch.stack(ys, dim=1), h
+
+
 def ssm_mix(cfg: ModelConfig, p: SSM, x, state: Dict[str, torch.Tensor]):
     """x: [B,T,D]; state: {"conv": [B,K-1,din], "h": [B,din,N] float32}.
     Returns (y [B,T,D], new state)."""
@@ -90,15 +105,18 @@ def ssm_mix(cfg: ModelConfig, p: SSM, x, state: Dict[str, torch.Tensor]):
     C_ = matmul(xs, p.wc.to(dt_)).float()
     A = -torch.exp(p.a_log)                                  # [din,N] negative
 
-    xs32 = xs.float()
-    h = state["h"]
-    ys = []
-    for t in range(x.shape[1]):
-        dtt = dt[:, t]                                       # [B,din]
-        da = torch.exp(dtt[..., None] * A[None])             # [B,din,N]
-        h = da * h + (dtt * xs32[:, t])[..., None] * B_[:, t, None, :]
-        ys.append(torch.einsum("bcn,bn->bc", h, C_[:, t]))
-    y = torch.stack(ys, dim=1).to(dt_)
+    # laid out over a mesh, the scan sees the whole sequence (gathered once)
+    dt, xs32 = (constrain(t, "batch", None, "mlp") for t in (dt, xs.float()))
+    B_, C_ = (constrain(t, "batch", None, None) for t in (B_, C_))
+    Bn, T, din = xs32.shape
+    if xs32.device.type == "meta" and step_trace.by_trip_count():
+        # the dry-run: one step of the scan, counted T times
+        y, h = step_trace.scan_by_trip_count(
+            _scan, T, dt[:, :1], xs32[:, :1], B_[:, :1], C_[:, :1], A, state["h"])
+        y = y.expand(Bn, T, din)
+    else:
+        y, h = _scan(dt, xs32, B_, C_, A, state["h"])
+    y = constrain(y, "batch", "seq", "mlp").to(dt_)
     y = y + xs * p.dskip.to(dt_)[None, None, :]
     y = y * F.silu(z)
     out = matmul(y, p.out_proj.to(dt_))

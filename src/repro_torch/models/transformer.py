@@ -37,6 +37,7 @@ from torch import nn
 from torch.utils.checkpoint import checkpoint
 
 from ..configs.base import ModelConfig
+from ..distributed.sharding import index_write_
 from . import layers, moe, rwkv6, ssm
 
 PORTED_FAMILIES = ("dense", "moe", "ssm", "hybrid", "audio", "vlm")
@@ -365,8 +366,8 @@ def _decode_attn(cfg, p: layers.Attention, x, cache_k, cache_v, cache_len,
     # the new row goes to position cache_len[0] (the same for all lanes),
     # clamped into the cache as dynamic_update_slice clamps its start
     at = cache_len[:1].clamp(max=cache_k.shape[2] - 1).long()
-    cache_k.index_copy_(2, at, k.to(cache_k.dtype))
-    cache_v.index_copy_(2, at, v.to(cache_v.dtype))
+    index_write_(cache_k, 2, at, k.to(cache_k.dtype))
+    index_write_(cache_v, 2, at, v.to(cache_v.dtype))
     att = layers.decode_attention(q[:, :, 0, :], cache_k, cache_v,
                                   cache_len + 1, window=window)
     return layers.attn_out_token(p, att.to(dt))[:, None, :]

@@ -355,6 +355,24 @@ def test_paged_attention_is_deterministic(cuda, shape):
     assert torch.equal(first, again)
 
 
+@pytest.mark.parametrize("qdt,pdt", [(torch.bfloat16, torch.float32),
+                                     (torch.float32, torch.float32)], ids=["bf16_q", "f32"])
+def test_paged_attention_head_groups_above_16(cuda, qdt, pdt):
+    """G 20 query heads a KV head run as two launches of 10 (`head_groups`):
+    within the plain version's tolerances, and two calls bit-equal."""
+    args = _pa_inputs((4, 2, 20, 128, 16, 64, 12, qdt, pdt), cuda)
+    pa_ops.reset_launches()
+    got = pa_ops.paged_attention(*args)
+    again = pa_ops.paged_attention(*args)
+    want = pa_ref.paged_attention_reference(*args)
+    torch.cuda.synchronize()
+    assert pa_ops.launches["paged_attention"] == 4
+    assert got.dtype == want.dtype == qdt
+    tol = 2e-5 if qdt == torch.float32 else 2e-2
+    torch.testing.assert_close(got.float(), want.float(), atol=tol, rtol=tol)
+    assert torch.equal(got, again)
+
+
 def test_paged_attention_wrapper_refuses(cuda):
     args = _pa_inputs(PA_SHAPES[1], cuda)
     pa_ops.reset_launches()
@@ -429,6 +447,30 @@ def _fa_inputs(shape, dev, seed=0):
 
 @pytest.mark.parametrize("shape", FA_SHAPES, ids=FA_IDS)
 def test_flash_attention_matches_plain_version(cuda, shape):
+    _flash_against_plain(cuda, shape)
+
+
+# G 20 query heads a KV head: two launches of 10 (`head_groups`), forward
+# and gradient, on both routes
+FA_G20_SHAPES = [(2, 20, 200, 128, torch.bfloat16, True, 0),
+                 (2, 20, 130, 64, torch.float32, True, 48)]
+
+
+@pytest.mark.parametrize("shape", FA_G20_SHAPES, ids=["bf16_g20", "f32_g20"])
+def test_flash_attention_head_groups_above_16(cuda, shape):
+    """Above MAX_GROUP the wrapper launches the kernels once a head group:
+    within the plain version's tolerances, and two calls bit-equal."""
+    assert fa_ops.head_groups(20) == [10, 10]
+    out, grads = _flash_against_plain(cuda, shape, launches=2)
+    again, grads_again = _flash_against_plain(cuda, shape, launches=2)
+    assert torch.equal(out, again)
+    for name, a, b in zip("qkv", grads, grads_again):
+        assert torch.equal(a, b), name
+
+
+def _flash_against_plain(cuda, shape, launches=1):
+    """flash_attention_cuda's output and gradient at `shape` against
+    `ref.py` (its launches per route counted); returns them."""
     q, k, v, do = _fa_inputs(shape, cuda)
     causal, window = shape[5], shape[6]
     fa_ops.reset_launches()
@@ -436,11 +478,12 @@ def test_flash_attention_matches_plain_version(cuda, shape):
     out = fa_ops.flash_attention_cuda(*qk, causal=causal, window=window)
     grads = torch.autograd.grad(out, qk, do)
     torch.cuda.synchronize()
-    assert fa_ops.launches == {"flash_attention_fwd": 1, "flash_attention_bwd": 1}
+    assert fa_ops.launches == {"flash_attention_fwd": launches,
+                               "flash_attention_bwd": launches}
     r = fa_ops.route(q.dtype, q.shape[-1])
     assert r == ("simt" if q.dtype == torch.float32 or q.shape[-1] == 60 else "tc")
     assert {k: n for k, n in fa_ops.route_launches.items() if n} == {
-        f"flash_attention_fwd_{r}": 1, f"flash_attention_bwd_{r}": 1}
+        f"flash_attention_fwd_{r}": launches, f"flash_attention_bwd_{r}": launches}
     want = fa_ref.mha_reference(q, k, v, causal=causal, window=window)
     assert out.dtype == want.dtype == q.dtype
     tol = 2e-5 if q.dtype == torch.float32 else 2e-2
@@ -463,6 +506,7 @@ def test_flash_attention_matches_plain_version(cuda, shape):
     if causal and k.shape[2] > q.shape[2]:      # keys that no query sees
         for name, got in zip("kv", grads[1:]):
             assert torch.count_nonzero(got[:, :, q.shape[2]:]) == 0, name
+    return out, grads
 
 
 @pytest.mark.parametrize("shape", [FA_SHAPES[0], FA_SHAPES[1], FA_SHAPES[10], FA_SHAPES[24]],
@@ -489,8 +533,8 @@ def test_flash_attention_wrapper_refuses(cuda):
     with pytest.raises(ValueError, match="Dh="):
         fa_ops.flash_attention_cuda(q[..., :62].contiguous(), k[..., :62].contiguous(),
                                     v[..., :62].contiguous())
-    with pytest.raises(ValueError, match="G="):
-        fa_ops.flash_attention_cuda(q.repeat(1, 9, 1, 1), k, v)
+    with pytest.raises(ValueError, match="G="):     # a launch holds G <= 16
+        fa_ops.forward_cuda(q.repeat(1, 9, 1, 1), k, v, True, 0)
     with pytest.raises(TypeError, match="float32 or bfloat16"):
         fa_ops.flash_attention_cuda(q.half(), k.half(), v.half())
     with pytest.raises(ValueError, match="not contiguous"):
