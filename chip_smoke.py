@@ -8,7 +8,8 @@ serving, prefill and training at full width, the moe, hybrid, audio
 and vlm families (Phi-3.5-MoE, Kimi-K2, Hymba-1.5B, Whisper-large-v3,
 LLaVA-NeXT-34B) at full width, the stores' partitioned dispatch over a
 device list, and the distributed slice (a one-rank mesh, MoE's expert-
-parallel branch, a training step under the mesh, four dry-run cells).
+parallel branch, a training step under the mesh, five dry-run cells and
+the reduced ones).
 
     python3 chip_smoke.py            # the full run: 2**23 keys, models at full width
 
@@ -41,9 +42,13 @@ Phases, each printing one JSON line:
                 KV head (above the 16 a launch holds) through the flash
                 wrapper, forward and gradient in bf16 and float32, and the
                 paged wrapper, each as two head groups of 10 (a launch
-                each), at the same tolerances, two calls bit-equal
-                (first, while the profiler is fresh and the card's memory
-                free);
+                each), at the same tolerances, two calls bit-equal; then
+                (flash_attention_wide) the flash kernels past Dh 256, in
+                column chunks of at most 256 on the CUDA-core route: Dh 512
+                at B 1, Hkv 8, G 4, T 1,024 in bf16 and float32, Dh 288 with
+                a window and as cross-attention (Tq 200, Tk 700), and Dh
+                1,024, held and timed as above (first, while the profiler is
+                fresh and the card's memory free);
   4. main     — `KV(cfg, device="cuda")` at the paper's YCSB shape (8-byte
                 keys, 100-byte values, Zipf 0.99, 10% memory budget): load
                 2**23 unique keys in upsert batches of 8192 with hot->cold
@@ -220,8 +225,12 @@ Phases, each printing one JSON line:
                 plain version on the serve run's live pools and table (its
                 last state with all 8 lanes active) and on edge cases (a
                 4096-key table, lengths of 0, lengths at the split
-                boundaries; 2e-5 float32, 2e-2 bfloat16), a second call bit
-                for bit equal, timed beside its bound and
+                boundaries; past Dh 256 in column chunks: Dh 512 at the
+                serving shape's 8 lanes and 8 KV heads, also with a float32
+                q and with lengths of 0, Dh 288 on bf16 pools, Dh 1,024 at G
+                8; 2e-5 float32, 2e-2 bfloat16), two launches for two calls,
+                the second bit for bit equal to the first, timed beside its
+                bound and
                 scaled_dot_product_attention;
  11. serve_twins — the first 8 of those requests through two float32
                 engines, 2 layers at full width, kernel against plain
@@ -304,12 +313,15 @@ Phases, each printing one JSON line:
                 bit-equal with the local branch, and one Trainer step under
                 the mesh (1 x 4096 tokens) whose loss equals the same
                 batch's loss without it; the flash counters zeroed before
-                and read after; then the records of four dry-run cells
-                (granite_3_8b x train_4k, glm4_9b and whisper_large_v3 x
-                decode_32k, rwkv6_7b x train_4k on the 16 x 16 mesh), run
-                in one subprocess started after the build, on no device
+                and read after; then the records of five dry-run cells
+                (granite_3_8b x train_4k and prefill_32k, glm4_9b and
+                whisper_large_v3 x decode_32k, rwkv6_7b x train_4k on the
+                16 x 16 mesh), run in one subprocess started after the
+                build, and of tools/dryrun_reduced.py's reduced cells (4 x 4
+                mesh; Hymba's prefill among them) in another, on no device
                 (meta tensors, a fake process group), beside the card's
-                phases: each must be ok, its temporaries measured;
+                phases: each must be ok, the cells' temporaries measured,
+                the reduced recurrences equal by trip count and unrolled;
  26. the kernels line, the nvidia-smi line, and the final ok line.
 
 The kernels line has one entry for each kernel of the main paths and one
@@ -451,7 +463,8 @@ SHARD_MAP_REP_LOG2_KEYS = 19              # ... at 2**19 keys: (2, 2) runs 4 sto
 SHARD_MAP_CALL_ROUNDS = 4                 # rounds counted for wrapper calls a round
 DIST_LAYERS = 2                           # the distributed phase: Phi-3.5-MoE's depth
 DRYRUN_CELLS = (("granite_3_8b", "train_4k"), ("glm4_9b", "decode_32k"),
-                ("whisper_large_v3", "decode_32k"), ("rwkv6_7b", "train_4k"))
+                ("whisper_large_v3", "decode_32k"), ("rwkv6_7b", "train_4k"),
+                ("granite_3_8b", "prefill_32k"))
 FAMILY_REQUESTS, FAMILY_PROMPT, FAMILY_NEW_TOKENS = 16, 16, 32
 FAMILY_TWIN_LAYERS = 2
 FAMILY_TWIN_PROMPT, FAMILY_TWIN_PATCHES, FAMILY_TWIN_DECODES = 32, 64, 4
@@ -870,6 +883,8 @@ KERNEL_FUNCTIONS = {"fused_probe": ("fused_probe_walk_kernel",),
                                     "write_chain_kernel"),
                     "paged_attention": ("paged_attention_split_kernel",
                                         "paged_attention_merge_kernel"),
+                    "paged_attention_wide": ("paged_attention_wide_kernel",
+                                             "paged_attention_merge_kernel"),
                     "flash_attention_fwd_tc": ("fa_tc_forward_kernel",),
                     "flash_attention_bwd_tc": ("fa_tc_rowdot_kernel", "fa_tc_dkdv_kernel",
                                                "fa_tc_dq_kernel"),
@@ -3083,7 +3098,7 @@ def paged_cases(cfg, live, seed):
            if dev.type == "cuda" else 132)
     span = pa_ops.splits(B * Hkv, mp, sms)[0] * ps
     bounds = [span * (i // 2 + 1) + (i % 2) * (1 if i % 4 == 1 else -1) for i in range(B)]
-    return [
+    cases = [
         ("live", (q, kp, vp, table, lens)),
         ("live_bf16_pools", (q, kp.to(torch.bfloat16), vp.to(torch.bfloat16),
                              table, lens)),
@@ -3101,6 +3116,28 @@ def paged_cases(cfg, live, seed):
         ("long_4096", (q, kp, vp, long_table, long_lens)),
         ("len_0_multi_split", (q, kp, vp, ft, i32([0, 5, 0, ps * mp, 0, 1, 0, 0][:B]))),
         ("split_boundaries", (q, kp, vp, ft, i32([min(x, ps * mp) for x in bounds]))),
+    ]
+    # then head dims past 256 (column chunks of at most 256; their inputs
+    # drawn after the others', which stay as they were): Dh 512 at the
+    # serving shape's lanes and heads (bf16 q, float32 pools, 33 pages of
+    # 16), the same with a float32 q and with lengths of 0 over several
+    # splits, a ragged second chunk (Dh 288) on bf16 pools, and Dh 1,024 at
+    # G 8
+    k512, v512 = rnd(Hkv, 64, 16, 512), rnd(Hkv, 64, 16, 512)
+    t512 = full_table(B, 64, 33)
+    q512 = rnd(B, Hkv, G, 512, dtype=torch.bfloat16)
+    lens512 = i32(np.linspace(1, 16 * 33, B).round().astype(np.int64).tolist())
+    k288, v288 = (rnd(2, 12, 16, 288, dtype=torch.bfloat16) for _ in range(2))
+    k1024, v1024 = rnd(2, 12, 16, 1024), rnd(2, 12, 16, 1024)
+    return cases + [
+        ("dh512", (q512, k512, v512, t512, lens512)),
+        ("dh512_f32", (q512.float(), k512, v512, t512, lens512)),
+        ("dh512_len_0_multi_split", (q512, k512, v512, t512,
+                                     i32([0, 5, 0, 16 * 33, 0, 1, 0, 0][:B]))),
+        ("dh288_bf16_pools", (rnd(5, 2, 2, 288, dtype=torch.bfloat16), k288, v288,
+                              full_table(5, 12, 5), i32([1, 16, 33, 64, 80]))),
+        ("dh1024_g8", (rnd(3, 2, 8, 1024), k1024, v1024, full_table(3, 12, 5),
+                       i32([7, 40, 80]))),
     ]
 
 
@@ -3149,6 +3186,7 @@ def check_paged_kernel(cfg, live, seed, records, cases=None, phase="kernels"):
     for name, args in paged_cases(cfg, live, seed + 3):
         if cases is not None and name not in cases:
             continue
+        n0 = pa_ops.launches["paged_attention"]
         got = pa_ops.paged_attention(*args)
         want = pa_ref.paged_attention_reference(*args)
         _sync(dev)
@@ -3164,10 +3202,14 @@ def check_paged_kernel(cfg, live, seed, records, cases=None, phase="kernels"):
         if not bitwise:
             raise AssertionError(f"paged_attention/{name}: two calls on the same "
                                  "inputs differ")
+        launches = pa_ops.launches["paged_attention"] - n0
+        if on_card and launches != 2:
+            raise AssertionError(f"paged_attention/{name}: {launches} launches for "
+                                 "two calls")
         q, kp, vp, table, lens = args
         rec = dict(case=name, B=q.shape[0], Hkv=q.shape[1], G=q.shape[2],
                    Dh=q.shape[3], page=kp.shape[2], max_pages=table.shape[1],
-                   q_dtype=str(q.dtype), pool_dtype=str(kp.dtype),
+                   q_dtype=str(q.dtype), pool_dtype=str(kp.dtype), launches=launches,
                    max_abs_err=err, tol=tol, bitwise_equal=bitwise)
         if on_card:
             lib = _library_call(*args)
@@ -3177,7 +3219,8 @@ def check_paged_kernel(cfg, live, seed, records, cases=None, phase="kernels"):
             # L2 between two calls on one layer's pools
             rec["device_ms"] = _device_ms(
                 lambda: (l2_flush.zero_(), pa_ops.paged_attention(*args)), 50,
-                KERNEL_FUNCTIONS["paged_attention"])
+                KERNEL_FUNCTIONS["paged_attention_wide" if q.shape[3] > pa_ops.CHUNK_DH
+                                 else "paged_attention"])
             rec["plain_ms"] = _time_ms(
                 lambda: pa_ref.paged_attention_reference(*args), 10)
             rec["library_ms"] = _time_ms(lib, 50)
@@ -3610,17 +3653,34 @@ def check_head_groups(device, seed, records):
                        seconds=time.perf_counter() - t0))
 
 
-def check_flash_kernels(device, seed, records):
+def wide_flash_cases():
+    """(name, BH, G, Tq, Tk, Dh, dtype, causal, window, B) of the flash
+    kernels past Dh 256 (column chunks of at most 256, on the CUDA-core
+    route in both dtypes): Dh 512 at a prefill-like shape in bfloat16 and
+    float32, a ragged second chunk (Dh 288) with a window and as
+    cross-attention at Tq != Tk, and Dh 1,024."""
+    import torch
+    bf, f32 = torch.bfloat16, torch.float32
+    return [("dh512_bf16", 1 * 8, 4, 1024, 1024, 512, bf, True, 0, 1),
+            ("dh512_f32", 1 * 8, 4, 1024, 1024, 512, f32, True, 0, 1),
+            ("dh288_f32_window", 2 * 2, 2, 600, 600, 288, f32, True, 100, 2),
+            ("dh288_bf16_cross", 2 * 2, 2, 200, 700, 288, bf, False, 0, 2),
+            ("dh1024_bf16", 1 * 2, 4, 512, 512, 1024, bf, True, 0, 1)]
+
+
+def check_flash_kernels(device, seed, records, cases=None, label="flash_attention"):
     """The flash kernels against autograd through their plain version, on
-    the card, in every case: forward within 2e-5 (float32) / 2e-2
-    (bfloat16) of the plain version on the same inputs; gradients within
-    1e-4 (float32, abs and rel) or 2e-2 of the largest reference gradient
-    (bfloat16, the reference run in float32 on the same bfloat16 inputs).
+    the card, in every case of `cases` (by default `flash_cases()`; its
+    record is the `kernels` phase's `label`): forward within 2e-5
+    (float32) / 2e-2 (bfloat16) of the plain version on the same inputs;
+    gradients within 1e-4 (float32, abs and rel) or 2e-2 of the largest
+    reference gradient (bfloat16, the reference run in float32 on the same
+    bfloat16 inputs).
     Each case runs on the route `ops.route` picks, which the per-route
     counters must confirm, and its gradient is taken twice and must be
     bitwise equal.  Each case is timed beside its bound and
-    scaled_dot_product_attention.  Returns the train case's (forward,
-    gradient) summaries."""
+    scaled_dot_product_attention.  Returns the first case's (forward,
+    gradient) summaries (by default the train case's)."""
     import torch
     import torch.nn.functional as F
     from repro_torch.kernels.flash_attention import ops as fa_ops, ref as fa_ref
@@ -3630,7 +3690,8 @@ def check_flash_kernels(device, seed, records):
     l2_flush = (torch.empty(L2_FLUSH_BYTES, dtype=torch.uint8, device=dev)
                 if on_card else None)
     per_case = []
-    for name, BH, G, T, Tk, Dh, dt, causal, window, B in flash_cases():
+    t0 = time.perf_counter()
+    for name, BH, G, T, Tk, Dh, dt, causal, window, B in cases or flash_cases():
         q, k, v, do = (torch.randn(s, generator=g, device=dev).to(dt) for s in
                        ((BH, G, T, Dh), (BH, 1, Tk, Dh), (BH, 1, Tk, Dh), (BH, G, T, Dh)))
         route = fa_ops.route(dt, Dh)
@@ -3713,7 +3774,8 @@ def check_flash_kernels(device, seed, records):
         del q, k, v, do, o
         if on_card:
             torch.cuda.empty_cache()
-    emit(records, dict(phase="kernels", kernel="flash_attention", cases=per_case))
+    emit(records, dict(phase="kernels", kernel=label, cases=per_case,
+                       seconds=time.perf_counter() - t0))
     main = per_case[0]
 
     def pick(kind):
@@ -4824,22 +4886,29 @@ def shard_map_main(device, seed, records):
 
 def start_dryrun_cell():
     """The dry-run cells (DRYRUN_CELLS on the 16 x 16 mesh: a dense train
-    step, the GLM-4 and Whisper decodes whose cache write needs a strategy
-    the card machine's PyTorch has, and RWKV-6's training with its WKV
-    counted by trip count) in one subprocess of the card machine's PyTorch,
-    on no device (meta tensors, a fake process group): it runs beside the
-    card's phases, and `distributed_main` reads their records.  Returns
-    (process, output path)."""
+    step and prefill, the GLM-4 and Whisper decodes whose cache write needs
+    a strategy the card machine's PyTorch has, and RWKV-6's training with
+    its WKV counted by trip count) in one subprocess of the card machine's
+    PyTorch, and `tools/dryrun_reduced.py`'s reduced cells (among them
+    Hymba's prefill, whose attention groups the query heads without folding
+    the batch into them) in another, both on no device (meta tensors, a
+    fake process group): they run beside the card's phases, and
+    `distributed_main` reads their records.  Returns [(process, output
+    path)] of the two."""
     out = os.path.join(ROOT, "build", "dryrun_cell.json")
+    reduced = os.path.join(ROOT, "build", "dryrun_reduced.json")
     os.makedirs(os.path.dirname(out), exist_ok=True)
     env = dict(os.environ, PYTHONPATH=os.path.join(ROOT, "src"),
                CUDA_VISIBLE_DEVICES="")
     cells = [a for arch, shape in DRYRUN_CELLS for a in ("--cell", f"{arch}:{shape}")]
-    with open(out + ".log", "w") as log:
-        proc = subprocess.Popen(
-            [sys.executable, "-m", "repro_torch.launch.dryrun", *cells, "--out", out],
-            env=env, stdout=log, stderr=subprocess.STDOUT)
-    return proc, out
+    procs = []
+    for path, cmd in ((out, ["-m", "repro_torch.launch.dryrun", *cells, "--out", out]),
+                      (reduced, [os.path.join(ROOT, "tools", "dryrun_reduced.py"),
+                                 "--out", reduced])):
+        with open(path + ".log", "w") as log:
+            procs.append((subprocess.Popen([sys.executable, *cmd], env=env, stdout=log,
+                                           stderr=subprocess.STDOUT), path))
+    return procs
 
 
 def distributed_main(device, seed, records, dry):
@@ -4927,26 +4996,51 @@ def distributed_main(device, seed, records, dry):
     for k in ("flash_attention_fwd", "flash_attention_bwd"):
         if launches[k] <= 0:
             raise AssertionError(f"the distributed path never launched {k}")
-    proc, path = dry
-    t1 = time.perf_counter()
-    proc.wait(timeout=600)
-    rec["dryrun_wait_s"] = time.perf_counter() - t1
-    with open(path + ".log") as f:
-        rec["dryrun_log_tail"] = f.read().strip().splitlines()[-2:]
-    cells = []
-    if os.path.exists(path):
-        with open(path) as f:
-            cells = json.load(f)
-    rec["dryrun_cells"] = cells
+    check = read_dryrun(dry, rec)
     rec["seconds"] = time.perf_counter() - t0
     emit(records, rec)
+    check()
+    return dict(launches)
+
+
+def read_dryrun(dry, rec):
+    """Wait for the dry-run subprocesses (`start_dryrun_cell`) and put their
+    records and log tails in `rec`; returns a function that raises unless
+    every cell of DRYRUN_CELLS is ok with its temporaries measured and
+    every reduced cell is ok (by trip count and unrolled equal), Hymba's
+    prefill among them."""
+    (proc, path), (rproc, rpath) = dry
+    t1 = time.perf_counter()
+    proc.wait(timeout=600)
+    rproc.wait(timeout=max(1.0, 600 - (time.perf_counter() - t1)))
+    rec["dryrun_wait_s"] = time.perf_counter() - t1
+    out = {}
+    for p in (path, rpath):
+        with open(p + ".log") as f:
+            rec[f"{os.path.basename(p)[:-5]}_log_tail"] = f.read().strip().splitlines()[-2:]
+        out[p] = []
+        if os.path.exists(p):
+            with open(p) as f:
+                out[p] = json.load(f)
+    cells, reduced = out[path], out[rpath]
+    rec["dryrun_cells"] = cells
+    rec["dryrun_reduced"] = reduced
+    return lambda: _check_dryrun(proc, cells, rproc, reduced)
+
+
+def _check_dryrun(proc, cells, rproc, reduced):
     got = [(c["arch"], c["shape"]) for c in cells]
     bad = [f"{c['arch']} x {c['shape']}: {c.get('error', c['status'])}" for c in cells
            if c["status"] != "ok" or c["memory"]["temp_bytes_per_device"] is None]
     if proc.returncode != 0 or got != list(DRYRUN_CELLS) or bad:
         raise AssertionError(f"the dry-run cells failed (exit {proc.returncode}, "
                              f"ran {got}): {bad}")
-    return dict(launches)
+    bad = [f"{c['arch']} {c['kind']} {c.get('layout', '')}: {c['error']}" for c in reduced
+           if not (c["ok"] and c.get("equal", True))]
+    if (rproc.returncode != 0 or bad
+            or not any(c["arch"] == "hymba_1_5b" and c["kind"] == "prefill" for c in reduced)):
+        raise AssertionError(f"the reduced dry-run cells failed (exit "
+                             f"{rproc.returncode}, {len(reduced)} cells): {bad}")
 
 
 def nvidia_smi_line():
@@ -4998,9 +5092,10 @@ def run_all(a, records):
     try:
         return _run_all(a, records, t_all, smi, name, t_build, dry)
     finally:
-        if dry[0].poll() is None:
-            dry[0].kill()
-            dry[0].wait()
+        for proc, _ in dry:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
 
 
 def _run_all(a, records, t_all, smi, name, t_build, dry):
@@ -5021,6 +5116,9 @@ def _run_all(a, records, t_all, smi, name, t_build, dry):
     wkv_summary = check_wkv_kernels("cuda", SEED, records)
     torch.cuda.empty_cache()
     check_head_groups("cuda", SEED, records)
+    torch.cuda.empty_cache()
+    check_flash_kernels("cuda", SEED, records, cases=wide_flash_cases(),
+                        label="flash_attention_wide")
     torch.cuda.empty_cache()
 
     n_keys = 1 << a.log2_keys

@@ -55,6 +55,23 @@
 //   3. dQ: one CTA per (bh, g, block of 32 query rows), looping over the kv
 //      blocks the forward visits: dQ += scale dS K.
 //
+// Head dims past MAX_DH (256) run as column chunks: ceil(Dh / 256) chunks
+// of at most 256 output columns, on a grid axis of their own (the forward
+// and dQ kernels' y = G * chunks, the dK/dV kernel's z), the `WIDE`
+// instantiation of each kernel.  Every CTA of a row block computes the
+// scores (and dP = dO.V) over the whole Dh, reducing Q.K in pieces of 256
+// columns staged one after another through the same shared tiles, in the
+// same order in every chunk, so every chunk sees the same scores, softmax
+// statistics and P bit for bit; it then accumulates only its own columns of
+// O (forward), dQ, or dK and dV, reloading its chunk of K (dQ) or of Q and
+// dO (dK/dV) after the pieces where the last piece is not its own.  Nothing
+// crosses CTAs, so there are no float atomics and two calls give the same
+// bits.  Shared memory and registers stay those of Dh 256 (a piece is a
+// Dh-256 tile); the Dh <= 256 instantiations (one piece, one chunk, Q or
+// K/V resident across the loop) are the kernels as they were.  The cost is
+// reading Q.K's pieces (and Q or K/V) once per chunk and per kv block:
+// right, not fast.
+//
 // Bound: operations.  At the training path's shape (B 2, Hkv 8, G 4, T 4096,
 // Dh 128, bf16, causal) the forward does 2.7e11 multiply-add FLOPs on 67 MB
 // of inputs and outputs; 989 TFLOP/s of bf16 tensor-core peak make 0.28 ms.
@@ -75,7 +92,7 @@ namespace {
 
 constexpr int THREADS = 256;
 constexpr int WARPS = THREADS / 32;
-constexpr int MAX_DH = 256;
+constexpr int MAX_DH = 256;           // columns of a staged piece and of an output chunk
 constexpr int NC = MAX_DH / 32;       // accumulator columns per lane
 constexpr float NEG_INF = -1e30f;
 
@@ -156,46 +173,68 @@ Mask make_mask(int Tq, int Tk, int causal, int window) {
   return Mask{Tq, Tk, causal, window, blind, 1.f / Tk};
 }
 
-// rows [row0, row0 + rows) of a [T, Dh] matrix into shared memory
-// [rows][ld] as float32, zeros past T
+// columns [c0, c0 + w) of rows [row0, row0 + rows) of a [T, Dh] matrix
+// into shared memory [rows][ld] as float32, zeros past T (w and c0 are
+// multiples of 4)
 template <typename T>
 __device__ __forceinline__ void load_tile(float* dst, int ld, const T* src, int row0,
-                                          int rows, int Tn, int Dh) {
-  const int q4 = Dh >> 2;
+                                          int rows, int Tn, int Dh, int c0, int w) {
+  const int q4 = w >> 2;
   for (int i = threadIdx.x; i < rows * q4; i += THREADS) {
     const int r = i / q4, c = (i - r * q4) << 2;
     const int gr = row0 + r;
-    const float4 x = gr < Tn ? load4(src + (size_t)gr * Dh + c) : make_float4(0.f, 0.f, 0.f, 0.f);
+    const float4 x = gr < Tn ? load4(src + (size_t)gr * Dh + c0 + c)
+                             : make_float4(0.f, 0.f, 0.f, 0.f);
     *reinterpret_cast<float4*>(dst + r * ld + c) = x;
   }
 }
+
+// A CTA's share of the head dim: `np` pieces of at most MAX_DH columns that
+// the scores reduce over, and its own output chunk [c0, c0 + wc).  WIDE is
+// false for Dh <= MAX_DH: one piece, the whole of Dh.
+template <bool WIDE>
+struct Cols {
+  int ld, np, c0, wc;
+  __device__ __forceinline__ Cols(int Dh, int chunk)
+      : ld((WIDE ? MAX_DH : Dh) + 4), np(WIDE ? (Dh + MAX_DH - 1) / MAX_DH : 1),
+        c0(WIDE ? chunk * MAX_DH : 0), wc(WIDE ? min(MAX_DH, Dh - chunk * MAX_DH) : Dh) {}
+  __device__ __forceinline__ int width(int Dh, int p) const {
+    return WIDE ? min(MAX_DH, Dh - p * MAX_DH) : Dh;
+  }
+  // whether the last piece staged is this CTA's own chunk
+  __device__ __forceinline__ bool own_last() const { return c0 == (np - 1) * MAX_DH; }
+};
 
 // ---------------------------------------------------------------------------
 // forward
 // ---------------------------------------------------------------------------
 
-template <typename T>
+template <typename T, bool WIDE>
 __global__ void __launch_bounds__(THREADS)
 fa_forward_kernel(const T* __restrict__ q, const T* __restrict__ k,
                   const T* __restrict__ v, T* __restrict__ o, float* __restrict__ lse,
                   int G, int Dh, Mask mask, float scale) {
   extern __shared__ __align__(16) float smem[];
-  const int ld = Dh + 4;
   const int Tq = mask.Tq, Tk = mask.Tk;
+  const int nch = WIDE ? (Dh + MAX_DH - 1) / MAX_DH : 1;
+  const int g = WIDE ? blockIdx.y / nch : blockIdx.y;
+  const Cols<WIDE> cols(Dh, blockIdx.y - g * nch);
+  const int ld = cols.ld;
   float* Qs = smem;                   // [F_Q][ld]
   float* Ks = Qs + F_Q * ld;          // [F_K][ld]
-  float* Vs = Ks + F_K * ld;          // [F_K][ld]
+  float* Vs = Ks + F_K * ld;          // [F_K][ld]  this CTA's chunk of V
   float* Ps = Vs + F_K * ld;          // [F_Q][LDP]  p, rounded to T
 
   constexpr int R = F_Q / WARPS;      // query rows per warp
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  const int q0 = blockIdx.x * F_Q, g = blockIdx.y, bh = blockIdx.z;
+  const int q0 = blockIdx.x * F_Q, bh = blockIdx.z;
   const int r0 = warp * R;
   const size_t qrow0 = ((size_t)bh * G + g) * Tq;
+  const T* qh = q + qrow0 * Dh;
   const T* kh = k + (size_t)bh * Tk * Dh;
   const T* vh = v + (size_t)bh * Tk * Dh;
 
-  load_tile(Qs, ld, q + qrow0 * Dh, q0, F_Q, Tq, Dh);
+  if (!WIDE) load_tile(Qs, ld, qh, q0, F_Q, Tq, Dh, 0, Dh);
 
   float m[R], l[R], acc[R][NC];
 #pragma unroll
@@ -210,22 +249,25 @@ fa_forward_kernel(const T* __restrict__ q, const T* __restrict__ k,
   const int kb0 = mask.key_lo(q0, q_hi) / F_K, kb1 = mask.key_hi(q_hi) / F_K;
   for (int kb = kb0; kb <= kb1; ++kb) {
     const int k0 = kb * F_K;
-    __syncthreads();                  // the previous block's K/V are consumed
-    load_tile(Ks, ld, kh, k0, F_K, Tk, Dh);
-    load_tile(Vs, ld, vh, k0, F_K, Tk, Dh);
-    __syncthreads();
-
     float s[R][2];
 #pragma unroll
     for (int r = 0; r < R; ++r) s[r][0] = s[r][1] = 0.f;
-    for (int d = 0; d < Dh; d += 4) {
-      const float4 ka = load4(Ks + lane * ld + d);
-      const float4 kc = load4(Ks + (lane + 32) * ld + d);
+    for (int p = 0; p < cols.np; ++p) {   // the scores, a piece of Dh at a time
+      const int p0 = p * MAX_DH, w = cols.width(Dh, p);
+      __syncthreads();                // the previous piece's (block's) tiles are consumed
+      if (WIDE) load_tile(Qs, ld, qh, q0, F_Q, Tq, Dh, p0, w);
+      load_tile(Ks, ld, kh, k0, F_K, Tk, Dh, p0, w);
+      if (p == cols.np - 1) load_tile(Vs, ld, vh, k0, F_K, Tk, Dh, cols.c0, cols.wc);
+      __syncthreads();
+      for (int d = 0; d < w; d += 4) {
+        const float4 ka = load4(Ks + lane * ld + d);
+        const float4 kc = load4(Ks + (lane + 32) * ld + d);
 #pragma unroll
-      for (int r = 0; r < R; ++r) {
-        const float4 qv = load4(Qs + (r0 + r) * ld + d);
-        s[r][0] = dot4(qv, ka, s[r][0]);
-        s[r][1] = dot4(qv, kc, s[r][1]);
+        for (int r = 0; r < R; ++r) {
+          const float4 qv = load4(Qs + (r0 + r) * ld + d);
+          s[r][0] = dot4(qv, ka, s[r][0]);
+          s[r][1] = dot4(qv, kc, s[r][1]);
+        }
       }
     }
 
@@ -259,7 +301,7 @@ fa_forward_kernel(const T* __restrict__ q, const T* __restrict__ k,
 #pragma unroll
       for (int c = 0; c < NC; ++c) {
         const int d = lane + 32 * c;
-        if (d < Dh) {
+        if (d < cols.wc) {
           const float v0 = Vs[j * ld + d], v1 = Vs[(j + 1) * ld + d];
           const float v2 = Vs[(j + 2) * ld + d], v3 = Vs[(j + 3) * ld + d];
 #pragma unroll
@@ -275,13 +317,13 @@ fa_forward_kernel(const T* __restrict__ q, const T* __restrict__ k,
     const int qp = q0 + r0 + r;
     if (qp >= Tq) continue;
     const float den = fmaxf(l[r], 1e-30f);
-    T* orow = o + (qrow0 + qp) * Dh;
+    T* orow = o + (qrow0 + qp) * Dh + cols.c0;
 #pragma unroll
     for (int c = 0; c < NC; ++c) {
       const int d = lane + 32 * c;
-      if (d < Dh) orow[d] = from_f32<T>(acc[r][c] / den);
+      if (d < cols.wc) orow[d] = from_f32<T>(acc[r][c] / den);
     }
-    if (lane == 0) lse[qrow0 + qp] = m[r] + logf(l[r]);
+    if (lane == 0 && cols.c0 == 0) lse[qrow0 + qp] = m[r] + logf(l[r]);
   }
 }
 
@@ -321,15 +363,18 @@ fa_rowdot_kernel(const T* __restrict__ dout, const T* __restrict__ out,
   if (lane == 0) D[row] = acc;
 }
 
-template <typename T>
+template <typename T, bool WIDE>
 __global__ void __launch_bounds__(THREADS)
 fa_dq_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
              const T* __restrict__ dout, const float* __restrict__ lse,
              const float* __restrict__ D, T* __restrict__ dq, int G, int Dh,
              Mask mask, float scale) {
   extern __shared__ __align__(16) float smem[];
-  const int ld = Dh + 4;
   const int Tq = mask.Tq, Tk = mask.Tk;
+  const int nch = WIDE ? (Dh + MAX_DH - 1) / MAX_DH : 1;
+  const int g = WIDE ? blockIdx.y / nch : blockIdx.y;
+  const Cols<WIDE> cols(Dh, blockIdx.y - g * nch);
+  const int ld = cols.ld;
   float* Qs = smem;                   // [Q_Q][ld]
   float* dOs = Qs + Q_Q * ld;         // [Q_Q][ld]
   float* Ks = dOs + Q_Q * ld;         // [Q_K][ld]
@@ -338,14 +383,18 @@ fa_dq_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restri
 
   constexpr int R = Q_Q / WARPS;
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  const int q0 = blockIdx.x * Q_Q, g = blockIdx.y, bh = blockIdx.z;
+  const int q0 = blockIdx.x * Q_Q, bh = blockIdx.z;
   const int r0 = warp * R;
   const size_t qrow0 = ((size_t)bh * G + g) * Tq;
+  const T* qh = q + qrow0 * Dh;
+  const T* gh = dout + qrow0 * Dh;
   const T* kh = k + (size_t)bh * Tk * Dh;
   const T* vh = v + (size_t)bh * Tk * Dh;
 
-  load_tile(Qs, ld, q + qrow0 * Dh, q0, Q_Q, Tq, Dh);
-  load_tile(dOs, ld, dout + qrow0 * Dh, q0, Q_Q, Tq, Dh);
+  if (!WIDE) {
+    load_tile(Qs, ld, qh, q0, Q_Q, Tq, Dh, 0, Dh);
+    load_tile(dOs, ld, gh, q0, Q_Q, Tq, Dh, 0, Dh);
+  }
   float lse_r[R], d_r[R], acc[R][NC];
 #pragma unroll
   for (int r = 0; r < R; ++r) {
@@ -360,25 +409,31 @@ fa_dq_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restri
   const int kb0 = mask.key_lo(q0, q_hi) / Q_K, kb1 = mask.key_hi(q_hi) / Q_K;
   for (int kb = kb0; kb <= kb1; ++kb) {
     const int k0 = kb * Q_K;
-    __syncthreads();
-    load_tile(Ks, ld, kh, k0, Q_K, Tk, Dh);
-    load_tile(Vs, ld, vh, k0, Q_K, Tk, Dh);
-    __syncthreads();
-
     float s[R][2], dp[R][2];
 #pragma unroll
     for (int r = 0; r < R; ++r) s[r][0] = s[r][1] = dp[r][0] = dp[r][1] = 0.f;
-    for (int d = 0; d < Dh; d += 4) {
-      const float4 ka = load4(Ks + lane * ld + d), kc = load4(Ks + (lane + 32) * ld + d);
-      const float4 va = load4(Vs + lane * ld + d), vc = load4(Vs + (lane + 32) * ld + d);
+    for (int p = 0; p < cols.np; ++p) {   // s = Q.K and dP = dO.V, a piece of Dh at a time
+      const int p0 = p * MAX_DH, w = cols.width(Dh, p);
+      __syncthreads();
+      if (WIDE) {
+        load_tile(Qs, ld, qh, q0, Q_Q, Tq, Dh, p0, w);
+        load_tile(dOs, ld, gh, q0, Q_Q, Tq, Dh, p0, w);
+      }
+      load_tile(Ks, ld, kh, k0, Q_K, Tk, Dh, p0, w);
+      load_tile(Vs, ld, vh, k0, Q_K, Tk, Dh, p0, w);
+      __syncthreads();
+      for (int d = 0; d < w; d += 4) {
+        const float4 ka = load4(Ks + lane * ld + d), kc = load4(Ks + (lane + 32) * ld + d);
+        const float4 va = load4(Vs + lane * ld + d), vc = load4(Vs + (lane + 32) * ld + d);
 #pragma unroll
-      for (int r = 0; r < R; ++r) {
-        const float4 qv = load4(Qs + (r0 + r) * ld + d);
-        const float4 gv = load4(dOs + (r0 + r) * ld + d);
-        s[r][0] = dot4(qv, ka, s[r][0]);
-        s[r][1] = dot4(qv, kc, s[r][1]);
-        dp[r][0] = dot4(gv, va, dp[r][0]);
-        dp[r][1] = dot4(gv, vc, dp[r][1]);
+        for (int r = 0; r < R; ++r) {
+          const float4 qv = load4(Qs + (r0 + r) * ld + d);
+          const float4 gv = load4(dOs + (r0 + r) * ld + d);
+          s[r][0] = dot4(qv, ka, s[r][0]);
+          s[r][1] = dot4(qv, kc, s[r][1]);
+          dp[r][0] = dot4(gv, va, dp[r][0]);
+          dp[r][1] = dot4(gv, vc, dp[r][1]);
+        }
       }
     }
 #pragma unroll
@@ -392,6 +447,11 @@ fa_dq_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restri
       }
     }
     __syncwarp();
+    if (WIDE && !cols.own_last()) {   // this CTA's chunk of K for dS.K
+      __syncthreads();
+      load_tile(Ks, ld, kh, k0, Q_K, Tk, Dh, cols.c0, cols.wc);
+      __syncthreads();
+    }
     for (int j = 0; j < Q_K; j += 4) {
       float4 ds[R];
 #pragma unroll
@@ -399,7 +459,7 @@ fa_dq_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restri
 #pragma unroll
       for (int c = 0; c < NC; ++c) {
         const int d = lane + 32 * c;
-        if (d < Dh) {
+        if (d < cols.wc) {
           const float4 kv = make_float4(Ks[j * ld + d], Ks[(j + 1) * ld + d],
                                         Ks[(j + 2) * ld + d], Ks[(j + 3) * ld + d]);
 #pragma unroll
@@ -413,16 +473,16 @@ fa_dq_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restri
   for (int r = 0; r < R; ++r) {
     const int qp = q0 + r0 + r;
     if (qp >= Tq) continue;
-    T* row = dq + (qrow0 + qp) * Dh;
+    T* row = dq + (qrow0 + qp) * Dh + cols.c0;
 #pragma unroll
     for (int c = 0; c < NC; ++c) {
       const int d = lane + 32 * c;
-      if (d < Dh) row[d] = from_f32<T>(acc[r][c] * scale);
+      if (d < cols.wc) row[d] = from_f32<T>(acc[r][c] * scale);
     }
   }
 }
 
-template <typename T>
+template <typename T, bool WIDE>
 __global__ void __launch_bounds__(THREADS)
 fa_dkdv_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
                const T* __restrict__ dout, const float* __restrict__ lse,
@@ -430,8 +490,9 @@ fa_dkdv_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __rest
                T* __restrict__ dk, T* __restrict__ dv, int G, int Dh, Mask mask,
                float scale) {
   extern __shared__ __align__(16) float smem[];
-  const int ld = Dh + 4;
   const int Tq = mask.Tq, Tk = mask.Tk;
+  const Cols<WIDE> cols(Dh, blockIdx.z);
+  const int ld = cols.ld;
   float* Ks = smem;                   // [K_K][ld]
   float* Vs = Ks + K_K * ld;          // [K_K][ld]
   float* Qs = Vs + K_K * ld;          // [K_Q][ld]
@@ -446,9 +507,13 @@ fa_dkdv_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __rest
   const int k0 = blockIdx.x * K_K, bh = blockIdx.y;
   const int r0 = warp * R;
   const size_t krow0 = (size_t)bh * Tk;
+  const T* kh = k + krow0 * Dh;
+  const T* vh = v + krow0 * Dh;
 
-  load_tile(Ks, ld, k + krow0 * Dh, k0, K_K, Tk, Dh);
-  load_tile(Vs, ld, v + krow0 * Dh, k0, K_K, Tk, Dh);
+  if (!WIDE) {
+    load_tile(Ks, ld, kh, k0, K_K, Tk, Dh, 0, Dh);
+    load_tile(Vs, ld, vh, k0, K_K, Tk, Dh, 0, Dh);
+  }
   float dkacc[R][NC], dvacc[R][NC];
 #pragma unroll
   for (int r = 0; r < R; ++r)
@@ -459,34 +524,42 @@ fa_dkdv_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __rest
   const int qb0 = mask.query_lo(k0) / K_Q, qb1 = mask.query_hi(k_hi) / K_Q;
   for (int g = 0; g < G; ++g) {
     const size_t qrow0 = ((size_t)bh * G + g) * Tq;
+    const T* qh = q + qrow0 * Dh;
+    const T* gh = dout + qrow0 * Dh;
     for (int qb = qb0; qb <= qb1; ++qb) {
       const int q0 = qb * K_Q;
-      __syncthreads();
-      load_tile(Qs, ld, q + qrow0 * Dh, q0, K_Q, Tq, Dh);
-      load_tile(dOs, ld, dout + qrow0 * Dh, q0, K_Q, Tq, Dh);
-      if (threadIdx.x < K_Q) {
-        const int qp = min(q0 + (int)threadIdx.x, Tq - 1);
-        lse_s[threadIdx.x] = lse[qrow0 + qp];
-        D_s[threadIdx.x] = D[qrow0 + qp];
-      }
-      __syncthreads();
-
       // s^T[key r][query i] = k_r . q_i; dp^T[r][i] = v_r . dO_i, for the
-      // queries i = lane and lane + 32
+      // queries i = lane and lane + 32, a piece of Dh at a time
       float s[R][2], dp[R][2];
 #pragma unroll
       for (int r = 0; r < R; ++r) s[r][0] = s[r][1] = dp[r][0] = dp[r][1] = 0.f;
-      for (int d = 0; d < Dh; d += 4) {
-        const float4 qa = load4(Qs + lane * ld + d), qc = load4(Qs + (lane + 32) * ld + d);
-        const float4 ga = load4(dOs + lane * ld + d), gc = load4(dOs + (lane + 32) * ld + d);
+      for (int p = 0; p < cols.np; ++p) {
+        const int p0 = p * MAX_DH, w = cols.width(Dh, p);
+        __syncthreads();
+        if (WIDE) {
+          load_tile(Ks, ld, kh, k0, K_K, Tk, Dh, p0, w);
+          load_tile(Vs, ld, vh, k0, K_K, Tk, Dh, p0, w);
+        }
+        load_tile(Qs, ld, qh, q0, K_Q, Tq, Dh, p0, w);
+        load_tile(dOs, ld, gh, q0, K_Q, Tq, Dh, p0, w);
+        if (p == 0 && threadIdx.x < K_Q) {
+          const int qp = min(q0 + (int)threadIdx.x, Tq - 1);
+          lse_s[threadIdx.x] = lse[qrow0 + qp];
+          D_s[threadIdx.x] = D[qrow0 + qp];
+        }
+        __syncthreads();
+        for (int d = 0; d < w; d += 4) {
+          const float4 qa = load4(Qs + lane * ld + d), qc = load4(Qs + (lane + 32) * ld + d);
+          const float4 ga = load4(dOs + lane * ld + d), gc = load4(dOs + (lane + 32) * ld + d);
 #pragma unroll
-        for (int r = 0; r < R; ++r) {
-          const float4 kv = load4(Ks + (r0 + r) * ld + d);
-          const float4 vv = load4(Vs + (r0 + r) * ld + d);
-          s[r][0] = dot4(kv, qa, s[r][0]);
-          s[r][1] = dot4(kv, qc, s[r][1]);
-          dp[r][0] = dot4(vv, ga, dp[r][0]);
-          dp[r][1] = dot4(vv, gc, dp[r][1]);
+          for (int r = 0; r < R; ++r) {
+            const float4 kv = load4(Ks + (r0 + r) * ld + d);
+            const float4 vv = load4(Vs + (r0 + r) * ld + d);
+            s[r][0] = dot4(kv, qa, s[r][0]);
+            s[r][1] = dot4(kv, qc, s[r][1]);
+            dp[r][0] = dot4(vv, ga, dp[r][0]);
+            dp[r][1] = dot4(vv, gc, dp[r][1]);
+          }
         }
       }
 #pragma unroll
@@ -503,6 +576,12 @@ fa_dkdv_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __rest
         }
       }
       __syncwarp();
+      if (WIDE && !cols.own_last()) {   // this CTA's chunk of Q and dO
+        __syncthreads();
+        load_tile(Qs, ld, qh, q0, K_Q, Tq, Dh, cols.c0, cols.wc);
+        load_tile(dOs, ld, gh, q0, K_Q, Tq, Dh, cols.c0, cols.wc);
+        __syncthreads();
+      }
       for (int i = 0; i < K_Q; i += 4) {
         float4 pr[R], ds[R];
 #pragma unroll
@@ -513,7 +592,7 @@ fa_dkdv_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __rest
 #pragma unroll
         for (int c = 0; c < NC; ++c) {
           const int d = lane + 32 * c;
-          if (d < Dh) {
+          if (d < cols.wc) {
             const float4 gv = make_float4(dOs[i * ld + d], dOs[(i + 1) * ld + d],
                                           dOs[(i + 2) * ld + d], dOs[(i + 3) * ld + d]);
             const float4 qv = make_float4(Qs[i * ld + d], Qs[(i + 1) * ld + d],
@@ -533,14 +612,15 @@ fa_dkdv_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __rest
   for (int r = 0; r < R; ++r) {
     const int kp = k0 + r0 + r;
     if (kp >= Tk) continue;
-    T* krow = dk + (krow0 + kp) * Dh;
-    T* vrow = dv + (krow0 + kp) * Dh;
+    T* krow = dk + (krow0 + kp) * Dh + cols.c0;
+    T* vrow = dv + (krow0 + kp) * Dh + cols.c0;
+    const float* csum = colsum + (size_t)bh * Dh + cols.c0;
 #pragma unroll
     for (int c = 0; c < NC; ++c) {
       const int d = lane + 32 * c;
-      if (d < Dh) {
+      if (d < cols.wc) {
         // rows that see no key: P = 1 / Tk on every key
-        const float blind = mask.blind < Tq ? mask.inv_tk * colsum[(size_t)bh * Dh + d] : 0.f;
+        const float blind = mask.blind < Tq ? mask.inv_tk * csum[d] : 0.f;
         krow[d] = from_f32<T>(dkacc[r][c] * scale);
         vrow[d] = from_f32<T>(dvacc[r][c] + blind);
       }
@@ -558,27 +638,35 @@ cudaError_t set_smem(K kern, size_t bytes) {
   return cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
 }
 
-size_t fwd_smem(int Dh) { return sizeof(float) * ((size_t)(F_Q + 2 * F_K) * (Dh + 4) + F_Q * LDP); }
-size_t dq_smem(int Dh) { return sizeof(float) * ((size_t)(2 * Q_Q + 2 * Q_K) * (Dh + 4) + Q_Q * LDP); }
+// shared memory of a CTA at head dim Dh (a piece of MAX_DH columns past it)
+int tile_dh(int Dh) { return Dh > MAX_DH ? MAX_DH : Dh; }
+int chunks(int Dh) { return (Dh + MAX_DH - 1) / MAX_DH; }
+size_t fwd_smem(int Dh) {
+  return sizeof(float) * ((size_t)(F_Q + 2 * F_K) * (tile_dh(Dh) + 4) + F_Q * LDP);
+}
+size_t dq_smem(int Dh) {
+  return sizeof(float) * ((size_t)(2 * Q_Q + 2 * Q_K) * (tile_dh(Dh) + 4) + Q_Q * LDP);
+}
 size_t dkdv_smem(int Dh) {
-  return sizeof(float) * ((size_t)(2 * K_K + 2 * K_Q) * (Dh + 4) + 2 * K_K * LDP + 2 * K_Q);
+  return sizeof(float) * ((size_t)(2 * K_K + 2 * K_Q) * (tile_dh(Dh) + 4) + 2 * K_K * LDP +
+                          2 * K_Q);
 }
 
-template <typename T>
+template <typename T, bool WIDE>
 cudaError_t forward(const void* q, const void* k, const void* v, void* o, float* lse,
                     int BH, int G, int Dh, Mask mask, float scale, cudaStream_t st) {
-  auto kern = fa_forward_kernel<T>;
+  auto kern = fa_forward_kernel<T, WIDE>;
   const size_t smem = fwd_smem(Dh);
   cudaError_t e = set_smem(kern, smem);
   if (e != cudaSuccess) return e;
-  dim3 grid((mask.Tq + F_Q - 1) / F_Q, G, BH);
+  dim3 grid((mask.Tq + F_Q - 1) / F_Q, G * chunks(Dh), BH);
   kern<<<grid, THREADS, smem, st>>>(static_cast<const T*>(q), static_cast<const T*>(k),
                                     static_cast<const T*>(v), static_cast<T*>(o), lse, G,
                                     Dh, mask, scale);
   return cudaGetLastError();
 }
 
-template <typename T>
+template <typename T, bool WIDE>
 cudaError_t backward(const void* q, const void* k, const void* v, const void* o,
                      const float* lse, const void* dout, void* dq, void* dk, void* dv,
                      float* D, int BH, int G, int Dh, Mask mask, float scale,
@@ -595,25 +683,45 @@ cudaError_t backward(const void* q, const void* k, const void* v, const void* o,
   cudaError_t e = cudaGetLastError();
   if (e != cudaSuccess) return e;
 
-  auto kkv = fa_dkdv_kernel<T>;
+  auto kkv = fa_dkdv_kernel<T, WIDE>;
   size_t smem = dkdv_smem(Dh);
   if ((e = set_smem(kkv, smem)) != cudaSuccess) return e;
-  kkv<<<dim3((mask.Tk + K_K - 1) / K_K, BH), THREADS, smem, st>>>(
+  kkv<<<dim3((mask.Tk + K_K - 1) / K_K, BH, chunks(Dh)), THREADS, smem, st>>>(
       qt, kt, vt, gt, lse, D, colsum, static_cast<T*>(dk), static_cast<T*>(dv), G, Dh,
       mask, scale);
   if ((e = cudaGetLastError()) != cudaSuccess) return e;
 
-  auto kq = fa_dq_kernel<T>;
+  auto kq = fa_dq_kernel<T, WIDE>;
   smem = dq_smem(Dh);
   if ((e = set_smem(kq, smem)) != cudaSuccess) return e;
-  kq<<<dim3((mask.Tq + Q_Q - 1) / Q_Q, G, BH), THREADS, smem, st>>>(
+  kq<<<dim3((mask.Tq + Q_Q - 1) / Q_Q, G * chunks(Dh), BH), THREADS, smem, st>>>(
       qt, kt, vt, gt, lse, D, static_cast<T*>(dq), G, Dh, mask, scale);
   return cudaGetLastError();
 }
 
+// the grid's y axis holds G x chunks(Dh)
 bool bad_shape(int BH, int G, int Tq, int Tk, int Dh, int dtype) {
-  return BH < 1 || BH > 65535 || G < 1 || G > 65535 || Tq < 1 || Tk < 1 || Dh < 4 ||
-         Dh > MAX_DH || (Dh & 3) != 0 || dtype < 0 || dtype > 1;
+  return BH < 1 || BH > 65535 || G < 1 || Tq < 1 || Tk < 1 || Dh < 4 || (Dh & 3) != 0 ||
+         (long long)G * chunks(Dh) > 65535 || dtype < 0 || dtype > 1;
+}
+
+template <typename T>
+cudaError_t forward_any(const void* q, const void* k, const void* v, void* o, float* lse,
+                        int BH, int G, int Dh, Mask mask, float scale, cudaStream_t st) {
+  return Dh > MAX_DH ? forward<T, true>(q, k, v, o, lse, BH, G, Dh, mask, scale, st)
+                     : forward<T, false>(q, k, v, o, lse, BH, G, Dh, mask, scale, st);
+}
+
+template <typename T>
+cudaError_t backward_any(const void* q, const void* k, const void* v, const void* o,
+                         const float* lse, const void* dout, void* dq, void* dk, void* dv,
+                         float* D, int BH, int G, int Dh, Mask mask, float scale,
+                         cudaStream_t st) {
+  return Dh > MAX_DH
+             ? backward<T, true>(q, k, v, o, lse, dout, dq, dk, dv, D, BH, G, Dh, mask,
+                                 scale, st)
+             : backward<T, false>(q, k, v, o, lse, dout, dq, dk, dv, D, BH, G, Dh, mask,
+                                  scale, st);
 }
 
 }  // namespace
@@ -628,8 +736,9 @@ extern "C" int fa_forward(const void* q, const void* k, const void* v, void* o, 
   const Mask mask = make_mask(Tq, Tk, causal, window);
   float* l = static_cast<float*>(lse);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  return (int)(dtype == 0 ? forward<float>(q, k, v, o, l, BH, G, Dh, mask, scale, s)
-                          : forward<__nv_bfloat16>(q, k, v, o, l, BH, G, Dh, mask, scale, s));
+  return (int)(dtype == 0
+                   ? forward_any<float>(q, k, v, o, l, BH, G, Dh, mask, scale, s)
+                   : forward_any<__nv_bfloat16>(q, k, v, o, l, BH, G, Dh, mask, scale, s));
 }
 
 // D is float32 scratch of BH * G * Tq + BH * Dh elements.
@@ -643,8 +752,8 @@ extern "C" int fa_backward(const void* q, const void* k, const void* v, const vo
   float* d = static_cast<float*>(D);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   return (int)(dtype == 0
-                   ? backward<float>(q, k, v, o, l, dout, dq, dk, dv, d, BH, G, Dh, mask,
-                                     scale, s)
-                   : backward<__nv_bfloat16>(q, k, v, o, l, dout, dq, dk, dv, d, BH, G, Dh,
-                                             mask, scale, s));
+                   ? backward_any<float>(q, k, v, o, l, dout, dq, dk, dv, d, BH, G, Dh,
+                                         mask, scale, s)
+                   : backward_any<__nv_bfloat16>(q, k, v, o, l, dout, dq, dk, dv, d, BH, G,
+                                                 Dh, mask, scale, s));
 }

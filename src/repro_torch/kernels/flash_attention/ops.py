@@ -7,13 +7,17 @@ the CPU it runs the plain version in `ref.py` (autograd through it is the
 plain gradient); for CUDA tensors it runs `flash_attention_cuda`, a
 `torch.autograd.Function` whose forward launches the forward kernel and
 saves q, k, v, o and the row log-sum-exp, and whose backward launches the
-gradient kernels; any other device raises.
+gradient kernels.  A DTensor, or a tensor on `meta` (the dry-run's), takes
+the reference's own shape instead (`grouped_attention`): query heads split
+into (Hkv, G) without folding the batch into them, and the reference's
+loop over key blocks, one block counted by its trip count on `meta`.  Any
+other device raises.
 
 `flash_attention_cuda` takes the kernels' layout (q [BH, G, Tq, Dh], k/v
 [BH, 1, Tk, Dh]) and raises for tensors that are not on a CUDA device.  The
 kernels take float32 or bfloat16 (one dtype for q, k and v), contiguous
-tensors with 16-byte aligned storage, 4 <= Dh <= 256 with Dh % 4 == 0, and
-G <= MAX_GROUP a launch; `flash_attention_cuda` runs a larger G as groups of
+tensors with 16-byte aligned storage, any Dh >= 4 with Dh % 4 == 0 (16-byte
+loads of four elements), and G <= MAX_GROUP a launch; `flash_attention_cuda` runs a larger G as groups of
 at most MAX_GROUP query heads (`head_groups`), a launch each, forward and
 gradient (exact: query heads are independent given their KV head; dK and dV
 sum the groups' shares).
@@ -23,7 +27,11 @@ Two routes, picked by `route(dtype, Dh)`: "tc", the tensor-core kernels of
 `mma.sync` at the other head dims; the gradient on `mma.sync`), for
 bfloat16 at the head dims in `TC_HEAD_DIMS`; "simt", the CUDA-core kernels
 of `csrc/flash_attention.cu`, for everything else (float32 keeps exact
-float32 arithmetic there).
+float32 arithmetic there; bfloat16 past Dh 256 takes it too).  Past
+CHUNK_DH (256) the CUDA-core kernels run the head dim as column chunks of
+at most 256, a grid axis of their own (ceil(Dh / 256) x G may not pass
+65,535): each CTA reduces the scores over all of Dh and writes its own
+columns.
 `launches` counts the kernel calls: "flash_attention_fwd" one per forward,
 "flash_attention_bwd" one per gradient (a call launches three CUDA kernels:
 the dO.O row pre-pass, dK/dV, dQ); `route_launches` counts the same calls
@@ -37,12 +45,14 @@ from typing import Dict
 import torch
 
 from .. import build
-from .ref import mha_reference
+from ...distributed.sharding import is_distributed, merge_dims, split_dim
+from .ref import blockwise_attention, mha_reference
 
 launches: Dict[str, int] = {"flash_attention_fwd": 0, "flash_attention_bwd": 0}
 route_launches: Dict[str, int] = {f"{k}_{r}": 0 for k in launches for r in ("tc", "simt")}
 MAX_GROUP = 16
-MAX_HEAD_DIM = 256
+CHUNK_DH = 256        # output columns a CUDA-core CTA holds; more run as chunks
+MAX_GRID_Y = 65535    # the forward and dQ grids' y axis: G x chunks
 TC_HEAD_DIMS = (16, 32, 64, 112, 128, 256)
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 
@@ -97,8 +107,11 @@ def _check(q, k, v, name):
     Tk = k.shape[2]
     if not 1 <= G <= MAX_GROUP:
         raise ValueError(f"{name}: G={G} (max {MAX_GROUP})")
-    if not (4 <= Dh <= MAX_HEAD_DIM and Dh % 4 == 0):
-        raise ValueError(f"{name}: Dh={Dh} (a multiple of 4, at most {MAX_HEAD_DIM})")
+    if not (Dh >= 4 and Dh % 4 == 0):
+        raise ValueError(f"{name}: Dh={Dh} (a multiple of 4, at least 4)")
+    if G * -(-Dh // CHUNK_DH) > MAX_GRID_Y:
+        raise ValueError(f"{name}: G={G} x {-(-Dh // CHUNK_DH)} column chunks of "
+                         f"Dh={Dh} pass the grid's {MAX_GRID_Y}")
     if BH < 1 or BH > 65535 or Tq < 1 or Tk < 1:
         raise ValueError(f"{name}: BH={BH} (1..65535), Tq={Tq}, Tk={Tk}")
     for n, t in (("k", k), ("v", v)):
@@ -205,11 +218,13 @@ def flash_attention(q, k, v, causal: bool = True, window: int = 0):
         raise ValueError(f"flash_attention: q {tuple(q.shape)}, k {tuple(k.shape)}, "
                          f"v {tuple(v.shape)}")
     Hkv, Tk = k.shape[1], k.shape[2]
+    dev = q.device
+    if dev.type == "meta" or is_distributed(q):
+        return grouped_attention(q, k, v, causal, int(window))
     qr = q.reshape(B * Hkv, Hq // Hkv, Tq, Dh)
     kr = k.reshape(B * Hkv, 1, Tk, Dh)
     vr = v.reshape(B * Hkv, 1, Tk, Dh)
-    dev = q.device
-    if dev.type in ("cpu", "meta"):     # meta: the dry-run's shapes only
+    if dev.type == "cpu":
         out = mha_reference(qr, kr, vr, causal=causal, window=int(window))
     elif dev.type == "cuda":
         out = flash_attention_cuda(qr.contiguous(), kr.contiguous(), vr.contiguous(),
@@ -217,3 +232,58 @@ def flash_attention(q, k, v, causal: bool = True, window: int = 0):
     else:
         raise ValueError(f"flash_attention: no kernel for device {dev}")
     return out.reshape(B, Hq, Tq, Dh)
+
+
+def grouped_attention(q, k, v, causal: bool = True, window: int = 0):
+    """The reference's model attention in its own shape
+    (`src/repro/models/layers.py:109-180`, `ref.blockwise_attention`): q
+    [B, Hq, Tq, Dh] split into [B, Hkv, G, Tq, Dh] (`sharding.split_dim`,
+    which lays a DTensor out for the split as GSPMD would), k/v [B, Hkv, 1,
+    Tk, Dh], the online softmax over key blocks, then the heads merged back
+    (`merge_dims`).  On `meta` one block runs, counted by the loop's trip
+    count (unless `step_trace.unrolled()`).  A DTensor runs the loop on
+    each device's shard (`local_map`): q keeps its layout (batch, KV heads
+    and the sequence may be split), K and V follow it on batch and heads
+    and are whole over the sequence, and a shard of the sequence attends
+    from its own offset.  No kernel runs here: a DTensor on a CUDA device
+    raises."""
+    from ...launch import step_trace
+    B, Hq, Tq, Dh = q.shape
+    Hkv = k.shape[1]
+    qg = split_dim(q, 1, (Hkv, Hq // Hkv))
+    kg, vg = k.unsqueeze(2), v.unsqueeze(2)
+    trips = q.device.type == "meta" and step_trace.by_trip_count()
+    kw = dict(causal=bool(causal), window=max(int(window), 0), by_trip_count=trips)
+    if not is_distributed(qg):
+        return blockwise_attention(qg, kg, vg, **kw).reshape(B, Hq, Tq, Dh)
+    if q.device.type == "cuda":
+        raise ValueError("flash_attention: a DTensor on a CUDA device; the kernels "
+                         "take the local shards' plain tensors")
+    return merge_dims(_per_shard(qg, kg, vg, kw), 1, 2)
+
+
+def _per_shard(qg, kg, vg, kw):
+    """`blockwise_attention` on each device's shard of the grouped q (batch,
+    KV heads or the query sequence split, G whole) and of k/v (split as q
+    on batch and heads, whole over the sequence).  K and V's gradients are
+    partial over the mesh dimensions that split the query sequence."""
+    from torch.distributed.tensor import Partial, Replicate, Shard
+    from torch.distributed.tensor.experimental import local_map
+    mesh = qg.device_mesh
+    q_pl = tuple(qg.placements)
+    if any(p != Replicate() and p not in (Shard(0), Shard(1), Shard(3)) for p in q_pl):
+        raise ValueError(f"flash_attention: q laid out as {q_pl}; the attention takes "
+                         "batch, KV heads and the query sequence split, G whole")
+    kv_pl = tuple(p if p in (Shard(0), Shard(1)) else Replicate() for p in q_pl)
+    kv_grad = tuple(Partial() if p == Shard(3) else r for p, r in zip(q_pl, kv_pl))
+    seq = [i for i, p in enumerate(q_pl) if p == Shard(3)]
+
+    def body(ql, kl, vl):
+        chunk = 0                       # this shard's place along the sequence
+        for i in seq:
+            chunk = chunk * mesh.size(i) + mesh.get_local_rank(i)
+        return blockwise_attention(ql, kl, vl, q_offset=chunk * ql.shape[3], **kw)
+
+    return local_map(body, out_placements=(q_pl,), in_placements=(q_pl, kv_pl, kv_pl),
+                     in_grad_placements=(q_pl, kv_grad, kv_grad), device_mesh=mesh,
+                     redistribute_inputs=True)(qg, kg, vg)

@@ -50,6 +50,20 @@
 //     shared memory; after the barrier thread t accumulates acc[g][d] for
 //     its columns d = t, t + 128 over the chunk's 32 keys.
 //
+// Head dims past MAX_DH (256) run as column chunks on a third grid axis,
+// (B * Hkv, n_split, ceil(Dh / 256)), in `paged_attention_wide_kernel`: each
+// CTA computes the scores over the whole Dh and accumulates only its own
+// chunk of at most 256 output columns, so `acc` keeps COLS = 2 columns a
+// thread.  Its ring holds units of [KC][256] pool elements: for each chunk
+// of 32 keys, the ceil(Dh / 256) pieces of K in order (the scores reduce
+// over them in the order the Dh <= 256 kernel reduces over one row, so every
+// chunk's CTA gets the same scores and softmax statistics bit for bit), then
+// the CTA's own columns of V.  A unit is 32 KB at float32 (three fit
+// STAGE_BUDGET, where a chunk of full K rows at Dh 512 would take 64 KB and
+// K with V 128 KB); q stays whole in shared memory as float32.  The split
+// kernel of chunk 0 writes m and l; the merge kernel takes the chunk axis
+// too and merges each chunk's columns.  The Dh <= 256 kernel is unchanged.
+//
 // Tensor cores are not needed: G <= 16 query rows fill at most one m16
 // tile, the serving path's pools are float32, and the kernel is bound by
 // bytes, not operations.
@@ -69,7 +83,7 @@ constexpr int THREADS = 128;
 constexpr int WARPS = THREADS / 32;
 constexpr int KC = 32;                 // keys per chunk: one per lane
 constexpr int MAX_G = 16;              // query heads per KV head
-constexpr int MAX_DH = 256;            // head dim
+constexpr int MAX_DH = 256;            // head dim of one CTA's output columns
 constexpr int COLS = MAX_DH / THREADS; // PV columns per thread
 constexpr int G_PER_WARP = MAX_G / WARPS;
 constexpr float NEG_INF = -1e30f;
@@ -343,8 +357,214 @@ paged_attention_split_kernel(const TQ* __restrict__ q, const TKV* __restrict__ k
   }
 }
 
-// Grid B * Hkv, THREADS threads: the partials of one (sequence, KV head) in
-// split order into out [G][Dh].  The live splits are a prefix (a sequence's
+// Columns [col0, col0 + w) of keys [k0, k0 + KC) of one sequence's head
+// (those below `end`; zeros past it) into one unit of the wide kernel's
+// ring, [KC][ld] in the pools' dtype, zeros past w up to the next 16-byte
+// vector.  col0 is a multiple of MAX_DH, so a 16-byte row stays aligned.
+template <typename TKV>
+__device__ __forceinline__ void load_cols(TKV* dst, int ld, const TKV* src, const int* trow,
+                                          int k0, int end, int col0, int w,
+                                          const Shape& sh) {
+  constexpr int V = 16 / (int)sizeof(TKV);
+  const int lane = threadIdx.x & 31;
+  const int wv = (w + V - 1) / V * V;
+  for (int r = threadIdx.x >> 5; r < KC; r += WARPS) {
+    const int pos = k0 + r;
+    const bool ok = pos < end;
+    size_t off = 0;
+    if (ok) {
+      const int pg = pos / sh.page;
+      const int phys = min(max(__ldg(trow + pg), 0), sh.n_pool - 1);
+      off = ((size_t)phys * sh.page + (pos - pg * sh.page)) * sh.Dh + col0;
+    }
+    if (sh.vec) {                     // w is a multiple of V here
+      for (int c = lane * V; c < w; c += 32 * V)
+        cp_async16(smem_u32(dst + r * ld + c), src + off + c, ok);
+    } else {
+      for (int c = lane; c < wv; c += 32)
+        dst[r * ld + c] = ok && c < w ? src[off + c] : from_f32<TKV>(0.f);
+    }
+  }
+}
+
+// The ring's unit n of the wide kernel: key chunk n / (np + 1); its K piece
+// n % (np + 1) below np, else this CTA's columns of V.
+template <typename TKV>
+__device__ __forceinline__ void load_unit(TKV* ring, int n, int ld, const TKV* kh,
+                                          const TKV* vh, const int* trow, int k_begin,
+                                          int k_end, int np, int c0, int wc,
+                                          const Shape& sh) {
+  TKV* st = ring + (size_t)(n % sh.stages) * KC * ld;
+  const int c = n / (np + 1), j = n - c * (np + 1);
+  if (j < np)
+    load_cols(st, ld, kh, trow, k_begin + c * KC, k_end, j * MAX_DH,
+              min(MAX_DH, sh.Dh - j * MAX_DH), sh);
+  else
+    load_cols(st, ld, vh, trow, k_begin + c * KC, k_end, c0, wc, sh);
+}
+
+// Grid (B * Hkv, n_split, ceil(Dh / MAX_DH)), THREADS threads, Dh > MAX_DH:
+// as the split kernel, for output columns [c0, c0 + wc), c0 = MAX_DH *
+// blockIdx.z; m and l [G] are written by chunk 0.
+template <typename TQ, typename TKV>
+__global__ void __launch_bounds__(THREADS)
+paged_attention_wide_kernel(const TQ* __restrict__ q, const TKV* __restrict__ k_pool,
+                            const TKV* __restrict__ v_pool, const int* __restrict__ table,
+                            const int* __restrict__ lens, float* __restrict__ part_acc,
+                            float* __restrict__ part_ml, Shape sh, float scale) {
+  constexpr int V = 16 / (int)sizeof(TKV);
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  const int G = sh.G, Dh = sh.Dh;
+  const int ld = row_ld<TKV>(MAX_DH);
+  const int ldq = (Dh + 7) / 8 * 8;   // q rows in float32, zeros past Dh
+  const int np = (Dh + MAX_DH - 1) / MAX_DH;
+  const int c0 = blockIdx.z * MAX_DH, wc = min(MAX_DH, Dh - c0);
+  TKV* ring = reinterpret_cast<TKV*>(smem_raw);                     // [stages][KC][ld]
+  float* q_s = reinterpret_cast<float*>(ring + (size_t)sh.stages * KC * ld);  // [G][ldq]
+  float* p_s = q_s + G * ldq;                                       // [G][KC]
+  float* c_s = p_s + G * KC;                                        // [G]
+
+  const int bh = blockIdx.x, split = blockIdx.y;
+  const int b = bh / sh.Hkv, h = bh - b * sh.Hkv;
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int len = lens[b];
+  const int total = sh.max_pages * sh.page;
+  const bool masked = len <= 0;
+  const int end = masked ? total : min(len, total);
+  const int k_begin = split * sh.pps * sh.page;
+  const int k_end = min(end, k_begin + sh.pps * sh.page);
+  const size_t part = (size_t)bh * sh.n_split + split;
+  float* ml = part_ml + part * G * 2;
+  if (k_begin >= k_end) {
+    if (blockIdx.z == 0 && tid < G) {
+      ml[2 * tid] = NEG_INF;
+      ml[2 * tid + 1] = 0.f;
+    }
+    return;
+  }
+
+  const size_t head = (size_t)h * sh.n_pool * sh.page * Dh;
+  const TKV* kh = k_pool + head;
+  const TKV* vh = v_pool + head;
+  const int* trow = table + (size_t)b * sh.max_pages;
+  const int n_units = (k_end - k_begin + KC - 1) / KC * (np + 1);
+
+  if (!sh.vec) {                       // the padding columns must read as zeros
+    for (int i = tid; i < sh.stages * KC * ld; i += THREADS) ring[i] = from_f32<TKV>(0.f);
+    __syncthreads();
+  }
+  for (int n = 0; n < sh.stages - 1; ++n) {
+    if (n < n_units) load_unit(ring, n, ld, kh, vh, trow, k_begin, k_end, np, c0, wc, sh);
+    cp_async_commit();
+  }
+  const TQ* qp = q + (size_t)bh * G * Dh;
+  for (int i = tid; i < G * ldq; i += THREADS) {
+    const int g = i / ldq, d = i - g * ldq;
+    q_s[i] = d < Dh ? to_f32(qp[g * Dh + d]) : 0.f;
+  }
+
+  float m[G_PER_WARP], l[G_PER_WARP], s_run[G_PER_WARP];
+#pragma unroll
+  for (int i = 0; i < G_PER_WARP; ++i) {
+    m[i] = NEG_INF;
+    l[i] = 0.f;
+    s_run[i] = 0.f;
+  }
+  float acc[MAX_G][COLS];
+#pragma unroll
+  for (int g = 0; g < MAX_G; ++g)
+#pragma unroll
+    for (int c = 0; c < COLS; ++c) acc[g][c] = 0.f;
+
+  for (int u = 0; u < n_units; ++u) {
+    cp_async_wait(sh.stages - 2);
+    __syncthreads();                   // unit u landed; unit u - 1 consumed
+    {
+      const int n = u + sh.stages - 1;
+      if (n < n_units) load_unit(ring, n, ld, kh, vh, trow, k_begin, k_end, np, c0, wc, sh);
+      cp_async_commit();
+    }
+    const TKV* t = ring + (size_t)(u % sh.stages) * KC * ld;
+    const int c = u / (np + 1), j = u - c * (np + 1);
+    if (j < np) {
+      // piece j of the scores of key `lane` for rows warp, warp + 4, ...;
+      // after the last piece their online softmax across the warp
+      const int p0 = j * MAX_DH;
+      const int dv = (min(MAX_DH, Dh - p0) + V - 1) / V * V;
+      const int pos = k_begin + c * KC + lane;
+#pragma unroll
+      for (int i = 0; i < G_PER_WARP; ++i) {
+        const int g = warp + WARPS * i;
+        if (g >= G) break;
+        float s = j == 0 ? 0.f : s_run[i];
+        const TKV* kr = t + lane * ld;
+        const float* qr = q_s + g * ldq + p0;
+        for (int d = 0; d < dv; d += V) s = dot_vec(kr + d, qr + d, s);
+        s_run[i] = s;
+        if (j == np - 1) {
+          s = pos >= k_end ? -INFINITY : masked ? NEG_INF : s * scale;
+          const float m_new = fmaxf(m[i], warp_max(s));
+          const float p = expf(s - m_new);
+          const float corr = expf(m[i] - m_new);
+          l[i] = l[i] * corr + warp_sum(p);
+          m[i] = m_new;
+          p_s[g * KC + lane] = to_f32(from_f32<TKV>(p));   // p in the pools' dtype
+          if (lane == 0) c_s[g] = corr;
+        }
+      }
+    } else {
+      // acc = acc * corr + p @ V over the chunk, thread t owning columns
+      // c0 + t, c0 + t + THREADS (p and corr published by the barrier above)
+#pragma unroll
+      for (int cc = 0; cc < COLS; ++cc) {
+        const int d = tid + cc * THREADS;
+        if (d >= wc) continue;
+        float part_g[MAX_G];
+#pragma unroll
+        for (int g = 0; g < MAX_G; ++g) part_g[g] = 0.f;
+        for (int jj = 0; jj < KC; jj += 4) {
+          const float v0 = to_f32(t[jj * ld + d]), v1 = to_f32(t[(jj + 1) * ld + d]);
+          const float v2 = to_f32(t[(jj + 2) * ld + d]), v3 = to_f32(t[(jj + 3) * ld + d]);
+#pragma unroll
+          for (int g = 0; g < MAX_G; ++g) {
+            if (g < G) {
+              const float4 p = *reinterpret_cast<const float4*>(p_s + g * KC + jj);
+              part_g[g] = fmaf(p.x, v0, fmaf(p.y, v1, fmaf(p.z, v2, fmaf(p.w, v3, part_g[g]))));
+            }
+          }
+        }
+#pragma unroll
+        for (int g = 0; g < MAX_G; ++g)
+          if (g < G) acc[g][cc] = acc[g][cc] * c_s[g] + part_g[g];
+      }
+    }
+  }
+  cp_async_wait(0);
+
+  float* pa = part_acc + part * G * Dh + c0;
+#pragma unroll
+  for (int cc = 0; cc < COLS; ++cc) {
+    const int d = tid + cc * THREADS;
+    if (d >= wc) continue;
+#pragma unroll
+    for (int g = 0; g < MAX_G; ++g)
+      if (g < G) pa[g * Dh + d] = acc[g][cc];
+  }
+  if (lane == 0 && blockIdx.z == 0) {
+#pragma unroll
+    for (int i = 0; i < G_PER_WARP; ++i) {
+      const int g = warp + WARPS * i;
+      if (g < G) {
+        ml[2 * g] = m[i];
+        ml[2 * g + 1] = l[i];
+      }
+    }
+  }
+}
+
+// Grid (B * Hkv, ceil(Dh / MAX_DH)), THREADS threads: the partials of one
+// (sequence, KV head) in split order into out [G][Dh], output columns
+// [c0, c0 + wc) of chunk c0 / MAX_DH (all of Dh where Dh <= MAX_DH).  The live splits are a prefix (a sequence's
 // keys start at 0), the empty ones (l = 0) follow.  Shared memory: the
 // partials' m, l [n_split][G][2], then w [n_split][G], inv_l [G].
 template <typename TQ>
@@ -380,12 +600,14 @@ paged_attention_merge_kernel(const float* __restrict__ part_acc,
   const float* pa = part_acc + (size_t)bh * n_split * G * Dh;
   TQ* o = out + (size_t)bh * G * Dh;
   const int live = n_live;
-  for (int i = threadIdx.x; i < G * Dh; i += THREADS) {
-    const int g = i / Dh;
+  const int c0 = blockIdx.y * MAX_DH, wc = min(MAX_DH, Dh - c0);
+  for (int i = threadIdx.x; i < G * wc; i += THREADS) {
+    const int g = i / wc;
+    const int at = g * Dh + c0 + (i - g * wc);
     float acc = 0.f;
 #pragma unroll 4
-    for (int s = 0; s < live; ++s) acc = fmaf(pa[(size_t)s * G * Dh + i], w[s * G + g], acc);
-    o[i] = from_f32<TQ>(acc * inv_l[g]);
+    for (int s = 0; s < live; ++s) acc = fmaf(pa[(size_t)s * G * Dh + at], w[s * G + g], acc);
+    o[at] = from_f32<TQ>(acc * inv_l[g]);
   }
 }
 
@@ -399,26 +621,32 @@ template <typename TQ, typename TKV>
 cudaError_t launch(const void* q, const void* k_pool, const void* v_pool, const int* table,
                    const int* lens, void* out, float* part, int B, Shape sh, float scale,
                    cudaStream_t stream) {
-  const int ld = row_ld<TKV>(sh.Dh);
-  const size_t stage = sizeof(TKV) * 2 * KC * (size_t)ld;
+  // a stage: K and V rows of a chunk of keys, or (Dh > MAX_DH) one
+  // [KC][MAX_DH] unit of the wide kernel's ring
+  const bool wide = sh.Dh > MAX_DH;
+  const int ld = row_ld<TKV>(wide ? MAX_DH : sh.Dh);
+  const size_t stage = sizeof(TKV) * (wide ? 1 : 2) * KC * (size_t)ld;
   sh.stages = STAGE_BUDGET >= 3 * stage ? 3 : 2;
   const int ldq = (sh.Dh + 7) / 8 * 8;
   const size_t smem = stage * sh.stages + sizeof(float) * ((size_t)sh.G * (ldq + KC + 1));
-  auto split = paged_attention_split_kernel<TQ, TKV>;
+  auto split = wide ? &paged_attention_wide_kernel<TQ, TKV>
+                    : &paged_attention_split_kernel<TQ, TKV>;
   cudaError_t e = set_smem(split, smem);
   if (e != cudaSuccess) return e;
   const int BH = B * sh.Hkv;
+  const int n_chunk = (sh.Dh + MAX_DH - 1) / MAX_DH;
   float* part_acc = part;
   float* part_ml = part + (size_t)BH * sh.n_split * sh.G * sh.Dh;
-  split<<<dim3(BH, sh.n_split), THREADS, smem, stream>>>(
+  split<<<dim3(BH, sh.n_split, n_chunk), THREADS, smem, stream>>>(
       static_cast<const TQ*>(q), static_cast<const TKV*>(k_pool),
       static_cast<const TKV*>(v_pool), table, lens, part_acc, part_ml, sh, scale);
   if ((e = cudaGetLastError()) != cudaSuccess) return e;
   const size_t msmem = sizeof(float) * ((size_t)sh.n_split * sh.G * 3 + sh.G);
   auto merge = paged_attention_merge_kernel<TQ>;
   if ((e = set_smem(merge, msmem)) != cudaSuccess) return e;
-  merge<<<BH, THREADS, msmem, stream>>>(part_acc, part_ml, static_cast<TQ*>(out), sh.G,
-                                        sh.Dh, sh.n_split);
+  merge<<<dim3(BH, n_chunk), THREADS, msmem, stream>>>(part_acc, part_ml,
+                                                       static_cast<TQ*>(out), sh.G, sh.Dh,
+                                                       sh.n_split);
   return cudaGetLastError();
 }
 
@@ -435,7 +663,8 @@ extern "C" int pa_paged_attention(const void* q, const void* k_pool, const void*
                                   int B, int Hkv, int G, int Dh, int n_pool, int page_size,
                                   int max_pages, int pages_per_split, int q_dtype,
                                   int kv_dtype, int vec16, float scale, void* stream) {
-  if (G < 1 || G > MAX_G || Dh < 1 || Dh > MAX_DH || page_size < 1 || max_pages < 1 ||
+  if (G < 1 || G > MAX_G || Dh < 1 || (Dh + MAX_DH - 1) / MAX_DH > 65535 || page_size < 1 ||
+      max_pages < 1 ||
       n_pool < 1 || pages_per_split < 1 || q_dtype < 0 || q_dtype > 1 || kv_dtype < 0 ||
       kv_dtype > 1 || (long long)max_pages * page_size > 0x7fffffffLL)
     return (int)cudaErrorInvalidValue;

@@ -11,7 +11,11 @@ partials; `splits` picks the split from max_pages and the shape, never from
 the lengths, so a call makes no host sync.  `launches["paged_attention"]`
 counts launches, one per call of up to MAX_GROUP query heads a KV head: a
 q of more runs in groups of at most MAX_GROUP (`head_groups`), a launch
-each (exact: query heads are independent given their KV head).
+each (exact: query heads are independent given their KV head).  Past
+CHUNK_DH (256) the head dim runs as column chunks of at most 256, a third
+axis of the split grid and a second of the merge grid; the limit left is
+the split kernel's shared memory (`split_smem_bytes`): q in float32 and a
+ring of K/V units, at most SMEM_LIMIT, which G 16 reaches near Dh 2,000.
 """
 from __future__ import annotations
 
@@ -26,7 +30,10 @@ from .ref import paged_attention_reference
 
 launches: Dict[str, int] = {"paged_attention": 0}
 MAX_GROUP = 16        # query heads per KV head the kernel holds
-MAX_HEAD_DIM = 256
+CHUNK_DH = 256        # output columns a CTA holds; more run as chunks
+KEYS_PER_CHUNK = 32   # keys a stage of the ring holds (one per lane)
+STAGE_BUDGET = 112 * 1024   # bytes of the K/V ring
+SMEM_LIMIT = 232448   # shared memory a CTA may take on sm_90 (227 KB)
 CTAS_PER_SM = 4       # split CTAs launched per SM, live or not
 MAX_SPLITS = 128
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
@@ -44,6 +51,24 @@ def _entry():
         f.argtypes = [P] * 7 + [I] * 11 + [ctypes.c_float, P]
         f.restype = I
     return f
+
+
+def split_smem_bytes(G: int, Dh: int, pool_elem: int) -> int:
+    """Shared memory of the split kernel (csrc/paged_attention.cu
+    `launch`): its ring of 2 or 3 stages (K and V rows of 32 keys up to
+    CHUNK_DH; past it, [32][CHUNK_DH] units of K pieces and V chunks), then
+    q [G][Dh rounded up to 8] in float32, p [G][32] and the correction [G].
+    Rows are padded to a 16-byte vector and one more."""
+    vec = 16 // pool_elem
+
+    def row_ld(n):
+        return -(-n // vec) * vec + vec
+
+    wide = Dh > CHUNK_DH
+    stage = pool_elem * (1 if wide else 2) * KEYS_PER_CHUNK * row_ld(
+        CHUNK_DH if wide else Dh)
+    stages = 3 if STAGE_BUDGET >= 3 * stage else 2
+    return stages * stage + 4 * G * (-(-Dh // 8) * 8 + KEYS_PER_CHUNK + 1)
 
 
 def splits(bh: int, max_pages: int, sms: int):
@@ -93,9 +118,8 @@ def paged_attention_cuda(q, k_pool, v_pool, page_table, lengths):
     B, Hkv, G, Dh = q.shape
     _, n_pool, page, _ = k_pool.shape
     max_pages = page_table.shape[1] if page_table.dim() == 2 else -1
-    if G < 1 or not 1 <= Dh <= MAX_HEAD_DIM:
-        raise ValueError(f"paged_attention: G={G} (at least 1), "
-                         f"Dh={Dh} (max {MAX_HEAD_DIM})")
+    if G < 1 or Dh < 1:
+        raise ValueError(f"paged_attention: G={G}, Dh={Dh} (at least 1 each)")
     if G > MAX_GROUP:
         return torch.cat([paged_attention_cuda(qg.contiguous(), k_pool, v_pool,
                                                page_table, lengths)
@@ -108,6 +132,10 @@ def paged_attention_cuda(q, k_pool, v_pool, page_table, lengths):
     _check("v_pool", v_pool, k_pool.dtype, (Hkv, n_pool, page, Dh), dev)
     _check("page_table", page_table, torch.int32, (B, max_pages), dev)
     _check("lengths", lengths, torch.int32, (B,), dev)
+    smem = split_smem_bytes(G, Dh, k_pool.element_size())
+    if smem > SMEM_LIMIT:
+        raise ValueError(f"paged_attention: G={G} at Dh={Dh} needs {smem} bytes of "
+                         f"shared memory a CTA (at most {SMEM_LIMIT})")
     out = torch.empty_like(q)
     if B * Hkv == 0:
         return out

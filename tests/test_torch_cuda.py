@@ -27,7 +27,9 @@ moe, hybrid, audio and vlm families at their reduced sizes: the kernel
 path against the plain path on the CPU (logits 1e-4, the loss 1e-4
 relative, each gradient leaf 1e-3 of its largest magnitude), two decodes
 bit-equal, and `layers.flash_attention` at Dh 112 and with `cross=True`
-at Tq != Tk.
+at Tq != Tk; and the flash and paged kernels past Dh 256 (column chunks:
+Dh 288, 512 and 1,024 in float32 and bfloat16, causal, windowed, Tq !=
+Tk, G > 16), against their plain versions with two calls bit-equal.
 
 These tests need a CUDA device and nvcc and skip without them.  They import
 neither JAX nor the JAX package, so they also run where only PyTorch is
@@ -481,7 +483,8 @@ def _flash_against_plain(cuda, shape, launches=1):
     assert fa_ops.launches == {"flash_attention_fwd": launches,
                                "flash_attention_bwd": launches}
     r = fa_ops.route(q.dtype, q.shape[-1])
-    assert r == ("simt" if q.dtype == torch.float32 or q.shape[-1] == 60 else "tc")
+    assert r == ("simt" if q.dtype == torch.float32
+                 or q.shape[-1] not in fa_ops.TC_HEAD_DIMS else "tc")
     assert {k: n for k, n in fa_ops.route_launches.items() if n} == {
         f"flash_attention_fwd_{r}": launches, f"flash_attention_bwd_{r}": launches}
     want = fa_ref.mha_reference(q, k, v, causal=causal, window=window)
@@ -540,6 +543,87 @@ def test_flash_attention_wrapper_refuses(cuda):
     with pytest.raises(ValueError, match="not contiguous"):
         fa_ops.flash_attention_cuda(q.transpose(0, 1).contiguous().transpose(0, 1), k, v)
     assert fa_ops.launches == {"flash_attention_fwd": 0, "flash_attention_bwd": 0}
+
+
+# Head dims past 256 (column chunks of at most 256, the CUDA-core route in
+# both dtypes), as FA_SHAPES: a ragged second chunk (288) causal, 512 with a
+# window inside a kv block, 1,024 non-causal, 512 in bf16 at a ragged T,
+# 288 cross-attention at Tq != Tk, rows that see no key at 512, and a
+# window with Tk > T (exact-zero dK and dV past T) at 1,024
+FA_WIDE_SHAPES = [(2, 2, 130, 288, torch.float32, True, 0),
+                  (2, 4, 200, 512, torch.float32, True, 48),
+                  (1, 2, 100, 1024, torch.float32, False, 0),
+                  (2, 4, 257, 512, torch.bfloat16, True, 0),
+                  (1, 2, 64, 288, torch.bfloat16, False, 0, 150),
+                  (1, 4, 300, 512, torch.float32, True, 16, 64),
+                  (2, 2, 64, 1024, torch.bfloat16, True, 40, 256)]
+FA_WIDE_IDS = ["f32_dh288", "f32_dh512_window", "f32_dh1024_noncausal", "bf16_dh512",
+               "bf16_dh288_cross_q64_k150", "f32_dh512_blind_rows_q300_k64",
+               "bf16_dh1024_causal_window_q64_k256"]
+
+
+@pytest.mark.parametrize("shape", FA_WIDE_SHAPES, ids=FA_WIDE_IDS)
+def test_flash_attention_past_dh256_matches_plain_version(cuda, shape):
+    """The CUDA-core kernels at Dh 288, 512 and 1,024: forward and gradient
+    within the plain version's tolerances, one launch each, and two
+    forward and two gradient calls bit-equal."""
+    assert fa_ops.route(shape[4], shape[3]) == "simt"
+    out, grads = _flash_against_plain(cuda, shape)
+    again, grads_again = _flash_against_plain(cuda, shape)
+    assert torch.equal(out, again)
+    for name, a, b in zip("qkv", grads, grads_again):
+        assert torch.equal(a, b), name
+
+
+@pytest.mark.parametrize("dt", [torch.bfloat16, torch.float32], ids=["bf16", "f32"])
+def test_flash_attention_past_dh256_head_groups_above_16(cuda, dt):
+    """G 20 at Dh 512: two head groups of 10, each in two column chunks."""
+    _flash_against_plain(cuda, (1, 20, 96, 512, dt, True, 0), launches=2)
+
+
+@pytest.mark.parametrize("dh", [288, 512, 1024])
+def test_paged_attention_past_dh256_matches_plain_version(cuda, dh):
+    """The paged kernel's column chunks at Dh 288, 512 and 1,024: bf16 q on
+    float32 pools (the serving path's), float32 throughout, and bf16 pools;
+    lengths of 0 over several splits among them; two calls bit-equal."""
+    for shape in [(4, 2, 4, dh, 16, 64, 12, torch.bfloat16, torch.float32),
+                  (4, 2, 8, dh, 16, 64, 40, torch.float32, torch.float32,
+                   [0, 5, 640, 1]),
+                  (2, 2, 16, dh, 16, 24, 5, torch.bfloat16, torch.bfloat16)]:
+        args = _pa_inputs(shape, cuda)
+        pa_ops.reset_launches()
+        got = pa_ops.paged_attention(*args)
+        again = pa_ops.paged_attention(*args)
+        want = pa_ref.paged_attention_reference(*args)
+        torch.cuda.synchronize()
+        assert pa_ops.launches["paged_attention"] == 2
+        tol = 2e-5 if got.dtype == torch.float32 else 2e-2
+        torch.testing.assert_close(got.float(), want.float(), atol=tol, rtol=tol)
+        assert torch.equal(got, again), shape
+
+
+def test_paged_attention_past_dh256_element_copies_and_head_groups(cuda):
+    """bf16 pools at Dh 516 (1,032-byte rows: copied element by element) and
+    G 20 at Dh 512 (two head groups, two launches)."""
+    for shape, n in (((3, 1, 4, 516, 16, 12, 5, torch.bfloat16, torch.bfloat16), 1),
+                     ((2, 2, 20, 512, 16, 24, 5, torch.bfloat16, torch.float32), 2)):
+        args = _pa_inputs(shape, cuda, seed=2)
+        pa_ops.reset_launches()
+        got = pa_ops.paged_attention(*args)
+        want = pa_ref.paged_attention_reference(*args)
+        torch.cuda.synchronize()
+        assert pa_ops.launches["paged_attention"] == n
+        torch.testing.assert_close(got.float(), want.float(), atol=2e-2, rtol=2e-2)
+
+
+def test_paged_attention_refuses_past_its_shared_memory(cuda):
+    """G 16 at Dh 4,096 needs more shared memory than a CTA may take: a
+    ValueError before any launch."""
+    args = _pa_inputs((1, 1, 16, 4096, 16, 4, 2, torch.float32, torch.float32), cuda)
+    pa_ops.reset_launches()
+    with pytest.raises(ValueError, match="shared memory"):
+        pa_ops.paged_attention(*args)
+    assert pa_ops.launches["paged_attention"] == 0
 
 
 # (B, H, T, D, lowest decay, initial state): tests/test_kernels.py's shapes
