@@ -24,9 +24,9 @@ Phases, each printing one JSON line:
                 through their plain version at the train phase's shape and
                 edge cases (forward 2e-5 f32 / 2e-2 bf16; gradients 1e-4
                 f32, 2e-2 of the largest reference gradient in bf16), each
-                case on its route (bf16 at Dh 16, 32, 64, 112, 128, 256 on
-                the tensor-core kernels, the rest on the CUDA-core ones, as
-                the per-route counters must show), key lengths Tk other than
+                case on its route (bf16 on the tensor-core kernels at every
+                head dim, float32 on the CUDA-core ones, as the per-route
+                counters must show), key lengths Tk other than
                 the query length among them (Whisper-large's cross-attention,
                 causal with either longer, rows that see no key; dK and dV of
                 keys no query sees exactly 0), two gradient calls bit
@@ -38,16 +38,20 @@ Phases, each printing one JSON line:
                 shape (B*H 512, T 1024) and edge cases (y and state 2e-3 abs
                 and rel; each gradient 2e-3 of its largest reference
                 magnitude; two forward and two gradient calls bit for bit
-                equal), timed beside their bounds; then G 20 query heads a
+                equal), timed beside their bounds, and last at D 256 (the
+                largest head size the kernels take); then G 20 query heads a
                 KV head (above the 16 a launch holds) through the flash
                 wrapper, forward and gradient in bf16 and float32, and the
                 paged wrapper, each as two head groups of 10 (a launch
                 each), at the same tolerances, two calls bit-equal; then
                 (flash_attention_wide) the flash kernels past Dh 256, in
-                column chunks of at most 256 on the CUDA-core route: Dh 512
-                at B 1, Hkv 8, G 4, T 1,024 in bf16 and float32, Dh 288 with
-                a window and as cross-attention (Tq 200, Tk 700), and Dh
-                1,024, held and timed as above (first, while the profiler is
+                column chunks of at most 256 (bf16 on the wide tensor-core
+                bodies, float32 on the CUDA cores): Dh 512 at B 1, Hkv 8,
+                G 4, T 1,024 in bf16 and float32, Dh 288 with a window and
+                as cross-attention (Tq 200, Tk 700), and Dh 1,024; then
+                (flash_attention_any_dh) Dh 96 at the train shape, Dh 80,
+                Dh 50 in bf16 (run at 64) and Dh 6 in float32 (run at 8),
+                held and timed as above (first, while the profiler is
                 fresh and the card's memory free);
   4. main     — `KV(cfg, device="cuda")` at the paper's YCSB shape (8-byte
                 keys, 100-byte values, Zipf 0.99, 10% memory budget): load
@@ -228,7 +232,9 @@ Phases, each printing one JSON line:
                 boundaries; past Dh 256 in column chunks: Dh 512 at the
                 serving shape's 8 lanes and 8 KV heads, also with a float32
                 q and with lengths of 0, Dh 288 on bf16 pools, Dh 1,024 at G
-                8; 2e-5 float32, 2e-2 bfloat16), two launches for two calls,
+                8; G 16 at Dh 4,096 in two head groups of 8, its q past a
+                CTA's shared memory otherwise; 2e-5 float32, 2e-2
+                bfloat16), two launches a head group for two calls,
                 the second bit for bit equal to the first, timed beside its
                 bound and
                 scaled_dot_product_attention;
@@ -1201,7 +1207,7 @@ def check_probe_kernel(kv, n_keys, seed, records):
 # (name, B, H, T, D, lowest decay, initial state in and final state out):
 # the train phase's call, the serve phase's decode step, rwkv_prefill's call
 # (`prefill_step`: no state in or out), then tests/test_kernels.py's shapes
-# and edge cases
+# and edge cases, and last the largest head size the kernels take (D 256)
 WKV_CASES = [("train", 2, 64, 4096, 64, 0.8, False),
              ("decode", 8, 64, 1, 64, 0.5, True),
              ("prefill", 8, 64, 1024, 64, 0.8, False),
@@ -1209,7 +1215,8 @@ WKV_CASES = [("train", 2, 64, 4096, 64, 0.8, False),
              ("kernels_1", 1, 2, 128, 64, 0.8, False),
              ("kernels_2_d128", 2, 1, 64, 128, 0.8, True),
              ("small_w_ragged", 1, 2, 197, 32, 1e-3, True),
-             ("d16", 2, 4, 70, 16, 1e-3, False)]
+             ("d16", 2, 4, 70, 16, 1e-3, False),
+             ("d256", 1, 8, 1024, 256, 0.8, True)]
 
 
 def wkv_bound(B, H, T, D, state, backward):
@@ -3129,7 +3136,7 @@ def paged_cases(cfg, live, seed):
     lens512 = i32(np.linspace(1, 16 * 33, B).round().astype(np.int64).tolist())
     k288, v288 = (rnd(2, 12, 16, 288, dtype=torch.bfloat16) for _ in range(2))
     k1024, v1024 = rnd(2, 12, 16, 1024), rnd(2, 12, 16, 1024)
-    return cases + [
+    cases += [
         ("dh512", (q512, k512, v512, t512, lens512)),
         ("dh512_f32", (q512.float(), k512, v512, t512, lens512)),
         ("dh512_len_0_multi_split", (q512, k512, v512, t512,
@@ -3139,6 +3146,11 @@ def paged_cases(cfg, live, seed):
         ("dh1024_g8", (rnd(3, 2, 8, 1024), k1024, v1024, full_table(3, 12, 5),
                        i32([7, 40, 80]))),
     ]
+    # then G 16 at Dh 4,096, whose q passes a CTA's shared memory: launched
+    # in head groups that fit (`group_limit`), drawn last
+    k4096, v4096 = rnd(1, 8, 16, 4096), rnd(1, 8, 16, 4096)
+    q4096 = rnd(2, 1, 16, 4096, dtype=torch.bfloat16)
+    return cases + [("dh4096_g16", (q4096, k4096, v4096, full_table(2, 8, 4), i32([17, 64])))]
 
 
 def paged_bound(q, k_pool, table, lens):
@@ -3202,14 +3214,17 @@ def check_paged_kernel(cfg, live, seed, records, cases=None, phase="kernels"):
         if not bitwise:
             raise AssertionError(f"paged_attention/{name}: two calls on the same "
                                  "inputs differ")
-        launches = pa_ops.launches["paged_attention"] - n0
-        if on_card and launches != 2:
-            raise AssertionError(f"paged_attention/{name}: {launches} launches for "
-                                 "two calls")
         q, kp, vp, table, lens = args
+        launches = pa_ops.launches["paged_attention"] - n0
+        groups = pa_ops.head_groups(q.shape[2], pa_ops.group_limit(q.shape[3],
+                                                                   kp.element_size()))
+        if on_card and launches != 2 * len(groups):
+            raise AssertionError(f"paged_attention/{name}: {launches} launches for "
+                                 f"two calls of {len(groups)} head groups")
         rec = dict(case=name, B=q.shape[0], Hkv=q.shape[1], G=q.shape[2],
                    Dh=q.shape[3], page=kp.shape[2], max_pages=table.shape[1],
                    q_dtype=str(q.dtype), pool_dtype=str(kp.dtype), launches=launches,
+                   head_groups=groups,
                    max_abs_err=err, tol=tol, bitwise_equal=bitwise)
         if on_card:
             lib = _library_call(*args)
@@ -3655,10 +3670,11 @@ def check_head_groups(device, seed, records):
 
 def wide_flash_cases():
     """(name, BH, G, Tq, Tk, Dh, dtype, causal, window, B) of the flash
-    kernels past Dh 256 (column chunks of at most 256, on the CUDA-core
-    route in both dtypes): Dh 512 at a prefill-like shape in bfloat16 and
-    float32, a ragged second chunk (Dh 288) with a window and as
-    cross-attention at Tq != Tk, and Dh 1,024."""
+    kernels past Dh 256 (column chunks of at most 256: the wide tensor-core
+    bodies in bfloat16, the CUDA-core ones in float32): Dh 512 at a
+    prefill-like shape in bfloat16 and float32, a ragged second chunk (Dh
+    288, run at 384 in bfloat16) with a window and as cross-attention at
+    Tq != Tk, and Dh 1,024."""
     import torch
     bf, f32 = torch.bfloat16, torch.float32
     return [("dh512_bf16", 1 * 8, 4, 1024, 1024, 512, bf, True, 0, 1),
@@ -3666,6 +3682,22 @@ def wide_flash_cases():
             ("dh288_f32_window", 2 * 2, 2, 600, 600, 288, f32, True, 100, 2),
             ("dh288_bf16_cross", 2 * 2, 2, 200, 700, 288, bf, False, 0, 2),
             ("dh1024_bf16", 1 * 2, 4, 512, 512, 1024, bf, True, 0, 1)]
+
+
+def any_dh_flash_cases():
+    """(name, BH, G, Tq, Tk, Dh, dtype, causal, window, B) of the flash
+    kernels at head dims between the powers of two: Dh 96 (Phi-3-mini's) at
+    the training path's shape (B 2, Hkv 8, G 4, T 4,096, causal) and Dh 80
+    (Phi-2's) at a prefill shape, each on a tensor-core body of its own;
+    Dh 50 in bfloat16 with a window (run at 64, zero-padded) and Dh 6 in
+    float32 (run at 8)."""
+    import torch
+    bf, f32 = torch.bfloat16, torch.float32
+    return [("dh96_train", TRAIN_BATCH * 8, 4, TRAIN_SEQ, TRAIN_SEQ, 96, bf, True, 0,
+             TRAIN_BATCH),
+            ("dh80_bf16", 1 * 8, 4, 1024, 1024, 80, bf, True, 0, 1),
+            ("dh50_bf16_window", 2 * 2, 4, 600, 600, 50, bf, True, 100, 2),
+            ("dh6_f32", 2 * 2, 2, 300, 300, 6, f32, True, 0, 2)]
 
 
 def check_flash_kernels(device, seed, records, cases=None, label="flash_attention"):
@@ -3695,9 +3727,9 @@ def check_flash_kernels(device, seed, records, cases=None, label="flash_attentio
         q, k, v, do = (torch.randn(s, generator=g, device=dev).to(dt) for s in
                        ((BH, G, T, Dh), (BH, 1, Tk, Dh), (BH, 1, Tk, Dh), (BH, G, T, Dh)))
         route = fa_ops.route(dt, Dh)
-        if (route == "tc") != (dt == torch.bfloat16 and Dh in (16, 32, 64, 112, 128, 256)):
+        if (route == "tc") != (dt == torch.bfloat16):
             raise AssertionError(f"flash/{name}: route {route} for {dt} at Dh {Dh}")
-        bitwise = None
+        bitwise = counts = None
         if on_card:
             fa_ops.reset_launches()
             o, lse = fa_ops.forward_cuda(q, k, v, causal, window)
@@ -3723,6 +3755,7 @@ def check_flash_kernels(device, seed, records, cases=None, label="flash_attentio
             raise AssertionError(f"flash_attention_bwd/{name}: dk or dv of keys that no "
                                  "query sees is not zero")
         rec = dict(case=name, route=route, BH=BH, G=G, T=T, Tk=Tk, Dh=Dh, dtype=str(dt),
+                   width=fa_ops.head_dim_for(dt, Dh), route_launches=counts,
                    causal=causal, window=window, max_abs_err=err, tol=tol,
                    grad_max_abs_err=gerr, grad_bitwise_equal=bitwise)
         del dq, dk, dv
@@ -4731,19 +4764,22 @@ FAMILY_PHASES = (("moe", moe_main), ("moe_train", moe_train), ("hybrid", hybrid_
 
 
 def _short_name(mangled):
-    """`fa_tc_forward_kernel<64>` from its mangled name."""
-    m = re.search(r"(fa_tc_[a-z_]+)(?:ILi(\d+)E)?", mangled)
+    """`fa_tc_forward_kernel<64>` (or `wkv_fwd_split_kernel<256, 16>`) from
+    its mangled name."""
+    m = re.search(r"((?:fa_tc|wkv)_[a-z_]+)(?:I((?:Li\d+E)+)E)?", mangled)
     if not m:
         return mangled[:80]
-    return f"{m.group(1)}<{m.group(2)}>" if m.group(2) else m.group(1)
+    args = re.findall(r"Li(\d+)E", m.group(2) or "")
+    return f"{m.group(1)}<{', '.join(args)}>" if args else m.group(1)
 
 
-def tc_kernel_report(build):
-    """Registers and spill bytes of the tensor-core flash kernels from the
-    build's ptxas output, and the count of HMMA / HGMMA instructions in each
-    from `cuobjdump -sass` where the toolkit has it."""
+def tc_kernel_report(build, lib="flash_attention_tc"):
+    """Registers and spill bytes of a library's kernels (by default the
+    tensor-core flash kernels) from the build's ptxas output, and the count
+    of HMMA / HGMMA instructions in each from `cuobjdump -sass` where the
+    toolkit has it."""
     rows, cur = {}, None
-    log = build.build_log.get("flash_attention_tc")
+    log = build.build_log.get(lib)
     if log is None:
         rows["ptxas"] = "not built in this process: no ptxas output"
     for ln in (log or "").splitlines():
@@ -4760,7 +4796,7 @@ def tc_kernel_report(build):
     exe = shutil.which("cuobjdump") or os.path.join(
         os.environ.get("CUDA_HOME", "/usr/local/cuda"), "bin", "cuobjdump")
     if os.path.exists(exe):
-        sass = subprocess.run([exe, "-sass", str(build.lib_path("flash_attention_tc"))],
+        sass = subprocess.run([exe, "-sass", str(build.lib_path(lib))],
                               capture_output=True, text=True, timeout=300).stdout
         cur = None
         for ln in sass.splitlines():
@@ -5107,8 +5143,10 @@ def _run_all(a, records, t_all, smi, name, t_build, dry):
 
     ptxas = {k: [ln.strip() for ln in v.splitlines() if "registers" in ln]
              for k, v in build.build_log.items()}
-    emit(records, dict(phase="build", seconds=t_build, ptxas=ptxas))
+    emit(records, dict(phase="build", seconds=t_build, ptxas=ptxas,
+                       seconds_by_source=dict(build.build_seconds)))
     emit(records, dict(phase="build_tc", kernels=tc_kernel_report(build)))
+    emit(records, dict(phase="build_wkv", kernels=tc_kernel_report(build, "wkv6")))
     # first, while the profiler has recorded nothing else in this process
     # (see _device_ms) and the card's memory is free for the plain version
     flash_summary = check_flash_kernels("cuda", SEED, records)
@@ -5119,6 +5157,9 @@ def _run_all(a, records, t_all, smi, name, t_build, dry):
     torch.cuda.empty_cache()
     check_flash_kernels("cuda", SEED, records, cases=wide_flash_cases(),
                         label="flash_attention_wide")
+    torch.cuda.empty_cache()
+    check_flash_kernels("cuda", SEED, records, cases=any_dh_flash_cases(),
+                        label="flash_attention_any_dh")
     torch.cuda.empty_cache()
 
     n_keys = 1 << a.log2_keys

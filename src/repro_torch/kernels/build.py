@@ -5,7 +5,8 @@ Each `csrc/<name>.cu` of a kernel package is compiled by `nvcc` for
 (`build/repro_torch_kernels/lib<name>-<hash>.so` at the repository root) and
 loaded with `ctypes`.  The file name carries a hash of the sources and flags,
 so an edited kernel is rebuilt and an unchanged one is reused.  All sources
-are compiled in parallel, one `nvcc` process each.
+are compiled in parallel, one `nvcc` process each (`build_seconds` holds
+each one's wall time).
 
 Nothing here runs at import time: the first kernel launch (or an explicit
 `build_all()`) builds.  A failed build raises with nvcc's output.
@@ -18,6 +19,7 @@ import os
 import shutil
 import subprocess
 import time
+from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 from typing import Dict, List, Optional
 
@@ -41,6 +43,7 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 
 _loaded: Dict[str, ctypes.CDLL] = {}
 build_log: Dict[str, str] = {}     # nvcc/ptxas output of the last build
+build_seconds: Dict[str, float] = {}   # wall seconds of each source's nvcc
 
 
 def nvcc_path() -> str:
@@ -74,20 +77,23 @@ def build_all(names: Optional[List[str]] = None) -> float:
         return 0.0
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     nvcc = nvcc_path()
-    procs = {}
-    for n in todo:
+
+    def compile_one(n):
         out = lib_path(n)
         tmp = out.with_suffix(f".{os.getpid()}.tmp")
-        cmd = [nvcc, *NVCC_FLAGS, "-o", str(tmp), str(SOURCES[n])]
-        procs[n] = (subprocess.Popen(cmd, stdout=subprocess.PIPE,
-                                     stderr=subprocess.STDOUT, text=True),
-                    tmp, out)
+        t = time.perf_counter()
+        proc = subprocess.run([nvcc, *NVCC_FLAGS, "-o", str(tmp), str(SOURCES[n])],
+                              stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+        build_seconds[n] = time.perf_counter() - t
+        return proc, tmp, out
+
+    with ThreadPoolExecutor(max_workers=len(todo)) as pool:
+        done = dict(zip(todo, pool.map(compile_one, todo)))
     failed = []
-    for n, (proc, tmp, out) in procs.items():
-        log, _ = proc.communicate()
-        build_log[n] = log
+    for n, (proc, tmp, out) in done.items():
+        build_log[n] = proc.stdout
         if proc.returncode != 0:
-            failed.append(f"--- {n} (exit {proc.returncode}) ---\n{log}")
+            failed.append(f"--- {n} (exit {proc.returncode}) ---\n{proc.stdout}")
         else:
             os.replace(tmp, out)
     if failed:

@@ -1,15 +1,16 @@
-// Flash attention for Hopper (sm_90a): the causal / windowed GQA forward
-// with an online softmax, and its gradient.
+// Flash attention for Hopper (sm_90a), float32 on the CUDA cores: the causal
+// / windowed GQA forward with an online softmax, and its gradient.
 //
-// Replaces the Pallas TPU kernel src/repro/kernels/flash_attention/
-// flash_attention.py:24-121 (`_fa_kernel`, `flash_attention_fwd`).  The JAX
+// Replaces, for float32 inputs, the Pallas TPU kernel src/repro/kernels/
+// flash_attention/flash_attention.py:24-121 (`_fa_kernel`,
+// `flash_attention_fwd`); bfloat16 runs on flash_attention_tc.cu.  The JAX
 // package has no gradient kernel: JAX differentiates the blockwise jnp loop
 // of src/repro/models/layers.py:109 (`flash_attention`), rematerialising the
 // scores per block.  The gradient here computes that derivative.
 //
 // Layout (the TPU kernel's): q, o [BH, G, Tq, Dh]; k, v [BH, Tk, Dh] (one
 // KV head per BH row, G query heads sharing it); lse, D [BH, G, Tq] float32.
-// q, k, v share one dtype, float32 or bfloat16.  Tq and Tk are independent
+// q, k, v, o and the gradients are float32.  Tq and Tk are independent
 // (cross-attention, a ragged cache); the causal mask is the reference's
 // top-left one, q >= k with both counted from 0.
 //
@@ -20,7 +21,7 @@
 // every lane of the warp holds their running max m and sum l (reduced with
 // shuffles) and an 8 x ceil(Dh/32) slice of the float32 accumulator.  Each
 // K/V block is staged in shared memory as float32, once per CTA.
-//   * scores q.k are float32 from float32 or bfloat16 inputs, times Dh^-0.5,
+//   * scores q.k are float32, times Dh^-0.5,
 //     masked to the finite -1e30 (causal: q >= k; window w > 0: q - k < w)
 //     and to -inf past Tk; p = exp(s - m_new) is rounded to v's dtype before the
 //     p.v product (the TPU kernel's `p.astype(v.dtype)`), l sums p unrounded;
@@ -73,17 +74,16 @@
 // right, not fast.
 //
 // Bound: operations.  At the training path's shape (B 2, Hkv 8, G 4, T 4096,
-// Dh 128, bf16, causal) the forward does 2.7e11 multiply-add FLOPs on 67 MB
-// of inputs and outputs; 989 TFLOP/s of bf16 tensor-core peak make 0.28 ms.
-// This first version multiplies in float32 on the CUDA cores (67 TFLOP/s
-// peak) from shared-memory tiles, 8 x 2 scores or 8 x 8 accumulator cells
-// per thread; mma/wgmma tiles and TMA are later work.
+// Dh 128, causal) the forward does 2.7e11 multiply-add FLOPs on 335 MB of
+// float32 inputs and outputs: 4.0 ms at the CUDA cores' 67 TFLOP/s float32
+// peak.  The products run in exact float32 on the CUDA cores (which the
+// float32 tolerances need; TF32 tensor cores would not hold them) from
+// shared-memory tiles, 8 x 2 scores or 8 x 8 accumulator cells per thread.
 //
 // Built by repro_torch/kernels/build.py with nvcc into a shared library with
 // a plain C interface, loaded with ctypes (repro_torch/kernels/
 // flash_attention/ops.py).
 
-#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
@@ -105,25 +105,14 @@ constexpr int K_Q = 64;               //        query rows per block
 constexpr int LDP = 64 + 4;           // row stride of the P / dS tiles
 
 __device__ __forceinline__ float to_f32(float x) { return x; }
-__device__ __forceinline__ float to_f32(__nv_bfloat16 x) { return __bfloat162float(x); }
 
 template <typename T> __device__ __forceinline__ T from_f32(float x);
 template <> __device__ __forceinline__ float from_f32<float>(float x) { return x; }
-template <> __device__ __forceinline__ __nv_bfloat16 from_f32<__nv_bfloat16>(float x) {
-  return __float2bfloat16_rn(x);
-}
 
 // Four consecutive elements (the row start is a multiple of 4 elements and
 // the wrapper checks 16-byte aligned bases) as float32.
 __device__ __forceinline__ float4 load4(const float* p) {
   return *reinterpret_cast<const float4*>(p);
-}
-__device__ __forceinline__ float4 load4(const __nv_bfloat16* p) {
-  const uint2 u = *reinterpret_cast<const uint2*>(p);
-  const __nv_bfloat162 a = *reinterpret_cast<const __nv_bfloat162*>(&u.x);
-  const __nv_bfloat162 b = *reinterpret_cast<const __nv_bfloat162*>(&u.y);
-  const float2 fa = __bfloat1622float2(a), fb = __bfloat1622float2(b);
-  return make_float4(fa.x, fa.y, fb.x, fb.y);
 }
 
 __device__ __forceinline__ float dot4(float4 a, float4 b, float acc) {
@@ -702,7 +691,7 @@ cudaError_t backward(const void* q, const void* k, const void* v, const void* o,
 // the grid's y axis holds G x chunks(Dh)
 bool bad_shape(int BH, int G, int Tq, int Tk, int Dh, int dtype) {
   return BH < 1 || BH > 65535 || G < 1 || Tq < 1 || Tk < 1 || Dh < 4 || (Dh & 3) != 0 ||
-         (long long)G * chunks(Dh) > 65535 || dtype < 0 || dtype > 1;
+         (long long)G * chunks(Dh) > 65535 || dtype != 0;
 }
 
 template <typename T>
@@ -726,9 +715,10 @@ cudaError_t backward_any(const void* q, const void* k, const void* v, const void
 
 }  // namespace
 
-// dtype: 0 float32, 1 bfloat16 (q, k, v, o and the gradients share it);
-// causal 0/1; window <= 0 means none; scale is Dh^-0.5 rounded to float32.
-// Returns 0 or a cudaError_t.
+// dtype: 0, float32 (q, k, v, o and the gradients; bfloat16 runs on
+// flash_attention_tc.cu's fa_tc_forward / fa_tc_backward, which share this
+// interface); causal 0/1; window <= 0 means none; scale is Dh^-0.5 rounded
+// to float32.  Returns 0 or a cudaError_t.
 extern "C" int fa_forward(const void* q, const void* k, const void* v, void* o, void* lse,
                           int BH, int G, int Tq, int Tk, int Dh, int dtype, int causal,
                           int window, float scale, void* stream) {
@@ -736,9 +726,7 @@ extern "C" int fa_forward(const void* q, const void* k, const void* v, void* o, 
   const Mask mask = make_mask(Tq, Tk, causal, window);
   float* l = static_cast<float*>(lse);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  return (int)(dtype == 0
-                   ? forward_any<float>(q, k, v, o, l, BH, G, Dh, mask, scale, s)
-                   : forward_any<__nv_bfloat16>(q, k, v, o, l, BH, G, Dh, mask, scale, s));
+  return (int)forward_any<float>(q, k, v, o, l, BH, G, Dh, mask, scale, s);
 }
 
 // D is float32 scratch of BH * G * Tq + BH * Dh elements.
@@ -751,9 +739,6 @@ extern "C" int fa_backward(const void* q, const void* k, const void* v, const vo
   const float* l = static_cast<const float*>(lse);
   float* d = static_cast<float*>(D);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  return (int)(dtype == 0
-                   ? backward_any<float>(q, k, v, o, l, dout, dq, dk, dv, d, BH, G, Dh,
-                                         mask, scale, s)
-                   : backward_any<__nv_bfloat16>(q, k, v, o, l, dout, dq, dk, dv, d, BH, G,
-                                                 Dh, mask, scale, s));
+  return (int)backward_any<float>(q, k, v, o, l, dout, dq, dk, dv, d, BH, G, Dh, mask,
+                                  scale, s);
 }

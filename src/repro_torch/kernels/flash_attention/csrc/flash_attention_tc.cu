@@ -1,13 +1,18 @@
 // Flash attention on Hopper's tensor cores (sm_90a, bfloat16): the causal /
 // windowed GQA forward with an online softmax, and its gradient.
 //
-// Replaces, for bfloat16 inputs and Dh in {16, 32, 64, 112, 128, 256}, the
-// Pallas TPU kernel src/repro/kernels/flash_attention/flash_attention.py:24-121
-// (`_fa_kernel`, `flash_attention_fwd`) and JAX's autodiff of the blockwise
-// loop src/repro/models/layers.py:109 (`flash_attention`).  float32 and other
-// head dims stay on the CUDA-core kernels of flash_attention.cu, whose float32
-// arithmetic holds the float32 tolerances; this file has the same layout, the
-// same mask and the same results up to bfloat16 rounding of P and dS.
+// Replaces, for bfloat16 inputs at every head dim, the Pallas TPU kernel
+// src/repro/kernels/flash_attention/flash_attention.py:24-121 (`_fa_kernel`,
+// `flash_attention_fwd`) and JAX's autodiff of the blockwise loop
+// src/repro/models/layers.py:109 (`flash_attention`).  The bodies are
+// instantiated at Dh 16, 32, 64, 80, 96, 112, 128 and 256, and past 256 at
+// any multiple of 128 (the wide bodies below); the wrapper zero-pads any
+// other head dim to the least of these at or above it, with the true head
+// dim's scale (exact: zero columns add nothing to Q K^T, and the padded
+// columns of O and of the gradients are dropped).  float32 stays on the
+// CUDA-core kernels of flash_attention.cu, whose float32 arithmetic holds the
+// float32 tolerances; this file has the same layout, the same mask and the
+// same results up to bfloat16 rounding of P and dS.
 //
 // Layout: q, o [BH, G, Tq, Dh]; k, v [BH, Tk, Dh] (one KV head per BH row, G
 // query heads sharing it); lse, D [BH, G, Tq] float32.  Tq and Tk are
@@ -15,10 +20,11 @@
 //
 // Bound: operations.  At the training path's shape (B 2, Hkv 8, G 4, T 4096,
 // Dh 128, causal) the forward does 2.7e11 FLOPs (0.28 ms at the 989 TFLOP/s
-// bf16 tensor-core peak), the gradient 6.9e11 (0.70 ms).  So every product
-// runs on the tensor cores with bf16 operands and f32 accumulators in
-// registers.  The forward at Dh 128 (the training path's) uses Hopper's
-// `wgmma` with K/V brought by TMA into an mbarrier ring (see
+// bf16 tensor-core peak), the gradient 6.9e11 (0.70 ms); at Dh 512 (B 1, Hkv
+// 8, G 4, T 1024) 3.4e10 and 8.6e10 FLOPs on 84 and 168 MB of inputs and
+// outputs.  So every product runs on the tensor cores with bf16 operands and
+// f32 accumulators in registers.  The forward at Dh 128 (the training
+// path's) uses Hopper's `wgmma` with K/V brought by TMA into an mbarrier ring (see
 // fa_tc_forward_kernel_wgmma below).  The forward at the other head dims and
 // the gradient use `mma.sync.m16n8k16`, operands brought from shared memory
 // with `ldmatrix` (`.trans` for the operands that are used transposed).  Their
@@ -28,9 +34,19 @@
 // copied with `cp.async` into two stages: the next tile's copy overlaps the
 // products on the current one.
 //
+// Registers and shared memory set the widths.  At Dh 256 a warp's 16 rows of
+// the O accumulator take 128 of its 255 registers, and one stage of Q, K and
+// V at Dh 512 would take 192 KB of the 227 KB of shared memory.  So past
+// 256 (the wide bodies, `fa_tc_*_kernel_wide`) no tile holds a whole row:
+// the reductions over Dh (Q K^T, dO V^T) run in 128-column pieces through
+// the two-stage ring, and the outputs split into chunks of 256 columns, a
+// grid axis of their own, each CTA accumulating its chunk after the last
+// piece; every chunk reduces the pieces in the same order, so P and lse are
+// the same bits in each.  The price is S (and dP) recomputed per chunk.
+//
 // Forward (mma.sync), one CTA of 8 warps per (bh, g, block of 128 query
 // rows), heaviest causal blocks first.  Warp w owns rows 16w..16w+15; their Q
-// fragments stay in registers for the whole key loop (Dh <= 112; re-read from
+// fragments stay in registers for the whole key loop (Dh <= 128; re-read from
 // shared memory at Dh 256).  Per block of BN keys (128, or 64 at Dh 256): S = Q K^T on the
 // tensor cores; scale, mask and the online softmax on the accumulator
 // fragments (the four lanes that share a row reduce with two shuffles); P is
@@ -657,12 +673,14 @@ fa_tc_forward_kernel_wgmma(const __grid_constant__ CUtensorMap tq,
 
 // D[row] = sum_d dO[row, d] * O[row, d], one warp per row; the CTAs past the
 // rows' (one per bh, launched only where some query row sees no key) sum dO
-// over those rows of all G heads, in order, into colsum [BH, DH]
-template <int DH>
+// over those rows of all G heads, in order, into colsum [BH, DH].  DH 0 reads
+// the head dim from `dh` (the wide bodies').
+template <int DH_>
 __global__ void __launch_bounds__(THREADS)
 fa_tc_rowdot_kernel(const bf16* __restrict__ dout, const bf16* __restrict__ out,
                     float* __restrict__ D, long long rows, float* __restrict__ colsum, int G,
-                    Mask mask) {
+                    Mask mask, int dh) {
+  const int DH = DH_ ? DH_ : dh;
   const long long row_blocks = (rows + WARPS - 1) / WARPS;
   if (blockIdx.x >= row_blocks) {
     const int bh = (int)(blockIdx.x - row_blocks);
@@ -1007,6 +1025,532 @@ fa_tc_dq_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
 }
 
 // ---------------------------------------------------------------------------
+// head dims past 256: the wide bodies
+// ---------------------------------------------------------------------------
+//
+// Dh (a multiple of PW = 128, the wrapper pads to it) splits two ways.  The
+// reductions over Dh (S = Q K^T, dP = dO V^T) run in pieces of PW columns,
+// staged by cp.async through a two-stage swizzled ring, every piece in the
+// same order in every CTA, so S, P, lse and dS are the same bits in every
+// chunk.  The outputs (O, dQ, dK, dV) split into chunks of CW = 256 columns
+// (the last one 128 where Dh is an odd multiple of 128), a grid axis (z) of
+// their own; each CTA accumulates its chunk's columns of the product that
+// ends there, P V, dS K, P^T dO and dS^T Q, from a tile of the chunk's
+// columns that arrives with the last piece.  In the gradient two warps
+// share each 16 keys (dK/dV) or 16 query rows (dQ): each computes S and dP
+// for half of the other side's 64, rounds P^T and dS^T (dS) to bf16 into
+// shared memory, and after a barrier each reads the whole 16 x 64 block as
+// the A operand of its 128 columns.  So no product is computed twice inside
+// a CTA; across chunks S and dP are recomputed (the forward does 1.5x the
+// bound's products at Dh 512, the gradient 2.2x), and there are no float
+// atomics.
+
+constexpr int PW = 128;   // columns of a piece of the reductions over Dh
+constexpr int CW = 256;   // output columns a CTA holds (a chunk)
+
+int wide_chunks(int Dh) { return (Dh + CW - 1) / CW; }
+
+// rows [row0, row0 + ROWS) x columns [col0, col0 + W) of a [Tn, ld] bf16
+// matrix into a swizzled [ROWS][DP] tile, zeros past Tn (cp.async, not
+// committed); W a multiple of 8, at most DP
+template <int ROWS, int DP>
+__device__ __forceinline__ void load_cols(bf16* dst, const bf16* src, int ld, int row0, int Tn,
+                                          int col0, int W) {
+  const int CH = W / 8;
+  for (int i = threadIdx.x; i < ROWS * CH; i += THREADS) {
+    const int r = i / CH, c = i - r * CH;
+    const int gr = row0 + r;
+    const bool ok = gr < Tn;
+    cp_async16(smem_u32(dst + swz<DP>(r, c)), src + (size_t)(ok ? gr : 0) * ld + col0 + c * 8,
+               ok);
+  }
+}
+
+// a 16 x 8 accumulator tile's two rows, rounded to bf16, into a swizzled
+// [rows][64] tile at (row, col): the A operand of a later ldmatrix
+__device__ __forceinline__ void put_a(bf16* t, int row, int col, const float (&c)[4]) {
+  *reinterpret_cast<uint32_t*>(t + swz<64>(row, col >> 3) + (col & 7)) = pack_bf16(c[0], c[1]);
+  *reinterpret_cast<uint32_t*>(t + swz<64>(row + 8, col >> 3) + (col & 7)) =
+      pack_bf16(c[2], c[3]);
+}
+
+// Forward: one CTA of 8 warps per (bh, g, block of 128 query rows, chunk);
+// warp w owns rows 16w..16w+15 and the chunk's columns of O.  Per key block
+// of 64: S over the pieces (Q from shared memory: whole where it fits, at
+// Dh <= 640, else a piece a step through the ring with K), the online
+// softmax, then O += P V over the chunk, V's chunk arriving with the last
+// piece.
+struct WideFwd {
+  static constexpr int BM = 128, BN = 64;
+  static size_t smem(int Dh, bool q_whole) {
+    return sizeof(bf16) * ((q_whole ? (size_t)BM * Dh : 2 * (size_t)BM * PW) +
+                           2 * (size_t)BN * PW + (size_t)BN * CW);
+  }
+};
+
+__global__ void __launch_bounds__(THREADS, 1)
+fa_tc_forward_kernel_wide(const bf16* __restrict__ q, const bf16* __restrict__ k,
+                          const bf16* __restrict__ v, bf16* __restrict__ o,
+                          float* __restrict__ lse, int G, int Dh, int q_whole, Mask mask,
+                          float scale_log2) {
+  using C = WideFwd;
+  const int Tq = mask.Tq, Tk = mask.Tk;
+  constexpr int BM = C::BM, BN = C::BN;
+  constexpr int NS = BN / 8, NO = CW / 8;
+  extern __shared__ __align__(128) unsigned char smem_raw[];
+  bf16* Qs = reinterpret_cast<bf16*>(smem_raw);            // [np][BM][PW] or [2][BM][PW]
+  bf16* Ks = Qs + (q_whole ? BM * Dh : 2 * BM * PW);       // [2][BN][PW]
+  bf16* Vs = Ks + 2 * BN * PW;                              // [BN][CW]
+
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int gq = lane >> 2, tq = lane & 3;
+  const int bh = blockIdx.x / G;
+  const int q0 = (gridDim.y - 1 - blockIdx.y) * BM;   // the longest causal blocks first
+  const int c0 = blockIdx.z * CW, wc = min(CW, Dh - c0);
+  const int np = Dh / PW;
+  const size_t qrow0 = (size_t)blockIdx.x * Tq;
+  const bf16* qh = q + qrow0 * Dh;
+  const bf16* kh = k + (size_t)bh * Tk * Dh;
+  const bf16* vh = v + (size_t)bh * Tk * Dh;
+  const int a_row = lane & 15, a_chk = lane >> 4;
+  const int b_row = (lane & 7) + ((lane >> 4) << 3), b_chk = (lane >> 3) & 1;
+
+  const int q_hi = min(q0 + BM, Tq) - 1;
+  const int kb0 = mask.key_lo(q0, q_hi) / BN, kb1 = mask.key_hi(q_hi) / BN;
+  const int steps = (kb1 - kb0 + 1) * np;
+  auto fetch = [&](int i) {          // key block kb0 + i / np, piece i % np
+    const int kb = kb0 + i / np, p = i % np, st = i & 1;
+    if (!q_whole) load_cols<BM, PW>(Qs + st * BM * PW, qh, Dh, q0, Tq, p * PW, PW);
+    load_cols<BN, PW>(Ks + st * BN * PW, kh, Dh, kb * BN, Tk, p * PW, PW);
+    if (p == np - 1) load_cols<BN, CW>(Vs, vh, Dh, kb * BN, Tk, c0, wc);
+  };
+  if (q_whole)
+    for (int p = 0; p < np; ++p) load_cols<BM, PW>(Qs + p * BM * PW, qh, Dh, q0, Tq, p * PW, PW);
+  fetch(0);
+  cp_async_commit();
+
+  float acc[NO][4], s[NS][4];
+#pragma unroll
+  for (int n = 0; n < NO; ++n) acc[n][0] = acc[n][1] = acc[n][2] = acc[n][3] = 0.f;
+  float m_a = NEG_INF, m_b = NEG_INF, l_a = 0.f, l_b = 0.f;
+  const int row_a = q0 + warp * 16 + gq, row_b = row_a + 8;
+
+  for (int i = 0; i < steps; ++i) {
+    const int st = i & 1, p = i % np, k0 = (kb0 + i / np) * BN;
+    if (i + 1 < steps) {
+      fetch(i + 1);
+      cp_async_commit();
+      cp_async_wait<1>();
+    } else {
+      cp_async_wait<0>();
+    }
+    __syncthreads();
+    const bf16* Qst = Qs + (q_whole ? p : st) * BM * PW;
+    const bf16* Kst = Ks + st * BN * PW;
+    if (p == 0) {
+#pragma unroll
+      for (int j = 0; j < NS; ++j) s[j][0] = s[j][1] = s[j][2] = s[j][3] = 0.f;
+    }
+#pragma unroll
+    for (int kk = 0; kk < PW / 16; ++kk) {
+      uint32_t a[4];
+      ldsm_x4(a, smem_u32(Qst + swz<PW>(warp * 16 + a_row, 2 * kk + a_chk)));
+#pragma unroll
+      for (int j = 0; j < NS / 2; ++j) {
+        uint32_t b[4];
+        ldsm_x4(b, smem_u32(Kst + swz<PW>(16 * j + b_row, 2 * kk + b_chk)));
+        mma(s[2 * j], a, b[0], b[1]);
+        mma(s[2 * j + 1], a, b[2], b[3]);
+      }
+    }
+    if (p == np - 1) {
+      softmax_step(s, acc, m_a, m_b, l_a, l_b, mask, mask.edge(q0, BM, k0, BN), row_a, row_b,
+                   k0, tq, scale_log2);
+      // O += P V over the chunk, P rounded to bf16 in registers
+#pragma unroll
+      for (int kk = 0; kk < BN / 16; ++kk) {
+        uint32_t a[4];
+        acc_to_a(a, s[2 * kk], s[2 * kk + 1]);
+#pragma unroll
+        for (int dp = 0; dp < NO / 2; ++dp) {
+          if (16 * dp < wc) {
+            uint32_t b[4];
+            ldsm_x4_t(b, smem_u32(Vs + swz<CW>(16 * kk + a_row, 2 * dp + a_chk)));
+            mma(acc[2 * dp], a, b[0], b[1]);
+            mma(acc[2 * dp + 1], a, b[2], b[3]);
+          }
+        }
+      }
+    }
+    __syncthreads();                  // this stage is consumed
+  }
+
+  // O = acc / l over the chunk's columns; lse from the first chunk
+  l_a = quad_sum(l_a);
+  l_b = quad_sum(l_b);
+  const float inv_a = 1.f / fmaxf(l_a, 1e-30f), inv_b = 1.f / fmaxf(l_b, 1e-30f);
+  if (row_a < Tq) {
+    bf16* orow = o + (qrow0 + row_a) * Dh + c0 + 2 * tq;
+#pragma unroll
+    for (int n = 0; n < NO; ++n)
+      if (8 * n < wc)
+        *reinterpret_cast<uint32_t*>(orow + 8 * n) =
+            pack_bf16(acc[n][0] * inv_a, acc[n][1] * inv_a);
+    if (tq == 0 && blockIdx.z == 0) lse[qrow0 + row_a] = (m_a + log2f(l_a)) * LN2;
+  }
+  if (row_b < Tq) {
+    bf16* orow = o + (qrow0 + row_b) * Dh + c0 + 2 * tq;
+#pragma unroll
+    for (int n = 0; n < NO; ++n)
+      if (8 * n < wc)
+        *reinterpret_cast<uint32_t*>(orow + 8 * n) =
+            pack_bf16(acc[n][2] * inv_b, acc[n][3] * inv_b);
+    if (tq == 0 && blockIdx.z == 0) lse[qrow0 + row_b] = (m_b + log2f(l_b)) * LN2;
+  }
+}
+
+// the gradient's wide tiles: 64 output rows a CTA (keys for dK/dV, query
+// rows for dQ), 64 rows of the other side a step, 8 warps: warp w owns the
+// 16 rows 16 (w / 2).. and, of the chunk, columns 128 (w % 2)..; for S and
+// dP it takes the other side's rows 32 (w % 2)..
+struct WideBwd {
+  static constexpr int BR = 64, BS = 64, DW = CW / 2;
+  // ring of [2] x (four [BS][PW] pieces), two [BS][CW] chunk tiles, two
+  // [BR][BS] bf16 blocks, lse and D [BS]
+  static constexpr size_t DKDV_SMEM = sizeof(bf16) * (2 * 4 * (size_t)BS * PW + 2 * BS * CW +
+                                                      2 * BR * BS) + sizeof(float) * 2 * BS;
+  // ring of [2] x (four [64][PW] pieces), one [BS][CW] chunk of K, the dS block
+  static constexpr size_t DQ_SMEM =
+      sizeof(bf16) * (2 * 4 * (size_t)BS * PW + (size_t)BS * CW + (size_t)BR * BS);
+};
+
+__global__ void __launch_bounds__(THREADS, 1)
+fa_tc_dkdv_kernel_wide(const bf16* __restrict__ q, const bf16* __restrict__ k,
+                       const bf16* __restrict__ v, const bf16* __restrict__ dout,
+                       const float* __restrict__ lse, const float* __restrict__ D,
+                       const float* __restrict__ colsum, bf16* __restrict__ dk,
+                       bf16* __restrict__ dv, int G, int Dh, Mask mask, float scale_log2,
+                       float scale) {
+  using C = WideBwd;
+  const int Tq = mask.Tq, Tk = mask.Tk;
+  constexpr int BK = C::BR, BQ = C::BS, DW = C::DW;
+  constexpr int NS = BQ / 2 / 8;       // n-tiles of this warp's half of S^T
+  constexpr int NO = DW / 8;           // n-tiles of dK, dV per warp
+  extern __shared__ __align__(128) unsigned char smem_raw[];
+  bf16* ring = reinterpret_cast<bf16*>(smem_raw);   // [2][K, V, Q, dO][64][PW]
+  bf16* Qc = ring + 2 * 4 * BQ * PW;                // [BQ][CW]  Q's chunk
+  bf16* Oc = Qc + BQ * CW;                          // [BQ][CW]  dO's chunk
+  bf16* Ps = Oc + BQ * CW;                          // [BK][BQ]  P^T
+  bf16* Ss = Ps + BK * BQ;                          // [BK][BQ]  dS^T
+  float* Ls = reinterpret_cast<float*>(Ss + BK * BQ);   // [BQ]  lse
+  float* Dsm = Ls + BQ;                                  // [BQ]  D
+
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int gq = lane >> 2, tq = lane & 3;
+  const int kw = warp >> 1, half = warp & 1, col0 = half * DW;
+  const int bh = blockIdx.x, k0 = blockIdx.y * BK;   // the longest causal blocks first
+  const int c0 = blockIdx.z * CW, wc = min(CW, Dh - c0);
+  const int np = Dh / PW;
+  const size_t krow0 = (size_t)bh * Tk;
+  const int a_row = lane & 15, a_chk = lane >> 4;
+  const int b_row = (lane & 7) + ((lane >> 4) << 3), b_chk = (lane >> 3) & 1;
+
+  const int k_hi = min(k0 + BK, Tk) - 1;
+  const int qb0 = mask.query_lo(k0) / BQ;
+  const int nq = max(0, mask.query_hi(k_hi) / BQ - qb0 + 1);   // 0: no query sees these keys
+  const int steps = G * nq * np;
+  auto fetch = [&](int i) {          // q step i / np (head g, block qs), piece i % np
+    const int it = i / np, p = i % np;
+    const int g = it / nq, qs = (qb0 + it - g * nq) * BQ;
+    const size_t qrow0 = ((size_t)bh * G + g) * Tq;
+    bf16* st = ring + (i & 1) * 4 * BQ * PW;
+    load_cols<BK, PW>(st, k + krow0 * Dh, Dh, k0, Tk, p * PW, PW);
+    load_cols<BK, PW>(st + BQ * PW, v + krow0 * Dh, Dh, k0, Tk, p * PW, PW);
+    load_cols<BQ, PW>(st + 2 * BQ * PW, q + qrow0 * Dh, Dh, qs, Tq, p * PW, PW);
+    load_cols<BQ, PW>(st + 3 * BQ * PW, dout + qrow0 * Dh, Dh, qs, Tq, p * PW, PW);
+    if (p == np - 1) {
+      load_cols<BQ, CW>(Qc, q + qrow0 * Dh, Dh, qs, Tq, c0, wc);
+      load_cols<BQ, CW>(Oc, dout + qrow0 * Dh, Dh, qs, Tq, c0, wc);
+      load_vec<BQ>(Ls, lse + qrow0, qs, Tq);
+      load_vec<BQ>(Dsm, D + qrow0, qs, Tq);
+    }
+  };
+  if (steps > 0) fetch(0);
+  cp_async_commit();
+
+  float dka[NO][4], dva[NO][4], s[NS][4], dp[NS][4];
+#pragma unroll
+  for (int n = 0; n < NO; ++n)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) dka[n][e] = dva[n][e] = 0.f;
+  const int key_a = k0 + kw * 16 + gq, key_b = key_a + 8;
+
+  for (int i = 0; i < steps; ++i) {
+    const int p = i % np;
+    if (i + 1 < steps) {
+      fetch(i + 1);
+      cp_async_commit();
+      cp_async_wait<1>();
+    } else {
+      cp_async_wait<0>();
+    }
+    __syncthreads();
+    const bf16* Kst = ring + (i & 1) * 4 * BQ * PW;
+    const bf16* Vst = Kst + BQ * PW;
+    const bf16* Qst = Kst + 2 * BQ * PW;
+    const bf16* Ost = Kst + 3 * BQ * PW;
+    if (p == 0) {
+#pragma unroll
+      for (int j = 0; j < NS; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) s[j][e] = dp[j][e] = 0.f;
+    }
+    // S^T = K Q^T and dP^T = V dO^T for this warp's 16 keys x 32 queries
+#pragma unroll
+    for (int kk = 0; kk < PW / 16; ++kk) {
+      uint32_t ak[4], av[4];
+      ldsm_x4(ak, smem_u32(Kst + swz<PW>(kw * 16 + a_row, 2 * kk + a_chk)));
+      ldsm_x4(av, smem_u32(Vst + swz<PW>(kw * 16 + a_row, 2 * kk + a_chk)));
+#pragma unroll
+      for (int j = 0; j < NS / 2; ++j) {
+        uint32_t b[4];
+        ldsm_x4(b, smem_u32(Qst + swz<PW>(half * 32 + 16 * j + b_row, 2 * kk + b_chk)));
+        mma(s[2 * j], ak, b[0], b[1]);
+        mma(s[2 * j + 1], ak, b[2], b[3]);
+        ldsm_x4(b, smem_u32(Ost + swz<PW>(half * 32 + 16 * j + b_row, 2 * kk + b_chk)));
+        mma(dp[2 * j], av, b[0], b[1]);
+        mma(dp[2 * j + 1], av, b[2], b[3]);
+      }
+    }
+    if (p != np - 1) {
+      __syncthreads();                // this stage is consumed
+      continue;
+    }
+    const int it = i / np;
+    const int q0 = (qb0 + it % nq) * BQ;
+    // P^T = exp(scale S^T - lse), masked to 0; dS^T = P^T (dP^T - D); both
+    // to shared memory in bf16
+    const bool edge = mask.edge(q0, BQ, k0, BK);
+#pragma unroll
+    for (int j = 0; j < NS; ++j) {
+      const int qi = half * 32 + 8 * j + 2 * tq;
+      const float2 l2 = *reinterpret_cast<const float2*>(Ls + qi);
+      const float2 d2 = *reinterpret_cast<const float2*>(Dsm + qi);
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int c = e & 1;
+        float pv = exp2f(s[j][e] * scale_log2 - (c ? l2.y : l2.x) * LOG2E);
+        if (edge) {
+          const int qp = q0 + qi + c;
+          if (qp >= Tq || !mask.ok(qp, e < 2 ? key_a : key_b)) pv = 0.f;
+        }
+        s[j][e] = pv;
+        dp[j][e] = pv * (dp[j][e] - (c ? d2.y : d2.x));
+      }
+      put_a(Ps, kw * 16 + gq, qi, s[j]);
+      put_a(Ss, kw * 16 + gq, qi, dp[j]);
+    }
+    __syncthreads();
+    // dV += P^T dO, dK += dS^T Q over the BQ queries and this warp's columns
+    if (col0 < wc) {
+#pragma unroll
+      for (int kk = 0; kk < BQ / 16; ++kk) {
+        uint32_t ap[4], ad[4];
+        ldsm_x4(ap, smem_u32(Ps + swz<64>(kw * 16 + a_row, 2 * kk + a_chk)));
+        ldsm_x4(ad, smem_u32(Ss + swz<64>(kw * 16 + a_row, 2 * kk + a_chk)));
+#pragma unroll
+        for (int n = 0; n < NO / 2; ++n) {
+          uint32_t b[4];
+          const int chk = col0 / 8 + 2 * n + a_chk;
+          ldsm_x4_t(b, smem_u32(Oc + swz<CW>(16 * kk + a_row, chk)));
+          mma(dva[2 * n], ap, b[0], b[1]);
+          mma(dva[2 * n + 1], ap, b[2], b[3]);
+          ldsm_x4_t(b, smem_u32(Qc + swz<CW>(16 * kk + a_row, chk)));
+          mma(dka[2 * n], ad, b[0], b[1]);
+          mma(dka[2 * n + 1], ad, b[2], b[3]);
+        }
+      }
+    }
+    __syncthreads();                  // the stage, the chunk tiles and P^T, dS^T are consumed
+  }
+
+  if (col0 >= wc) return;
+  const int cc = c0 + col0 + 2 * tq;  // this lane's first column of the head dim
+  if (mask.blind < Tq) {              // rows that see no key: P = 1 / Tk on every key
+    const float pb = __bfloat162float(__float2bfloat16_rn(mask.inv_tk));
+    const float* cs = colsum + (size_t)bh * Dh + cc;
+#pragma unroll
+    for (int n = 0; n < NO; ++n) {
+      const float x0 = pb * cs[8 * n], x1 = pb * cs[8 * n + 1];
+      dva[n][0] += x0; dva[n][1] += x1;
+      dva[n][2] += x0; dva[n][3] += x1;
+    }
+  }
+  if (key_a < Tk) {
+    bf16* kr = dk + (krow0 + key_a) * Dh + cc;
+    bf16* vr = dv + (krow0 + key_a) * Dh + cc;
+#pragma unroll
+    for (int n = 0; n < NO; ++n) {
+      *reinterpret_cast<uint32_t*>(kr + 8 * n) = pack_bf16(dka[n][0] * scale, dka[n][1] * scale);
+      *reinterpret_cast<uint32_t*>(vr + 8 * n) = pack_bf16(dva[n][0], dva[n][1]);
+    }
+  }
+  if (key_b < Tk) {
+    bf16* kr = dk + (krow0 + key_b) * Dh + cc;
+    bf16* vr = dv + (krow0 + key_b) * Dh + cc;
+#pragma unroll
+    for (int n = 0; n < NO; ++n) {
+      *reinterpret_cast<uint32_t*>(kr + 8 * n) = pack_bf16(dka[n][2] * scale, dka[n][3] * scale);
+      *reinterpret_cast<uint32_t*>(vr + 8 * n) = pack_bf16(dva[n][2], dva[n][3]);
+    }
+  }
+}
+
+__global__ void __launch_bounds__(THREADS, 1)
+fa_tc_dq_kernel_wide(const bf16* __restrict__ q, const bf16* __restrict__ k,
+                     const bf16* __restrict__ v, const bf16* __restrict__ dout,
+                     const float* __restrict__ lse, const float* __restrict__ D,
+                     bf16* __restrict__ dq, int G, int Dh, Mask mask, float scale_log2,
+                     float scale) {
+  using C = WideBwd;
+  const int Tq = mask.Tq, Tk = mask.Tk;
+  constexpr int BM = C::BR, BN = C::BS, DW = C::DW;
+  constexpr int NS = BN / 2 / 8;       // n-tiles of this warp's half of S
+  constexpr int NO = DW / 8;           // n-tiles of dQ per warp
+  extern __shared__ __align__(128) unsigned char smem_raw[];
+  bf16* ring = reinterpret_cast<bf16*>(smem_raw);   // [2][Q, dO, K, V][64][PW]
+  bf16* Kc = ring + 2 * 4 * BN * PW;                // [BN][CW]  K's chunk
+  bf16* Ss = Kc + BN * CW;                          // [BM][BN]  dS
+
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int gq = lane >> 2, tq = lane & 3;
+  const int rw = warp >> 1, half = warp & 1, col0 = half * DW;
+  const int bh = blockIdx.x / G;
+  const int q0 = (gridDim.y - 1 - blockIdx.y) * BM;   // the longest causal blocks first
+  const int c0 = blockIdx.z * CW, wc = min(CW, Dh - c0);
+  const int np = Dh / PW;
+  const size_t qrow0 = (size_t)blockIdx.x * Tq;
+  const bf16* qh = q + qrow0 * Dh;
+  const bf16* oh = dout + qrow0 * Dh;
+  const bf16* kh = k + (size_t)bh * Tk * Dh;
+  const bf16* vh = v + (size_t)bh * Tk * Dh;
+  const int a_row = lane & 15, a_chk = lane >> 4;
+  const int b_row = (lane & 7) + ((lane >> 4) << 3), b_chk = (lane >> 3) & 1;
+
+  const int q_hi = min(q0 + BM, Tq) - 1;
+  const int kb0 = mask.key_lo(q0, q_hi) / BN, kb1 = mask.key_hi(q_hi) / BN;
+  const int steps = (kb1 - kb0 + 1) * np;
+  auto fetch = [&](int i) {          // key block kb0 + i / np, piece i % np
+    const int kb = kb0 + i / np, p = i % np;
+    bf16* st = ring + (i & 1) * 4 * BN * PW;
+    load_cols<BM, PW>(st, qh, Dh, q0, Tq, p * PW, PW);
+    load_cols<BM, PW>(st + BN * PW, oh, Dh, q0, Tq, p * PW, PW);
+    load_cols<BN, PW>(st + 2 * BN * PW, kh, Dh, kb * BN, Tk, p * PW, PW);
+    load_cols<BN, PW>(st + 3 * BN * PW, vh, Dh, kb * BN, Tk, p * PW, PW);
+    if (p == np - 1) load_cols<BN, CW>(Kc, kh, Dh, kb * BN, Tk, c0, wc);
+  };
+  fetch(0);
+  cp_async_commit();
+
+  const int row_a = q0 + rw * 16 + gq, row_b = row_a + 8;
+  const float ll_a = lse[qrow0 + min(row_a, Tq - 1)] * LOG2E;
+  const float ll_b = lse[qrow0 + min(row_b, Tq - 1)] * LOG2E;
+  const float d_a = D[qrow0 + min(row_a, Tq - 1)], d_b = D[qrow0 + min(row_b, Tq - 1)];
+  float acc[NO][4], s[NS][4], dp[NS][4];
+#pragma unroll
+  for (int n = 0; n < NO; ++n) acc[n][0] = acc[n][1] = acc[n][2] = acc[n][3] = 0.f;
+
+  for (int i = 0; i < steps; ++i) {
+    const int p = i % np;
+    if (i + 1 < steps) {
+      fetch(i + 1);
+      cp_async_commit();
+      cp_async_wait<1>();
+    } else {
+      cp_async_wait<0>();
+    }
+    __syncthreads();
+    const bf16* Qst = ring + (i & 1) * 4 * BN * PW;
+    const bf16* Ost = Qst + BN * PW;
+    const bf16* Kst = Qst + 2 * BN * PW;
+    const bf16* Vst = Qst + 3 * BN * PW;
+    if (p == 0) {
+#pragma unroll
+      for (int j = 0; j < NS; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) s[j][e] = dp[j][e] = 0.f;
+    }
+    // S = Q K^T and dP = dO V^T for this warp's 16 rows x 32 keys
+#pragma unroll
+    for (int kk = 0; kk < PW / 16; ++kk) {
+      uint32_t aq[4], ao[4];
+      ldsm_x4(aq, smem_u32(Qst + swz<PW>(rw * 16 + a_row, 2 * kk + a_chk)));
+      ldsm_x4(ao, smem_u32(Ost + swz<PW>(rw * 16 + a_row, 2 * kk + a_chk)));
+#pragma unroll
+      for (int j = 0; j < NS / 2; ++j) {
+        uint32_t b[4];
+        ldsm_x4(b, smem_u32(Kst + swz<PW>(half * 32 + 16 * j + b_row, 2 * kk + b_chk)));
+        mma(s[2 * j], aq, b[0], b[1]);
+        mma(s[2 * j + 1], aq, b[2], b[3]);
+        ldsm_x4(b, smem_u32(Vst + swz<PW>(half * 32 + 16 * j + b_row, 2 * kk + b_chk)));
+        mma(dp[2 * j], ao, b[0], b[1]);
+        mma(dp[2 * j + 1], ao, b[2], b[3]);
+      }
+    }
+    if (p != np - 1) {
+      __syncthreads();                // this stage is consumed
+      continue;
+    }
+    const int k0 = (kb0 + i / np) * BN;
+    const bool edge = mask.edge(q0, BM, k0, BN);
+#pragma unroll
+    for (int j = 0; j < NS; ++j) {
+      const int kj = half * 32 + 8 * j + 2 * tq;
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const bool lo = e < 2;
+        float pv = exp2f(s[j][e] * scale_log2 - (lo ? ll_a : ll_b));
+        if (edge && !mask.ok(lo ? row_a : row_b, k0 + kj + (e & 1))) pv = 0.f;
+        dp[j][e] = pv * (dp[j][e] - (lo ? d_a : d_b));
+      }
+      put_a(Ss, rw * 16 + gq, kj, dp[j]);
+    }
+    __syncthreads();
+    // dQ += dS K over the BN keys and this warp's columns
+    if (col0 < wc) {
+#pragma unroll
+      for (int kk = 0; kk < BN / 16; ++kk) {
+        uint32_t a[4];
+        ldsm_x4(a, smem_u32(Ss + swz<64>(rw * 16 + a_row, 2 * kk + a_chk)));
+#pragma unroll
+        for (int n = 0; n < NO / 2; ++n) {
+          uint32_t b[4];
+          ldsm_x4_t(b, smem_u32(Kc + swz<CW>(16 * kk + a_row, col0 / 8 + 2 * n + a_chk)));
+          mma(acc[2 * n], a, b[0], b[1]);
+          mma(acc[2 * n + 1], a, b[2], b[3]);
+        }
+      }
+    }
+    __syncthreads();                  // the stage, K's chunk and dS are consumed
+  }
+
+  if (col0 >= wc) return;
+  const int cc = c0 + col0 + 2 * tq;
+  if (row_a < Tq) {
+    bf16* r = dq + (qrow0 + row_a) * Dh + cc;
+#pragma unroll
+    for (int n = 0; n < NO; ++n)
+      *reinterpret_cast<uint32_t*>(r + 8 * n) = pack_bf16(acc[n][0] * scale, acc[n][1] * scale);
+  }
+  if (row_b < Tq) {
+    bf16* r = dq + (qrow0 + row_b) * Dh + cc;
+#pragma unroll
+    for (int n = 0; n < NO; ++n)
+      *reinterpret_cast<uint32_t*>(r + 8 * n) = pack_bf16(acc[n][2] * scale, acc[n][3] * scale);
+  }
+}
+
+// ---------------------------------------------------------------------------
 // launchers
 // ---------------------------------------------------------------------------
 
@@ -1077,6 +1621,45 @@ cudaError_t forward_wgmma(const bf16* q, const bf16* k, const bf16* v, bf16* o, 
   return cudaGetLastError();
 }
 
+cudaError_t forward_wide(const bf16* q, const bf16* k, const bf16* v, bf16* o, float* lse,
+                         int BH, int G, int Dh, Mask mask, float scale, cudaStream_t st) {
+  const bool q_whole = WideFwd::smem(Dh, true) <= 232448;   // Q of a CTA stays resident
+  const size_t smem = WideFwd::smem(Dh, q_whole);
+  cudaError_t e = set_smem(fa_tc_forward_kernel_wide, smem);
+  if (e != cudaSuccess) return e;
+  const dim3 grid(BH * G, (mask.Tq + WideFwd::BM - 1) / WideFwd::BM, wide_chunks(Dh));
+  fa_tc_forward_kernel_wide<<<grid, THREADS, smem, st>>>(q, k, v, o, lse, G, Dh, (int)q_whole,
+                                                         mask, scale * LOG2E);
+  return cudaGetLastError();
+}
+
+cudaError_t backward_wide(const bf16* q, const bf16* k, const bf16* v, const bf16* o,
+                          const float* lse, const bf16* dout, bf16* dq, bf16* dk, bf16* dv,
+                          float* D, int BH, int G, int Dh, Mask mask, float scale,
+                          cudaStream_t st) {
+  using C = WideBwd;
+  const long long rows = (long long)BH * G * mask.Tq;
+  float* colsum = D + rows;
+  const long long blocks = (rows + WARPS - 1) / WARPS + (mask.blind < mask.Tq ? BH : 0);
+  fa_tc_rowdot_kernel<0><<<(unsigned)blocks, THREADS, 0, st>>>(dout, o, D, rows, colsum, G,
+                                                                 mask, Dh);
+  cudaError_t e = cudaGetLastError();
+  if (e != cudaSuccess) return e;
+  const int nc = wide_chunks(Dh);
+  if ((e = set_smem(fa_tc_dkdv_kernel_wide, C::DKDV_SMEM)) != cudaSuccess) return e;
+  fa_tc_dkdv_kernel_wide<<<dim3(BH, (mask.Tk + C::BR - 1) / C::BR, nc), THREADS, C::DKDV_SMEM,
+                           st>>>(q, k, v, dout, lse, D, colsum, dk, dv, G, Dh, mask,
+                                 scale * LOG2E, scale);
+  if ((e = cudaGetLastError()) != cudaSuccess) return e;
+  if ((e = set_smem(fa_tc_dq_kernel_wide, C::DQ_SMEM)) != cudaSuccess) return e;
+  fa_tc_dq_kernel_wide<<<dim3(BH * G, (mask.Tq + C::BR - 1) / C::BR, nc), THREADS, C::DQ_SMEM,
+                         st>>>(q, k, v, dout, lse, D, dq, G, Dh, mask, scale * LOG2E, scale);
+  return cudaGetLastError();
+}
+
+// past 256, the wide bodies: a multiple of PW
+bool wide_dh(int Dh) { return Dh > 256 && Dh % PW == 0; }
+
 template <int DH>
 cudaError_t backward(const bf16* q, const bf16* k, const bf16* v, const bf16* o,
                      const float* lse, const bf16* dout, bf16* dq, bf16* dk, bf16* dv,
@@ -1086,7 +1669,7 @@ cudaError_t backward(const bf16* q, const bf16* k, const bf16* v, const bf16* o,
   float* colsum = D + rows;
   const long long blocks = (rows + WARPS - 1) / WARPS + (mask.blind < mask.Tq ? BH : 0);
   fa_tc_rowdot_kernel<DH><<<(unsigned)blocks, THREADS, 0, st>>>(dout, o, D, rows, colsum, G,
-                                                                  mask);
+                                                                  mask, DH);
   cudaError_t e = cudaGetLastError();
   if (e != cudaSuccess) return e;
 
@@ -1111,9 +1694,10 @@ bool bad_shape(int BH, int G, int Tq, int Tk) {
 }  // namespace
 
 // flash_attention.cu's interface, for dtype 1 (bfloat16 q, k, v, o and
-// gradients) and Dh in {16, 32, 64, 112, 128, 256}; causal 0/1; window <= 0
-// means none; scale is Dh^-0.5 rounded to float32.  Returns 0 or a
-// cudaError_t.
+// gradients) and Dh in {16, 32, 64, 80, 96, 112, 128, 256} or a multiple of
+// 128 past 256 (the wrapper zero-pads other head dims to one of these);
+// causal 0/1; window <= 0 means none; scale is the true head dim's
+// Dh^-0.5 rounded to float32.  Returns 0 or a cudaError_t.
 extern "C" int fa_tc_forward(const void* q, const void* k, const void* v, void* o, void* lse,
                              int BH, int G, int Tq, int Tk, int Dh, int dtype, int causal,
                              int window, float scale, void* stream) {
@@ -1129,10 +1713,14 @@ extern "C" int fa_tc_forward(const void* q, const void* k, const void* v, void* 
     case 16: return (int)forward<16>(qb, kb, vb, ob, l, BH, G, mask, scale, s);
     case 32: return (int)forward<32>(qb, kb, vb, ob, l, BH, G, mask, scale, s);
     case 64: return (int)forward<64>(qb, kb, vb, ob, l, BH, G, mask, scale, s);
+    case 80: return (int)forward<80>(qb, kb, vb, ob, l, BH, G, mask, scale, s);
+    case 96: return (int)forward<96>(qb, kb, vb, ob, l, BH, G, mask, scale, s);
     case 112: return (int)forward<112>(qb, kb, vb, ob, l, BH, G, mask, scale, s);
     case 128: return (int)forward_wgmma(qb, kb, vb, ob, l, BH, G, mask, scale, s);
     case 256: return (int)forward<256>(qb, kb, vb, ob, l, BH, G, mask, scale, s);
-    default: return (int)cudaErrorInvalidValue;
+    default:
+      if (!wide_dh(Dh)) return (int)cudaErrorInvalidValue;
+      return (int)forward_wide(qb, kb, vb, ob, l, BH, G, Dh, mask, scale, s);
   }
 }
 
@@ -1156,10 +1744,15 @@ extern "C" int fa_tc_backward(const void* q, const void* k, const void* v, const
     case 16: return FA_TC_BWD(16);
     case 32: return FA_TC_BWD(32);
     case 64: return FA_TC_BWD(64);
+    case 80: return FA_TC_BWD(80);
+    case 96: return FA_TC_BWD(96);
     case 112: return FA_TC_BWD(112);
     case 128: return FA_TC_BWD(128);
     case 256: return FA_TC_BWD(256);
-    default: return (int)cudaErrorInvalidValue;
+    default:
+      if (!wide_dh(Dh)) return (int)cudaErrorInvalidValue;
+      return (int)backward_wide(a[0], a[1], a[2], a[3], l, g, r[0], r[1], r[2], d, BH, G, Dh,
+                                mask, scale, s);
   }
 #undef FA_TC_BWD
 }

@@ -16,22 +16,27 @@ other device raises.
 `flash_attention_cuda` takes the kernels' layout (q [BH, G, Tq, Dh], k/v
 [BH, 1, Tk, Dh]) and raises for tensors that are not on a CUDA device.  The
 kernels take float32 or bfloat16 (one dtype for q, k and v), contiguous
-tensors with 16-byte aligned storage, any Dh >= 4 with Dh % 4 == 0 (16-byte
-loads of four elements), and G <= MAX_GROUP a launch; `flash_attention_cuda` runs a larger G as groups of
-at most MAX_GROUP query heads (`head_groups`), a launch each, forward and
-gradient (exact: query heads are independent given their KV head; dK and dV
-sum the groups' shares).
+tensors with 16-byte aligned storage, and BH <= MAX_BH and G <= MAX_GROUP a
+launch; `flash_attention_cuda` runs a larger BH as slices of at most MAX_BH
+rows and a larger G as groups of at most MAX_GROUP query heads
+(`head_groups`), a launch each, forward and gradient (exact: the rows are
+independent, and query heads are independent given their KV head; dK and
+dV sum the groups' shares).  Any head dim runs: `forward_cuda` and
+`backward_cuda` zero-pad q, k, v (o, dO) to `head_dim_for(dtype, Dh)`
+(`pad_head_dim`), launch at that width with the true Dh's scale Dh^-0.5,
+and slice the output and the gradients back (exact: zero columns add
+nothing to q.k, and the padded columns of o, dq, dk and dv are dropped).
 
 Two routes, picked by `route(dtype, Dh)`: "tc", the tensor-core kernels of
-`csrc/flash_attention_tc.cu` (the forward on `wgmma` at Dh 128, on
-`mma.sync` at the other head dims; the gradient on `mma.sync`), for
-bfloat16 at the head dims in `TC_HEAD_DIMS`; "simt", the CUDA-core kernels
-of `csrc/flash_attention.cu`, for everything else (float32 keeps exact
-float32 arithmetic there; bfloat16 past Dh 256 takes it too).  Past
-CHUNK_DH (256) the CUDA-core kernels run the head dim as column chunks of
-at most 256, a grid axis of their own (ceil(Dh / 256) x G may not pass
-65,535): each CTA reduces the scores over all of Dh and writes its own
-columns.
+`csrc/flash_attention_tc.cu`, for bfloat16 at every head dim (the forward
+on `wgmma` at Dh 128, on `mma.sync` at the others; the gradient on
+`mma.sync`; instantiated at the widths of TC_HEAD_DIMS, and past 256 at
+every multiple of WIDE_STEP (128) as column chunks of 256 over a
+reduction in 128-column pieces); "simt", the CUDA-core kernels of
+`csrc/flash_attention.cu`, for float32 (exact float32 arithmetic, which the
+float32 tolerances need; any Dh % 4 == 0, past CHUNK_DH (256) as column
+chunks of at most 256, a grid axis of their own: ceil(Dh / 256) x G may
+not pass 65,535).
 `launches` counts the kernel calls: "flash_attention_fwd" one per forward,
 "flash_attention_bwd" one per gradient (a call launches three CUDA kernels:
 the dO.O row pre-pass, dK/dV, dQ); `route_launches` counts the same calls
@@ -43,6 +48,7 @@ import ctypes
 from typing import Dict
 
 import torch
+import torch.nn.functional as F
 
 from .. import build
 from ...distributed.sharding import is_distributed, merge_dims, split_dim
@@ -51,9 +57,11 @@ from .ref import blockwise_attention, mha_reference
 launches: Dict[str, int] = {"flash_attention_fwd": 0, "flash_attention_bwd": 0}
 route_launches: Dict[str, int] = {f"{k}_{r}": 0 for k in launches for r in ("tc", "simt")}
 MAX_GROUP = 16
+MAX_BH = 65535        # KV heads (B x Hkv) a launch holds: the CUDA-core grids' z axis
 CHUNK_DH = 256        # output columns a CUDA-core CTA holds; more run as chunks
 MAX_GRID_Y = 65535    # the forward and dQ grids' y axis: G x chunks
-TC_HEAD_DIMS = (16, 32, 64, 112, 128, 256)
+TC_HEAD_DIMS = (16, 32, 64, 80, 96, 112, 128, 256)   # the tensor-core bodies' widths
+WIDE_STEP = 128       # past 256 the tensor-core bodies take multiples of this
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 
 
@@ -71,9 +79,35 @@ def head_groups(G: int, most: int = MAX_GROUP) -> list:
 
 
 def route(dtype: torch.dtype, head_dim: int) -> str:
-    """"tc" (tensor-core kernels) for bfloat16 at a head dim in
-    TC_HEAD_DIMS, else "simt" (CUDA-core kernels)."""
-    return "tc" if dtype == torch.bfloat16 and head_dim in TC_HEAD_DIMS else "simt"
+    """"tc" (tensor-core kernels) for bfloat16 at every head dim, "simt"
+    (CUDA-core kernels) for float32."""
+    return "tc" if dtype == torch.bfloat16 else "simt"
+
+
+def head_dim_for(dtype: torch.dtype, head_dim: int) -> int:
+    """The width the kernels run `head_dim` at: for bfloat16 the least of
+    TC_HEAD_DIMS at or above it, past 256 the next multiple of WIDE_STEP;
+    for float32 the next multiple of 4 (the CUDA-core kernels' 16-byte
+    loads)."""
+    if head_dim < 1:
+        raise ValueError(f"flash_attention: Dh={head_dim} (at least 1)")
+    if route(dtype, head_dim) == "simt":
+        return -(-head_dim // 4) * 4
+    for d in TC_HEAD_DIMS:
+        if head_dim <= d:
+            return d
+    return -(-head_dim // WIDE_STEP) * WIDE_STEP
+
+
+def pad_head_dim(width: int, *ts):
+    """`ts` with the last (head) dim zero-padded to `width`; a tensor that
+    already has it is returned as it is."""
+    return tuple(t if t.shape[-1] == width else F.pad(t, (0, width - t.shape[-1]))
+                 for t in ts)
+
+
+def _sliced(t, head_dim: int):
+    return t if t.shape[-1] == head_dim else t[..., :head_dim].contiguous()
 
 
 def _lib(which: str):
@@ -107,13 +141,12 @@ def _check(q, k, v, name):
     Tk = k.shape[2]
     if not 1 <= G <= MAX_GROUP:
         raise ValueError(f"{name}: G={G} (max {MAX_GROUP})")
-    if not (Dh >= 4 and Dh % 4 == 0):
-        raise ValueError(f"{name}: Dh={Dh} (a multiple of 4, at least 4)")
-    if G * -(-Dh // CHUNK_DH) > MAX_GRID_Y:
-        raise ValueError(f"{name}: G={G} x {-(-Dh // CHUNK_DH)} column chunks of "
+    width = head_dim_for(q.dtype, Dh)
+    if G * -(-width // CHUNK_DH) > MAX_GRID_Y:
+        raise ValueError(f"{name}: G={G} x {-(-width // CHUNK_DH)} column chunks of "
                          f"Dh={Dh} pass the grid's {MAX_GRID_Y}")
-    if BH < 1 or BH > 65535 or Tq < 1 or Tk < 1:
-        raise ValueError(f"{name}: BH={BH} (1..65535), Tq={Tq}, Tk={Tk}")
+    if BH < 1 or BH > MAX_BH or Tq < 1 or Tk < 1:
+        raise ValueError(f"{name}: BH={BH} (1..{MAX_BH}), Tq={Tq}, Tk={Tk}")
     for n, t in (("k", k), ("v", v)):
         if t.dtype != q.dtype:
             raise TypeError(f"{name}: {n} is {t.dtype}, q is {q.dtype}")
@@ -135,19 +168,20 @@ def _stream(dev):
 
 def forward_cuda(q, k, v, causal: bool, window: int):
     """The forward kernel: (o [BH, G, Tq, Dh] in q's dtype, lse [BH, G, Tq]
-    float32)."""
+    float32), run at `head_dim_for(dtype, Dh)` with Dh's scale."""
     BH, G, Tq, Tk, Dh = _check(q, k, v, "flash_attention_fwd")
-    r = route(q.dtype, Dh)
+    r, width, scale = route(q.dtype, Dh), head_dim_for(q.dtype, Dh), Dh ** -0.5
+    q, k, v = pad_head_dim(width, q, k, v)
     o = torch.empty_like(q)
     lse = torch.empty((BH, G, Tq), dtype=torch.float32, device=q.device)
     err = _lib(r)[0](q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
-                     lse.data_ptr(), BH, G, Tq, Tk, Dh, _DTYPE_CODE[q.dtype], int(causal),
-                     int(window), Dh ** -0.5, _stream(q.device))
+                     lse.data_ptr(), BH, G, Tq, Tk, width, _DTYPE_CODE[q.dtype], int(causal),
+                     int(window), scale, _stream(q.device))
     if err != 0:
         raise RuntimeError(f"flash_attention_fwd: CUDA error {err} at launch ({r} route)")
     launches["flash_attention_fwd"] += 1
     route_launches[f"flash_attention_fwd_{r}"] += 1
-    return o, lse
+    return _sliced(o, Dh), lse
 
 
 def backward_cuda(q, k, v, o, lse, do, causal: bool, window: int):
@@ -161,20 +195,21 @@ def backward_cuda(q, k, v, o, lse, do, causal: bool, window: int):
                              f"on {t.device}, expected {dt} {tuple(shape)}")
         if not t.is_contiguous() or t.data_ptr() % 16:
             raise ValueError(f"flash_attention_bwd: {n} is not contiguous and aligned")
-    r = route(q.dtype, Dh)
+    r, width, scale = route(q.dtype, Dh), head_dim_for(q.dtype, Dh), Dh ** -0.5
+    q, k, v, o, do = pad_head_dim(width, q, k, v, o, do)
     dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
-    # D = rowsum(dO * O) [BH, G, Tq], then [BH, Dh] for the rows that see no key
-    scratch = torch.empty(BH * G * Tq + BH * Dh, dtype=torch.float32, device=q.device)
+    # D = rowsum(dO * O) [BH, G, Tq], then [BH, width] for the rows that see no key
+    scratch = torch.empty(BH * G * Tq + BH * width, dtype=torch.float32, device=q.device)
     err = _lib(r)[1](q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
                      lse.data_ptr(), do.data_ptr(), dq.data_ptr(), dk.data_ptr(),
-                     dv.data_ptr(), scratch.data_ptr(), BH, G, Tq, Tk, Dh,
-                     _DTYPE_CODE[q.dtype], int(causal), int(window), Dh ** -0.5,
+                     dv.data_ptr(), scratch.data_ptr(), BH, G, Tq, Tk, width,
+                     _DTYPE_CODE[q.dtype], int(causal), int(window), scale,
                      _stream(q.device))
     if err != 0:
         raise RuntimeError(f"flash_attention_bwd: CUDA error {err} at launch ({r} route)")
     launches["flash_attention_bwd"] += 1
     route_launches[f"flash_attention_bwd_{r}"] += 1
-    return dq, dk, dv
+    return tuple(_sliced(t, Dh) for t in (dq, dk, dv))
 
 
 class _FlashAttention(torch.autograd.Function):
@@ -196,12 +231,22 @@ class _FlashAttention(torch.autograd.Function):
 def flash_attention_cuda(q, k, v, causal: bool = True, window: int = 0):
     """The kernels, forced: q [BH, G, Tq, Dh], k/v [BH, 1, Tk, Dh] on a CUDA
     device -> [BH, G, Tq, Dh], differentiable through the gradient kernels;
-    G above MAX_GROUP runs in `head_groups`, a launch each."""
+    BH above MAX_BH runs in slices of at most MAX_BH rows and G above
+    MAX_GROUP in `head_groups`, a launch each."""
     if q.device.type != "cuda":
         raise ValueError(f"flash_attention_cuda: q is on {q.device}; the kernel "
                          "needs CUDA tensors")
     causal, window = bool(causal), int(window)
-    if q.dim() != 4 or q.shape[1] <= MAX_GROUP:
+    if q.dim() != 4 or k.dim() != 4 or k.shape[0] != q.shape[0]:
+        return _FlashAttention.apply(q, k, v, causal, window)   # _check says what is wrong
+    if q.shape[0] <= MAX_BH:
+        return _grouped(q, k, v, causal, window)
+    return torch.cat([_grouped(q[i:i + MAX_BH], k[i:i + MAX_BH], v[i:i + MAX_BH], causal,
+                               window) for i in range(0, q.shape[0], MAX_BH)], dim=0)
+
+
+def _grouped(q, k, v, causal, window):
+    if q.shape[1] <= MAX_GROUP:
         return _FlashAttention.apply(q, k, v, causal, window)
     return torch.cat([_FlashAttention.apply(qg.contiguous(), k, v, causal, window)
                       for qg in q.split(head_groups(q.shape[1]), dim=1)], dim=1)

@@ -20,13 +20,16 @@ NEG_INF = -1e30
 BLOCK_KV = 1024       # the reference's key block (`block_kv`)
 
 
-def mha_reference(q, k, v, *, causal: bool = True, window: int = 0):
+def mha_reference(q, k, v, *, causal: bool = True, window: int = 0, scale=None):
     """q: [BH, G, Tq, Dh]; k/v: [BH, 1, Tk, Dh] -> [BH, G, Tq, Dh] in q's
     dtype.  Scores and the softmax are float32; masked positions (causal:
-    query >= key; window > 0: query - key < window) take the finite NEG_INF."""
+    query >= key; window > 0: query - key < window) take the finite NEG_INF.
+    The scores are scaled by `scale`, Dh^-0.5 by default (a head dim padded
+    with zero columns keeps its own)."""
     Tq, Dh = q.shape[2], q.shape[3]
     Tk = k.shape[2]
-    s = torch.einsum("bgqd,bokd->bgqk", q.float(), k.float()) * (Dh ** -0.5)
+    scale = Dh ** -0.5 if scale is None else scale
+    s = torch.einsum("bgqd,bokd->bgqk", q.float(), k.float()) * scale
     q_pos = torch.arange(Tq, device=q.device)[:, None]
     kv_pos = torch.arange(Tk, device=q.device)[None, :]
     mask = torch.ones((Tq, Tk), dtype=torch.bool, device=q.device)

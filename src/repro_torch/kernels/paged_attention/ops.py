@@ -13,9 +13,12 @@ counts launches, one per call of up to MAX_GROUP query heads a KV head: a
 q of more runs in groups of at most MAX_GROUP (`head_groups`), a launch
 each (exact: query heads are independent given their KV head).  Past
 CHUNK_DH (256) the head dim runs as column chunks of at most 256, a third
-axis of the split grid and a second of the merge grid; the limit left is
-the split kernel's shared memory (`split_smem_bytes`): q in float32 and a
-ring of K/V units, at most SMEM_LIMIT, which G 16 reaches near Dh 2,000.
+axis of the split grid and a second of the merge grid.  The split kernel
+holds a launch's q whole in shared memory (`split_smem_bytes`: q in
+float32 and a ring of K/V units, at most SMEM_LIMIT), so where G heads do
+not fit (G 16 passes it near Dh 2,000) they run in the largest groups that
+do (`group_limit`), a launch each, exactly as above; only a head dim at
+which one head does not fit (past about 33,000) raises.
 """
 from __future__ import annotations
 
@@ -71,6 +74,15 @@ def split_smem_bytes(G: int, Dh: int, pool_elem: int) -> int:
     return stages * stage + 4 * G * (-(-Dh // 8) * 8 + KEYS_PER_CHUNK + 1)
 
 
+def group_limit(Dh: int, pool_elem: int) -> int:
+    """The most query heads a launch holds at head dim Dh: MAX_GROUP, or
+    fewer where their q would take the split kernel past SMEM_LIMIT (0
+    where one head does not fit)."""
+    ring = split_smem_bytes(0, Dh, pool_elem)
+    per_head = split_smem_bytes(1, Dh, pool_elem) - ring
+    return max(0, min(MAX_GROUP, (SMEM_LIMIT - ring) // per_head))
+
+
 def splits(bh: int, max_pages: int, sms: int):
     """(pages_per_split, n_split) for B * Hkv = bh sequences' heads over a
     table of max_pages pages on a card of `sms` SMs: about CTAS_PER_SM * sms
@@ -107,7 +119,8 @@ def paged_attention(q, k_pool, v_pool, page_table, lengths):
 
 def paged_attention_cuda(q, k_pool, v_pool, page_table, lengths):
     """The CUDA kernel, forced: raises for tensors that are not on a CUDA
-    device; G above MAX_GROUP runs in `head_groups`, a launch each."""
+    device; G above `group_limit` (MAX_GROUP, or fewer where the shared
+    memory holds fewer heads) runs in `head_groups`, a launch each."""
     dev = q.device
     if dev.type != "cuda":
         raise ValueError(f"paged_attention_cuda: q is on {dev}; the kernel "
@@ -120,10 +133,15 @@ def paged_attention_cuda(q, k_pool, v_pool, page_table, lengths):
     max_pages = page_table.shape[1] if page_table.dim() == 2 else -1
     if G < 1 or Dh < 1:
         raise ValueError(f"paged_attention: G={G}, Dh={Dh} (at least 1 each)")
-    if G > MAX_GROUP:
+    most = group_limit(Dh, k_pool.element_size())
+    if most < 1:
+        raise ValueError(f"paged_attention: one query head at Dh={Dh} needs "
+                         f"{split_smem_bytes(1, Dh, k_pool.element_size())} bytes of "
+                         f"shared memory a CTA (at most {SMEM_LIMIT})")
+    if G > most:
         return torch.cat([paged_attention_cuda(qg.contiguous(), k_pool, v_pool,
                                                page_table, lengths)
-                          for qg in q.split(head_groups(G, MAX_GROUP), dim=2)], dim=2)
+                          for qg in q.split(head_groups(G, most), dim=2)], dim=2)
     if n_pool < 1 or page < 1 or max_pages < 1:
         raise ValueError(f"paged_attention: pool {tuple(k_pool.shape)}, "
                          f"table {tuple(page_table.shape)}")
@@ -132,10 +150,6 @@ def paged_attention_cuda(q, k_pool, v_pool, page_table, lengths):
     _check("v_pool", v_pool, k_pool.dtype, (Hkv, n_pool, page, Dh), dev)
     _check("page_table", page_table, torch.int32, (B, max_pages), dev)
     _check("lengths", lengths, torch.int32, (B,), dev)
-    smem = split_smem_bytes(G, Dh, k_pool.element_size())
-    if smem > SMEM_LIMIT:
-        raise ValueError(f"paged_attention: G={G} at Dh={Dh} needs {smem} bytes of "
-                         f"shared memory a CTA (at most {SMEM_LIMIT})")
     out = torch.empty_like(q)
     if B * Hkv == 0:
         return out

@@ -20,7 +20,7 @@
 //
 // Layout: r, k, v, w, y, dy and the input gradients [BH, T, D] float32,
 // contiguous; u [H, D] (row bh uses head bh % H); states [BH, D, D] with
-// S[i][j] at i * D + j.  D is 16, 32, 64 or 128.
+// S[i][j] at i * D + j.  D is 16, 32, 64, 128 or 256.
 //
 // Forward: the state is separable over its columns.  Column j evolves alone
 // (S_t[:, j] = w_t * S_{t-1}[:, j] + k_t v_tj), and y_tj needs only it:
@@ -183,7 +183,9 @@ __device__ __forceinline__ void stv(float* p, const float (&d)[N]) {
 template <int D, int LC_>
 struct FwdSplit {
   static constexpr bool LONG = LC_ >= 16 && D >= 32;
-  static constexpr int FR = D >= 32 && !LONG ? 8 : 4;  // rows per thread
+  // rows per thread (8 at D 256, where the D / FR threads of a column group
+  // would pass a warp with 4)
+  static constexpr int FR = (D >= 32 && !LONG) || D > 128 ? 8 : 4;
   static constexpr int CQ = LONG ? 4 : 2;        // columns per thread
   static constexpr int P = D / FR;               // threads per column group
   static constexpr int W = 16;                   // columns per CTA
@@ -380,7 +382,7 @@ struct Split {
   static constexpr int STAGE = OFF_VDY + LB;
   static constexpr int SUBCK = NSUB * GR * NT;
   static constexpr size_t DRKW_SMEM = (SUBCK + 2 * STAGE) * sizeof(float);
-  static_assert(P >= 2 && P <= 16 && (4 * LB) % P == 0 && STAGE % 4 == 0, "split");
+  static_assert(P >= 2 && P <= 32 && (4 * LB) % P == 0 && STAGE % 4 == 0, "split");
 };
 
 // a thread's 8 entries: e in [0, 8) -> index (e / 4) * 4P + 4g + e % 4
@@ -741,12 +743,12 @@ cudaError_t forward_lc(const float* r, const float* k, const float* v, const flo
 }
 
 // chunks of 16 steps; of the fewest that still give each lane a whole sum
-// where T is shorter (the decode step: T = 1)
+// where T is shorter (the decode step: T = 1; at D 256 that is 16 too)
 template <int D>
 cudaError_t forward(const float* r, const float* k, const float* v, const float* w,
                     const float* u, const float* s0, float* y, float* s_out, float* ckpt,
                     int BH, int H, int T, cudaStream_t st) {
-  constexpr int SHORT = D == 128 ? 8 : 4;
+  constexpr int SHORT = D == 256 ? 16 : D == 128 ? 8 : 4;
   if (T < 16) return forward_lc<D, SHORT>(r, k, v, w, u, s0, y, s_out, ckpt, BH, H, T, st);
   return forward_lc<D, 16>(r, k, v, w, u, s0, y, s_out, ckpt, BH, H, T, st);
 }
@@ -793,6 +795,7 @@ extern "C" int wkv_forward(const void* r, const void* k, const void* v, const vo
     case 32: return (int)forward<32>(F(r), F(k), F(v), F(w), F(u), F(s0), M(y), M(s_out), M(ckpt), BH, H, T, s);
     case 64: return (int)forward<64>(F(r), F(k), F(v), F(w), F(u), F(s0), M(y), M(s_out), M(ckpt), BH, H, T, s);
     case 128: return (int)forward<128>(F(r), F(k), F(v), F(w), F(u), F(s0), M(y), M(s_out), M(ckpt), BH, H, T, s);
+    case 256: return (int)forward<256>(F(r), F(k), F(v), F(w), F(u), F(s0), M(y), M(s_out), M(ckpt), BH, H, T, s);
     default: return (int)cudaErrorInvalidValue;
   }
 }
@@ -814,6 +817,7 @@ extern "C" int wkv_backward(const void* r, const void* k, const void* v, const v
     case 32: return (int)backward<32>(B_ARGS);
     case 64: return (int)backward<64>(B_ARGS);
     case 128: return (int)backward<128>(B_ARGS);
+    case 256: return (int)backward<256>(B_ARGS);
     default: return (int)cudaErrorInvalidValue;
   }
 #undef B_ARGS

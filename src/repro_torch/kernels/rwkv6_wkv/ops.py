@@ -12,8 +12,10 @@ forward launches the forward kernel (saving the state entering every
 `CHECKPOINT`-th step when a gradient will be asked for) and whose backward
 launches the gradient kernels.  It raises for tensors that are not on a
 CUDA device.  The kernels take float32, contiguous tensors with D in
-`HEAD_DIMS`; `wkv_cuda` runs any other D up to 128 at the next of them,
-zero-padded (`run_padded`), and raises above 128.  `launches` counts the kernel calls: "wkv_forward" one per
+`HEAD_DIMS`; `wkv_cuda` runs any other D up to 256 at the next of them,
+zero-padded (`run_padded`), and raises above 256 (at D 512 the forward's
+column group of D / 8 threads would pass a warp, and its chunk buffers
+196 KB of shared memory).  `launches` counts the kernel calls: "wkv_forward" one per
 forward, "wkv_backward" one per gradient (a call launches two CUDA kernels:
 dv split over the state's columns, then dr/dk/dw/du and the initial state's
 gradient split over its rows; neither needs scratch in device memory).
@@ -30,7 +32,7 @@ from .. import build
 from .ref import wkv_reference
 
 launches: Dict[str, int] = {"wkv_forward": 0, "wkv_backward": 0}
-HEAD_DIMS = (16, 32, 64, 128)
+HEAD_DIMS = (16, 32, 64, 128, 256)
 CHECKPOINT = 64          # steps between saved states (csrc/wkv6.cu: CK)
 
 
@@ -198,7 +200,7 @@ class _WKV(torch.autograd.Function):
 
 def wkv_cuda(r, k, v, w, u, state=None, need_state=False):
     """The kernels, forced: r, k, v, w [B, H, T, D], u [H, D], state
-    [B, H, D, D] or None, float32 on a CUDA device, D at most 128 -> (y,
+    [B, H, D, D] or None, float32 on a CUDA device, D at most 256 -> (y,
     final state or None), differentiable through the gradient kernels."""
     if r.device.type != "cuda":
         raise ValueError(f"wkv_cuda: r is on {r.device}; the kernel needs CUDA tensors")

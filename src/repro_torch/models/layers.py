@@ -199,8 +199,8 @@ def flash_attention(q, k, v, *, causal: bool = True, window=None,
     [B,Hq,Tq,Dh]; window None or <= 0 means unlimited; `cross` (the
     encoder-decoder's attention to the encoder output, Tq != Tk) drops the
     causal mask.  The flash-attention kernels on a CUDA device, their plain
-    version on the CPU (both take any Tk and any head dim that is a
-    multiple of 4); a DTensor or a `meta` tensor (the dry-run) takes the
+    version on the CPU (both take any Tk and any head dim); a DTensor or a
+    `meta` tensor (the dry-run) takes the
     reference's grouped loop over key blocks, a ragged Tk padded to the
     block as the reference pads it (`fa_ops.grouped_attention`)."""
     w = 0 if window is None else int(window)

@@ -29,7 +29,11 @@ relative, each gradient leaf 1e-3 of its largest magnitude), two decodes
 bit-equal, and `layers.flash_attention` at Dh 112 and with `cross=True`
 at Tq != Tk; and the flash and paged kernels past Dh 256 (column chunks:
 Dh 288, 512 and 1,024 in float32 and bfloat16, causal, windowed, Tq !=
-Tk, G > 16), against their plain versions with two calls bit-equal.
+Tk, G > 16), against their plain versions with two calls bit-equal; flash
+at head dims the kernels lack (run zero-padded: bf16 at Dh 50 to 1,024 on
+the tensor cores, float32 at Dh 6 and 50), above 65,535 KV heads (two
+launches), the paged kernel at G 16 past a CTA's shared memory (head
+groups that fit), and the WKV kernels at D 160 (padded) and 256.
 
 These tests need a CUDA device and nvcc and skip without them.  They import
 neither JAX nor the JAX package, so they also run where only PyTorch is
@@ -392,8 +396,10 @@ def test_paged_attention_wrapper_refuses(cuda):
 # edge falls inside a kv block; then head_dim 256, non-causal, MQA's G 8;
 # then the tensor-core route's shapes: GLM-4-9B's G 16, Kimi's Dh 112,
 # Gemma-7B's Dh 256, T 1, 17 and 1000, a window edge inside a 128-key tile,
-# Dh 32 non-causal, the reduced configs' Dh 16, a bf16 Dh that only the
-# CUDA-core route takes, and the wgmma forward's Dh 128 non-causal, with and
+# Dh 32 non-causal, the reduced configs' Dh 16, a bf16 Dh off the
+# tensor-core widths (60, run at 64 zero-padded; its id names the CUDA-core
+# route it took until every bf16 Dh went to the tensor cores), and the
+# wgmma forward's Dh 128 non-causal, with and
 # without a window; then key lengths Tk that differ from the query length T
 # on both routes (float32 on the CUDA cores, bf16 at Dh 64 on mma.sync and at
 # Dh 128 on wgmma): cross-attention, a whisper-like 7 x 150, causal with
@@ -483,8 +489,7 @@ def _flash_against_plain(cuda, shape, launches=1):
     assert fa_ops.launches == {"flash_attention_fwd": launches,
                                "flash_attention_bwd": launches}
     r = fa_ops.route(q.dtype, q.shape[-1])
-    assert r == ("simt" if q.dtype == torch.float32
-                 or q.shape[-1] not in fa_ops.TC_HEAD_DIMS else "tc")
+    assert r == ("simt" if q.dtype == torch.float32 else "tc")
     assert {k: n for k, n in fa_ops.route_launches.items() if n} == {
         f"flash_attention_fwd_{r}": launches, f"flash_attention_bwd_{r}": launches}
     want = fa_ref.mha_reference(q, k, v, causal=causal, window=window)
@@ -534,8 +539,8 @@ def test_flash_attention_wrapper_refuses(cuda):
     with pytest.raises(ValueError, match="needs CUDA tensors"):
         fa_ops.flash_attention_cuda(q.cpu(), k.cpu(), v.cpu())
     with pytest.raises(ValueError, match="Dh="):
-        fa_ops.flash_attention_cuda(q[..., :62].contiguous(), k[..., :62].contiguous(),
-                                    v[..., :62].contiguous())
+        fa_ops.flash_attention_cuda(q[..., :0].contiguous(), k[..., :0].contiguous(),
+                                    v[..., :0].contiguous())
     with pytest.raises(ValueError, match="G="):     # a launch holds G <= 16
         fa_ops.forward_cuda(q.repeat(1, 9, 1, 1), k, v, True, 0)
     with pytest.raises(TypeError, match="float32 or bfloat16"):
@@ -545,8 +550,9 @@ def test_flash_attention_wrapper_refuses(cuda):
     assert fa_ops.launches == {"flash_attention_fwd": 0, "flash_attention_bwd": 0}
 
 
-# Head dims past 256 (column chunks of at most 256, the CUDA-core route in
-# both dtypes), as FA_SHAPES: a ragged second chunk (288) causal, 512 with a
+# Head dims past 256 (column chunks of at most 256: the wide tensor-core
+# bodies in bf16, the CUDA cores in float32), as FA_SHAPES: a ragged second
+# chunk (288, run at 384 in bf16) causal, 512 with a
 # window inside a kv block, 1,024 non-causal, 512 in bf16 at a ragged T,
 # 288 cross-attention at Tq != Tk, rows that see no key at 512, and a
 # window with Tk > T (exact-zero dK and dV past T) at 1,024
@@ -564,15 +570,75 @@ FA_WIDE_IDS = ["f32_dh288", "f32_dh512_window", "f32_dh1024_noncausal", "bf16_dh
 
 @pytest.mark.parametrize("shape", FA_WIDE_SHAPES, ids=FA_WIDE_IDS)
 def test_flash_attention_past_dh256_matches_plain_version(cuda, shape):
-    """The CUDA-core kernels at Dh 288, 512 and 1,024: forward and gradient
-    within the plain version's tolerances, one launch each, and two
-    forward and two gradient calls bit-equal."""
-    assert fa_ops.route(shape[4], shape[3]) == "simt"
+    """The wide kernels at Dh 288, 512 and 1,024 (tensor cores in bf16,
+    CUDA cores in float32): forward and gradient within the plain
+    version's tolerances, one launch each, and two forward and two
+    gradient calls bit-equal."""
+    assert fa_ops.route(shape[4], shape[3]) == ("tc" if shape[4] == torch.bfloat16
+                                                 else "simt")
     out, grads = _flash_against_plain(cuda, shape)
     again, grads_again = _flash_against_plain(cuda, shape)
     assert torch.equal(out, again)
     for name, a, b in zip("qkv", grads, grads_again):
         assert torch.equal(a, b), name
+
+
+# Head dims the kernels lack, run zero-padded to the route's width with the
+# true head dim's scale (bf16: the least tensor-core width at or above it,
+# past 256 a multiple of 128; float32: a multiple of 4), as FA_SHAPES: bf16
+# at Dh 50 (causal, window), 80 and 96 (Phi-2's and Phi-3-mini's, now
+# instantiated) causal and as cross-attention at Tq != Tk, 300 with a window
+# and rows that see no key, 512 causal with Tk > T, 288 and 1,024, and
+# float32 at Dh 6 and 50
+FA_PAD_SHAPES = [(2, 4, 200, 50, torch.bfloat16, True, 40),
+                 (2, 4, 300, 80, torch.bfloat16, True, 0),
+                 (2, 2, 64, 96, torch.bfloat16, False, 0, 150),
+                 (2, 4, 257, 96, torch.bfloat16, True, 0),
+                 (1, 4, 300, 300, torch.bfloat16, True, 16, 64),
+                 (1, 2, 100, 512, torch.bfloat16, True, 0, 300),
+                 (2, 2, 130, 288, torch.bfloat16, True, 0),
+                 (1, 2, 100, 1024, torch.bfloat16, False, 0),
+                 (2, 4, 130, 6, torch.float32, True, 0),
+                 (2, 2, 200, 50, torch.float32, True, 48, 300)]
+FA_PAD_IDS = ["bf16_dh50_window", "bf16_dh80", "bf16_dh96_cross_q64_k150", "bf16_dh96",
+              "bf16_dh300_blind_rows_q300_k64", "bf16_dh512_causal_q100_k300",
+              "bf16_dh288", "bf16_dh1024_noncausal", "f32_dh6", "f32_dh50_window_q200_k300"]
+
+
+@pytest.mark.parametrize("shape", FA_PAD_SHAPES, ids=FA_PAD_IDS)
+def test_flash_attention_any_head_dim_matches_plain_version(cuda, shape):
+    """Every bf16 head dim on the tensor cores and every float32 one on the
+    CUDA cores: forward and gradient within the plain version's tolerances
+    (at the true head dim), one launch each on the expected route, and two
+    forward and two gradient calls bit-equal."""
+    out, grads = _flash_against_plain(cuda, shape)
+    assert out.shape[-1] == shape[3] and all(g.shape[-1] == shape[3] for g in grads)
+    again, grads_again = _flash_against_plain(cuda, shape)
+    assert torch.equal(out, again)
+    for name, a, b in zip("qkv", grads, grads_again):
+        assert torch.equal(a, b), name
+
+
+@pytest.mark.parametrize("shape", [(1, 20, 96, 80, torch.bfloat16, True, 0),
+                                   (1, 20, 96, 300, torch.bfloat16, True, 32)],
+                         ids=["bf16_dh80", "bf16_dh300_window"])
+def test_flash_attention_any_head_dim_head_groups_above_16(cuda, shape):
+    """G 20 at padded head dims: two head groups of 10, bit-equal twice."""
+    out, grads = _flash_against_plain(cuda, shape, launches=2)
+    again, grads_again = _flash_against_plain(cuda, shape, launches=2)
+    assert torch.equal(out, again)
+    for name, a, b in zip("qkv", grads, grads_again):
+        assert torch.equal(a, b), name
+
+
+@pytest.mark.parametrize("shape", [(fa_ops.MAX_BH + 65, 1, 5, 16, torch.bfloat16, True, 0),
+                                   (fa_ops.MAX_BH + 3, 2, 3, 8, torch.float32, False, 0)],
+                         ids=["bf16", "f32"])
+def test_flash_attention_rows_above_the_grid_limit(cuda, shape):
+    """More than MAX_BH (65,535) KV heads: two launches of at most MAX_BH
+    rows each, forward and gradient, within the plain version's
+    tolerances."""
+    _flash_against_plain(cuda, shape, launches=2)
 
 
 @pytest.mark.parametrize("dt", [torch.bfloat16, torch.float32], ids=["bf16", "f32"])
@@ -617,13 +683,36 @@ def test_paged_attention_past_dh256_element_copies_and_head_groups(cuda):
 
 
 def test_paged_attention_refuses_past_its_shared_memory(cuda):
-    """G 16 at Dh 4,096 needs more shared memory than a CTA may take: a
-    ValueError before any launch."""
-    args = _pa_inputs((1, 1, 16, 4096, 16, 4, 2, torch.float32, torch.float32), cuda)
+    """One query head at Dh 40,000 needs more shared memory than a CTA may
+    take (its q is held whole): a ValueError before any launch."""
+    args = _pa_inputs((1, 1, 1, 40000, 16, 2, 2, torch.float32, torch.float32), cuda)
     pa_ops.reset_launches()
     with pytest.raises(ValueError, match="shared memory"):
         pa_ops.paged_attention(*args)
     assert pa_ops.launches["paged_attention"] == 0
+
+
+@pytest.mark.parametrize("shape", [(2, 2, 16, 4096, 16, 8, 3, torch.float32, torch.float32),
+                                   (2, 1, 16, 4096, 16, 8, 3, torch.bfloat16, torch.float32),
+                                   (1, 1, 16, 3000, 16, 8, 4, torch.bfloat16, torch.bfloat16)],
+                         ids=["f32_g16_dh4096", "bf16_g16_dh4096", "bf16_g16_dh3000_bf16_pools"])
+def test_paged_attention_head_groups_past_shared_memory(cuda, shape):
+    """G 16 at Dh 4,096 passes a CTA's shared memory: the wrapper launches
+    groups that fit (`group_limit`), within the plain version's tolerances
+    and two calls bit-equal."""
+    args = _pa_inputs(shape, cuda)
+    G, Dh = shape[2], shape[3]
+    groups = fa_ops.head_groups(G, pa_ops.group_limit(Dh, args[1].element_size()))
+    assert len(groups) > 1
+    pa_ops.reset_launches()
+    got = pa_ops.paged_attention(*args)
+    again = pa_ops.paged_attention(*args)
+    want = pa_ref.paged_attention_reference(*args)
+    torch.cuda.synchronize()
+    assert pa_ops.launches["paged_attention"] == 2 * len(groups)
+    tol = 2e-5 if got.dtype == torch.float32 else 2e-2
+    torch.testing.assert_close(got.float(), want.float(), atol=tol, rtol=tol)
+    assert torch.equal(got, again)
 
 
 # (B, H, T, D, lowest decay, initial state): tests/test_kernels.py's shapes
@@ -638,9 +727,12 @@ WKV_SHAPES = [(2, 3, 256, 64, 0.8, False), (1, 2, 128, 64, 0.8, False),
               (1, 2, 197, 32, 1e-3, True), (2, 4, 70, 16, 1e-3, False),
               (1, 2, 197, 128, 1e-3, True), (3, 2, 1, 32, 0.5, True),
               (2, 3, 33, 48, 1e-3, True), (2, 2, 1, 16, 0.5, True),
-              (1, 1, 17, 128, 0.8, True), (1, 3, 64, 64, 0.8, True)]
+              (1, 1, 17, 128, 0.8, True), (1, 3, 64, 64, 0.8, True),
+              (1, 2, 70, 160, 1e-3, True), (1, 2, 97, 256, 0.8, True),
+              (2, 2, 1, 256, 0.5, True), (2, 1, 130, 256, 1e-3, False)]
 WKV_IDS = ["kernels_a", "kernels_b", "d128", "decode", "small_w", "d16", "d128_t197",
-           "d32_t1", "d48_padded", "d16_t1", "d128_t17", "t64_one_chunk_set"]
+           "d32_t1", "d48_padded", "d16_t1", "d128_t17", "t64_one_chunk_set",
+           "d160_padded", "d256", "d256_decode", "d256_t130"]
 
 
 def _wkv_inputs(shape, dev, seed=0):
@@ -716,7 +808,8 @@ def test_wkv_wrapper_refuses(cuda):
     with pytest.raises(ValueError, match="needs CUDA tensors"):
         wkv_ops.wkv_cuda(r.cpu(), k.cpu(), v.cpu(), w.cpu(), u.cpu())
     with pytest.raises(ValueError, match="D="):
-        wkv_ops.wkv_cuda(*(torch.cat([t, t, t[..., :32]], -1) for t in (r, k, v, w, u)))
+        wkv_ops.wkv_cuda(*(torch.cat([t, t, t, t, t[..., :32]], -1)
+                           for t in (r, k, v, w, u)))
     with pytest.raises(TypeError, match="float32"):
         wkv_ops.wkv_cuda(r.bfloat16(), k, v, w, u)
     with pytest.raises(ValueError, match="not contiguous"):

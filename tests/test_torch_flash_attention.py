@@ -134,7 +134,7 @@ def test_cpu_tensors_take_the_plain_version():
 @pytest.mark.parametrize("dtype,head_dim,want",
                          [(torch.bfloat16, d, "tc") for d in tfa.TC_HEAD_DIMS]
                          + [(torch.float32, d, "simt") for d in (64, 112, 128, 256)]
-                         + [(torch.bfloat16, d, "simt") for d in (4, 60, 96, 200)])
+                         + [(torch.bfloat16, d, "tc") for d in (4, 60, 96, 200)])
 def test_route_picks_tensor_cores_for_bf16_at_instantiated_head_dims(dtype, head_dim, want):
     assert tfa.route(dtype, head_dim) == want
 

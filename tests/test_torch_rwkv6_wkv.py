@@ -228,5 +228,6 @@ def test_padding_to_a_kernel_head_size_is_exact(D):
 
 def test_head_sizes_above_the_largest_kernel_raise():
     assert ops.head_dim_for(128) == 128
-    with pytest.raises(ValueError, match="D=160"):
-        ops.head_dim_for(160)
+    assert ops.head_dim_for(160) == ops.head_dim_for(256) == 256
+    with pytest.raises(ValueError, match="D=300"):
+        ops.head_dim_for(300)
