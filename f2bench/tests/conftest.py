@@ -1,0 +1,9 @@
+"""Paths for the benchmark's CPU tests: the repository root (the `f2bench`
+package) and `src` (the program), as `run.py` sets them."""
+import sys
+from pathlib import Path
+
+ROOT = Path(__file__).resolve().parents[2]
+for p in (str(ROOT / "src"), str(ROOT), str(Path(__file__).resolve().parent)):
+    if p not in sys.path:
+        sys.path.insert(0, p)
